@@ -11,14 +11,27 @@ Phases, each printing one JSON line:
               at the llama2-7b slice shapes, a GQA case at mistral-7b
               widths and an int4-value case: max error against a stated
               tolerance, median kernel / twin / library times, and the
-              least time the card could take (``bound_ms``);
+              least time the card could take (``bound_ms``).  The paged
+              kernels run over a shuffled page table whose unmapped tail
+              holds ids outside the pool (pages of 8, 16 and 64 tokens),
+              and must also equal the dense kernels bit for bit on the
+              same logical contents; the dense kernel is timed there too
+              (``dense_ms``), so paged and dense cost compare at one shape;
 4. serve    — seeded paper-llama2-7b at full width and depth (bf16):
               calibrate U_r on the synthetic corpus, then
               ``ServeEngine.generate`` for 4 ragged prompts (4096, 3584,
               3072, 2560 tokens) x 32 new tokens with SALS-25% and with
               SALS disabled; launch counters are zeroed just before each
               run and read just after;
-5. whole    — a full-width 2-layer model (SALS on layer 1) decoded on the
+5. sched    — the same model and U_r through ``RequestScheduler``
+              (continuous batching, 64-token chunked prefill, 4 slots): 8
+              requests sharing a 512-token system prompt (4000 ... 640
+              tokens) x 32 new tokens, once on the paged latent cache
+              (64-token pages, prefix sharing) and once on the dense slot
+              arena; tokens must match, and each run must have launched
+              only its layout's SALS kernels, once per SALS layer and
+              decode step;
+6. whole    — a full-width 2-layer model (SALS on layer 1) decoded on the
               card (kernels) and on the CPU (twins) from the same weights
               and a 1024-token prompt (so top-k really selects), per-step
               logits compared under teacher forcing.
@@ -49,8 +62,9 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12
 
-PHASES = ("device", "build", "kernels", "serve", "whole")
-# "profile" (not run by default) adds a torch.profiler pass over three
+PHASES = ("device", "build", "kernels", "serve", "sched", "whole")
+# "profile" (not run by default) adds a torch.profiler pass over four
+# chunked-prefill steps after the sched phase, and over three
 # decode steps of each serve run; tables go to chiprun_out/
 
 
@@ -94,68 +108,119 @@ def time_ms(torch, fn, iters: int, warmup: int = 2, flush=None) -> float:
 # phase 3: kernels vs twins
 # ---------------------------------------------------------------------------
 
-def topk_case(torch, name, b, s, r, r_star, n_c, k_dtype, seed, flush):
+def paged_pool(torch, g, b, s, ps, live_tokens):
+    """A shuffled page table (B, S/ps) over a pool with spare pages: row
+    b's first ceil(live_tokens[b]/ps) entries are distinct pool pages in
+    random order, the unmapped tail holds ids outside the pool (the kernel
+    must clamp them and its position mask keep them unselectable)."""
+    dev = "cuda"
+    mp = s // ps
+    n_pages = b * mp + 9
+    perm = torch.randperm(n_pages - 1, generator=g, device=dev) + 1
+    pt = torch.randint(-40, n_pages + 40, (b, mp), generator=g, device=dev,
+                       dtype=torch.int32)
+    at = 0
+    for i in range(b):
+        n = -(-live_tokens[i] // ps)
+        pt[i, :n] = perm[at:at + n].int()
+        at += n
+    return pt, n_pages
+
+
+def topk_case(torch, name, b, s, r, r_star, n_c, k_dtype, seed, flush,
+              ps=0):
     """latent_topk at a main-path shape.  Integer-valued latents and query
     make every score exact in f32 (ties included), so indices must match
-    the twin exactly — tie-breaks too."""
+    the twin exactly — tie-breaks too.  ``ps`` > 0: the latents are a page
+    pool behind a shuffled table (``paged_pool``), and the paged kernel
+    must also equal the dense kernel bit for bit on the same logical
+    contents."""
     from repro_torch.kernels import latent_score as ls
     from repro_torch.kernels import ref
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
     q_lat = torch.randint(-3, 4, (b, r_star), generator=g, device=dev).float()
+    # ragged decode positions as on the main path's last step
+    pos = [max(1, s - 65 - 512 * i) for i in range(b)]
+    pg, rows = {}, (b, s)
+    if ps:
+        pt, n_pages = paged_pool(torch, g, b, s, ps, [p + 1 for p in pos])
+        pg, rows = dict(page_table=pt, page_size=ps), (n_pages, ps)
     k_scale = None
     if k_dtype == "int8":
-        k_lat = torch.randint(-3, 4, (b, s, r), generator=g, device=dev,
+        k_lat = torch.randint(-3, 4, (*rows, r), generator=g, device=dev,
                               dtype=torch.int8)
-        k_scale = torch.full((b, s), 0.5, device=dev, dtype=torch.bfloat16)
+        k_scale = torch.full(rows, 0.5, device=dev, dtype=torch.bfloat16)
     else:
-        k_lat = torch.randint(-3, 4, (b, s, r), generator=g,
+        k_lat = torch.randint(-3, 4, (*rows, r), generator=g,
                               device=dev).to(torch.bfloat16)
-    # ragged decode positions as on the main path's last step
-    pos = torch.tensor([s - 65 - 512 * i for i in range(b)], device=dev,
-                       dtype=torch.int32).clamp_min(1)
+    pos = torch.tensor(pos, device=dev, dtype=torch.int32)
     kw = dict(n_critical=n_c, n_sink=16, n_recent=64)
-    idx_k, val_k = ls.latent_topk_cuda(q_lat, k_lat, k_scale, pos, **kw)
-    idx_t, val_t = ref.latent_topk_ref(q_lat, k_lat, k_scale, pos, **kw)
+    twin = ref.latent_topk_paged_ref if ps else ref.latent_topk_ref
+    idx_k, val_k = ls.latent_topk_cuda(q_lat, k_lat, k_scale, pos, **kw, **pg)
+    idx_t, val_t = twin(q_lat, k_lat, k_scale, pos, **kw, **pg)
+    k_log, s_log = k_lat, k_scale
+    bitwise = None
+    if ps:
+        k_log = ref.paged_logical_view(k_lat, pt, ps).contiguous()
+        s_log = None if k_scale is None else \
+            ref.paged_logical_view(k_scale, pt, ps).contiguous()
+        idx_d, val_d = ls.latent_topk_cuda(q_lat, k_log, s_log, pos, **kw)
+        bitwise = bool(torch.equal(idx_k, idx_d) and torch.equal(val_k, val_d))
     torch.cuda.synchronize()
-    scores = ref.latent_score_ref(q_lat, k_lat, k_scale)
+    scores = ref.latent_score_ref(q_lat, k_log, s_log)
     sel_k = torch.gather(scores, 1, idx_k.long().clamp(0, s - 1))
     sel_t = torch.gather(scores, 1, idx_t.long().clamp(0, s - 1))
     err = float(((sel_k - sel_t).abs() * val_t).max())
     exact = bool(torch.equal(val_k, val_t)) and bool(
         torch.equal(torch.where(val_t, idx_k, 0), torch.where(val_t, idx_t, 0)))
     kern_ms = time_ms(torch, lambda: ls.latent_topk_cuda(
-        q_lat, k_lat, k_scale, pos, **kw), 20, flush=flush)
-    plain_ms = time_ms(torch, lambda: ref.latent_topk_ref(
-        q_lat, k_lat, k_scale, pos, **kw), 5, flush=flush)
+        q_lat, k_lat, k_scale, pos, **kw, **pg), 20, flush=flush)
+    plain_ms = time_ms(torch, lambda: twin(
+        q_lat, k_lat, k_scale, pos, **kw, **pg), 5, flush=flush)
+    # the dense kernel on the same logical contents, timed in the same way:
+    # the paged kernel's cost over dense at one shape
+    dense_ms = time_ms(torch, lambda: ls.latent_topk_cuda(
+        q_lat, k_log, s_log, pos, **kw), 20, flush=flush) if ps else None
     kb = k_lat.element_size()
     nbytes = b * r_star * 4 + b * s * r_star * kb + 2 * b * 4 \
-        + b * n_c * 5 + (b * s * 2 if k_scale is not None else 0)
+        + b * n_c * 5 + (b * s * 2 if k_scale is not None else 0) \
+        + (b * (s // ps) * 4 if ps else 0)
     b_ms, b_by = bound(nbytes, 2.0 * b * s * r_star, F32_FLOP_PER_S)
-    return dict(case=name, exact_idx=exact, max_abs_err=err, tol=0.0,
-                ms=kern_ms, plain_ms=plain_ms, library_ms=None,
-                bound_ms=b_ms, bound_by=b_by,
-                ok=exact and err <= 0.0)
+    out = dict(case=name, exact_idx=exact, max_abs_err=err, tol=0.0,
+               ms=kern_ms, plain_ms=plain_ms, library_ms=None,
+               bound_ms=b_ms, bound_by=b_by,
+               ok=exact and err <= 0.0 and bitwise is not False)
+    if ps:
+        out.update(bitwise_vs_dense=bitwise, dense_ms=dense_ms)
+    return out
 
 
 def sra_case(torch, name, b, h, n_kv, dh, s, r, n_c, k_dtype, v_bits,
-             softcap, seed, flush):
+             softcap, seed, flush, ps=0):
     """sparse_recon_attention on selected sets shaped like the main path's
-    (ascending valid indices, invalid slots last; one all-invalid row)."""
+    (ascending valid indices, invalid slots last; one all-invalid row).
+    ``ps`` > 0: every cache operand is a page pool behind a shuffled table
+    whose last page per row is unmapped, and the paged kernel must also
+    equal the dense kernel bit for bit on the same logical contents."""
     from repro_torch.core import quantization as qz
     from repro_torch.kernels import ref
     from repro_torch.kernels import sparse_recon_attention as sra
     dev = "cuda"
     g = torch.Generator(device=dev).manual_seed(seed)
     kvd = n_kv * dh
+    pg, rows = {}, (b, s)
+    if ps:
+        pt, n_pages = paged_pool(torch, g, b, s, ps, [s - ps] * b)
+        pg, rows = dict(page_table=pt, page_size=ps), (n_pages, ps)
     q = torch.randn((b, h, dh), generator=g, device=dev).to(torch.bfloat16)
-    lat = torch.randn((b, s, r), generator=g, device=dev)
+    lat = torch.randn((*rows, r), generator=g, device=dev)
     k_scale = None
     if k_dtype == "int8":
         k_lat, k_scale = qz.quantize_latent_int8(lat)
     else:
         k_lat = lat.to(torch.bfloat16)
-    vq = qz.quantize(torch.randn((b, s, kvd), generator=g, device=dev),
+    vq = qz.quantize(torch.randn((*rows, kvd), generator=g, device=dev),
                      v_bits, 64)
     u = (torch.randn((kvd, r), generator=g, device=dev)
          * r ** -0.5).to(torch.bfloat16)
@@ -169,12 +234,25 @@ def sra_case(torch, name, b, h, n_kv, dh, s, r, n_c, k_dtype, v_bits,
                                             generator=g, device=dev).int()
         valid[i, :n_valid[i]] = True
     q_pos = torch.full((b,), s - 1, dtype=torch.int32, device=dev)
-    args = (q, k_lat, k_scale, vq["q"], vq["scale"], vq["zero"], u, idx,
-            valid, q_pos)
+    cache = (k_lat, k_scale, vq["q"], vq["scale"], vq["zero"])
+
+    def args(c):
+        return (q, *c, u, idx, valid, q_pos)
+
     kw = dict(n_kv=n_kv, v_bits=v_bits, v_group=64, theta=10_000.0,
               softcap=softcap)
-    m_k, l_k, o_k = sra.sparse_recon_attention_cuda(*args, **kw)
-    m_t, l_t, o_t = ref.sparse_recon_attention_fused_ref(*args, **kw)
+    twin = ref.sparse_recon_attention_paged_ref if ps \
+        else ref.sparse_recon_attention_fused_ref
+    m_k, l_k, o_k = sra.sparse_recon_attention_cuda(*args(cache), **kw, **pg)
+    m_t, l_t, o_t = twin(*args(cache), **kw, **pg)
+    bitwise = None
+    if ps:
+        logical = tuple(None if a is None else
+                        ref.paged_logical_view(a, pt, ps).contiguous()
+                        for a in cache)
+        dense = sra.sparse_recon_attention_cuda(*args(logical), **kw)
+        bitwise = all(bool(torch.equal(x, y))
+                      for x, y in zip((m_k, l_k, o_k), dense))
     torch.cuda.synchronize()
     live = l_t > 0
     err = max(float((m_k - m_t)[live].abs().max()),
@@ -186,20 +264,27 @@ def sra_case(torch, name, b, h, n_kv, dh, s, r, n_c, k_dtype, v_bits,
                    and (o_k[dead] == 0).all() and torch.isfinite(o_k).all())
     tol = 2e-3
     kern_ms = time_ms(torch, lambda: sra.sparse_recon_attention_cuda(
-        *args, **kw), 10, flush=flush)
-    plain_ms = time_ms(torch, lambda: ref.sparse_recon_attention_fused_ref(
-        *args, **kw), 5, flush=flush)
+        *args(cache), **kw, **pg), 10, flush=flush)
+    plain_ms = time_ms(torch, lambda: twin(*args(cache), **kw, **pg), 5,
+                       flush=flush)
+    dense_ms = time_ms(torch, lambda: sra.sparse_recon_attention_cuda(
+        *args(logical), **kw), 10, flush=flush) if ps else None
     nv = int(valid.sum())
     code_w = kvd if v_bits == 8 else kvd // 2
     row_bytes = r * k_lat.element_size() + (2 if k_scale is not None else 0) \
         + code_w + 2 * 2 * (kvd // 64)
     nbytes = q.numel() * 2 + nv * row_bytes + u.numel() * 2 \
-        + b * n_c * 5 + b * 4 + b * h * (2 + dh) * 4
+        + b * n_c * 5 + b * 4 + b * h * (2 + dh) * 4 \
+        + (b * (s // ps) * 4 if ps else 0)
     flops = 2.0 * nv * kvd * r + 4.0 * nv * (h // n_kv) * kvd
     b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
-    return dict(case=name, max_abs_err=err, tol=tol, all_invalid_row_ok=dead_ok,
-                ms=kern_ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-                bound_by=b_by, ok=err <= tol and dead_ok)
+    out = dict(case=name, max_abs_err=err, tol=tol, all_invalid_row_ok=dead_ok,
+               ms=kern_ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+               bound_by=b_by,
+               ok=err <= tol and dead_ok and bitwise is not False)
+    if ps:
+        out.update(bitwise_vs_dense=bitwise, dense_ms=dense_ms)
+    return out
 
 
 # Flash output check: per (b, q, h) row, the largest |kernel - f32 twin|
@@ -295,6 +380,29 @@ def phase_kernels(torch):
             sra_case(torch, "llama2-7b int4-V softcap30", 4, 32, 32, 128,
                      4160, 1024, 432, "bf16", 4, 30.0, 5, flush),
         ],
+        "latent_topk_paged": [
+            topk_case(torch, "llama2-7b B4 S4096 r1024 r*512 bf16 ps64", 4,
+                      4096, 1024, 512, 432, "bf16", 11, flush, ps=64),
+            topk_case(torch, "mistral-7b GQA r256 r*128 int8 S4160 ps16 "
+                      "(ragged last block)", 4, 4160, 256, 128, 432, "int8",
+                      12, flush, ps=16),
+            topk_case(torch, "llama2-7b B4 S4096 r1024 r*512 bf16 ps8", 4,
+                      4096, 1024, 512, 432, "bf16", 16, flush, ps=8),
+        ],
+        "sparse_recon_attention_paged": [
+            sra_case(torch, "llama2-7b B4 H32 S4096 r1024 int8-V ps64", 4,
+                     32, 32, 128, 4096, 1024, 432, "bf16", 8, 0.0, 13, flush,
+                     ps=64),
+            sra_case(torch, "mistral-7b GQA n_kv8 r256 int8-lat ps64", 4, 32,
+                     8, 128, 4096, 256, 432, "int8", 8, 0.0, 14, flush,
+                     ps=64),
+            sra_case(torch, "llama2-7b int4-V softcap30 ps64", 4, 32, 32,
+                     128, 4096, 1024, 432, "bf16", 4, 30.0, 15, flush,
+                     ps=64),
+            sra_case(torch, "llama2-7b B4 H32 S4096 r1024 int8-V ps8", 4,
+                     32, 32, 128, 4096, 1024, 432, "bf16", 8, 0.0, 17, flush,
+                     ps=8),
+        ],
         "flash_attention": [
             flash_case(torch, "llama2-7b B4 S4096 H32", 4, 4096, 4096, 32,
                        32, 128, 0.0, 6, flush),
@@ -340,23 +448,37 @@ def profile_decode(torch, params, proj, cfg, sals, prompts, name,
                                        sals)
         tok = logits.argmax(-1).int()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for t in range(steps):
-                logits, cache = tf.decode_step(params, proj, cache, tok,
-                                               lens + 1 + t, cfg, sals)
-                tok = logits.argmax(-1).int()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+
+        def step(t):
+            nonlocal logits, cache, tok
+            logits, cache = tf.decode_step(params, proj, cache, tok,
+                                           lens + 1 + t, cfg, sals)
+            tok = logits.argmax(-1).int()
+
+        profile_steps(torch, step, steps, f"decode_{name}")
+    del cache
+
+
+def profile_steps(torch, step, steps: int, name: str) -> None:
+    """torch.profiler over ``steps`` calls of ``step(t)``: device time by
+    kernel and the device's busy share of the window; the full table goes
+    to chiprun_out/profile_<name>.txt."""
     from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(steps):
+            step(t)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     ka = prof.key_averages()
     # device-side kernel events only (operator rows repeat their kernels)
     kernels = [e for e in ka if e.device_type == DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
                  reverse=True)
-    (OUT_DIR / f"profile_decode_{name}.txt").write_text(ka.table(
+    (OUT_DIR / f"profile_{name}.txt").write_text(ka.table(
         sort_by="self_device_time_total", row_limit=40))
     emit({"phase": "profile", "run": name, "steps": steps,
           "wall_ms_per_step": 1e3 * wall / steps,
@@ -365,17 +487,16 @@ def profile_decode(torch, params, proj, cfg, sals, prompts, name,
           "top_device_ms_per_step": [
               [e.key[:70], e.self_device_time_total / 1e3 / steps,
                e.count / steps] for e in top[:10]]})
-    del cache
 
 
-def phase_serve(torch, n_new: int = 32, prof: bool = False):
-    from repro_torch.config import SALSConfig, ServeConfig
+def build_model(torch):
+    """Seeded full-width paper-llama2-7b (bf16) and U_r calibrated on the
+    synthetic corpus, shared by the serve and sched phases."""
+    from repro_torch.config import SALSConfig
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticCorpus
-    from repro_torch.kernels import ops
     from repro_torch.launch.serve import calibrate
     from repro_torch.models.transformer import init_params, segment_plan
-    from repro_torch.serve import ServeEngine
 
     cfg = get_config("paper-llama2-7b")
     sals = SALSConfig()                    # SALS-25% at the paper defaults
@@ -385,11 +506,25 @@ def phase_serve(torch, n_new: int = 32, prof: bool = False):
     init_s = time.perf_counter() - t0
     corpus = SyntheticCorpus(cfg.vocab_size, seed=0)
     proj = calibrate(params, cfg, sals, corpus, n_sequences=16, seq_len=512)
-    lens = [4096, 3584, 3072, 2560]
-    prompts = [corpus.batch(100 + i, 1, n)["tokens"][0]
-               for i, n in enumerate(lens)]
     n_sals = sum(i1 - i0 for i0, i1, m in segment_plan(cfg, sals)
                  if m == "sals")
+    emit({"phase": "model", "init_params_s": init_s,
+          "calibration_s": proj["seconds"], "sals_layers": n_sals})
+    return dict(cfg=cfg, sals=sals, params=params, proj=proj,
+                corpus=corpus, n_sals=n_sals)
+
+
+def phase_serve(torch, model, n_new: int = 32, prof: bool = False):
+    from repro_torch.config import SALSConfig, ServeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeEngine
+
+    cfg, sals, params, proj = (model[k] for k in ("cfg", "sals", "params",
+                                                  "proj"))
+    n_sals = model["n_sals"]
+    lens = [4096, 3584, 3072, 2560]
+    prompts = [model["corpus"].batch(100 + i, 1, n)["tokens"][0]
+               for i, n in enumerate(lens)]
     runs = {}
     for name, sc in (("sals", sals), ("full", SALSConfig(enabled=False))):
         eng = ServeEngine(params, proj, cfg, ServeConfig(
@@ -429,12 +564,106 @@ def phase_serve(torch, n_new: int = 32, prof: bool = False):
     for name, (row, _) in runs.items():
         row["token_agreement_vs_full"] = agree
         emit(row)
-    emit({"phase": "serve", "init_params_s": init_s,
-          "calibration_s": proj["seconds"], "sals_layers": n_sals})
-    counts = runs["sals"][0]["launches"]
-    del params, proj
-    torch.cuda.empty_cache()
-    return counts
+    return runs["sals"][0]["launches"]
+
+
+def phase_sched(torch, model, n_new: int = 32, prof: bool = False):
+    """The serving entry point: ``RequestScheduler`` over the paged latent
+    cache and over the dense slot arena, same requests, same weights.
+    ``prof``: afterwards, a torch.profiler pass over four chunked-prefill
+    steps of one request (chunks 8-11 of the 4000-token prompt)."""
+    from repro_torch.config import ServeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serve import Request, RequestScheduler, ServeEngine
+
+    cfg, sals, params, proj = (model[k] for k in ("cfg", "sals", "params",
+                                                  "proj"))
+    n_sals = model["n_sals"]
+    corpus = model["corpus"]
+    system = corpus.batch(300, 1, 512)["tokens"][0]     # 8 pages of 64
+    lens = [4000, 3584, 3072, 2560, 2048, 1536, 1024, 640]
+    prompts = [np.concatenate([system, corpus.batch(310 + i, 1, n - 512)
+                               ["tokens"][0]]).astype(np.int32)
+               for i, n in enumerate(lens)]
+    runs = {}
+    for name, ps in (("paged", 64), ("dense", 0)):
+        eng = ServeEngine(params, proj, cfg, ServeConfig(
+            max_seq_len=4096, max_batch=4, prefill_chunk=64, page_size=ps,
+            prefill_token_budget=512, sals=sals), device="cuda")
+        sched = RequestScheduler(eng)
+        reqs = [Request(p, max_new_tokens=n_new) for p in prompts]
+        for r in reqs:
+            sched.submit(r)
+        ticks = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        sched.run(on_step=lambda s_, step: ticks.append(
+            (step, time.perf_counter())))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        # decode ms per step: on_step intervals of the iterations that ran
+        # no prefill chunk (ledger step k-1 holds iteration k's chunks)
+        chunk_steps = {c[0] for c in sched.prefill_chunks}
+        gaps = [(t1 - t0_) * 1e3 for (k0, t0_), (k1, t1)
+                in zip(ticks, ticks[1:]) if k1 - 1 not in chunk_steps]
+        toks = [r.result.tokens if r.done else None for r in reqs]
+        n_tok = sum(len(t) for t in toks if t is not None)
+        row = dict(phase="sched", run=name, prompts=lens, new_tokens=n_new,
+                   wall_s=wall, tok_s=n_tok / wall,
+                   decode_ms_per_step=statistics.median(gaps) if gaps
+                   else None, decode_only_iterations=len(gaps),
+                   decode_steps=sched.steps,
+                   prefill_chunks=len(sched.prefill_chunks),
+                   max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   launches=counts, prefix_hits=sched.prefix_hits,
+                   evictions=sched.evictions,
+                   admission_stalls=sched.admission_stalls,
+                   states=[r.state.value for r in reqs])
+        if ps:
+            row["pool_high_water_pages"] = max(
+                g["pages_in_use"] for g in sched.pool_gauges)
+            row["pool_pages"] = eng.scfg.pool_pages
+        emit(row)
+        if not all(r.done for r in reqs):
+            raise AssertionError(f"sched {name}: not every request is DONE")
+        sched.audit_serving_state()
+        want = n_sals * sched.steps
+        mine = ("latent_topk_paged", "sparse_recon_attention_paged") if ps \
+            else ("latent_topk", "sparse_recon_attention")
+        other = ("latent_topk", "sparse_recon_attention") if ps \
+            else ("latent_topk_paged", "sparse_recon_attention_paged")
+        if any(counts[k] != want for k in mine) or \
+                any(counts[k] != 0 for k in other):
+            raise AssertionError(f"sched {name}: SALS launches {counts}, "
+                                 f"expected {want} of {mine} and no {other}")
+        if ps and sched.prefix_hits < 1:
+            raise AssertionError("sched paged: no prefix hit")
+        runs[name] = (counts, toks)
+        del eng, sched, reqs
+        torch.cuda.empty_cache()
+    same = all(np.array_equal(a, b) for a, b in
+               zip(runs["paged"][1], runs["dense"][1]))
+    emit({"phase": "sched", "paged_tokens_equal_dense": same})
+    if not same:
+        raise AssertionError("sched: paged tokens differ from the dense "
+                             "arena's")
+    if prof:
+        eng = ServeEngine(params, proj, cfg, ServeConfig(
+            max_seq_len=4096, max_batch=4, prefill_chunk=64, sals=sals),
+            device="cuda")
+        with torch.inference_mode():
+            task = eng.start_prefill(prompts[0])
+            for _ in range(8):
+                eng.prefill_chunk_step(task)
+            torch.cuda.synchronize()
+            profile_steps(torch, lambda t: eng.prefill_chunk_step(task), 4,
+                          "prefill_chunk")
+        del eng, task
+        torch.cuda.empty_cache()
+    return runs["paged"][0]
 
 
 # ---------------------------------------------------------------------------
@@ -510,7 +739,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES)
-                    + " (add 'profile' for a decode profile)")
+                    + " (add 'profile' for decode and prefill-chunk profiles)")
     phases = ap.parse_args().phases.split(",")
 
     import torch
@@ -536,8 +765,19 @@ def main() -> int:
     (OUT_DIR / "build.log").write_text(_build.build_log)
 
     kern = phase_kernels(torch) if "kernels" in phases else {}
-    counts = phase_serve(torch, prof="profile" in phases) \
-        if "serve" in phases else {}
+    counts = {}
+    if "serve" in phases or "sched" in phases:
+        model = build_model(torch)
+        if "serve" in phases:
+            counts.update(phase_serve(torch, model,
+                                      prof="profile" in phases))
+        if "sched" in phases:
+            # the paged kernels' launches come from the sched paged run
+            paged = phase_sched(torch, model, prof="profile" in phases)
+            for k in ("latent_topk_paged", "sparse_recon_attention_paged"):
+                counts[k] = paged[k]
+        del model
+        torch.cuda.empty_cache()
     if "whole" in phases:
         phase_whole(torch)
 
@@ -549,6 +789,11 @@ def main() -> int:
             "src/repro/kernels/sparse_recon_attention.py:747"),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:93"),
+        "latent_topk_paged": ("src/repro_torch/csrc/latent_topk.cu",
+                              "src/repro/kernels/latent_score.py:281"),
+        "sparse_recon_attention_paged": (
+            "src/repro_torch/csrc/sparse_recon_attention.cu",
+            "src/repro/kernels/sparse_recon_attention.py:462"),
     }
     rows = []
     for name, (src, rep) in replaces.items():

@@ -7,7 +7,18 @@ projected to the r-dim latent space, bf16 — or int8 + per-token
 ``v_zero``; plus two small full-precision regions that are always attended:
 ``sink_k/v`` (the first n_sink tokens) and ``recent_k/v`` (a ring of the
 last n_recent tokens, slot = position % n_recent), all pre-RoPE.  The batch
-axis is a slot arena with per-slot ``lengths``.
+axis is a slot arena with per-slot ``lengths``: :meth:`prefill_into_slot`
+splices a prefilled single request into a slot and :meth:`free_slot`
+releases one (metadata only).
+
+``page_size`` > 0 is the PAGED layout: the five per-token fields are
+physical page pools ``([L,] n_pages, page_size, ·)`` shared by every
+sequence, and ``page_table`` ``([L,] B, max_pages)`` int32 maps row b's
+logical page j to its physical page (the same page id in every layer's
+pool; the host allocator is ``core/pager.py``).  Token t of row b lives at
+pool row ``(page_table[b, t // ps], t % ps)``.  The sink/recent windows and
+``lengths`` stay per slot.  Unmapped table entries are 0, the trash page:
+the kernels mask by per-row position, so its bytes are never selectable.
 
 Unlike the reference, whose arrays are immutable and whose methods return
 new caches, the port's arrays are preallocated arena tensors that
@@ -28,7 +39,7 @@ from repro_torch.core.projection import to_latent
 
 _PER_TOKEN_FIELDS = ("k_lat", "k_scale", "v_q", "v_scale", "v_zero")
 _ALL_FIELDS = ("k_lat", "v_q", "v_scale", "v_zero", "sink_k", "sink_v",
-               "recent_k", "recent_v", "k_scale", "lengths")
+               "recent_k", "recent_v", "k_scale", "lengths", "page_table")
 
 
 def _row_positions(pos, batch: int, device) -> torch.Tensor:
@@ -51,6 +62,12 @@ class LatentKVCache:
     recent_v: torch.Tensor
     k_scale: Optional[torch.Tensor] = None  # ([L,] B, S) int8-latent scale
     lengths: Optional[torch.Tensor] = None  # ([L,] B) int32 tokens per slot
+    page_table: Optional[torch.Tensor] = None  # ([L,] B, max_pages) int32
+    page_size: int = 0                     # 0 = dense arena; >0 = pools
+
+    @property
+    def paged(self) -> bool:
+        return self.page_size > 0
 
     # ------------------------------------------------------------------ init
 
@@ -85,6 +102,40 @@ class LatentKVCache:
                    sink_k=z(win, dtype), sink_v=z(win, dtype),
                    recent_k=z(ring, dtype), recent_v=z(ring, dtype),
                    lengths=z((n_layers, batch), torch.int32))
+
+    @classmethod
+    def init_paged(cls, cfg: ModelConfig, sals: SALSConfig, n_layers: int,
+                   batch: int, max_seq: int, n_pages: int, page_size: int,
+                   dtype=torch.bfloat16, n_groups: int = 1,
+                   device="cuda") -> "LatentKVCache":
+        """Zero-initialized PAGED cache: the per-token fields are pools of
+        ``n_pages`` pages of ``page_size`` tokens; ``max_seq`` only sizes
+        the per-row page table (``max_seq // page_size`` entries)."""
+        if max_seq % page_size:
+            raise ValueError(f"max_seq {max_seq} must be a multiple of "
+                             f"page_size {page_size}")
+        if n_pages * page_size < max_seq:
+            raise ValueError(f"pool {n_pages}×{page_size} cannot hold one "
+                             f"max_seq {max_seq} sequence")
+        # (L, 1, ps, ·) template -> (L, n_pages, ps, ·) pools
+        one = cls.init(cfg, sals, n_layers, 1, page_size, dtype, n_groups,
+                       device="meta")
+        pools = {f: None if getattr(one, f) is None else torch.zeros(
+                     (n_layers, n_pages, *getattr(one, f).shape[2:]),
+                     dtype=getattr(one, f).dtype, device=device)
+                 for f in _PER_TOKEN_FIELDS}
+        win = (n_layers, batch, sals.n_sink, cfg.n_kv_heads, cfg.head_dim)
+        ring = (n_layers, batch, sals.n_recent, cfg.n_kv_heads, cfg.head_dim)
+
+        def z(shape, dt):
+            return torch.zeros(shape, dtype=dt, device=device)
+
+        return cls(**pools, sink_k=z(win, dtype), sink_v=z(win, dtype),
+                   recent_k=z(ring, dtype), recent_v=z(ring, dtype),
+                   lengths=z((n_layers, batch), torch.int32),
+                   page_table=z((n_layers, batch, max_seq // page_size),
+                                torch.int32),
+                   page_size=page_size)
 
     @classmethod
     def prefill_layer(cls, cfg: ModelConfig, sals: SALSConfig,
@@ -178,7 +229,8 @@ class LatentKVCache:
 
     def latent_views(self) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Raw quantized latent arrays (k_lat (B, S, r), k_scale (B, S) or
-        None) exactly as stored, for the fused decode kernels."""
+        None; paged: the pools) exactly as stored, for the fused decode
+        kernels."""
         return self.k_lat, self.k_scale
 
     # ---------------------------------------------------------------- writes
@@ -194,22 +246,90 @@ class LatentKVCache:
 
     def write_latents(self, sals: SALSConfig, pos, k_lat: torch.Tensor,
                       v_flat: torch.Tensor) -> "LatentKVCache":
+        """Latent K + quantized V of one token at ``pos`` (scalar or (B,)).
+        Paged: the logical position resolves through the page table to
+        (physical page, in-page row); the page must be mapped already (the
+        scheduler maps it before the step; an idle row's table row is 0,
+        the trash page)."""
         b = k_lat.shape[0]
         pos_v = _row_positions(pos, b, k_lat.device)
         rows = torch.arange(b, device=k_lat.device)
+        if self.paged:
+            ps = self.page_size
+            at = (self.page_table[rows, pos_v // ps].long(), pos_v % ps)
+        else:
+            at = (rows, pos_v)
         if sals.k_latent_dtype == "int8":
             q8, scale = qz.quantize_latent_int8(k_lat)
-            self.k_lat[rows, pos_v] = q8
-            self.k_scale[rows, pos_v] = scale
+            self.k_lat[at] = q8
+            self.k_scale[at] = scale
         else:
-            self.k_lat[rows, pos_v] = k_lat.to(self.k_lat.dtype)
+            self.k_lat[at] = k_lat.to(self.k_lat.dtype)
         vq = qz.quantize(v_flat, sals.v_bits, sals.v_group)
-        self.v_q[rows, pos_v] = vq["q"]
-        self.v_scale[rows, pos_v] = vq["scale"]
-        self.v_zero[rows, pos_v] = vq["zero"]
+        self.v_q[at] = vq["q"]
+        self.v_scale[at] = vq["scale"]
+        self.v_zero[at] = vq["zero"]
         if self.lengths is not None:
             self.lengths.copy_(torch.maximum(self.lengths,
                                              (pos_v + 1).to(torch.int32)))
+        return self
+
+    def append_chunk(self, cfg: ModelConfig, sals: SALSConfig,
+                     u: torch.Tensor, off: int, k_pre: torch.Tensor,
+                     v: torch.Tensor, lengths: torch.Tensor
+                     ) -> "LatentKVCache":
+        """Append one CHUNK of prompt tokens at positions [off, off+C), in
+        place (single-layer dense view; the chunked-prefill write path).
+
+        k_pre/v: (B, C, n_kv, dh) pre-RoPE keys / values; ``lengths`` (B,)
+        each row's true prompt length.  Latent-K + quantized-V writes cover
+        every chunk position, pads included (per-slot lengths keep pads
+        unselectable); ring/sink inserts are masked to each row's real
+        positions, so a pad never evicts a real token from the ring.
+        Per-slot ``lengths`` advance to min(lengths, off+C)."""
+        if self.paged:
+            raise ValueError("append_chunk writes a DENSE single-request "
+                             "prefill cache; paged admission scatters its "
+                             "pages afterwards (ServeEngine.admit_paged)")
+        b, c = k_pre.shape[:2]
+        dev = k_pre.device
+        kvd = cfg.kv_dim
+        len_v = torch.as_tensor(lengths, device=dev).to(torch.int64) \
+            .reshape(-1).expand(b)
+        lat = to_latent(u.float(), k_pre.reshape(b, c, kvd))
+        vq = qz.quantize(v.reshape(b, c, kvd), sals.v_bits, sals.v_group)
+        span = slice(off, off + c)
+        if sals.k_latent_dtype == "int8":
+            q8, scale = qz.quantize_latent_int8(lat)
+            self.k_lat[:, span] = q8
+            self.k_scale[:, span] = scale.to(self.k_scale.dtype)
+        else:
+            self.k_lat[:, span] = lat.to(self.k_lat.dtype)
+        self.v_q[:, span] = vq["q"]
+        self.v_scale[:, span] = vq["scale"]
+        self.v_zero[:, span] = vq["zero"]
+
+        # ragged ring: slot j takes the LAST real chunk position p ≡ j
+        # (mod w); p outside [off, min(len, off+C)) leaves the slot alone
+        w = sals.n_recent
+        bi = torch.arange(b, device=dev)[:, None]
+        last = torch.minimum(len_v, torch.tensor(off + c, device=dev)) \
+            [:, None] - 1
+        p = last - torch.remainder(last - torch.arange(w, device=dev), w)
+        keep = ((p >= off) & (len_v[:, None] > off))[..., None, None]
+        pc = (p - off).clamp(0, c - 1)
+        for arr, val in ((self.recent_k, k_pre), (self.recent_v, v)):
+            arr.copy_(torch.where(keep, val[bi, pc].to(arr.dtype), arr))
+
+        # ragged sink: positions [off, off+C) ∩ [0, n_sink) ∩ [0, len)
+        sidx = torch.arange(sals.n_sink, device=dev)[None, :]
+        keep_s = ((sidx >= off) & (sidx < off + c)
+                  & (sidx < len_v[:, None]))[..., None, None]
+        spc = (sidx - off).clamp(0, c - 1).expand(b, -1)
+        for arr, val in ((self.sink_k, k_pre), (self.sink_v, v)):
+            arr.copy_(torch.where(keep_s, val[bi, spc].to(arr.dtype), arr))
+        self.lengths.copy_(torch.clamp_max(len_v, off + c)
+                           .to(self.lengths.dtype))
         return self
 
     def write_ring(self, sals: SALSConfig, pos, k_pre: torch.Tensor,
@@ -230,6 +350,36 @@ class LatentKVCache:
         for arr, val in ((self.sink_k, k_pre), (self.sink_v, v)):
             arr[rows, sink_pos] = torch.where(in_sink, val.to(arr.dtype),
                                               arr[rows, sink_pos])
+        return self
+
+    # ------------------------------------------------------------ slot arena
+
+    def prefill_into_slot(self, slot: int, other: "LatentKVCache"
+                          ) -> "LatentKVCache":
+        """Copy ``other``'s (batch 1) arrays into batch row ``slot``, in
+        place (dense arena; the paged arena admits through the page
+        scatter, ``ServeEngine.admit_paged``)."""
+        if self.paged:
+            raise ValueError("paged caches admit through the page-scatter "
+                             "path (ServeEngine.admit_paged), not slot "
+                             "row splices")
+        ax = 1 if self.k_lat.dim() == 4 else 0
+        for f in _ALL_FIELDS:
+            dst = getattr(self, f)
+            if dst is not None:
+                dst.select(ax, slot).copy_(getattr(other, f).select(ax, 0))
+        return self
+
+    def free_slot(self, slot: int) -> "LatentKVCache":
+        """Release batch row ``slot`` — METADATA ONLY: its length (and,
+        paged, its page-table row) is reset; the payload bytes stay.
+        Per-row positions gate every read and the next admission rewrites
+        the row's windows and per-token data, so recycled bytes are never
+        selectable."""
+        ax = 1 if self.k_lat.dim() == 4 else 0
+        self.lengths.select(ax, slot).zero_()
+        if self.page_table is not None:
+            self.page_table.select(ax, slot).zero_()
         return self
 
     # ------------------------------------------------------------ bookkeeping

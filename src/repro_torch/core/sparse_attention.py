@@ -12,9 +12,11 @@ One decode step per SALS layer:
      at their own positions and attend (``ops.sparse_recon_attention``);
   5. exact attention over the sink + recent window, LSE-merged with step 4.
 
-The grouped (``n_groups > 1``), paged and tiered plans of the reference are
-ported in later slices; the cache constructors, the engine and
-``kernels.ops`` raise ``NotImplementedError`` for them.
+Both layouts of the cache run through the same code: the dense slot arena,
+and the paged one, whose page table rides to both kernels (which then
+read the page pools).  The grouped (``n_groups > 1``) and tiered plans of
+the reference are ported in later slices; the cache constructors and the
+engine raise ``NotImplementedError`` for them.
 """
 from __future__ import annotations
 
@@ -70,26 +72,31 @@ def _partial_attend(logits: torch.Tensor, v: torch.Tensor, cfg: ModelConfig
 
 def _global_partials(q0, q_bar, u, cache: LatentKVCache, pos,
                      cfg: ModelConfig, sals: SALSConfig):
-    """Paper-faithful global top-N_c → fused recon attention.  Returns
-    (m, l, o) with a G=1 axis."""
+    """Paper-faithful global top-N_c → fused recon attention, over the
+    dense arena or the page pools.  Returns (m, l, o) with a G=1 axis."""
     r_star = sals.score_rank(cfg.kv_dim)
     k_lat, k_scale = cache.latent_views()
-    idx, valid = sel.topk_latent(q_bar, u, k_lat, k_scale, pos, sals, r_star)
+    pt = cache.page_table if cache.paged else None
+    ps = cache.page_size
+    idx, valid = sel.topk_latent(q_bar, u, k_lat, k_scale, pos, sals, r_star,
+                                 page_table=pt, page_size=ps)
+    # ascending positions, invalid slots last: the same accumulation order
+    # for both layouts, so paged and dense agree bit for bit
     idx, valid = sel.sort_selected(idx, valid)
     m, l, o = ops.sparse_recon_attention(
         q0.contiguous(), k_lat, k_scale, cache.v_q, cache.v_scale,
         cache.v_zero, u, idx, valid, pos, n_kv=cfg.n_kv_heads,
         v_bits=sals.v_bits, v_group=sals.v_group, theta=cfg.rope_theta,
-        softcap=cfg.attn_logit_softcap, use_rope=cfg.use_rope)
+        softcap=cfg.attn_logit_softcap, use_rope=cfg.use_rope,
+        page_table=pt, page_size=ps)
     return m[:, None], l[:, None], o[:, None]
 
 
 def sals_decode_attend(params, u: torch.Tensor, cache: LatentKVCache,
                        x: torch.Tensor, pos, cfg: ModelConfig,
                        sals: SALSConfig):
-    """One-token SALS attention for one layer (the global plan: the port's
-    cache is the dense arena, whose constructors refuse the grouped and
-    paged layouts).
+    """One-token SALS attention for one layer (the global plan; the cache
+    constructors refuse the grouped layout).
 
     x: (B, 1, d); pos: scalar or (B,) per-row positions; ``cache`` is a
     single-layer view, updated in place.  Returns (y (B, 1, d), cache)."""

@@ -1,5 +1,6 @@
 // Fused latent scoring + per-block top-k (SALS §4.3), Hopper port of
-// repro/kernels/latent_score.py::latent_topk_pallas.
+// repro/kernels/latent_score.py::latent_topk_pallas and (PAGED = true)
+// ::latent_topk_paged_pallas.
 //
 // Grid (B, nb): one block per (batch row, 1024-token seq block).  Each warp
 // scores whole cache rows: its lanes read the leading r* columns of a row
@@ -11,6 +12,14 @@
 // under the key (value desc, id asc), and writes its first kb candidates.
 // The caller merges the (B, nb*kb) candidates with a stable sort.
 //
+// Paged layout: the latents are a pool (n_pages, ps, r) and row b's logical
+// position j lives at pool row pt[b, min(j / ps, mp - 1)] * ps + j % ps,
+// the page id clamped into the pool (unmapped entries may hold anything;
+// the position mask keeps them unselectable).  Only the address differs
+// from the dense kernel: every arithmetic line is shared, candidates come
+// out in logical order, so paged and dense agree bit for bit on the same
+// logical contents, tie-breaks included.
+//
 // Bound: it reads B*S*r* latent elements once (bytes-bound; 17 MB at the
 // llama2-7b slice shapes).  One block per seq block keeps the candidate
 // order the reference's merge needs; the grid is small (B*nb blocks), which
@@ -19,13 +28,29 @@
 
 #include <math.h>
 
-template <typename T>
+// Where row b's logical cache position j lives (pages: see the header).
+struct TopkLayout {
+  const int* page_table;  // (B, mp) int32, or null for the dense arena
+  int mp, ps, n_pages;
+};
+
+template <bool PAGED>
+__device__ __forceinline__ size_t topk_row(const TopkLayout& lay, int b,
+                                           int S, int j) {
+  if (!PAGED) return (size_t)b * S + j;
+  const int lp = min(j / lay.ps, lay.mp - 1);
+  const int pg = min(max(lay.page_table[(size_t)b * lay.mp + lp], 0),
+                     lay.n_pages - 1);
+  return (size_t)pg * lay.ps + j % lay.ps;
+}
+
+template <typename T, bool PAGED>
 __global__ void latent_topk_kernel(
     const float* __restrict__ q_lat, const T* __restrict__ k_lat,
     const __nv_bfloat16* __restrict__ k_scale, const int* __restrict__ pos,
     const int* __restrict__ pos_base, float* __restrict__ cand_v,
     int* __restrict__ cand_i, int S, int r, int r_star, int bs, int npad,
-    int nb, int kb, int n_sink, int n_recent, int vec_ok) {
+    int nb, int kb, int n_sink, int n_recent, int vec_ok, TopkLayout lay) {
   extern __shared__ float smem[];
   float* q_s = smem;                      // r_star
   float* sv = q_s + r_star;               // npad scores
@@ -46,7 +71,8 @@ __global__ void latent_topk_kernel(
       id = col;
       const int j = j0 + col;
       if (j < S) {
-        const T* row = k_lat + ((size_t)b * S + j) * r;
+        const size_t prow = topk_row<PAGED>(lay, b, S, j);
+        const T* row = k_lat + prow * r;
         float acc = 0.f;
         if (vec_ok) {
           constexpr int EPV = 16 / sizeof(T);
@@ -62,7 +88,7 @@ __global__ void latent_topk_kernel(
         }
         acc = sals_warp_sum(acc);
         if (k_scale != nullptr)
-          acc *= __bfloat162float(k_scale[(size_t)b * S + j]);
+          acc *= __bfloat162float(k_scale[prow]);
         const int pg = base + j;
         const bool ok = (pg >= n_sink) && (pg <= p - n_recent);
         score = ok ? acc : SALS_NEG_INF;
@@ -109,26 +135,61 @@ __global__ void latent_topk_kernel(
   }
 }
 
-template <typename T>
+template <typename T, bool PAGED>
 static void launch_topk(const float* q_lat, const void* k_lat,
                         const void* k_scale, const int* pos,
                         const int* pos_base, float* cand_v, int* cand_i,
                         int B, int S, int r, int r_star, int bs, int nb,
                         int kb, int n_sink, int n_recent, int vec_ok,
-                        cudaStream_t stream) {
+                        TopkLayout lay, cudaStream_t stream) {
   int npad = 1;
   while (npad < bs) npad <<= 1;
   const size_t smem = sizeof(float) * (size_t)(r_star + npad) +
                       sizeof(int) * (size_t)npad;
   if (smem > 48 * 1024)
-    cudaFuncSetAttribute(latent_topk_kernel<T>,
+    cudaFuncSetAttribute(latent_topk_kernel<T, PAGED>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
   dim3 grid(B, nb);
-  latent_topk_kernel<T><<<grid, 1024, smem, stream>>>(
+  latent_topk_kernel<T, PAGED><<<grid, 1024, smem, stream>>>(
       q_lat, static_cast<const T*>(k_lat),
       static_cast<const __nv_bfloat16*>(k_scale), pos, pos_base, cand_v,
-      cand_i, S, r, r_star, bs, npad, nb, kb, n_sink, n_recent, vec_ok);
+      cand_i, S, r, r_star, bs, npad, nb, kb, n_sink, n_recent, vec_ok, lay);
+}
+
+template <bool PAGED>
+static int dispatch_topk(const void* q_lat, const void* k_lat, int k_dtype,
+                         const void* k_scale, const void* pos,
+                         const void* pos_base, void* cand_v, void* cand_i,
+                         int B, int S, int r, int r_star, int bs, int nb,
+                         int kb, int n_sink, int n_recent, int vec_ok,
+                         TopkLayout lay, void* stream) {
+  const float* q = static_cast<const float*>(q_lat);
+  const int* p = static_cast<const int*>(pos);
+  const int* pb = static_cast<const int*>(pos_base);
+  float* cv = static_cast<float*>(cand_v);
+  int* ci = static_cast<int*>(cand_i);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (k_dtype) {
+    case SALS_F32:
+      launch_topk<float, PAGED>(q, k_lat, k_scale, p, pb, cv, ci, B, S, r,
+                                r_star, bs, nb, kb, n_sink, n_recent, vec_ok,
+                                lay, st);
+      break;
+    case SALS_BF16:
+      launch_topk<__nv_bfloat16, PAGED>(q, k_lat, k_scale, p, pb, cv, ci, B,
+                                        S, r, r_star, bs, nb, kb, n_sink,
+                                        n_recent, vec_ok, lay, st);
+      break;
+    case SALS_I8:
+      launch_topk<int8_t, PAGED>(q, k_lat, k_scale, p, pb, cv, ci, B, S, r,
+                                 r_star, bs, nb, kb, n_sink, n_recent, vec_ok,
+                                 lay, st);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 extern "C" int sals_latent_topk(const void* q_lat, const void* k_lat,
@@ -138,28 +199,25 @@ extern "C" int sals_latent_topk(const void* q_lat, const void* k_lat,
                                 int r, int r_star, int bs, int nb, int kb,
                                 int n_sink, int n_recent, int vec_ok,
                                 void* stream) {
-  const float* q = static_cast<const float*>(q_lat);
-  const int* p = static_cast<const int*>(pos);
-  const int* pb = static_cast<const int*>(pos_base);
-  float* cv = static_cast<float*>(cand_v);
-  int* ci = static_cast<int*>(cand_i);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (k_dtype) {
-    case SALS_F32:
-      launch_topk<float>(q, k_lat, k_scale, p, pb, cv, ci, B, S, r, r_star,
-                         bs, nb, kb, n_sink, n_recent, vec_ok, st);
-      break;
-    case SALS_BF16:
-      launch_topk<__nv_bfloat16>(q, k_lat, k_scale, p, pb, cv, ci, B, S, r,
-                                 r_star, bs, nb, kb, n_sink, n_recent,
-                                 vec_ok, st);
-      break;
-    case SALS_I8:
-      launch_topk<int8_t>(q, k_lat, k_scale, p, pb, cv, ci, B, S, r, r_star,
-                          bs, nb, kb, n_sink, n_recent, vec_ok, st);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return dispatch_topk<false>(q_lat, k_lat, k_dtype, k_scale, pos, pos_base,
+                              cand_v, cand_i, B, S, r, r_star, bs, nb, kb,
+                              n_sink, n_recent, vec_ok,
+                              TopkLayout{nullptr, 0, 0, 0}, stream);
+}
+
+// Paged: k_lat (n_pages, ps, r) and k_scale (n_pages, ps) pools, page_table
+// (B, mp) int32; S = mp * ps is the logical extent.
+extern "C" int sals_latent_topk_paged(
+    const void* q_lat, const void* k_lat, int k_dtype, const void* k_scale,
+    const void* pos, const void* pos_base, const void* page_table,
+    void* cand_v, void* cand_i, int B, int S, int r, int r_star, int bs,
+    int nb, int kb, int n_sink, int n_recent, int vec_ok, int mp, int ps,
+    int n_pages, void* stream) {
+  if (mp < 1 || ps < 1 || n_pages < 1 || S != mp * ps)
+    return (int)cudaErrorInvalidValue;
+  return dispatch_topk<true>(
+      q_lat, k_lat, k_dtype, k_scale, pos, pos_base, cand_v, cand_i, B, S, r,
+      r_star, bs, nb, kb, n_sink, n_recent, vec_ok,
+      TopkLayout{static_cast<const int*>(page_table), mp, ps, n_pages},
+      stream);
 }

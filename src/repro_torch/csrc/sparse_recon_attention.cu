@@ -1,6 +1,7 @@
 // Selected-token decode attention over the raw latent cache (SALS stages
 // 3-4), Hopper port of
-// repro/kernels/sparse_recon_attention.py::sparse_recon_attention_pallas.
+// repro/kernels/sparse_recon_attention.py::sparse_recon_attention_pallas
+// and (PAGED = true) ::sparse_recon_attention_paged_pallas.
 //
 // Grid (B, n_kv): one block per (batch row, kv head), so no reduction
 // crosses blocks.  The block walks the N_c selected slots in the order it
@@ -23,6 +24,15 @@
 //   6. update an f32 online softmax slot by slot, in the given order.
 // Outputs the unnormalized partials m, l (B, H) and o (B, H, dh), f32.
 //
+// Paged layout: every cache operand is a pool (n_pages, ps, ·) and the
+// selected logical position p (clamped into [0, S), S = mp * ps) lives at
+// pool row pt[b, p / ps] * ps + p % ps, the page id clamped into the pool.
+// Each slot's physical row is resolved once, when the tile is loaded; the
+// gather, the scale and the value reads use it and RoPE uses the logical
+// position, so dense and paged share every arithmetic line and agree bit
+// for bit on the same logical contents.  Sorted indices keep a tile's rows
+// on few pages.
+//
 // Bound: the reconstruction is 2*B*N_c*kv_dim*r FLOP (14.5 GFLOP at the
 // llama2-7b slice shapes), which bounds it on the tensor cores; this first
 // version runs it on the CUDA cores in f32 (a wgmma tile of selected tokens
@@ -36,7 +46,22 @@ constexpr int SRA_T = 32;   // selected slots per tile
 constexpr int SRA_JT = 32;  // U columns per shared-memory chunk
 constexpr int SRA_LAT_LD = SRA_T + 4;  // lat_s row pitch (floats)
 
-template <typename TK, int VBITS, int DH>
+// Where row b's logical cache position p lives (pages: see the header).
+struct SraLayout {
+  const int* page_table;  // (B, mp) int32, or null for the dense arena
+  int mp, ps, n_pages;
+};
+
+template <bool PAGED>
+__device__ __forceinline__ int sra_row(const SraLayout& lay, int b, int S,
+                                       int p) {
+  if (!PAGED) return b * S + p;
+  const int pg = min(max(lay.page_table[(size_t)b * lay.mp + p / lay.ps], 0),
+                     lay.n_pages - 1);
+  return pg * lay.ps + p % lay.ps;
+}
+
+template <typename TK, int VBITS, int DH, bool PAGED>
 __global__ void __launch_bounds__(SRA_THREADS) sra_kernel(
     const void* __restrict__ q, int q_dtype, const TK* __restrict__ k_lat,
     const __nv_bfloat16* __restrict__ k_scale,
@@ -48,7 +73,7 @@ __global__ void __launch_bounds__(SRA_THREADS) sra_kernel(
     float* __restrict__ m_out, float* __restrict__ l_out,
     float* __restrict__ o_out, int H, int n_kv, int S, int r, int code_w,
     int G, int v_group, int n_c, float softcap, int use_rope, int lat_vec,
-    int u_vec) {
+    int u_vec, SraLayout lay) {
   constexpr int N_SG = SRA_THREADS / DH;  // slot groups
   constexpr int SPT = SRA_T / N_SG;       // slots per thread
   constexpr int HALF = DH / 2;
@@ -71,6 +96,7 @@ __global__ void __launch_bounds__(SRA_THREADS) sra_kernel(
   int* row_s = reinterpret_cast<int*>(lg_s + SRA_T * group);  // T
   int* ok_s = row_s + SRA_T;                                    // T
   float* sc_s = reinterpret_cast<float*>(ok_s + SRA_T);         // T
+  int* prow_s = reinterpret_cast<int*>(sc_s + SRA_T);  // T physical rows
 
   // RoPE'd query heads of this kv group, once (rounded to q's dtype as the
   // reference's oracle does)
@@ -118,13 +144,14 @@ __global__ void __launch_bounds__(SRA_THREADS) sra_kernel(
         row = idx[(size_t)b * n_c + t0 + tid];
         row = min(max(row, 0), S - 1);
         ok = valid[(size_t)b * n_c + t0 + tid] != 0;
-        sc = k_scale != nullptr
-                 ? __bfloat162float(k_scale[(size_t)b * S + row])
-                 : 1.f;
       }
+      const int prow = sra_row<PAGED>(lay, b, S, row);
+      if (tid < count)
+        sc = k_scale != nullptr ? __bfloat162float(k_scale[prow]) : 1.f;
       row_s[tid] = row;
       ok_s[tid] = ok;
       sc_s[tid] = sc;  // 0 for tail slots: their latent row is zero
+      prow_s[tid] = prow;
     }
     __syncthreads();
 
@@ -135,7 +162,7 @@ __global__ void __launch_bounds__(SRA_THREADS) sra_kernel(
     {
       constexpr int CH = 32 / sizeof(TK);
       const int t = lane;
-      const TK* rowp = k_lat + ((size_t)b * S + row_s[t]) * r;
+      const TK* rowp = k_lat + (size_t)prow_s[t] * r;
       const float sc = sc_s[t];
       const int n_ch = lat_vec ? r / CH : 0;
 #pragma unroll 4
@@ -235,7 +262,7 @@ __global__ void __launch_bounds__(SRA_THREADS) sra_kernel(
     for (int e = tid; e < SRA_T * DH; e += SRA_THREADS) {
       const int t = e / DH, c = e % DH;
       const int cg = h * DH + c;
-      const size_t rowo = (size_t)b * S + row_s[t];
+      const size_t rowo = (size_t)prow_s[t];
       float code;
       if (VBITS == 4) {
         const uint8_t byte = v_q[rowo * code_w + (cg >> 1)];
@@ -306,10 +333,10 @@ size_t sra_smem_bytes(int r, int dh, int group) {
   return sizeof(float) * ((size_t)r * SRA_LAT_LD + dh * (SRA_JT + 1) +
                           2 * SRA_T * dh + group * dh + SRA_T * group +
                           SRA_T) +
-         2 * sizeof(int) * SRA_T;
+         3 * sizeof(int) * SRA_T;
 }
 
-template <typename TK, int VBITS, int DH>
+template <typename TK, int VBITS, int DH, bool PAGED>
 static int launch_sra(const void* q, int q_dtype, const void* k_lat,
                       const void* k_scale, const void* v_q,
                       const void* v_scale, const void* v_zero, const void* u,
@@ -318,7 +345,7 @@ static int launch_sra(const void* q, int q_dtype, const void* k_lat,
                       const void* freqs, void* m, void* l, void* o, int B,
                       int H, int n_kv, int S, int r, int code_w, int G,
                       int v_group, int n_c, float softcap, int use_rope,
-                      cudaStream_t stream) {
+                      SraLayout lay, cudaStream_t stream) {
   const size_t smem = sra_smem_bytes(r, DH, H / n_kv);
   // 16-byte vector paths need aligned rows (and whole U chunks)
   const int lat_vec = (reinterpret_cast<uintptr_t>(k_lat) % 16 == 0) &&
@@ -326,11 +353,11 @@ static int launch_sra(const void* q, int q_dtype, const void* k_lat,
   const int u_vec = u_dtype == SALS_BF16 &&
                     reinterpret_cast<uintptr_t>(u) % 16 == 0 &&
                     r % SRA_JT == 0;
-  cudaFuncSetAttribute(sra_kernel<TK, VBITS, DH>,
+  cudaFuncSetAttribute(sra_kernel<TK, VBITS, DH, PAGED>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
   dim3 grid(B, n_kv);
-  sra_kernel<TK, VBITS, DH><<<grid, SRA_THREADS, smem, stream>>>(
+  sra_kernel<TK, VBITS, DH, PAGED><<<grid, SRA_THREADS, smem, stream>>>(
       q, q_dtype, static_cast<const TK*>(k_lat),
       static_cast<const __nv_bfloat16*>(k_scale),
       static_cast<const uint8_t*>(v_q),
@@ -340,11 +367,11 @@ static int launch_sra(const void* q, int q_dtype, const void* k_lat,
       static_cast<const int*>(q_pos), static_cast<const int*>(pos_base),
       static_cast<const float*>(freqs), static_cast<float*>(m),
       static_cast<float*>(l), static_cast<float*>(o), H, n_kv, S, r, code_w,
-      G, v_group, n_c, softcap, use_rope, lat_vec, u_vec);
+      G, v_group, n_c, softcap, use_rope, lat_vec, u_vec, lay);
   return (int)cudaGetLastError();
 }
 
-template <typename TK, int VBITS>
+template <typename TK, int VBITS, bool PAGED>
 static int dispatch_dh(int dh, const void* q, int q_dtype, const void* k_lat,
                        const void* k_scale, const void* v_q,
                        const void* v_scale, const void* v_zero,
@@ -353,20 +380,50 @@ static int dispatch_dh(int dh, const void* q, int q_dtype, const void* k_lat,
                        const void* pos_base, const void* freqs, void* m,
                        void* l, void* o, int B, int H, int n_kv, int S, int r,
                        int code_w, int G, int v_group, int n_c, float softcap,
-                       int use_rope, cudaStream_t st) {
+                       int use_rope, SraLayout lay, cudaStream_t st) {
   if (dh == 128)
-    return launch_sra<TK, VBITS, 128>(q, q_dtype, k_lat, k_scale, v_q,
-                                      v_scale, v_zero, u, u_dtype, idx, valid,
-                                      q_pos, pos_base, freqs, m, l, o, B, H,
-                                      n_kv, S, r, code_w, G, v_group, n_c,
-                                      softcap, use_rope, st);
+    return launch_sra<TK, VBITS, 128, PAGED>(
+        q, q_dtype, k_lat, k_scale, v_q, v_scale, v_zero, u, u_dtype, idx,
+        valid, q_pos, pos_base, freqs, m, l, o, B, H, n_kv, S, r, code_w, G,
+        v_group, n_c, softcap, use_rope, lay, st);
   if (dh == 64)
-    return launch_sra<TK, VBITS, 64>(q, q_dtype, k_lat, k_scale, v_q,
-                                     v_scale, v_zero, u, u_dtype, idx, valid,
-                                     q_pos, pos_base, freqs, m, l, o, B, H,
-                                     n_kv, S, r, code_w, G, v_group, n_c,
-                                     softcap, use_rope, st);
+    return launch_sra<TK, VBITS, 64, PAGED>(
+        q, q_dtype, k_lat, k_scale, v_q, v_scale, v_zero, u, u_dtype, idx,
+        valid, q_pos, pos_base, freqs, m, l, o, B, H, n_kv, S, r, code_w, G,
+        v_group, n_c, softcap, use_rope, lay, st);
   return (int)cudaErrorInvalidValue;
+}
+
+template <bool PAGED>
+static int dispatch_sra(
+    const void* q, int q_dtype, const void* k_lat, int k_dtype,
+    const void* k_scale, const void* v_q, int v_bits, const void* v_scale,
+    const void* v_zero, const void* u, int u_dtype, const void* idx,
+    const void* valid, const void* q_pos, const void* pos_base,
+    const void* freqs, void* m, void* l, void* o, int B, int H, int n_kv,
+    int dh, int S, int r, int code_w, int G, int v_group, int n_c,
+    float softcap, int use_rope, SraLayout lay, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define SRA_ARGS                                                            \
+  dh, q, q_dtype, k_lat, k_scale, v_q, v_scale, v_zero, u, u_dtype, idx,   \
+      valid, q_pos, pos_base, freqs, m, l, o, B, H, n_kv, S, r, code_w, G,  \
+      v_group, n_c, softcap, use_rope, lay, st
+  if (v_bits != 8 && v_bits != 4) return (int)cudaErrorInvalidValue;
+  const bool v4 = v_bits == 4;
+  switch (k_dtype) {
+    case SALS_F32:
+      return v4 ? dispatch_dh<float, 4, PAGED>(SRA_ARGS)
+                : dispatch_dh<float, 8, PAGED>(SRA_ARGS);
+    case SALS_BF16:
+      return v4 ? dispatch_dh<__nv_bfloat16, 4, PAGED>(SRA_ARGS)
+                : dispatch_dh<__nv_bfloat16, 8, PAGED>(SRA_ARGS);
+    case SALS_I8:
+      return v4 ? dispatch_dh<int8_t, 4, PAGED>(SRA_ARGS)
+                : dispatch_dh<int8_t, 8, PAGED>(SRA_ARGS);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef SRA_ARGS
 }
 
 extern "C" int sals_sparse_recon_attention(
@@ -377,25 +434,31 @@ extern "C" int sals_sparse_recon_attention(
     const void* freqs, void* m, void* l, void* o, int B, int H, int n_kv,
     int dh, int S, int r, int code_w, int G, int v_group, int n_c,
     float softcap, int use_rope, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SRA_ARGS                                                            \
-  dh, q, q_dtype, k_lat, k_scale, v_q, v_scale, v_zero, u, u_dtype, idx,   \
-      valid, q_pos, pos_base, freqs, m, l, o, B, H, n_kv, S, r, code_w, G,  \
-      v_group, n_c, softcap, use_rope, st
-  if (v_bits != 8 && v_bits != 4) return (int)cudaErrorInvalidValue;
-  const bool v4 = v_bits == 4;
-  switch (k_dtype) {
-    case SALS_F32:
-      return v4 ? dispatch_dh<float, 4>(SRA_ARGS)
-                : dispatch_dh<float, 8>(SRA_ARGS);
-    case SALS_BF16:
-      return v4 ? dispatch_dh<__nv_bfloat16, 4>(SRA_ARGS)
-                : dispatch_dh<__nv_bfloat16, 8>(SRA_ARGS);
-    case SALS_I8:
-      return v4 ? dispatch_dh<int8_t, 4>(SRA_ARGS)
-                : dispatch_dh<int8_t, 8>(SRA_ARGS);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef SRA_ARGS
+  return dispatch_sra<false>(q, q_dtype, k_lat, k_dtype, k_scale, v_q, v_bits,
+                             v_scale, v_zero, u, u_dtype, idx, valid, q_pos,
+                             pos_base, freqs, m, l, o, B, H, n_kv, dh, S, r,
+                             code_w, G, v_group, n_c, softcap, use_rope,
+                             SraLayout{nullptr, 0, 0, 0}, stream);
+}
+
+// Paged: k_lat (n_pages, ps, r), k_scale (n_pages, ps), v_q (n_pages, ps,
+// code_w), v_scale / v_zero (n_pages, ps, G) pools, page_table (B, mp)
+// int32; S = mp * ps is the logical extent and idx stays logical.
+extern "C" int sals_sparse_recon_attention_paged(
+    const void* q, int q_dtype, const void* k_lat, int k_dtype,
+    const void* k_scale, const void* v_q, int v_bits, const void* v_scale,
+    const void* v_zero, const void* u, int u_dtype, const void* idx,
+    const void* valid, const void* q_pos, const void* pos_base,
+    const void* freqs, const void* page_table, void* m, void* l, void* o,
+    int B, int H, int n_kv, int dh, int S, int r, int code_w, int G,
+    int v_group, int n_c, float softcap, int use_rope, int mp, int ps,
+    int n_pages, void* stream) {
+  if (mp < 1 || ps < 1 || n_pages < 1 || S != mp * ps)
+    return (int)cudaErrorInvalidValue;
+  return dispatch_sra<true>(
+      q, q_dtype, k_lat, k_dtype, k_scale, v_q, v_bits, v_scale, v_zero, u,
+      u_dtype, idx, valid, q_pos, pos_base, freqs, m, l, o, B, H, n_kv, dh,
+      S, r, code_w, G, v_group, n_c, softcap, use_rope,
+      SraLayout{static_cast<const int*>(page_table), mp, ps, n_pages},
+      stream);
 }

@@ -1,8 +1,10 @@
 """Fused latent scoring + top-N_c selection (SALS §4.3) on Hopper.
 
-Replaces ``repro/kernels/latent_score.py::latent_topk_pallas`` (TPU) with
-the hand-written CUDA kernel in ``csrc/latent_topk.cu``; the plain PyTorch
-twin is ``kernels/ref.py::latent_topk_ref``.
+Replaces ``repro/kernels/latent_score.py::latent_topk_pallas`` and
+``::latent_topk_paged_pallas`` (TPU) with the hand-written CUDA kernel in
+``csrc/latent_topk.cu`` (its ``PAGED`` instance for the page pool); the
+plain PyTorch twins are ``kernels/ref.py::latent_topk_ref`` and
+``::latent_topk_paged_ref``.
 
 Bound on the H100: bytes.  The kernel reads the leading r* columns of every
 cached latent row once (B·S·r*·b_lat, plus the int8 scale) — 17 MB at the
@@ -14,7 +16,10 @@ the top-min(N_c, 1024) candidates per block leave the kernel, so the final
 merge (plain torch, as ``lax.top_k`` sits outside the Pallas kernel) sorts
 (B, nb·kb) candidates instead of (B, S) scores.  Candidates come out in
 (block asc, value desc, id asc) order, so a stable descending sort of them
-breaks ties exactly as a full-sequence ``lax.top_k`` does.
+breaks ties exactly as a full-sequence ``lax.top_k`` does.  The paged
+instance differs only in where a row's address comes from (the page
+table), so its candidates are bit-identical to the dense kernel's on the
+same logical contents.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ from repro_torch.kernels.ref import NEG_INF, row_vector, topk_desc_stable
 
 BLOCK_S = 1024      # tokens per thread block (one seq block)
 launches = _build.LaunchCounter("latent_topk")
+paged_launches = _build.LaunchCounter("latent_topk_paged")
 
 _K_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
@@ -41,11 +47,16 @@ def topk_candidate_shape(s: int, n_critical: int) -> Tuple[int, int]:
 def latent_topk_cuda(q_lat: torch.Tensor, k_lat: torch.Tensor,
                      k_scale: Optional[torch.Tensor], pos, *,
                      n_critical: int, n_sink: int, n_recent: int,
-                     pos_base=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                     pos_base=None, page_table: Optional[torch.Tensor] = None,
+                     page_size: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel.  q_lat: (B, r*) f32; k_lat: (B, S, r) f32 /
     bf16 / int8 (int8 needs k_scale (B, S) bf16); pos, pos_base: scalar or
-    (B,).  Returns (idx (B, N_c) int32, valid (B, N_c) bool), equal to
-    :func:`ref.latent_topk_ref` including tie-breaks."""
+    (B,).  With ``page_table`` (B, max_pages) int32, k_lat / k_scale are
+    page pools (n_pages, page_size, r) / (n_pages, page_size) and S is
+    max_pages · page_size.  Returns (idx (B, N_c) int32, valid (B, N_c)
+    bool), equal to :func:`ref.latent_topk_ref` (paged:
+    :func:`ref.latent_topk_paged_ref`) including tie-breaks; indices are
+    logical."""
     dev = q_lat.device
     require(q_lat.is_cuda and k_lat.device == dev, "tensors must share one "
             "CUDA device")
@@ -53,16 +64,31 @@ def latent_topk_cuda(q_lat: torch.Tensor, k_lat: torch.Tensor,
             and q_lat.is_contiguous(), "q_lat must be contiguous (B, r*) f32")
     require(k_lat.dtype in _K_DTYPES and k_lat.dim() == 3
             and k_lat.is_contiguous(), "k_lat must be contiguous (B, S, r) "
-            "f32/bf16/int8")
+            "f32/bf16/int8 (paged: (n_pages, page_size, r))")
     b, r_star = q_lat.shape
-    _, s, r = k_lat.shape
-    require(k_lat.shape[0] == b and r_star <= r, "q_lat/k_lat shapes")
+    r = k_lat.shape[2]
+    paged = page_table is not None
+    if paged:
+        require(page_table.dtype == torch.int32 and page_table.dim() == 2
+                and page_table.shape[0] == b and page_table.is_contiguous()
+                and page_table.device == dev,
+                "page_table must be contiguous (B, max_pages) int32")
+        require(k_lat.shape[1] == page_size > 0, "k_lat pool pages must "
+                "hold page_size rows")
+        n_pages, mp = k_lat.shape[0], page_table.shape[1]
+        s = mp * page_size
+        rows = (n_pages, page_size)
+    else:
+        require(k_lat.shape[0] == b, "q_lat/k_lat batch")
+        s = k_lat.shape[1]
+        rows = (b, s)
+    require(r_star <= r, "r* exceeds the latent rank")
     require((k_lat.dtype == torch.int8) == (k_scale is not None),
             "int8 latents need k_scale, others take none")
     if k_scale is not None:
-        require(k_scale.dtype == torch.bfloat16 and k_scale.shape == (b, s)
+        require(k_scale.dtype == torch.bfloat16 and k_scale.shape == rows
                 and k_scale.is_contiguous() and k_scale.device == dev,
-                "k_scale must be contiguous (B, S) bf16")
+                f"k_scale must be contiguous {rows} bf16")
     pos_v = row_vector(pos, b, dev)
     base_v = row_vector(0 if pos_base is None else pos_base, b, dev)
     bs = min(BLOCK_S, s)
@@ -74,13 +100,22 @@ def latent_topk_cuda(q_lat: torch.Tensor, k_lat: torch.Tensor,
     vec_ok = int(k_lat.data_ptr() % 16 == 0 and (r * size) % 16 == 0
                  and r_star % epv == 0)
     lib = _build.library()
-    err = lib.sals_latent_topk(
-        ptr(q_lat), ptr(k_lat), _K_DTYPES[k_lat.dtype], ptr(k_scale),
-        ptr(pos_v), ptr(base_v), ptr(cand_v), ptr(cand_i),
-        b, s, r, r_star, bs, nb, kb, n_sink, n_recent, vec_ok,
-        _build.stream_handle(dev))
-    _build.check(err, "latent_topk")
-    launches.add()
+    if paged:
+        err = lib.sals_latent_topk_paged(
+            ptr(q_lat), ptr(k_lat), _K_DTYPES[k_lat.dtype], ptr(k_scale),
+            ptr(pos_v), ptr(base_v), ptr(page_table), ptr(cand_v),
+            ptr(cand_i), b, s, r, r_star, bs, nb, kb, n_sink, n_recent,
+            vec_ok, mp, page_size, n_pages, _build.stream_handle(dev))
+        _build.check(err, "latent_topk_paged")
+        paged_launches.add()
+    else:
+        err = lib.sals_latent_topk(
+            ptr(q_lat), ptr(k_lat), _K_DTYPES[k_lat.dtype], ptr(k_scale),
+            ptr(pos_v), ptr(base_v), ptr(cand_v), ptr(cand_i),
+            b, s, r, r_star, bs, nb, kb, n_sink, n_recent, vec_ok,
+            _build.stream_handle(dev))
+        _build.check(err, "latent_topk")
+        launches.add()
     return merge_candidates(cand_v.reshape(b, nb * kb),
                             cand_i.reshape(b, nb * kb), n_critical)
 

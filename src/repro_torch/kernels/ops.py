@@ -3,8 +3,9 @@
 A CUDA tensor launches the hand-written Hopper kernel (``csrc/*.cu``); a CPU
 tensor runs the plain PyTorch twin in ``kernels/ref.py``.  There is no
 backend switch and no fallback: on CUDA the kernel runs or the call raises.
-The signatures are the reference's (``repro/kernels/ops.py``); the paged
-layout and prefix-LM masking belong to later slices and raise here.
+The signatures are the reference's (``repro/kernels/ops.py``): a
+``page_table`` makes the cache operands page pools and selects the paged
+kernel (or twin); prefix-LM masking belongs to a later slice and raises.
 
 Models call these; nothing below imports from ``repro_torch.models``.
 """
@@ -21,7 +22,8 @@ from repro_torch.kernels import sparse_recon_attention as _sra
 
 NEG_INF = _ref.NEG_INF
 
-COUNTERS = (_ls.launches, _sra.launches, _fa.launches)
+COUNTERS = (_ls.launches, _sra.launches, _fa.launches,
+            _ls.paged_launches, _sra.paged_launches)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -40,12 +42,6 @@ def _on_cuda(t: torch.Tensor) -> bool:
     if t.device.type == "cpu":
         return False
     raise RuntimeError(f"no kernel or twin for device {t.device}")
-
-
-def _no_pages(page_table) -> None:
-    if page_table is not None:
-        raise NotImplementedError("the paged latent cache is ported in the "
-                                  "serving-substrate slice (slice 2)")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -69,16 +65,20 @@ def latent_topk(q_lat: torch.Tensor, k_lat: torch.Tensor,
                 pos_base: Optional[torch.Tensor] = None,
                 page_table: Optional[torch.Tensor] = None,
                 page_size: int = 0):
-    """Fused scoring + top-N_c selection over the raw latent cache.
+    """Fused scoring + top-N_c selection over the raw latent cache (paged:
+    over page pools walked through ``page_table``; indices stay logical).
     Returns (idx (B, N_c) int32, valid (B, N_c) bool)."""
-    _no_pages(page_table)
+    kw = dict(n_critical=n_critical, n_sink=n_sink, n_recent=n_recent,
+              pos_base=pos_base)
     if _on_cuda(q_lat):
-        return _ls.latent_topk_cuda(q_lat, k_lat, k_scale, pos,
-                                    n_critical=n_critical, n_sink=n_sink,
-                                    n_recent=n_recent, pos_base=pos_base)
-    return _ref.latent_topk_ref(q_lat, k_lat, k_scale, pos,
-                                n_critical=n_critical, n_sink=n_sink,
-                                n_recent=n_recent, pos_base=pos_base)
+        return _ls.latent_topk_cuda(q_lat, k_lat, k_scale, pos, **kw,
+                                    page_table=page_table,
+                                    page_size=page_size)
+    if page_table is not None:
+        return _ref.latent_topk_paged_ref(q_lat, k_lat, k_scale, pos, **kw,
+                                          page_table=page_table,
+                                          page_size=page_size)
+    return _ref.latent_topk_ref(q_lat, k_lat, k_scale, pos, **kw)
 
 
 def sparse_recon_attention(q, k_lat, k_scale, v_q, v_scale, v_zero, u,
@@ -88,11 +88,16 @@ def sparse_recon_attention(q, k_lat, k_scale, v_q, v_scale, v_zero, u,
                            pos_base: Optional[torch.Tensor] = None,
                            page_table: Optional[torch.Tensor] = None,
                            page_size: int = 0):
-    """Selected-token decode attention over the raw cache arrays.  Returns
+    """Selected-token decode attention over the raw cache arrays (paged:
+    page pools resolved through ``page_table``, ``idx`` logical).  Returns
     f32 partials (m (B,H), l (B,H), o (B,H,dh))."""
-    _no_pages(page_table)
-    fn = _sra.sparse_recon_attention_cuda if _on_cuda(q) \
-        else _ref.sparse_recon_attention_fused_ref
-    return fn(q, k_lat, k_scale, v_q, v_scale, v_zero, u, idx, valid, q_pos,
-              n_kv=n_kv, v_bits=v_bits, v_group=v_group, theta=theta,
+    args = (q, k_lat, k_scale, v_q, v_scale, v_zero, u, idx, valid, q_pos)
+    kw = dict(n_kv=n_kv, v_bits=v_bits, v_group=v_group, theta=theta,
               softcap=softcap, use_rope=use_rope, pos_base=pos_base)
+    if _on_cuda(q):
+        return _sra.sparse_recon_attention_cuda(
+            *args, **kw, page_table=page_table, page_size=page_size)
+    if page_table is not None:
+        return _ref.sparse_recon_attention_paged_ref(
+            *args, **kw, page_table=page_table, page_size=page_size)
+    return _ref.sparse_recon_attention_fused_ref(*args, **kw)

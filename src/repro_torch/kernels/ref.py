@@ -122,6 +122,54 @@ def latent_topk_ref(q_lat: torch.Tensor, k_lat: torch.Tensor,
     return idx.to(torch.int32), vals > NEG_INF / 2
 
 
+def paged_logical_view(pool: torch.Tensor, page_table: torch.Tensor,
+                       page_size: int) -> torch.Tensor:
+    """The logical (B, S, ...) view of a paged field, S = max_pages ·
+    page_size.  pool: (n_pages, page_size, ...); page_table: (B, max_pages)
+    int32.  Table entries are clamped into the pool, as the kernels clamp
+    them (unmapped entries may hold anything; the position masks keep them
+    unselectable).  The paged kernels never build this array; the twins
+    and tests do."""
+    b, mp = page_table.shape
+    pid = page_table.long().clamp(0, pool.shape[0] - 1).reshape(-1)
+    return pool[pid].reshape(b, mp * page_size, *pool.shape[2:])
+
+
+def latent_topk_paged_ref(q_lat: torch.Tensor, k_lat: torch.Tensor,
+                          k_scale: Optional[torch.Tensor], pos, *,
+                          page_table: torch.Tensor, page_size: int,
+                          n_critical: int, n_sink: int, n_recent: int,
+                          pos_base: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Paged selection twin: gather the logical view, run the dense twin
+    (same tie-breaks, so indices are logical and equal to the dense
+    layout's on the same logical contents)."""
+    ks = None if k_scale is None else \
+        paged_logical_view(k_scale, page_table, page_size)
+    return latent_topk_ref(q_lat, paged_logical_view(k_lat, page_table,
+                                                     page_size),
+                           ks, pos, n_critical=n_critical, n_sink=n_sink,
+                           n_recent=n_recent, pos_base=pos_base)
+
+
+def sparse_recon_attention_paged_ref(
+        q, k_lat, k_scale, v_q, v_scale, v_zero, u, idx, valid, q_pos, *,
+        page_table: torch.Tensor, page_size: int, n_kv: int, v_bits: int = 8,
+        v_group: int = 64, theta: float = 10_000.0, softcap: float = 0.0,
+        use_rope: bool = True, pos_base: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Paged fused-attention twin: the cache operands are page pools,
+    ``idx`` stays logical; gathers the logical views and delegates."""
+    def view(a):
+        return None if a is None else \
+            paged_logical_view(a, page_table, page_size)
+    return sparse_recon_attention_fused_ref(
+        q, view(k_lat), view(k_scale), view(v_q), view(v_scale),
+        view(v_zero), u, idx, valid, q_pos, n_kv=n_kv, v_bits=v_bits,
+        v_group=v_group, theta=theta, softcap=softcap, use_rope=use_rope,
+        pos_base=pos_base)
+
+
 def dequantize_values_ref(code: torch.Tensor, scale: torch.Tensor,
                           zero: torch.Tensor, v_bits: int, v_group: int
                           ) -> torch.Tensor:

@@ -2,9 +2,11 @@
 3-4: gather → dequant → reconstruct → RoPE → online softmax) on Hopper.
 
 Replaces ``repro/kernels/sparse_recon_attention.py::
-sparse_recon_attention_pallas`` (TPU) with the hand-written CUDA kernel in
-``csrc/sparse_recon_attention.cu``; the plain PyTorch twin is
-``kernels/ref.py::sparse_recon_attention_fused_ref``.
+sparse_recon_attention_pallas`` and ``::sparse_recon_attention_paged_pallas``
+(TPU) with the hand-written CUDA kernel in ``csrc/sparse_recon_attention.cu``
+(its ``PAGED`` instance for the page pool); the plain PyTorch twins are
+``kernels/ref.py::sparse_recon_attention_fused_ref`` and
+``::sparse_recon_attention_paged_ref``.
 
 Bound on the H100: operations.  Reconstructing the N_c selected keys is
 2·B·N_c·kv_dim·r FLOP — 14.5 GFLOP at the llama2-7b slice shapes (B=4,
@@ -17,6 +19,8 @@ deterministic).  Selected tokens are reconstructed 32 at a time, with U_r
 streamed through shared memory once per tile and the products accumulated
 in f32 on the CUDA cores.  No gathered, dequantized or reconstructed buffer
 reaches device memory.  The tensor-core (wgmma) tile is the later redesign.
+The paged instance resolves each selected slot's pool row through the page
+table once per tile and shares every arithmetic line with the dense one.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from repro_torch.kernels._build import ptr, require
 from repro_torch.kernels.ref import row_vector
 
 launches = _build.LaunchCounter("sparse_recon_attention")
+paged_launches = _build.LaunchCounter("sparse_recon_attention_paged")
 
 _FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _K_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -40,7 +45,7 @@ def smem_bytes(r: int, dh: int, group: int) -> int:
     """Dynamic shared memory one block uses (mirrors the kernel's layout)."""
     floats = r * (_T + 4) + dh * (_JT + 1) + 2 * _T * dh + group * dh \
         + _T * group + _T
-    return 4 * floats + 8 * _T
+    return 4 * floats + 12 * _T
 
 
 def rope_inv_freqs(dh: int, theta: float, device) -> torch.Tensor:
@@ -57,16 +62,24 @@ def sparse_recon_attention_cuda(
         u: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor, q_pos, *,
         n_kv: int, v_bits: int = 8, v_group: int = 64,
         theta: float = 10_000.0, softcap: float = 0.0, use_rope: bool = True,
-        pos_base=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        pos_base=None, page_table: Optional[torch.Tensor] = None,
+        page_size: int = 0
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel.  Shapes as the twin: q (B, H, dh) bf16/f32;
     k_lat (B, S, r); k_scale (B, S) bf16 or None; v_q (B, S, code_w) int8
     (8-bit) or uint8 (packed 4-bit); v_scale/v_zero (B, S, G) bf16;
     u (kv_dim, r) bf16/f32; idx (B, N_c) int32; valid (B, N_c) bool.
+    With ``page_table`` (B, max_pages) int32 every cache operand is a page
+    pool with (n_pages, page_size) leading axes in place of (B, S), S is
+    max_pages · page_size and ``idx`` stays logical.
     Returns f32 partials (m (B, H), l (B, H), o (B, H, dh))."""
     dev = q.device
     tensors = [q, k_lat, v_q, v_scale, v_zero, u, idx, valid]
     if k_scale is not None:
         tensors.append(k_scale)
+    paged = page_table is not None
+    if paged:
+        tensors.append(page_table)
     require(q.is_cuda and all(t.device == dev for t in tensors),
             "tensors must share one CUDA device")
     require(all(t.is_contiguous() for t in tensors),
@@ -79,23 +92,36 @@ def sparse_recon_attention_cuda(
     group = h // n_kv
     require(group * dh <= 2 * _THREADS, "group·head_dim > 1024")
     kvd = n_kv * dh
-    require(k_lat.dim() == 3 and k_lat.shape[0] == b
-            and k_lat.dtype in _K_DTYPES, "k_lat must be (B, S, r) "
-            "f32/bf16/int8")
-    _, s, r = k_lat.shape
+    require(k_lat.dim() == 3 and k_lat.dtype in _K_DTYPES,
+            "k_lat must be (B, S, r) f32/bf16/int8 (paged: (n_pages, "
+            "page_size, r))")
+    r = k_lat.shape[2]
+    if paged:
+        require(page_table.dtype == torch.int32 and page_table.dim() == 2
+                and page_table.shape[0] == b,
+                "page_table must be (B, max_pages) int32")
+        require(k_lat.shape[1] == page_size > 0, "k_lat pool pages must "
+                "hold page_size rows")
+        n_pages, mp = k_lat.shape[0], page_table.shape[1]
+        s = mp * page_size
+        rows = (n_pages, page_size)
+    else:
+        require(k_lat.shape[0] == b, "k_lat batch")
+        s = k_lat.shape[1]
+        rows = (b, s)
     require((k_lat.dtype == torch.int8) == (k_scale is not None),
             "int8 latents need k_scale, others take none")
     if k_scale is not None:
-        require(k_scale.shape == (b, s) and k_scale.dtype == torch.bfloat16,
-                "k_scale must be (B, S) bf16")
+        require(k_scale.shape == rows and k_scale.dtype == torch.bfloat16,
+                f"k_scale must be {rows} bf16")
     require(v_bits in (8, 4), "v_bits must be 8 or 4")
     code_w = kvd if v_bits == 8 else kvd // 2
     code_dtype = torch.int8 if v_bits == 8 else torch.uint8
-    require(v_q.shape == (b, s, code_w) and v_q.dtype == code_dtype,
-            f"v_q must be (B, S, {code_w}) {code_dtype}")
+    require(v_q.shape == (*rows, code_w) and v_q.dtype == code_dtype,
+            f"v_q must be ({rows}, {code_w}) {code_dtype}")
     g = kvd // v_group
-    require(kvd % v_group == 0 and v_scale.shape == (b, s, g)
-            and v_zero.shape == (b, s, g)
+    require(kvd % v_group == 0 and v_scale.shape == (*rows, g)
+            and v_zero.shape == (*rows, g)
             and v_scale.dtype == v_zero.dtype == torch.bfloat16,
             "v_scale/v_zero must be (B, S, G) bf16")
     require(u.shape == (kvd, r) and u.dtype in _FLOAT_CODES,
@@ -113,13 +139,21 @@ def sparse_recon_attention_cuda(
     l = torch.empty((b, h), dtype=torch.float32, device=dev)
     o = torch.empty((b, h, dh), dtype=torch.float32, device=dev)
     lib = _build.library()
-    err = lib.sals_sparse_recon_attention(
-        ptr(q), _FLOAT_CODES[q.dtype], ptr(k_lat), _K_DTYPES[k_lat.dtype],
-        ptr(k_scale), ptr(v_q), v_bits, ptr(v_scale), ptr(v_zero),
-        ptr(u), _FLOAT_CODES[u.dtype], ptr(idx), ptr(valid),
-        ptr(qpos_v), ptr(base_v), ptr(freqs), ptr(m), ptr(l), ptr(o),
-        b, h, n_kv, dh, s, r, code_w, g, v_group, n_c, float(softcap),
-        int(use_rope), _build.stream_handle(dev))
-    _build.check(err, "sparse_recon_attention")
-    launches.add()
+    head = (ptr(q), _FLOAT_CODES[q.dtype], ptr(k_lat), _K_DTYPES[k_lat.dtype],
+            ptr(k_scale), ptr(v_q), v_bits, ptr(v_scale), ptr(v_zero),
+            ptr(u), _FLOAT_CODES[u.dtype], ptr(idx), ptr(valid),
+            ptr(qpos_v), ptr(base_v), ptr(freqs))
+    dims = (b, h, n_kv, dh, s, r, code_w, g, v_group, n_c, float(softcap),
+            int(use_rope))
+    if paged:
+        err = lib.sals_sparse_recon_attention_paged(
+            *head, ptr(page_table), ptr(m), ptr(l), ptr(o), *dims, mp,
+            page_size, n_pages, _build.stream_handle(dev))
+        _build.check(err, "sparse_recon_attention_paged")
+        paged_launches.add()
+    else:
+        err = lib.sals_sparse_recon_attention(
+            *head, ptr(m), ptr(l), ptr(o), *dims, _build.stream_handle(dev))
+        _build.check(err, "sparse_recon_attention")
+        launches.add()
     return m, l, o

@@ -1,18 +1,30 @@
-"""Calibration of the SALS projectors from the model's own pre-RoPE keys
-(port of ``repro/launch/serve.py::calibrate`` / ``collect_pre_rope_keys``).
+"""Serving launcher of the port: SALS-compressed continuous batching on the
+card (port of ``repro/launch/serve.py``).
 
-The covariance of each layer's keys is accumulated on the model's device in
-float64 and eigendecomposed there (``core.calibration``).
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \
+        --requests 8 --max-new-tokens 32 [--sals 0.25|0.125|off] \
+        [--page-size 16] [--full] [--device cpu]
+
+Weights are random, from ``--seed``.  Calibrates the SALS projectors on the
+synthetic corpus (paper §5.1), builds the engine, runs the requests through
+``RequestScheduler`` and reports tokens/s.  ``--reduced`` (the default) is
+the tiny same-family configuration; ``--full`` the published widths.
 """
 from __future__ import annotations
 
+import argparse
 import time
 
+import numpy as np
 import torch
 
+from repro_torch.config import SALSConfig, ServeConfig
+from repro_torch.configs import get_config
 from repro_torch.core import calibration as cal
-from repro_torch.data import CalibrationSampler
+from repro_torch.data import CalibrationSampler, SyntheticCorpus
 from repro_torch.models import transformer as tf
+from repro_torch.serve import Request, RequestScheduler, ServeEngine
+from repro_torch.serve.engine import resolve_device
 
 
 @torch.inference_mode()
@@ -50,3 +62,106 @@ def calibrate(params, cfg, sals, corpus, n_sequences: int = 16,
         torch.cuda.synchronize(dev)
     out["seconds"] = time.perf_counter() - t0
     return out
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True,
+                    choices=("paper-llama2-7b", "paper-mistral-7b", "yi-9b"))
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--sals", default="0.25",
+                    choices=("0.25", "0.125", "off"))
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--max-new-tokens", type=int, default=32)
+    ap.add_argument("--max-seq", type=int, default=512)
+    ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--prefill-chunk", type=int, default=32,
+                    help="chunked-prefill width; --max-seq must be a "
+                         "multiple of it")
+    ap.add_argument("--prefill-budget", type=int, default=256,
+                    help="prefill tokens spent between decode steps")
+    ap.add_argument("--page-size", type=int, default=0,
+                    help="tokens per page of the paged latent cache (0 = "
+                         "dense slot arena); must divide --max-seq and be "
+                         "a multiple of --prefill-chunk")
+    ap.add_argument("--n-pages", type=int, default=0,
+                    help="page-pool size (0 = max-batch·max-seq/page-size)")
+    ap.add_argument("--no-prefix-cache", dest="prefix_cache",
+                    action="store_false", default=True,
+                    help="disable copy-on-write prefix sharing (paged)")
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="bounded pending queue (0 = unbounded)")
+    ap.add_argument("--queue-policy", default="reject",
+                    choices=("reject", "shed-oldest"))
+    ap.add_argument("--request-timeout-steps", type=int, default=0)
+    ap.add_argument("--request-timeout-ms", type=float, default=0.0)
+    ap.add_argument("--max-request-retries", type=int, default=2)
+    ap.add_argument("--audit-every", type=int, default=0,
+                    help="run the pager invariant audit every N steps")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="the card unless 'cpu' is asked for")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    params = tf.init_params(cfg, device=dev, seed=args.seed)
+    corpus = SyntheticCorpus(cfg.vocab_size, seed=args.seed)
+    sals, projectors = None, None
+    if args.sals != "off":
+        sals = SALSConfig(
+            rank_ratio=float(args.sals),
+            v_bits=8 if args.sals == "0.25" else 4,
+            n_critical=64, n_sink=4, n_recent=16,
+            v_group=min(32, cfg.kv_dim),
+            skip_layers_front=min(2, cfg.n_layers - 1), skip_layers_back=1)
+        projectors = calibrate(params, cfg, sals, corpus)
+        print(f"[serve] calibrated projectors in {projectors['seconds']:.1f}s "
+              f"(rank {sals.rank(cfg.kv_dim)}/{cfg.kv_dim})")
+    if args.page_size and sals is None:
+        raise SystemExit("--page-size needs SALS latent segments "
+                         "(--sals 0.25|0.125)")
+    scfg = ServeConfig(max_seq_len=args.max_seq, max_batch=args.max_batch,
+                       max_new_tokens=args.max_new_tokens,
+                       prefill_chunk=args.prefill_chunk,
+                       prefill_token_budget=args.prefill_budget,
+                       page_size=args.page_size, n_pages=args.n_pages,
+                       prefix_cache=args.prefix_cache,
+                       max_queue=args.max_queue,
+                       queue_policy=args.queue_policy,
+                       request_timeout_steps=args.request_timeout_steps,
+                       request_timeout_ms=args.request_timeout_ms,
+                       max_request_retries=args.max_request_retries,
+                       audit_every=args.audit_every,
+                       sals=sals or SALSConfig(enabled=False))
+    engine = ServeEngine(params, projectors, cfg, scfg, device=dev)
+    sched = RequestScheduler(engine)
+    rng = np.random.default_rng(args.seed)
+    for i in range(args.requests):
+        plen = max(4, args.prompt_len + int(rng.integers(-8, 8)))
+        prompt = corpus.batch(50_000 + i, 1, plen)["tokens"][0]
+        sched.submit(Request(prompt, max_new_tokens=args.max_new_tokens))
+    t0 = time.perf_counter()
+    done = sched.run()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    ok = [r for r in done if r.done]
+    total_new = sum(r.result.steps for r in ok)
+    print(f"[serve] {len(ok)}/{len(done)} requests ok, {total_new} tokens "
+          f"in {dt:.2f}s -> {total_new / dt:.1f} tok/s (sals={args.sals}, "
+          f"arch={args.arch}, page_size={args.page_size}, device={dev}, "
+          f"{sched.steps} decode steps, {len(sched.prefill_chunks)} prefill "
+          f"chunks, prefix hits {sched.prefix_hits})")
+    bad = [r for r in done if not r.done]
+    if bad:
+        print("[serve] terminal non-success: "
+              + ", ".join(f"req {r.req_id}={r.state.value}" for r in bad))
+
+
+if __name__ == "__main__":
+    main()

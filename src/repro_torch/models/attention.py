@@ -6,6 +6,12 @@ full-precision decode paths of ``repro/models/attention.py``).
                              kernel on the card at every length, the
                              materialized twin on the CPU); also returns the
                              pre-RoPE K and V for the cache builds.
+  * ``attend_prefill_chunk`` — one chunk of prompt queries against the
+                             cache written so far plus the chunk itself
+                             (chunked prefill): two partials LSE-merged in
+                             plain torch, as the reference computes them
+                             outside any Pallas kernel; the chunk's K/V are
+                             appended to the cache IN PLACE.
   * ``attend_decode_full`` — one-token decode against a full-precision cache
                              of post-RoPE keys (the SALS skip layers and the
                              SALS-disabled baseline).  The cache tensors are
@@ -107,6 +113,89 @@ def attend_prefill(params: Attention, x: torch.Tensor, cfg: ModelConfig,
                             softcap=cfg.attn_logit_softcap,
                             prefix_len=prefix_len)
     return out_proj(params, o, cfg), k_pre, v
+
+
+def _chunk_partial(logits: torch.Tensor, v: torch.Tensor, cfg: ModelConfig
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flash-style partial softmax stats for a chunk of queries.  logits:
+    (B, H, C, N) f32, already masked with NEG_INF; v: (B, N, Hkv, dh)
+    unexpanded.  Returns (m (B,H,C), l (B,H,C), o (B,H,C,dh)); fully masked
+    rows give l = 0."""
+    m = torch.max(logits, dim=-1).values
+    p = torch.exp(logits - m[..., None])
+    p = torch.where(logits <= NEG_INF / 2, torch.zeros_like(p), p)
+    l = torch.sum(p, dim=-1)
+    b, h, c, n = logits.shape
+    p_g = p.reshape(b, cfg.n_kv_heads, cfg.group_size, c, n)
+    o = torch.einsum("bkrcn,bnkd->bkrcd", p_g, v.float())
+    return m, l, o.reshape(b, h, c, cfg.head_dim)
+
+
+def _chunk_logits(q_r: torch.Tensor, k: torch.Tensor, cfg: ModelConfig
+                  ) -> torch.Tensor:
+    """GQA QKᵀ of a chunk of RoPE'd queries q_r (B, C, H, dh) against
+    post-RoPE keys k (B, N, Hkv, dh): (B, H, C, N) f32, scaled and
+    softcapped, the query split (Hkv, group) with no repeated K copy."""
+    b, c = q_r.shape[:2]
+    q_g = q_r.reshape(b, c, cfg.n_kv_heads, cfg.group_size,
+                      cfg.head_dim).float()
+    logits = torch.einsum("bckrd,bnkd->bkrcn", q_g, k.float())
+    logits = logits.reshape(b, cfg.n_heads, c, k.shape[1])
+    logits = logits * (cfg.head_dim ** -0.5)
+    if cfg.attn_logit_softcap:
+        logits = cfg.attn_logit_softcap * torch.tanh(
+            logits / cfg.attn_logit_softcap)
+    return logits
+
+
+def attend_prefill_chunk(params: Attention, x: torch.Tensor, cfg: ModelConfig,
+                         off: int, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor):
+    """Chunk-vs-cache attention: one fixed-width chunked-prefill step.
+
+    x: (B, C, d) hidden states of prompt positions [off, off+C) (the same
+    offset for every row: a ragged batch is right-padded); k_cache/v_cache:
+    (B, S_max, Hkv, dh) post-RoPE keys / values of every earlier prompt
+    position.  The cache partial (positions < off) and the intra-chunk
+    causal partial are LSE-merged; then the chunk's K/V are written into
+    the caches at [off, off+C), in place.
+
+    Returns (y (B,C,d), k_pre (B,C,Hkv,dh), v (B,C,Hkv,dh), k_cache,
+    v_cache)."""
+    b, c, _ = x.shape
+    dev = x.device
+    positions = (off + torch.arange(c, device=dev))[None, :]
+    q, k_pre, v = qkv_proj(params, x, cfg)
+    if cfg.use_rope:
+        q_r = apply_rope(q, positions, cfg.rope_theta)
+        k_r = apply_rope(k_pre, positions, cfg.rope_theta)
+    else:
+        q_r, k_r = q, k_pre
+    neg = torch.tensor(NEG_INF, device=dev)
+
+    # cache partial: history positions < off
+    hist = torch.arange(k_cache.shape[1], device=dev) < off
+    lg_h = torch.where(hist, _chunk_logits(q_r, k_cache, cfg), neg)
+    m_h, l_h, o_h = _chunk_partial(lg_h, v_cache, cfg)
+
+    # chunk partial: intra-chunk causal
+    ar = torch.arange(c, device=dev)
+    causal = ar[:, None] >= ar[None, :]
+    lg_c = torch.where(causal, _chunk_logits(q_r, k_r, cfg), neg)
+    m_c, l_c, o_c = _chunk_partial(lg_c, v, cfg)
+
+    # LSE merge (the chunk partial always holds the self entry: denom > 0)
+    m = torch.maximum(m_h, m_c)
+    w_h = torch.exp(m_h - m)
+    w_c = torch.exp(m_c - m)
+    denom = w_h * l_h + w_c * l_c
+    o = (w_h[..., None] * o_h + w_c[..., None] * o_c) \
+        / torch.clamp_min(denom, 1e-30)[..., None]            # (B,H,C,dh)
+    o = o.transpose(1, 2).to(x.dtype)                          # (B,C,H,dh)
+    y = out_proj(params, o, cfg)
+    k_cache[:, off:off + c] = k_r.to(k_cache.dtype)
+    v_cache[:, off:off + c] = v.to(v_cache.dtype)
+    return y, k_pre, v, k_cache, v_cache
 
 
 def attend_decode_full(params: Attention, x: torch.Tensor, cfg: ModelConfig,

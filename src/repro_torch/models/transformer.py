@@ -9,8 +9,10 @@ over layers; here a Python loop walks them.
 Segments.  The SALS layer mask is front/back-contiguous, so the stack
 splits into up to three segments ``full | sals | full``, each with its own
 cache: ``{"k", "v"}`` tensors of shape (ls, B, S, Hkv, dh) for the full
-segments and a layer-stacked :class:`LatentKVCache` for the SALS segment.
-Decode updates these caches in place.
+segments and a layer-stacked :class:`LatentKVCache` for the SALS segment
+(the dense slot arena, or page pools when ``page_size`` > 0).  Prefill is
+monolithic (:func:`prefill`) or chunked (:func:`prefill_chunk`, which
+serving uses); decode and chunked prefill update the caches in place.
 """
 from __future__ import annotations
 
@@ -141,8 +143,12 @@ def _finish_block(bp: Block, x, a, cfg: ModelConfig):
 
 def init_cache(cfg: ModelConfig, sals: Optional[SALSConfig], batch: int,
                max_seq: int, dtype=None, n_groups: int = 1,
+               page_size: int = 0, n_pages: int = 0,
                device="cuda") -> dict:
-    """Zero caches for every segment (see the module docstring)."""
+    """Zero caches for every segment (see the module docstring).
+    ``page_size`` > 0 backs the SALS segments with ``n_pages`` physical
+    pages instead of the dense (B, max_seq, ·) arena; the full segments
+    keep their dense per-slot caches."""
     dtype = torch_dtype(dtype or cfg.dtype)
     cache: Dict[str, Any] = {}
     for si, (i0, i1, mode) in enumerate(segment_plan(cfg, sals)):
@@ -152,11 +158,35 @@ def init_cache(cfg: ModelConfig, sals: Optional[SALSConfig], batch: int,
             cache[f"seg{si}"] = {
                 "k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
+        elif page_size:
+            cache[f"seg{si}"] = LatentKVCache.init_paged(
+                cfg, sals, ls, batch, max_seq, n_pages, page_size, dtype,
+                n_groups=n_groups, device=device)
         else:
             cache[f"seg{si}"] = LatentKVCache.init(
                 cfg, sals, ls, batch, max_seq, dtype, n_groups=n_groups,
                 device=device)
     return cache
+
+
+def init_prefill_scratch(cfg: ModelConfig, sals: Optional[SALSConfig],
+                         batch: int, max_seq: int, dtype=None,
+                         device="cuda") -> dict:
+    """Full-precision prompt-K/V scratch for the SALS segments of a chunked
+    prefill: chunk queries attend exactly to every earlier prompt token,
+    which the SALS layers store only compressed, so each SALS layer keeps a
+    transient post-RoPE K/V buffer until the prompt is done (the full
+    segments use their own decode cache).  Returns {"seg{i}": {"k": (ls,
+    B, S, Hkv, dh), "v": ...}} for the SALS segments only."""
+    dtype = torch_dtype(dtype or cfg.dtype)
+    scratch: Dict[str, Any] = {}
+    for si, (i0, i1, mode) in enumerate(segment_plan(cfg, sals)):
+        if mode == "sals":
+            shape = (i1 - i0, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+            scratch[f"seg{si}"] = {
+                "k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return scratch
 
 
 def prefill(params: Transformer, projectors: Optional[dict],
@@ -176,7 +206,7 @@ def prefill(params: Transformer, projectors: Optional[dict],
     positions = torch.arange(s, device=dev)[None, :]
     len_v = None if lengths is None else \
         torch.as_tensor(lengths, device=dev).to(torch.int32)
-    cache = init_cache(cfg, sals, b, max_seq, dtype, n_groups, dev)
+    cache = init_cache(cfg, sals, b, max_seq, dtype, n_groups, device=dev)
     for si, (i0, i1, mode) in enumerate(segment_plan(cfg, sals)):
         seg = cache[f"seg{si}"]
         for li in range(i0, i1):
@@ -200,6 +230,48 @@ def prefill(params: Transformer, projectors: Optional[dict],
         last_idx = (prefix_len + len_v - 1).long()
         last = x[torch.arange(b, device=dev), last_idx][:, None]
     return unembed_apply(params.embed, last, cfg)[:, 0], cache
+
+
+def prefill_chunk(params: Transformer, projectors: Optional[dict],
+                  cfg: ModelConfig, sals: Optional[SALSConfig], cache: dict,
+                  scratch: dict, batch: Dict[str, torch.Tensor], off: int,
+                  lengths: torch.Tensor) -> Tuple[torch.Tensor, dict, dict]:
+    """One chunked-prefill step: prompt tokens [off, off+C) against the
+    cache so far.
+
+    ``batch`` {"tokens": (B, C)} is one chunk of the right-padded prompt;
+    ``lengths`` (B,) the true prompt lengths.  ``cache`` (from
+    :func:`init_cache`, dense) and ``scratch`` (:func:`init_prefill_scratch`)
+    are updated in place: each layer LSE-merges a history partial with the
+    intra-chunk causal partial (``attention.attend_prefill_chunk``) and
+    appends the chunk's K/V — full layers into their decode cache, SALS
+    layers into the scratch plus the latent / ring / sink writes of
+    ``LatentKVCache.append_chunk``.  Returns (logits (B, V) f32 at each
+    row's last real token covered so far (index clip(lengths-1-off, 0,
+    C-1) in the chunk: the chunk holding position lengths-1 returns the
+    prompt's next-token logits), cache, scratch)."""
+    _dense_only(cfg)
+    x = embed_apply(params.embed, batch["tokens"], cfg)
+    b, c, _ = x.shape
+    dev = x.device
+    len_v = torch.as_tensor(lengths, device=dev).to(torch.int64) \
+        .reshape(-1).expand(b)
+    for si, (i0, i1, mode) in enumerate(segment_plan(cfg, sals)):
+        seg = cache[f"seg{si}"]
+        kv = scratch[f"seg{si}"] if mode == "sals" else seg
+        for li in range(i0, i1):
+            bp = params.blocks[li]
+            h = rmsnorm_apply(bp.attn_norm, x, cfg.norm_eps)
+            a, k_pre, v, _, _ = attn.attend_prefill_chunk(
+                bp.attn, h, cfg, off, kv["k"][li - i0], kv["v"][li - i0])
+            if mode == "sals":
+                seg.layer_view(li - i0).append_chunk(
+                    cfg, sals, projectors["u"][li], off, k_pre, v, len_v)
+            x = _finish_block(bp, x, a, cfg)
+    x = rmsnorm_apply(params.final_norm, x, cfg.norm_eps)
+    last = (len_v - 1 - off).clamp(0, c - 1)
+    x_last = x[torch.arange(b, device=dev), last][:, None]
+    return unembed_apply(params.embed, x_last, cfg)[:, 0], cache, scratch
 
 
 # ---------------------------------------------------------------------------

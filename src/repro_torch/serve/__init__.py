@@ -1,3 +1,4 @@
 from repro_torch.serve.engine import GenerationResult, ServeEngine
+from repro_torch.serve.scheduler import Request, RequestScheduler
 
-__all__ = ["GenerationResult", "ServeEngine"]
+__all__ = ["GenerationResult", "Request", "RequestScheduler", "ServeEngine"]

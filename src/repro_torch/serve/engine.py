@@ -1,27 +1,49 @@
-"""Serving engine: monolithic prefill + SALS decode over a slot arena (port
-of ``repro/serve/engine.py::ServeEngine.generate``).
+"""Serving engine: chunked prefill + SALS decode over a slot arena (port of
+``repro/serve/engine.py``).
 
 Batching is ragged: prompts are right-padded with ``scfg.pad_id`` and carry
 their true lengths (per-slot ``lengths`` on the latent cache, per-row decode
 positions through every kernel), so pad tokens are never selectable nor
-attended.  Decoding is greedy; each row is truncated at its own EOS.
+attended.  Decoding is greedy.
 
-Not yet ported (later slices): chunked prefill and continuous admission,
-the paged / tiered caches, speculative decoding, temperature sampling
-(``torch.Generator`` numbers differ from ``jax.random``'s), and capturing
-the decode step as a CUDA graph.
+Two ways in.  :meth:`ServeEngine.generate` prefills a batch monolithically
+and decodes it to the end.  The continuous-batching primitives that
+``serve/scheduler.py`` drives let a single request join a RUNNING batch:
+:meth:`~ServeEngine.start_prefill` / :meth:`~ServeEngine.prefill_chunk_step`
+run its prompt as fixed-width chunks (resumable between decode steps, so
+admission work interleaves with decoding), and :meth:`~ServeEngine.admit`
+(dense slot arena) or :meth:`~ServeEngine.admit_paged` (page pool) splice
+the finished single-request cache into a free slot.  With ``page_size`` >
+0 the SALS segments live in a refcounted page pool (``core/pager.py`` keeps
+the host bookkeeping) with prefix sharing and copy-on-write.
+
+The reference's arrays are immutable; the port's caches are updated IN
+PLACE.  Everything that must outlive the next write — a prefix-cache
+entry's resume state, a page-boundary ring snapshot, :meth:`resume_seed`'s
+result — is therefore a ``clone()``, never a view.
+
+Not yet ported (later slices): the two-tier page pool (``hbm_pages``),
+speculative decoding, temperature sampling (``torch.Generator`` numbers
+differ from ``jax.random``'s), and capturing the decode step as a CUDA
+graph.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig, SALSConfig, ServeConfig
+from repro_torch.core.latent_cache import LatentKVCache
+from repro_torch.kernels.latent_score import BLOCK_S
 from repro_torch.models import transformer as tf
+from repro_torch.serve.faults import maybe_fault
+
+_PAGED_FIELDS = ("k_lat", "k_scale", "v_q", "v_scale", "v_zero")
+_WINDOW_FIELDS = ("sink_k", "sink_v", "recent_k", "recent_v")
 
 
 @dataclasses.dataclass
@@ -29,7 +51,37 @@ class GenerationResult:
     tokens: np.ndarray          # (new_tokens,) generated ids
     prompt_len: int
     steps: int
+    # False: a partial stream flushed by a non-DONE teardown of a
+    # streaming request (``tokens`` holds what was committed before it died)
     complete: bool = True
+
+
+@dataclasses.dataclass
+class PrefillTask:
+    """One request's chunked prefill in flight.
+
+    Created by :meth:`ServeEngine.start_prefill`; each
+    :meth:`ServeEngine.prefill_chunk_step` advances it by one chunk.
+    ``cache`` is the single-slot decode cache being built (dense) and
+    ``scratch`` the SALS prompt-K/V buffer; ``logits`` holds the last
+    chunk's last-real-token logits (after the final chunk: the prompt's
+    next-token logits).  ``start_chunk`` > 0: resumed from a prefix-cache
+    entry at a page boundary; ``boundary_rings`` {n_pages: SALS ring
+    snapshot} feeds later prefix-cache entries."""
+
+    tokens: np.ndarray           # (1, n_chunks·C) right-padded prompt
+    prompt_len: int
+    cache: dict
+    scratch: dict
+    n_chunks: int
+    next_chunk: int = 0
+    logits: Optional[torch.Tensor] = None
+    start_chunk: int = 0
+    boundary_rings: Optional[dict] = None
+
+    @property
+    def done(self) -> bool:
+        return self.next_chunk >= self.n_chunks
 
 
 def resolve_device(device) -> torch.device:
@@ -72,12 +124,27 @@ class ServeEngine:
         if scfg.max_seq_len % scfg.prefill_chunk:
             raise ValueError(f"max_seq_len {scfg.max_seq_len} must be a "
                              f"multiple of prefill_chunk {scfg.prefill_chunk}")
-        if scfg.page_size > 0:
-            raise NotImplementedError("the paged latent cache is ported in "
-                                      "the serving-substrate slice (slice 2)")
         if scfg.spec_window > 1:
             raise NotImplementedError("speculative decoding is ported in "
                                       "slice 3")
+        if scfg.hbm_pages > 0:
+            raise NotImplementedError("the two-tier page pool (hbm_pages > "
+                                      "0) is ported in slice 4")
+        if scfg.page_size > 0 and self.sals is None:
+            raise ValueError("page_size > 0 needs SALS latent segments "
+                             "(sals enabled on an attention family) — the "
+                             "page pool backs the compressed cache")
+        if self.paged:
+            bs = min(BLOCK_S, scfg.max_seq_len)
+            if bs % scfg.page_size:
+                raise ValueError(
+                    f"page_size {scfg.page_size} must divide the score "
+                    f"kernel's seq block min(block_s={BLOCK_S}, "
+                    f"max_seq_len={scfg.max_seq_len}) = {bs}")
+            if scfg.pool_pages * scfg.page_size < scfg.max_seq_len:
+                raise ValueError(
+                    f"pool of {scfg.pool_pages} pages cannot hold one "
+                    f"max_seq_len {scfg.max_seq_len} sequence")
         if self.sals is not None:
             if projectors is None or "u" not in projectors:
                 raise ValueError("SALS needs calibrated projectors {'u': "
@@ -95,13 +162,232 @@ class ServeEngine:
             raise ValueError(f"params on {p_dev}, engine on {self.device}")
         self.last_timing: Optional[dict] = None
 
+    @property
+    def paged(self) -> bool:
+        """SALS segments backed by the refcounted page pool instead of the
+        dense slot arena."""
+        return self.sals is not None and self.scfg.page_size > 0
+
     # -- sampling ------------------------------------------------------------
 
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         if self.scfg.temperature > 0.0:
-            raise NotImplementedError("temperature sampling is ported with "
-                                      "the scheduler slice (greedy only)")
+            raise NotImplementedError("temperature sampling is not ported "
+                                      "yet (greedy only)")
         return torch.argmax(logits, dim=-1).to(torch.int32)
+
+    def sample_checked(self, logits: torch.Tensor
+                       ) -> Tuple[torch.Tensor, np.ndarray]:
+        """Greedy sample plus a per-row verdict: ``ok[i]`` is False when
+        row i's logits hold NaN/inf or the id falls outside the vocab — the
+        scheduler fails only the flagged rows."""
+        tok = self._sample(logits)
+        finite = torch.isfinite(logits).all(dim=-1)
+        in_vocab = (tok >= 0) & (tok < self.cfg.vocab_size)
+        return tok, (finite & in_vocab).cpu().numpy()
+
+    # -- continuous-batching primitives (used by RequestScheduler) -----------
+
+    def _latent_segs(self, cache) -> dict:
+        return {k: seg for k, seg in cache.items()
+                if isinstance(seg, LatentKVCache)}
+
+    def init_slot_cache(self) -> dict:
+        """Zeroed decode cache with ``max_batch`` slots (paged: pools of
+        ``pool_pages + 1`` pages — physical page 0 is the trash page that
+        unmapped table entries and idle slots' writes land in)."""
+        return tf.init_cache(self.cfg, self.sals, self.scfg.max_batch,
+                             self.scfg.max_seq_len, n_groups=self.n_groups,
+                             page_size=self.scfg.page_size if self.paged
+                             else 0, n_pages=self.scfg.pool_pages + 1,
+                             device=self.device)
+
+    def decode(self, tokens, cache: dict, positions) -> Tuple[torch.Tensor,
+                                                              dict]:
+        """One ragged decode step of the whole arena (tokens, positions:
+        (B,) host arrays or tensors); updates ``cache`` in place."""
+        tok = torch.tensor(np.asarray(tokens), device=self.device)
+        pos = torch.tensor(np.asarray(positions), device=self.device)
+        return tf.decode_step(self.params, self.projectors, cache, tok, pos,
+                              self.cfg, self.sals)
+
+    def start_prefill(self, prompt: np.ndarray,
+                      resume: Optional[Tuple] = None) -> PrefillTask:
+        """Begin a chunked prefill for ONE request: the prompt is
+        right-padded to whole ``prefill_chunk`` chunks.  ``resume`` =
+        (prefix entry, n_shared_pages) seeds the task from the entry
+        (:meth:`resume_seed`) and starts at that page boundary, so only the
+        suffix chunks run."""
+        plen = len(prompt)
+        if plen > self.scfg.max_seq_len:
+            raise ValueError(f"prompt {plen} exceeds max_seq "
+                             f"{self.scfg.max_seq_len}")
+        c = self.scfg.prefill_chunk
+        n = max(1, -(-plen // c))
+        toks = np.full((1, n * c), self.scfg.pad_id, np.int32)
+        toks[0, :plen] = prompt
+        if resume is not None:
+            maybe_fault("prefix_resume")
+            entry, n_shared = resume
+            start = n_shared * self.scfg.page_size // c
+            if not 0 < start < n:
+                raise ValueError(f"resume boundary {n_shared} pages does "
+                                 f"not leave a suffix chunk (prompt {plen})")
+            cache, scratch = self.resume_seed(entry, n_shared)
+            return PrefillTask(tokens=toks, prompt_len=plen, cache=cache,
+                               scratch=scratch, n_chunks=n,
+                               next_chunk=start, start_chunk=start)
+        cache = tf.init_cache(self.cfg, self.sals, 1, self.scfg.max_seq_len,
+                              n_groups=self.n_groups, device=self.device)
+        scratch = tf.init_prefill_scratch(self.cfg, self.sals, 1,
+                                          self.scfg.max_seq_len,
+                                          device=self.device)
+        return PrefillTask(tokens=toks, prompt_len=plen, cache=cache,
+                           scratch=scratch, n_chunks=n)
+
+    def prefill_chunk_step(self, task: PrefillTask) -> bool:
+        """Advance ``task`` by one chunk; True when the prompt is done
+        (``task.logits`` then holds the next-token logits and
+        ``task.cache`` the finished single-slot cache)."""
+        c = self.scfg.prefill_chunk
+        j = task.next_chunk
+        maybe_fault("prefill_chunk")      # before the task's cache changes
+        chunk = torch.as_tensor(task.tokens[:, j * c:(j + 1) * c],
+                                device=self.device)
+        lengths = torch.tensor([task.prompt_len], dtype=torch.int32,
+                               device=self.device)
+        task.logits, task.cache, task.scratch = tf.prefill_chunk(
+            self.params, self.projectors, self.cfg, self.sals, task.cache,
+            task.scratch, {"tokens": chunk}, j * c, lengths)
+        task.next_chunk += 1
+        if self.paged and self.scfg.prefix_cache:
+            # page-boundary ring snapshot: the one non-append-only piece of
+            # prefill state a prefix-cache resume needs, for the first
+            # prefix_share_pages boundaries (shared prefixes are prompt
+            # heads), cloned because the next chunk rewrites the ring
+            ps = self.scfg.page_size
+            off_end = task.next_chunk * c
+            if off_end % ps == 0 and off_end <= task.prompt_len \
+                    and off_end // ps <= self.scfg.prefix_share_pages:
+                if task.boundary_rings is None:
+                    task.boundary_rings = {}
+                task.boundary_rings[off_end // ps] = \
+                    self.sals_ring_state(task.cache)
+        return task.done
+
+    def prefill_one(self, prompt: np.ndarray) -> Tuple[torch.Tensor, dict]:
+        """Prefill ONE request by draining its chunk loop.  Returns (logits
+        (1, V) at the last real token, single-slot cache)."""
+        task = self.start_prefill(prompt)
+        while not task.done:
+            self.prefill_chunk_step(task)
+        return task.logits, task.cache
+
+    def admit(self, cache: dict, one_cache: dict, slot: int) -> dict:
+        """Copy a prefilled single-request cache into batch row ``slot`` of
+        the dense slot arena, in place."""
+        maybe_fault("admit")              # before the arena changes
+        for k, seg in cache.items():
+            one = one_cache[k]
+            if isinstance(seg, LatentKVCache):
+                seg.prefill_into_slot(slot, one)
+            else:
+                for name, arr in seg.items():
+                    arr[:, slot] = one[name][:, 0]
+        return cache
+
+    def admit_paged(self, cache: dict, one_cache: dict, slot: int, page_ids,
+                    start_page: int, prompt_len: int) -> dict:
+        """Paged admission, in place: the task's SALS per-token rows of
+        logical pages [start_page, ceil(prompt_len / ps)) go into the pool
+        pages ``page_ids`` names; shared prefix pages [0, start_page) are
+        not written (their bytes already live in the pool, stored once).
+        The windows, the length and the page-table row are set per slot;
+        full-precision segments are row splices as in :meth:`admit`."""
+        maybe_fault("admit")              # before the arena changes
+        ps = self.scfg.page_size
+        mp = self.scfg.max_seq_len // ps
+        n_req = -(-prompt_len // ps)
+        row = torch.zeros((mp,), dtype=torch.int32)
+        row[:len(page_ids)] = torch.as_tensor(list(page_ids),
+                                              dtype=torch.int32)
+        row = row.to(self.device)
+        take = torch.arange(start_page, n_req, device=self.device)
+        tgt = row[take].long()
+        for k, seg in cache.items():
+            one = one_cache[k]
+            if not isinstance(seg, LatentKVCache):
+                for name, arr in seg.items():
+                    arr[:, slot] = one[name][:, 0]
+                continue
+            for name in _PAGED_FIELDS:
+                pool = getattr(seg, name)
+                if pool is None:
+                    continue
+                dense = getattr(one, name)            # (L, 1, S, ·)
+                pages = dense.reshape(dense.shape[0], mp, ps,
+                                      *dense.shape[3:])
+                pool[:, tgt] = pages[:, take].to(pool.dtype)
+            for name in _WINDOW_FIELDS:
+                getattr(seg, name)[:, slot] = getattr(one, name)[:, 0]
+            seg.lengths[:, slot] = prompt_len
+            seg.page_table[:, slot] = row
+        return cache
+
+    def copy_page(self, cache: dict, src: int, dst: int) -> dict:
+        """Device half of copy-on-write: duplicate pool page ``src`` into
+        ``dst`` in every SALS segment and layer."""
+        maybe_fault("cow_copy")           # before the pool changes
+        for seg in self._latent_segs(cache).values():
+            for name in _PAGED_FIELDS:
+                pool = getattr(seg, name)
+                if pool is not None:
+                    pool[:, dst] = pool[:, src]
+        return cache
+
+    def release_slot(self, cache: dict, slot: int) -> dict:
+        """Metadata-only slot release: lengths (and the page-table row)
+        reset; no payload is zeroed."""
+        for seg in self._latent_segs(cache).values():
+            seg.free_slot(slot)
+        return cache
+
+    def with_page_tables(self, cache: dict, table: np.ndarray) -> dict:
+        """Install the host page table ((B, max_pages) int32) into every
+        SALS segment, broadcast over its layer axis."""
+        row = torch.as_tensor(np.asarray(table, np.int32),
+                              device=self.device)
+        for seg in self._latent_segs(cache).values():
+            if seg.paged:
+                seg.page_table.copy_(row.expand_as(seg.page_table))
+        return cache
+
+    def sals_ring_state(self, cache: dict) -> dict:
+        """Cloned (recent_k, recent_v) of every SALS segment: the
+        page-boundary snapshot a prefix-cache entry stores."""
+        return {k: (seg.recent_k.clone(), seg.recent_v.clone())
+                for k, seg in self._latent_segs(cache).items()}
+
+    def resume_seed(self, entry, n_shared_pages: int) -> Tuple[dict, dict]:
+        """(cache, scratch) that resume a chunked prefill at page boundary
+        ``n_shared_pages`` from a prefix-cache entry: deep copies of the
+        entry's final (append-only) state, with the ring restored from its
+        snapshot at the boundary.  Copies throughout: the resumed task
+        writes its cache in place, and the entry must outlive it."""
+        def clone(tree):
+            if isinstance(tree, LatentKVCache):
+                return dataclasses.replace(tree, **{
+                    f.name: getattr(tree, f.name).clone()
+                    for f in dataclasses.fields(tree)
+                    if isinstance(getattr(tree, f.name), torch.Tensor)})
+            return {k: clone(v) if isinstance(v, (dict, LatentKVCache))
+                    else v.clone() for k, v in tree.items()}
+
+        cache, scratch = clone(entry.cache), clone(entry.scratch)
+        for name, (rk, rv) in entry.boundary_rings[n_shared_pages].items():
+            cache[name].recent_k.copy_(rk)
+            cache[name].recent_v.copy_(rv)
+        return cache, scratch
 
     # -- public API ----------------------------------------------------------
 

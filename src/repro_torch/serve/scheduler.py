@@ -1,0 +1,762 @@
+"""Request scheduler: continuous batching with decode-interleaved chunked
+prefill over the engine's slot arena (port of the continuous mode of
+``repro/serve/scheduler.py``).
+
+The batch axis is a SLOT ARENA.  Each loop iteration first spends at most
+``ServeConfig.prefill_token_budget`` tokens (whole chunks, at least one)
+advancing the head-of-queue request's CHUNKED prefill
+(``engine.prefill_chunk_step``), admits it into a free slot the moment its
+prompt completes (``engine.admit`` / ``engine.admit_paged``), then runs ONE
+ragged decode step for the whole arena.  Resident sequences never stall
+behind an arriving prompt for more than the budget; a finished request's
+slot is recycled immediately.
+
+PAGED mode (``ServeConfig.page_size > 0``): the SALS segments live in a
+refcounted page pool (``core/pager.py``) and this scheduler is its memory
+manager:
+
+  * admission is a PAGE RESERVATION — a request is admitted when the pool
+    has pages for its prompt (suffix); on shortfall it stalls at the head
+    of the queue (``admission_stalls``) after LRU prefix-cache entries
+    have been evicted;
+  * prompts sharing a registered prefix map their leading page-table
+    entries to the SAME physical pages (``prefix_hits``) and resume their
+    chunked prefill at the page boundary;
+  * decode growth allocates one page per ``page_size`` generated tokens; a
+    write landing on a still-shared page triggers copy-on-write
+    (``cow_copies``);
+  * pool exhaustion mid-decode evicts the resident that could not map its
+    write page back onto the queue head (``evictions``; greedy decoding
+    makes the re-run token-identical);
+  * every decode step appends a row to ``pool_gauges``.
+
+FAULT TOLERANCE.  Every request carries the state machine of
+``serve/lifecycle.py`` (QUEUED → PREFILLING → DECODING → {DONE, FAILED,
+CANCELLED, TIMED_OUT}).  A fault in one request's prefill chunk, admission,
+page upkeep or logits fails that request only, through one teardown;
+transient faults requeue it with exponential backoff in scheduler steps up
+to ``max_request_retries``; step and wall-clock deadlines and
+``Request.cancel()`` go through the same teardown; ``max_queue`` bounds
+the pending queue ("reject" raises ``QueueFull``, "shed-oldest" cancels a
+pending request); ``audit_serving_state()`` proves page conservation and
+slot↔state coherence, every ``audit_every`` steps and on every teardown
+when auditing is on.  ``Request.on_token`` streams each token the step it
+commits.
+
+Counters are plain int attributes with the reference's names.  Not ported
+here: static batching (the families slice), priority classes, preemption
+and tenant fairness (slice 4, with the two-tier pool), the speculative
+verify window (slice 3), and the metrics registry, tracer and traffic
+accounting (slice 5); the scheduler raises ``NotImplementedError`` for
+them.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import itertools
+import time
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.pager import (PagePool, PageTable, PrefixIndex,
+                                    audit_pager, PagerInvariantError)
+from repro_torch.serve import faults
+from repro_torch.serve.engine import GenerationResult, PrefillTask, ServeEngine
+from repro_torch.serve.lifecycle import (NanLogitsError, QueueFull,
+                                         RequestCancelled, RequestState,
+                                         RequestTimeout, transition)
+
+_req_ids = itertools.count()
+
+
+@dataclasses.dataclass
+class Request:
+    prompt: np.ndarray
+    max_new_tokens: int = 32
+    req_id: int = dataclasses.field(default_factory=lambda: next(_req_ids))
+    result: Optional[GenerationResult] = None
+    state: RequestState = RequestState.QUEUED
+    error: Optional[BaseException] = None
+    timeout_steps: Optional[int] = None   # None = ServeConfig default
+    timeout_ms: Optional[float] = None    # None = ServeConfig default
+    retries: int = 0                      # transient-fault retries consumed
+    deadline_step: Optional[int] = None   # set at submit
+    deadline_time: Optional[float] = None  # wall-clock deadline
+    not_before_step: int = 0              # retry backoff gate
+    cancel_requested: bool = False
+    priority: int = 0                     # one class until slice 4
+    tenant_id: str = "default"            # one tenant until slice 4
+    # called as on_token(token_id, index) the step each token commits
+    # (index 0 = the first token, emitted at admission); re-emitted from 0
+    # after an evict-to-requeue or a retry.  A raising callback fails THIS
+    # request.
+    on_token: Optional[Callable[[int, int], None]] = None
+    submit_step: Optional[int] = None
+    attempts: int = 0                     # times prefill started
+
+    def cancel(self) -> None:
+        """Client cancellation, honored at the next step boundary."""
+        self.cancel_requested = True
+
+    @property
+    def done(self) -> bool:
+        return self.state is RequestState.DONE
+
+    @property
+    def finished(self) -> bool:
+        return self.state.terminal
+
+
+@dataclasses.dataclass
+class _Slot:
+    """One resident sequence of the continuous batch."""
+    req: Request
+    out: List[int]                 # generated token ids so far
+
+
+@dataclasses.dataclass
+class _Admission:
+    """Head-of-queue request being chunk-prefilled into a reserved slot.
+    Paged: ``ptab`` is its page reservation (shared prefix pages + fresh
+    suffix pages) and ``shared_pages`` how many came from ``entry``."""
+    req: Request
+    slot: int
+    task: PrefillTask
+    ptab: Optional[PageTable] = None
+    shared_pages: int = 0
+    entry: object = None
+
+
+class RequestScheduler:
+    """Continuous-batching scheduler over ``engine``'s slot arena.
+
+    Ledgers the tests read: ``admissions`` — (decode step, slot, req_id)
+    per admission; ``prefill_chunks`` — (decode step, req_id, chunk index,
+    n_resident) per chunk run; ``pool_gauges`` — one row per decode step
+    (paged)."""
+
+    def __init__(self, engine: ServeEngine, mode: Optional[str] = None,
+                 clock: Optional[Callable[[], float]] = None):
+        scfg = engine.scfg
+        mode = mode or scfg.scheduler
+        if mode == "static":
+            raise NotImplementedError("static batching is ported with the "
+                                      "families slice")
+        if mode != "continuous":
+            raise ValueError(f"unknown scheduler mode {mode!r}")
+        if scfg.priority_classes > 1:
+            raise NotImplementedError("priority classes and preemption are "
+                                      "ported in slice 4")
+        self.engine = engine
+        self.mode = mode
+        # source of request_timeout_ms deadlines; tests inject a fake one
+        self._clock: Callable[[], float] = clock or time.monotonic
+        self.pending: collections.deque = collections.deque()
+        self.completed: Dict[int, Request] = {}
+        hist = scfg.gauge_history or None
+        self.admissions: collections.deque = collections.deque(maxlen=hist)
+        self.prefill_chunks: collections.deque = collections.deque(
+            maxlen=hist)
+        self.pool_gauges: collections.deque = collections.deque(maxlen=hist)
+        self.steps = 0
+        self.prefix_hits = 0        # admissions reusing prefix pages
+        self.cow_copies = 0         # copy-on-write page duplicates
+        self.admission_stalls = 0   # sweeps blocked on pages
+        self.evictions = 0          # evict-to-requeue events
+        self.failures = 0           # requests ending FAILED
+        self.timeouts = 0           # requests ending TIMED_OUT
+        self.cancellations = 0      # requests ending CANCELLED
+        self.retries = 0            # transient requeues granted
+        self.step_faults = 0        # batch-wide decode retries
+        self.shed = 0               # queue-policy sheds
+        self.submitted = 0          # == done + failures + timeouts +
+        self.done = 0               #    cancellations once drained
+        self.paged = engine.paged
+        self.pool: Optional[PagePool] = None
+        self.prefix_index: Optional[PrefixIndex] = None
+        if self.paged:
+            # +1 / n_reserved=1: physical page 0 is the trash page
+            self.pool = PagePool(scfg.pool_pages + 1, scfg.page_size,
+                                 n_reserved=1)
+            if scfg.prefix_cache:
+                self.prefix_index = PrefixIndex(self.pool)
+        # live loop state, mirrored so audit_serving_state sees it mid-run
+        self._slots: List[Optional[_Slot]] = []
+        self._tables: List[Optional[PageTable]] = []
+        self._active: Optional[_Admission] = None
+
+    def submit(self, req: Request) -> int:
+        scfg = self.engine.scfg
+        if req.priority != 0 or req.tenant_id != "default":
+            raise NotImplementedError("request priorities and tenants are "
+                                      "ported in slice 4")
+        if req.max_new_tokens < 1:
+            raise ValueError(f"req {req.req_id}: max_new_tokens must be >= 1 "
+                             "(prefill always emits the first token)")
+        if len(req.prompt) + req.max_new_tokens > scfg.max_seq_len:
+            raise ValueError(
+                f"req {req.req_id}: prompt {len(req.prompt)} + new "
+                f"{req.max_new_tokens} exceeds max_seq {scfg.max_seq_len}")
+        if self.paged:
+            need = -(-(len(req.prompt) + req.max_new_tokens)
+                     // scfg.page_size)
+            if need > scfg.pool_pages:
+                raise ValueError(
+                    f"req {req.req_id}: needs {need} pages at its longest; "
+                    f"the pool has {scfg.pool_pages}")
+        if scfg.max_queue and len(self.pending) >= scfg.max_queue:
+            if scfg.queue_policy == "reject":
+                raise QueueFull(
+                    f"pending queue at max_queue={scfg.max_queue}")
+            idx = self._shed_victim_index()
+            victim = self.pending[idx]
+            del self.pending[idx]
+            self._terminate(victim, RequestState.CANCELLED,
+                            QueueFull("shed for newer request"))
+            self.shed += 1
+        timeout = (req.timeout_steps if req.timeout_steps is not None
+                   else scfg.request_timeout_steps)
+        if timeout:
+            req.deadline_step = self.steps + timeout
+        timeout_ms = (req.timeout_ms if req.timeout_ms is not None
+                      else scfg.request_timeout_ms)
+        if timeout_ms:
+            req.deadline_time = self._clock() + timeout_ms / 1000.0
+        req.submit_step = self.steps
+        self.submitted += 1
+        self.pending.append(req)
+        return req.req_id
+
+    def _shed_victim_index(self) -> int:
+        """shed-oldest victim: the oldest cancel-requested pending request,
+        else the oldest never-started one, else the oldest."""
+        for idx, r in enumerate(self.pending):
+            if r.cancel_requested:
+                return idx
+        for idx, r in enumerate(self.pending):
+            if r.attempts == 0 and r.retries == 0:
+                return idx
+        return 0
+
+    # ----------------------------------------------------------- lifecycle
+
+    def _terminate(self, req: Request, state: RequestState,
+                   error: Optional[BaseException] = None,
+                   issued: Optional[List[Request]] = None,
+                   partial: Optional[tuple] = None) -> None:
+        """Move ``req`` to a terminal state (its resources are already
+        released).  ``partial`` (tokens so far, prompt_len) of a streaming
+        request dying mid-decode becomes a ``complete=False`` result."""
+        transition(req, state, error)
+        if state is RequestState.FAILED:
+            self.failures += 1
+        elif state is RequestState.TIMED_OUT:
+            self.timeouts += 1
+        elif state is RequestState.CANCELLED:
+            self.cancellations += 1
+        elif state is RequestState.DONE:
+            self.done += 1
+        if partial is not None and state is not RequestState.DONE \
+                and req.on_token is not None \
+                and req.result is None and partial[0]:
+            toks, plen = partial
+            req.result = GenerationResult(np.asarray(toks, np.int32), plen,
+                                          len(toks), complete=False)
+        self.completed[req.req_id] = req
+        if issued is not None:
+            issued.append(req)
+
+    def _backoff(self, retries: int) -> int:
+        scfg = self.engine.scfg
+        return min(scfg.retry_backoff_steps * (2 ** max(0, retries - 1)),
+                   scfg.retry_backoff_cap_steps)
+
+    def _fail_or_retry(self, req: Request, exc: BaseException,
+                       issued: List[Request],
+                       partial: Optional[tuple] = None) -> None:
+        """Transient faults requeue with exponential backoff (in steps)
+        while the retry budget lasts; anything else FAILS the request.  A
+        backoff gate at or past the request's deadline fails fast as
+        TIMED_OUT, the fault chained as ``__cause__``."""
+        scfg = self.engine.scfg
+        if getattr(exc, "transient", False) \
+                and req.retries < scfg.max_request_retries:
+            gate = self.steps + self._backoff(req.retries + 1)
+            if req.deadline_step is not None and gate >= req.deadline_step:
+                err = RequestTimeout(
+                    f"req {req.req_id}: retry backoff gate (step {gate}) "
+                    f"cannot beat deadline step {req.deadline_step}")
+                err.__cause__ = exc
+                self._terminate(req, RequestState.TIMED_OUT, err, issued,
+                                partial=partial)
+                return
+            req.retries += 1
+            req.not_before_step = gate
+            transition(req, RequestState.QUEUED)
+            self.retries += 1
+            self.pending.append(req)
+        else:
+            self._terminate(req, RequestState.FAILED, exc, issued,
+                            partial=partial)
+
+    def _overdue(self, req: Request) -> Optional[RequestState]:
+        if req.cancel_requested:
+            return RequestState.CANCELLED
+        if req.deadline_step is not None and self.steps >= req.deadline_step:
+            return RequestState.TIMED_OUT
+        if req.deadline_time is not None \
+                and self._clock() >= req.deadline_time:
+            return RequestState.TIMED_OUT
+        return None
+
+    def _overdue_error(self, req: Request, state: RequestState):
+        if state is RequestState.CANCELLED:
+            return RequestCancelled(f"req {req.req_id} cancelled")
+        if req.deadline_step is not None and self.steps >= req.deadline_step:
+            return RequestTimeout(f"req {req.req_id} missed deadline step "
+                                  f"{req.deadline_step}")
+        ms = (req.timeout_ms if req.timeout_ms is not None
+              else self.engine.scfg.request_timeout_ms)
+        return RequestTimeout(
+            f"req {req.req_id} missed wall-clock deadline ({ms:g} ms)")
+
+    # ------------------------------------------------------------------ run
+
+    @torch.inference_mode()
+    def run(self, on_step: Optional[Callable[["RequestScheduler", int], None]]
+            = None) -> List[Request]:
+        """Drain the queue; returns the requests that reached a terminal
+        state, in completion order.  ``on_step(scheduler, step)`` fires
+        after every decode step (clients submit mid-generation from it)."""
+        eng = self.engine
+        scfg = eng.scfg
+        b = scfg.max_batch
+        ps = scfg.page_size
+        mp = scfg.max_seq_len // ps if self.paged else 0
+        chunks_per_sweep = max(1, scfg.prefill_token_budget
+                               // scfg.prefill_chunk)
+        audit_on = bool(scfg.audit_every)
+        cache = eng.init_slot_cache()
+        slots: List[Optional[_Slot]] = [None] * b
+        self._slots = slots
+        self._active = None
+        tokens = np.zeros((b,), np.int32)
+        positions = np.zeros((b,), np.int32)
+        issued: List[Request] = []
+        tables: List[Optional[PageTable]] = [None] * b
+        self._tables = tables
+        host_table = np.zeros((b, mp), np.int32) if self.paged else None
+        dirty = False              # host_table differs from the device's
+        fault_streak = 0           # consecutive batch-wide decode faults
+        pool = self.pool
+
+        def clear_slot(i: int):
+            """The idempotent slot teardown every exit path shares: frees
+            the row (idle at position 0; paged: the trash page), its pages
+            and its table row.  Request state is the caller's job."""
+            nonlocal dirty
+            slots[i] = None
+            tokens[i] = 0
+            positions[i] = 0
+            if self.paged:
+                if tables[i] is not None:
+                    tables[i].release_all()
+                    tables[i] = None
+                host_table[i] = 0
+                dirty = True
+                eng.release_slot(cache, i)       # metadata only
+            if audit_on:
+                self.audit_serving_state()
+
+        def teardown_admission(adm: _Admission):
+            """Release an in-flight admission's page reservation."""
+            if adm.ptab is not None:
+                adm.ptab.release_all()
+                adm.ptab = None
+            if audit_on:
+                self.audit_serving_state()
+
+        def finish(i: int):
+            slot = slots[i]
+            slot.req.result = GenerationResult(
+                np.asarray(slot.out, np.int32), len(slot.req.prompt),
+                len(slot.out))
+            clear_slot(i)
+            self._terminate(slot.req, RequestState.DONE, issued=issued)
+
+        def fail_resident(i: int, exc: BaseException):
+            """Row ``i`` alone pays for its fault: teardown, then
+            retry-or-fail; the other residents keep decoding."""
+            req = slots[i].req
+            out = list(slots[i].out)
+            clear_slot(i)
+            self._fail_or_retry(req, exc, issued,
+                                partial=(out, len(req.prompt)))
+
+        def drop_entries(n_needed: int, protect_entry=None) -> bool:
+            """Evict least-recently-used prefix-cache entries until
+            ``n_needed`` pages are free (``protect_entry`` is spared)."""
+            while pool.pages_free < n_needed and self.prefix_index:
+                victim = self.prefix_index.lru_entry(exclude=protect_entry)
+                if victim is None:
+                    break
+                self.prefix_index.evict(victim)
+            return pool.pages_free >= n_needed
+
+        def evict_to_requeue(i: int):
+            """Pool exhausted and row ``i`` cannot map its next write page:
+            evict the row ITSELF to the queue head.  Survivors keep every
+            page they own, so at least one resident always completes
+            between evictions (no livelock)."""
+            req = slots[i].req
+            clear_slot(i)
+            transition(req, RequestState.QUEUED)
+            req.not_before_step = 0
+            self.pending.appendleft(req)
+            self.evictions += 1
+
+        def pop_eligible() -> Optional[Request]:
+            """The first pending request whose retry backoff has elapsed
+            (FIFO: one priority class, one tenant)."""
+            for idx, r in enumerate(self.pending):
+                if r.not_before_step <= self.steps:
+                    del self.pending[idx]
+                    return r
+            return None
+
+        def try_reserve(req: Request) -> Optional[_Admission]:
+            """Paged admission = page reservation: shared prefix pages +
+            fresh suffix pages, or None (stall) when the pool cannot cover
+            the suffix.  All or nothing: a fault mid-reservation releases
+            the partial table before propagating."""
+            prompt = np.asarray(req.prompt, np.int32)
+            plen = len(prompt)
+            entry, shared = None, 0
+            if self.prefix_index is not None:
+                entry, shared = self.prefix_index.match(prompt)
+                # leave >= 1 suffix token; never deeper than the
+                # boundary-ring snapshots reach
+                shared = min(shared, (plen - 1) // ps,
+                             scfg.prefix_share_pages)
+            n_new = -(-plen // ps) - shared
+            if pool.pages_free < n_new and \
+                    not drop_entries(n_new, protect_entry=entry):
+                if entry is not None:
+                    # sharing is an optimization: if protecting the match
+                    # starves the reservation, retry unshared so that
+                    # entry becomes evictable too
+                    entry, shared = None, 0
+                    n_new = -(-plen // ps)
+                if pool.pages_free < n_new and not drop_entries(n_new):
+                    self.admission_stalls += 1
+                    return None
+            free = next(i for i in range(b) if slots[i] is None)
+            ptab = PageTable(pool, mp)
+            try:
+                for j in range(shared):
+                    ptab.append_shared(entry.page_ids[j])
+                for _ in range(n_new):
+                    ptab.append_page()
+                task = eng.start_prefill(
+                    prompt, resume=(entry, shared) if shared else None)
+            except BaseException:
+                ptab.release_all()
+                raise
+            if shared:
+                self.prefix_hits += 1
+                self.prefix_index.touch(entry)
+            return _Admission(req, free, task, ptab=ptab,
+                              shared_pages=shared, entry=entry)
+
+        def ensure_writable(i: int):
+            """Map row i's next write page (allocating on a page crossing)
+            and copy-on-write it if still shared; evict the row itself when
+            the pool is exhausted even after dropping prefix entries."""
+            nonlocal dirty
+            ptab = tables[i]
+            p = int(positions[i]) // ps
+            if p >= ptab.n_pages:
+                if pool.pages_free < 1 and not drop_entries(1):
+                    evict_to_requeue(i)
+                    return
+                ptab.ensure_for_position(p * ps)
+                host_table[i, :ptab.n_pages] = ptab.pages
+                dirty = True
+            elif pool.refcount(ptab.pages[p]) > 1:
+                if pool.pages_free < 1 and not drop_entries(1):
+                    evict_to_requeue(i)
+                    return
+                old, new = ptab.ensure_exclusive(p)
+                eng.copy_page(cache, old, new)
+                host_table[i, p] = new
+                dirty = True
+                self.cow_copies += 1
+
+        def emit_tokens(i: int, n_new: int) -> bool:
+            """Stream row i's ``n_new`` newest tokens through ``on_token``;
+            a raising callback fails that request alone.  False when the
+            row was torn down."""
+            req = slots[i].req
+            if req.on_token is None:
+                return True
+            base = len(slots[i].out) - n_new
+            for k in range(n_new):
+                try:
+                    req.on_token(int(slots[i].out[base + k]), base + k)
+                except Exception as exc:
+                    fail_resident(i, exc)
+                    return False
+            return True
+
+        def sweep_deadlines_and_cancels():
+            """Honor cancel() and expired deadlines in every phase through
+            the one teardown path, at each iteration boundary."""
+            for idx in range(len(self.pending) - 1, -1, -1):
+                req = self.pending[idx]
+                state = self._overdue(req)
+                if state is not None:
+                    del self.pending[idx]
+                    self._terminate(req, state,
+                                    self._overdue_error(req, state), issued)
+            adm = self._active
+            if adm is not None:
+                state = self._overdue(adm.req)
+                if state is not None:
+                    teardown_admission(adm)
+                    self._active = None
+                    self._terminate(adm.req, state,
+                                    self._overdue_error(adm.req, state),
+                                    issued)
+            for i in range(b):
+                if slots[i] is None:
+                    continue
+                req = slots[i].req
+                state = self._overdue(req)
+                if state is not None:
+                    out = list(slots[i].out)
+                    clear_slot(i)
+                    self._terminate(req, state,
+                                    self._overdue_error(req, state), issued,
+                                    partial=(out, len(req.prompt)))
+
+        def admit_active(active: _Admission) -> None:
+            """Splice a finished prefill into its slot and emit its first
+            token (or tear it down on a fault)."""
+            nonlocal dirty
+            i = active.slot
+            try:
+                if self.paged:
+                    eng.admit_paged(cache, active.task.cache, i,
+                                    active.ptab.pages, active.shared_pages,
+                                    active.task.prompt_len)
+                else:
+                    eng.admit(cache, active.task.cache, i)
+            except Exception as exc:      # fault before the splice
+                teardown_admission(active)
+                self._active = None
+                self._fail_or_retry(active.req, exc, issued)
+                return
+            if self.paged:
+                tables[i] = active.ptab
+                host_table[i] = 0
+                host_table[i, :active.ptab.n_pages] = active.ptab.pages
+                dirty = True
+                self._register_prefix(active)
+            # ownership of ptab moved to tables[i]: drop the admission now
+            # so an audit cannot count the same table twice
+            self._active = None
+            transition(active.req, RequestState.DECODING)
+            tok_arr, ok = eng.sample_checked(active.task.logits)
+            if not ok[0]:
+                slots[i] = _Slot(active.req, out=[])
+                fail_resident(i, NanLogitsError(
+                    f"req {active.req.req_id}: non-finite prefill logits"))
+                return
+            tok0 = int(tok_arr[0])
+            slots[i] = _Slot(active.req, out=[tok0])
+            tokens[i] = tok0
+            positions[i] = len(active.req.prompt)
+            self.admissions.append((self.steps, i, active.req.req_id))
+            if emit_tokens(i, 1) and \
+                    len(slots[i].out) >= active.req.max_new_tokens:
+                finish(i)
+
+        while self.pending or self._active \
+                or any(s is not None for s in slots):
+            sweep_deadlines_and_cancels()
+
+            # ---- prefill sweep: <= budget tokens of chunk work ------------
+            spent = 0
+            while spent < chunks_per_sweep:
+                if self._active is None:
+                    free = next((i for i in range(b) if slots[i] is None),
+                                None)
+                    if free is None:
+                        break
+                    req = pop_eligible()
+                    if req is None:
+                        break
+                    if self.paged:
+                        try:
+                            self._active = try_reserve(req)
+                        except Exception as exc:   # torn reservation
+                            self._fail_or_retry(req, exc, issued)
+                            continue
+                        if self._active is None:  # stalled on pages
+                            self.pending.appendleft(req)
+                            break
+                    else:
+                        self._active = _Admission(
+                            req, free, eng.start_prefill(req.prompt))
+                    req.attempts += 1
+                    transition(req, RequestState.PREFILLING)
+                active = self._active
+                self.prefill_chunks.append(
+                    (self.steps, active.req.req_id, active.task.next_chunk,
+                     sum(s is not None for s in slots)))
+                try:
+                    eng.prefill_chunk_step(active.task)
+                except Exception as exc:
+                    # the task is lost but the arena is untouched
+                    teardown_admission(active)
+                    self._active = None
+                    self._fail_or_retry(active.req, exc, issued)
+                    spent += 1
+                    continue
+                spent += 1
+                if active.task.done:
+                    admit_active(active)
+
+            if not any(s is not None for s in slots):
+                if not (self.pending or self._active):
+                    break
+                if self._active is None and self.pending:
+                    # empty arena and every pending request backing off:
+                    # fast-forward the step clock to the earliest gate
+                    nxt = min(r.not_before_step for r in self.pending)
+                    if nxt > self.steps:
+                        self.steps = nxt
+                continue
+
+            # ---- paged upkeep: map / COW every row's write page, then push
+            # the host table to the device ------------------------------------
+            if self.paged:
+                for i in range(b):
+                    if slots[i] is not None:
+                        try:
+                            ensure_writable(i)
+                        except Exception as exc:   # alloc/COW fault
+                            fail_resident(i, exc)
+                if dirty:
+                    eng.with_page_tables(cache, host_table)
+                    dirty = False
+                if not any(s is not None for s in slots):
+                    continue
+
+            # ---- one ragged decode step for the whole arena (empty slots
+            # idle at position 0; paged: the trash page) -----------------
+            try:
+                faults.maybe_fault("decode_step")
+            except faults.InjectedFault:
+                self.step_faults += 1
+                fault_streak += 1
+                if fault_streak > scfg.max_request_retries:
+                    raise
+                continue
+            fault_streak = 0
+            logits, cache = eng.decode(tokens, cache, positions)
+            live = [i for i in range(b) if slots[i] is not None]
+            pick = faults.maybe_pick("nan_logits", len(live))
+            if pick is not None:
+                logits[live[pick]] = float("nan")
+            tok_arr, ok = eng.sample_checked(logits)
+            new_toks = tok_arr.cpu().numpy()
+            self.steps += 1
+            for i in range(b):
+                if slots[i] is None:
+                    continue
+                if not ok[i]:
+                    fail_resident(i, NanLogitsError(
+                        f"req {slots[i].req.req_id}: non-finite logits or "
+                        f"out-of-vocab token at step {self.steps}"))
+                    continue
+                slots[i].out.append(int(new_toks[i]))
+                tokens[i] = new_toks[i]
+                positions[i] += 1
+                if not emit_tokens(i, 1):
+                    continue
+                if len(slots[i].out) >= slots[i].req.max_new_tokens:
+                    finish(i)
+            if self.paged:
+                self.pool_gauges.append({
+                    "step": self.steps,
+                    "pages_in_use": pool.pages_in_use,
+                    "pages_free": pool.pages_free,
+                    "prefix_hits": self.prefix_hits,
+                    "cow_copies": self.cow_copies,
+                    "admission_stalls": self.admission_stalls,
+                    "evictions": self.evictions,
+                    "prefix_entries": len(self.prefix_index.entries)
+                    if self.prefix_index else 0,
+                })
+            if audit_on and self.steps % scfg.audit_every == 0:
+                self.audit_serving_state(
+                    self.pool_gauges[-1] if self.pool_gauges else None)
+            if on_step:
+                on_step(self, self.steps)
+        return issued
+
+    # ---------------------------------------------------------------- audit
+
+    def audit_serving_state(self, gauges: Optional[dict] = None) -> None:
+        """Cross-structure invariant audit: the pool, every live page
+        table (residents + in-flight admission), the prefix index's pins
+        and the exported gauges agree (page conservation, no
+        use-after-free, no leak), and every resident is DECODING.  Raises
+        :class:`PagerInvariantError`.  Host-side only."""
+        for i, s in enumerate(self._slots):
+            if s is not None and s.req.state is not RequestState.DECODING:
+                raise PagerInvariantError(
+                    f"slot {i} resident req {s.req.req_id} in state "
+                    f"{s.req.state.value}, expected decoding")
+            if self.paged and s is None and i < len(self._tables) \
+                    and self._tables[i] is not None:
+                raise PagerInvariantError(
+                    f"slot {i} is empty but still owns a page table")
+        if not self.paged:
+            return
+        tables = [t for t in self._tables if t is not None]
+        adm = self._active
+        if adm is not None and adm.ptab is not None:
+            tables.append(adm.ptab)
+        entries = self.prefix_index.entries if self.prefix_index else []
+        audit_pager(self.pool, tables, entries, gauges=gauges)
+
+    def _register_prefix(self, adm: _Admission) -> None:
+        """Register a finished prefill's whole-page prefix for sharing: the
+        entry keeps the task's final cache/scratch (append-only resume
+        state; nothing writes the task after admission) and its boundary
+        ring snapshots — a resumed registrant inherits the ones it skipped
+        from ITS entry."""
+        if self.prefix_index is None:
+            return
+        task = adm.task
+        if task.prompt_len < self.engine.scfg.page_size:
+            return
+        rings = dict(task.boundary_rings or {})
+        if adm.entry is not None:
+            for d, snap in adm.entry.boundary_rings.items():
+                if d <= adm.shared_pages:
+                    rings.setdefault(d, snap)
+        prompt = np.asarray(task.tokens[0, :task.prompt_len], np.int32)
+        entry = self.prefix_index.insert(prompt, list(adm.ptab.pages), rings,
+                                         task.cache, task.scratch)
+        if entry is None:
+            return
+        cap = max(1, self.engine.scfg.prefix_cache_entries)
+        while len(self.prefix_index.entries) > cap:
+            self.prefix_index.evict(self.prefix_index.lru_entry(
+                exclude=entry))

@@ -119,9 +119,17 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         ServeEngine(tp, None, cfg, ServeConfig(max_seq_len=32, sals=off),
                     n_groups=2, device="cpu")
-    with pytest.raises(NotImplementedError):
+    # the page pool backs the SALS latents: without SALS it is refused,
+    # as in the reference; the two-tier pool is a later slice
+    with pytest.raises(ValueError, match="page_size"):
         ServeEngine(tp, None, cfg, ServeConfig(max_seq_len=32, sals=off,
                                                page_size=16,
+                                               prefill_chunk=16),
+                    device="cpu")
+    with pytest.raises(NotImplementedError):
+        ServeEngine(tp, None, cfg, ServeConfig(max_seq_len=32, sals=off,
+                                               page_size=16, hbm_pages=3,
+                                               max_batch=2,
                                                prefill_chunk=16),
                     device="cpu")
     eng = ServeEngine(tp, None, cfg, ServeConfig(max_seq_len=32, sals=off,
