@@ -15,8 +15,12 @@ Phases, each printing one JSON line:
               kernels run over a shuffled page table whose unmapped tail
               holds ids outside the pool (pages of 8, 16 and 64 tokens),
               and must also equal the dense kernels bit for bit on the
-              same logical contents; the dense kernel is timed there too
-              (``dense_ms``), so paged and dense cost compare at one shape;
+              same logical contents; the dense kernel is timed there too,
+              in turns with the paged one (paged, dense, dense, paged), so
+              paged and dense cost compare at one shape.  The verify-window
+              kernels (Q = 1, 2, 4, 8; dense and paged) must also equal the
+              single-token kernel bit for bit at Q = 1 and, query by query,
+              on each query's gated set;
 4. serve    — seeded paper-llama2-7b at full width and depth (bf16):
               calibrate U_r on the synthetic corpus, then
               ``ServeEngine.generate`` for 4 ragged prompts (4096, 3584,
@@ -31,7 +35,21 @@ Phases, each printing one JSON line:
               arena; tokens must match, and each run must have launched
               only its layout's SALS kernels, once per SALS layer and
               decode step;
-6. whole    — a full-width 2-layer model (SALS on layer 1) decoded on the
+6. spec     — speculative decode (verify window of 4) on the same weights
+              and U_r: (a) 4 prompts of 300-420 tokens from a repeated
+              base, where N_c covers every selectable position, through
+              ``generate`` and ``generate_speculative`` in bf16: token
+              agreement, the window's logits against teacher-forced decode
+              steps slot by slot, and two controls of the card's
+              shape-dependent bf16 rounding; (c) 8 requests sharing a
+              256-token system prompt (also saturated) through the
+              scheduler in float32, paged (64-token pages, prefix sharing)
+              and dense: tokens must equal the sequential scheduler's, and
+              each run must launch one window kernel and one top-k of its
+              layout per SALS layer and round, and no single-token recon;
+              (b) the serve phase's prompts in bf16: rounds, acceptance,
+              tokens per round, ms per round beside the sequential decode;
+7. whole    — a full-width 2-layer model (SALS on layer 1) decoded on the
               card (kernels) and on the CPU (twins) from the same weights
               and a 1024-token prompt (so top-k really selects), per-step
               logits compared under teacher forcing.
@@ -62,7 +80,7 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12
 
-PHASES = ("device", "build", "kernels", "serve", "sched", "whole")
+PHASES = ("device", "build", "kernels", "serve", "sched", "spec", "whole")
 # "profile" (not run by default) adds a torch.profiler pass over four
 # chunked-prefill steps after the sched phase, and over three
 # decode steps of each serve run; tables go to chiprun_out/
@@ -174,14 +192,18 @@ def topk_case(torch, name, b, s, r, r_star, n_c, k_dtype, seed, flush,
     err = float(((sel_k - sel_t).abs() * val_t).max())
     exact = bool(torch.equal(val_k, val_t)) and bool(
         torch.equal(torch.where(val_t, idx_k, 0), torch.where(val_t, idx_t, 0)))
-    kern_ms = time_ms(torch, lambda: ls.latent_topk_cuda(
-        q_lat, k_lat, k_scale, pos, **kw, **pg), 20, flush=flush)
+    def kern():
+        ls.latent_topk_cuda(q_lat, k_lat, k_scale, pos, **kw, **pg)
+
+    def dense():
+        ls.latent_topk_cuda(q_lat, k_log, s_log, pos, **kw)
+
+    # paged: the dense kernel on the same logical contents, timed in turns
+    # (paged, dense, dense, paged) so an order effect shows
+    order = paired_times(torch, kern, dense if ps else None, 20, flush)
+    kern_ms = order["ms"]
     plain_ms = time_ms(torch, lambda: twin(
         q_lat, k_lat, k_scale, pos, **kw, **pg), 5, flush=flush)
-    # the dense kernel on the same logical contents, timed in the same way:
-    # the paged kernel's cost over dense at one shape
-    dense_ms = time_ms(torch, lambda: ls.latent_topk_cuda(
-        q_lat, k_log, s_log, pos, **kw), 20, flush=flush) if ps else None
     kb = k_lat.element_size()
     nbytes = b * r_star * 4 + b * s * r_star * kb + 2 * b * 4 \
         + b * n_c * 5 + (b * s * 2 if k_scale is not None else 0) \
@@ -192,7 +214,7 @@ def topk_case(torch, name, b, s, r, r_star, n_c, k_dtype, seed, flush,
                bound_ms=b_ms, bound_by=b_by,
                ok=exact and err <= 0.0 and bitwise is not False)
     if ps:
-        out.update(bitwise_vs_dense=bitwise, dense_ms=dense_ms)
+        out.update(bitwise_vs_dense=bitwise, **order)
     return out
 
 
@@ -263,12 +285,14 @@ def sra_case(torch, name, b, h, n_kv, dh, s, r, n_c, k_dtype, v_bits,
     dead_ok = bool((m_k[dead] == ref.NEG_INF).all() and (l_k[dead] == 0).all()
                    and (o_k[dead] == 0).all() and torch.isfinite(o_k).all())
     tol = 2e-3
-    kern_ms = time_ms(torch, lambda: sra.sparse_recon_attention_cuda(
-        *args(cache), **kw, **pg), 10, flush=flush)
+    order = paired_times(
+        torch, lambda: sra.sparse_recon_attention_cuda(*args(cache), **kw,
+                                                       **pg),
+        (lambda: sra.sparse_recon_attention_cuda(*args(logical), **kw))
+        if ps else None, 10, flush)
+    kern_ms = order["ms"]
     plain_ms = time_ms(torch, lambda: twin(*args(cache), **kw, **pg), 5,
                        flush=flush)
-    dense_ms = time_ms(torch, lambda: sra.sparse_recon_attention_cuda(
-        *args(logical), **kw), 10, flush=flush) if ps else None
     nv = int(valid.sum())
     code_w = kvd if v_bits == 8 else kvd // 2
     row_bytes = r * k_lat.element_size() + (2 if k_scale is not None else 0) \
@@ -283,8 +307,150 @@ def sra_case(torch, name, b, h, n_kv, dh, s, r, n_c, k_dtype, v_bits,
                bound_by=b_by,
                ok=err <= tol and dead_ok and bitwise is not False)
     if ps:
-        out.update(bitwise_vs_dense=bitwise, dense_ms=dense_ms)
+        out.update(bitwise_vs_dense=bitwise, **order)
     return out
+
+
+def paired_times(torch, kern, dense, iters: int, flush) -> dict:
+    """Kernel time; with ``dense`` (the dense kernel on the same logical
+    contents) both are timed in turns — kernel, dense, dense, kernel — and
+    each order is reported, so a paged-vs-dense gap that is an order
+    effect shows as one."""
+    if dense is None:
+        return {"ms": time_ms(torch, kern, iters, flush=flush)}
+    k1 = time_ms(torch, kern, iters, flush=flush)
+    d1 = time_ms(torch, dense, iters, flush=flush)
+    d2 = time_ms(torch, dense, iters, flush=flush)
+    k2 = time_ms(torch, kern, iters, flush=flush)
+    return {"ms": (k1 + k2) / 2, "dense_ms": (d1 + d2) / 2,
+            "paged_ms_first_last": [k1, k2],
+            "dense_ms_second_third": [d1, d2]}
+
+
+def window_case(torch, name, b, ql, h, n_kv, dh, s, r, n_c, k_dtype, v_bits,
+                softcap, seed, flush, ps=0, n_recent=64):
+    """sparse_recon_attention_window on selected sets shaped like a verify
+    window's (ascending valid indices at positions <= q_pos + Q - 1 -
+    n_recent, invalid slots last, one all-invalid row), ragged window bases
+    q_pos.  Against the twin (tolerance as the single kernel's); and bit
+    for bit: a Q = 1 window equals the single-token kernel, query t equals
+    the single-token kernel at q_pos + t on valid ∧ idx <= q_pos + t -
+    n_recent, and (``ps`` > 0) the paged window equals the dense window on
+    the same logical contents.  Also times the single-token kernel at the
+    same shape (``single_ms``)."""
+    from repro_torch.core import quantization as qz
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sparse_recon_attention as sra
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kvd = n_kv * dh
+    q_pos = torch.tensor([s - ql - 64 * i for i in range(b)],
+                         dtype=torch.int32, device=dev)
+    pg, rows = {}, (b, s)
+    if ps:
+        pt, n_pages = paged_pool(torch, g, b, s, ps,
+                                 [int(p) + ql for p in q_pos])
+        pg, rows = dict(page_table=pt, page_size=ps), (n_pages, ps)
+    q = torch.randn((b, ql, h, dh), generator=g, device=dev) \
+        .to(torch.bfloat16)
+    lat = torch.randn((*rows, r), generator=g, device=dev)
+    k_scale = None
+    if k_dtype == "int8":
+        k_lat, k_scale = qz.quantize_latent_int8(lat)
+    else:
+        k_lat = lat.to(torch.bfloat16)
+    vq = qz.quantize(torch.randn((*rows, kvd), generator=g, device=dev),
+                     v_bits, 64)
+    u = (torch.randn((kvd, r), generator=g, device=dev)
+         * r ** -0.5).to(torch.bfloat16)
+    idx = torch.zeros((b, n_c), dtype=torch.int32, device=dev)
+    valid = torch.zeros((b, n_c), dtype=torch.bool, device=dev)
+    n_valid = [n_c, n_c, n_c // 3, 0][:b] + [n_c] * max(0, b - 4)
+    for i in range(b):
+        # selectable: [16, q_pos + Q - 1 - n_recent], as the window's top-k
+        hi = int(q_pos[i]) + ql - 1 - n_recent
+        perm = torch.randperm(hi - 15, generator=g, device=dev)[:n_valid[i]]
+        idx[i, :n_valid[i]] = torch.sort(perm + 16).values.int()
+        idx[i, n_valid[i]:] = torch.randint(0, s, (n_c - n_valid[i],),
+                                            generator=g, device=dev).int()
+        valid[i, :n_valid[i]] = True
+    cache = (k_lat, k_scale, vq["q"], vq["scale"], vq["zero"])
+    kw = dict(n_kv=n_kv, v_bits=v_bits, v_group=64, theta=10_000.0,
+              softcap=softcap)
+
+    def win(c, qq=q, nr=n_recent, **p):
+        return sra.sparse_recon_attention_window_cuda(
+            qq, *c, u, idx, valid, q_pos, n_recent=nr, **kw, **p)
+
+    def single(c, t, vd, **p):
+        return sra.sparse_recon_attention_cuda(
+            q[:, t].contiguous(), *c, u, idx, vd, q_pos + t, **kw, **p)
+
+    twin = ref.sparse_recon_attention_window_paged_ref if ps \
+        else ref.sparse_recon_attention_fused_window_ref
+    m_k, l_k, o_k = win(cache, **pg)
+    m_t, l_t, o_t = twin(q, *cache, u, idx, valid, q_pos, n_recent=n_recent,
+                         **kw, **pg)
+    same = lambda xs, ys: all(bool(torch.equal(x, y)) for x, y in zip(xs, ys))
+    q1 = same([a[:, 0] for a in win(cache, q[:, :1].contiguous(), 0, **pg)],
+              single(cache, 0, valid, **pg))
+    advance = all(same([a[:, t] for a in (m_k, l_k, o_k)], single(
+        cache, t, valid & (idx <= (q_pos + t)[:, None] - n_recent), **pg))
+        for t in range(ql))
+    bitwise = None
+    logical = cache
+    if ps:
+        logical = tuple(None if a is None else
+                        ref.paged_logical_view(a, pt, ps).contiguous()
+                        for a in cache)
+        bitwise = same((m_k, l_k, o_k), win(logical))
+    torch.cuda.synchronize()
+    live = l_t > 0
+    err = max(float((m_k - m_t)[live].abs().max()),
+              float(((l_k - l_t) / l_t.clamp_min(1.0))[live].abs().max()),
+              float((o_k / l_k.clamp_min(1e-30)[..., None]
+                     - o_t / l_t.clamp_min(1e-30)[..., None])[live].abs().max()))
+    dead = ~live
+    dead_ok = bool((m_k[dead] == ref.NEG_INF).all() and (l_k[dead] == 0).all()
+                   and (o_k[dead] == 0).all() and torch.isfinite(o_k).all())
+    tol = 2e-3
+    order = paired_times(torch, lambda: win(cache, **pg),
+                         (lambda: win(logical)) if ps else None, 10, flush)
+    plain_ms = time_ms(torch, lambda: twin(
+        q, *cache, u, idx, valid, q_pos, n_recent=n_recent, **kw, **pg), 3,
+        warmup=1, flush=flush)
+    single_ms = time_ms(torch, lambda: single(cache, 0, valid, **pg), 10,
+                        flush=flush)
+    b_ms, b_by = window_bound(b, ql, h, n_kv, dh, r, n_c, int(valid.sum()),
+                              k_lat.element_size(), k_scale is not None,
+                              v_bits, s // ps if ps else 0)
+    out = dict(case=name, q_len=ql, max_abs_err=err, tol=tol,
+               all_invalid_row_ok=dead_ok, q1_equals_single=q1,
+               mask_advance_bitwise=advance, plain_ms=plain_ms,
+               single_ms=single_ms, library_ms=None, bound_ms=b_ms,
+               bound_by=b_by, **order,
+               ok=err <= tol and dead_ok and q1 and advance
+               and bitwise is not False)
+    if ps:
+        out["bitwise_vs_dense"] = bitwise
+    return out
+
+
+def window_bound(b, ql, h, n_kv, dh, r, n_c, nv, lat_bytes, scaled, v_bits,
+                 pages_per_row=0):
+    """Least time of one verify-window launch: the bf16 q, the ``nv`` valid
+    selected rows, U_r, indices and outputs moved once; one reconstruction
+    of the selected keys plus Q times the scoring, at the bf16 peak (the
+    gate drops no operation the kernel does)."""
+    kvd = n_kv * dh
+    code_w = kvd if v_bits == 8 else kvd // 2
+    row_bytes = r * lat_bytes + (2 if scaled else 0) + code_w \
+        + 2 * 2 * (kvd // 64)
+    nbytes = b * ql * h * dh * 2 + nv * row_bytes + kvd * r * 2 \
+        + b * n_c * 5 + b * 4 + b * ql * h * (2 + dh) * 4 \
+        + b * pages_per_row * 4
+    flops = 2.0 * nv * kvd * r + 4.0 * nv * ql * h * dh
+    return bound(nbytes, flops, BF16_FLOP_PER_S)
 
 
 # Flash output check: per (b, q, h) row, the largest |kernel - f32 twin|
@@ -402,6 +568,32 @@ def phase_kernels(torch):
             sra_case(torch, "llama2-7b B4 H32 S4096 r1024 int8-V ps8", 4,
                      32, 32, 128, 4096, 1024, 432, "bf16", 8, 0.0, 17, flush,
                      ps=8),
+        ],
+        "sparse_recon_attention_window": [
+            window_case(torch, "llama2-7b B4 Q4 H32 S4160 r1024 int8-V", 4, 4,
+                        32, 32, 128, 4160, 1024, 432, "bf16", 8, 0.0, 21,
+                        flush),
+            window_case(torch, "llama2-7b Q1", 4, 1, 32, 32, 128, 4160, 1024,
+                        432, "bf16", 8, 0.0, 22, flush),
+            window_case(torch, "llama2-7b Q2", 4, 2, 32, 32, 128, 4160, 1024,
+                        432, "bf16", 8, 0.0, 23, flush),
+            window_case(torch, "llama2-7b Q8", 4, 8, 32, 32, 128, 4160, 1024,
+                        432, "bf16", 8, 0.0, 24, flush),
+            window_case(torch, "mistral-7b GQA Q8 n_kv8 r256 int8-lat", 4, 8,
+                        32, 8, 128, 4160, 256, 432, "int8", 8, 0.0, 25,
+                        flush),
+            window_case(torch, "llama2-7b Q4 int4-V softcap30", 4, 4, 32, 32,
+                        128, 4160, 1024, 432, "bf16", 4, 30.0, 26, flush),
+        ],
+        "sparse_recon_attention_window_paged": [
+            window_case(torch, "llama2-7b B4 Q4 S4096 r1024 int8-V ps64", 4,
+                        4, 32, 32, 128, 4096, 1024, 432, "bf16", 8, 0.0, 27,
+                        flush, ps=64),
+            window_case(torch, "mistral-7b GQA Q4 r256 int8-lat ps16", 4, 4,
+                        32, 8, 128, 4096, 256, 432, "int8", 8, 0.0, 28, flush,
+                        ps=16),
+            window_case(torch, "llama2-7b Q4 int8-V ps8", 4, 4, 32, 32, 128,
+                        4096, 1024, 432, "bf16", 8, 0.0, 29, flush, ps=8),
         ],
         "flash_attention": [
             flash_case(torch, "llama2-7b B4 S4096 H32", 4, 4096, 4096, 32,
@@ -564,7 +756,7 @@ def phase_serve(torch, model, n_new: int = 32, prof: bool = False):
     for name, (row, _) in runs.items():
         row["token_agreement_vs_full"] = agree
         emit(row)
-    return runs["sals"][0]["launches"]
+    return runs["sals"]
 
 
 def phase_sched(torch, model, n_new: int = 32, prof: bool = False):
@@ -667,7 +859,279 @@ def phase_sched(torch, model, n_new: int = 32, prof: bool = False):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: whole path, card vs CPU
+# phase 6: speculative decode through the verify window
+# ---------------------------------------------------------------------------
+
+SPEC_Q = 4
+
+
+def check_spec_launches(name, counts, rounds, n_sals, paged: bool):
+    """A speculative run launches, per verify round, one window kernel and
+    one top-k of its layout per SALS layer, and no single-token recon."""
+    win = "sparse_recon_attention_window" + ("_paged" if paged else "")
+    other = "sparse_recon_attention_window" + ("" if paged else "_paged")
+    topk = "latent_topk" + ("_paged" if paged else "")
+    want = n_sals * rounds
+    bad = (counts[win] != want or counts[topk] != want or counts[other]
+           or counts["sparse_recon_attention"]
+           or counts["sparse_recon_attention_paged"])
+    if bad:
+        raise AssertionError(f"spec {name}: launches {counts}, expected "
+                             f"{want} of {win} and {topk}, no {other} and "
+                             "no single-token recon")
+
+
+def window_vs_step(torch, cfg, params, proj, sals, prompts, forced, q,
+                   max_seq, controls: bool = False):
+    """Teacher-forced logits of one verify window (the first q forced
+    tokens at the prompts' ends) against q sequential decode steps on the
+    same tokens: max |window - step| over max |step|, per window slot.
+    ``controls``: also a one-query window against the first step, and the
+    first step at batch 4·B (each row repeated) against batch B — the
+    shape-only difference the card's GEMMs show at the same inputs."""
+    from repro_torch.models import transformer as tf
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max()
+                     / b.float().abs().max())
+
+    lens = [len(p) for p in prompts]
+    toks = np.stack([np.pad(p, (0, max(lens) - len(p))) for p in prompts])
+
+    def prefill(rep=1):
+        pos = torch.tensor(lens * rep, dtype=torch.int32, device="cuda")
+        batch = {"tokens": torch.as_tensor(np.tile(toks, (rep, 1)),
+                                           device="cuda")}
+        return pos, tf.prefill(params, proj, cfg, sals, batch, max_seq,
+                               lengths=pos)[1]
+
+    out = {}
+    with torch.inference_mode():
+        pos, c_seq = prefill()
+        _, c_win = prefill()
+        wt = torch.as_tensor(forced[:, :q], device="cuda")
+        steps = [tf.decode_step(params, proj, c_seq, wt[:, t], pos + t, cfg,
+                                sals)[0] for t in range(q)]
+        win, _ = tf.decode_window(params, proj, c_win, wt, pos, cfg, sals)
+        out["window_vs_step_max_rel_logit_err"] = [
+            rel(win[:, t], steps[t]) for t in range(q)]
+        if controls:
+            # the SALS caches are untouched by the window and query 0 sees
+            # no full-layer position past pos: c_win still serves a window
+            # at pos
+            one, _ = tf.decode_window(params, proj, c_win, wt[:, :1], pos,
+                                      cfg, sals)
+            out["q1_window_vs_step_rel_err"] = rel(one[:, 0], steps[0])
+            del c_seq, c_win
+            pos4, c4 = prefill(4)
+            wide, _ = tf.decode_step(params, proj, c4, wt[:, 0].repeat(4),
+                                     pos4, cfg, sals)
+            out["batch4x_vs_batch_step_rel_err"] = rel(wide[:len(lens)],
+                                                       steps[0])
+    return out
+
+
+def phase_spec(torch, model, serve_sals, n_new: int = 32,
+               prof: bool = False):
+    """(a) saturated regime, bf16 through ``generate`` /
+    ``generate_speculative``: every selectable position is selected, so the
+    window's one selection is exact; the token agreement and the window's
+    per-slot logit error against teacher-forced steps are reported, beside
+    two controls of the card's shape-dependent bf16 rounding.  (c)
+    exactness: the scheduler in float32 (the same weights and U_r; chunked
+    prefill, so no bf16-only flash kernel), paged and dense arena, must
+    give the sequential scheduler's tokens on the same saturated requests,
+    with exact launch counts.  (b) the serve phase's long prompts (bf16):
+    the cost of a round and the tokens it commits, beside that phase's
+    sequential decode.  ``prof``: a torch.profiler pass over three verify
+    rounds (window forward + commit of one token) at the (b) shapes."""
+    from repro_torch.config import ServeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import Request, RequestScheduler, ServeEngine
+
+    cfg, sals, params, proj = (model[k] for k in ("cfg", "sals", "params",
+                                                  "proj"))
+    n_sals, corpus = model["n_sals"], model["corpus"]
+    q = SPEC_Q
+    out = {}
+
+    # ---- (a) saturated, bf16: prompts 300-420 tokens from a repeated base -
+    base = corpus.batch(500, 1, 60)["tokens"][0]
+    lens = [300, 340, 380, 420]
+    prompts = [np.tile(base, 8)[:n].astype(np.int32) for n in lens]
+    selectable = max(lens) + n_new - sals.n_recent - sals.n_sink + 1
+    if selectable > sals.n_critical:
+        raise AssertionError("spec (a): prompts too long to saturate")
+    scfg = dict(max_seq_len=512, max_batch=4, sals=sals)
+    seq = ServeEngine(params, proj, cfg, ServeConfig(**scfg), device="cuda")
+    want = np.stack([r.tokens for r in seq.generate(prompts,
+                                                    max_new_tokens=n_new)])
+    eng = ServeEngine(params, proj, cfg, ServeConfig(spec_window=q, **scfg),
+                      device="cuda")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    got = np.stack([r.tokens for r in eng.generate_speculative(
+        prompts, max_new_tokens=n_new)])
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    check_spec_launches("saturated", counts, eng.spec_stats["rounds"],
+                        n_sals, paged=False)
+    row = dict(phase="spec", run="saturated_bf16", prompts=lens,
+               new_tokens=n_new, q=q, selectable_max=selectable,
+               n_critical=sals.n_critical,
+               tokens_equal_sequential=bool(np.array_equal(got, want)),
+               token_agreement=float((got == want).mean()),
+               first_divergence=[int(np.argmax(g != w)) if (g != w).any()
+                                 else None for g, w in zip(got, want)],
+               launches=counts, **eng.spec_stats,
+               **window_vs_step(torch, cfg, params, proj, sals, prompts, want,
+                                q, 512, controls=True))
+    emit(row)
+    if not (got.shape == want.shape and (got >= 0).all()
+            and (got < cfg.vocab_size).all()):
+        raise AssertionError("spec (a): generated tokens out of range")
+    del seq, eng
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = tf.Transformer(cfg32, device="cuda")
+    p32.load_state_dict(params.state_dict())       # bf16 values, exactly
+
+    # ---- (c) the scheduler, paged and dense, vs the sequential scheduler --
+    system = corpus.batch(600, 1, 256)["tokens"][0]     # 4 pages of 64
+    suffix = [64, 160, 96, 128, 80, 144, 112, 72]
+    prompts = [np.concatenate([system, corpus.batch(610 + i, 1, n)
+                               ["tokens"][0]]).astype(np.int32)
+               for i, n in enumerate(suffix)]
+    runs = {}
+    for name, ps, spec in (("sequential", 64, 0), ("paged", 64, q),
+                           ("dense", 0, q)):
+        eng = ServeEngine(p32, proj, cfg32, ServeConfig(
+            max_seq_len=512, max_batch=4, prefill_chunk=64, page_size=ps,
+            prefill_token_budget=512, sals=sals, spec_window=spec,
+            audit_every=16), device="cuda")
+        sched = RequestScheduler(eng)
+        reqs = [Request(p, max_new_tokens=n_new) for p in prompts]
+        for r in reqs:
+            sched.submit(r)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        sched.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        toks = [r.result.tokens if r.done else None for r in reqs]
+        row = dict(phase="spec", run=f"sched_{name}_float32", q=spec,
+                   prompts=[len(p) for p in prompts], new_tokens=n_new,
+                   wall_s=wall, steps=sched.steps,
+                   spec_rounds=sched.spec_rounds,
+                   spec_proposed=sched.spec_proposed,
+                   spec_accepted=sched.spec_accepted,
+                   spec_committed=sched.spec_committed,
+                   prefill_chunks=len(sched.prefill_chunks),
+                   prefix_hits=sched.prefix_hits, launches=counts,
+                   states=[r.state.value for r in reqs])
+        emit(row)
+        if not all(r.done for r in reqs):
+            raise AssertionError(f"spec sched {name}: not every request is "
+                                 "DONE")
+        sched.audit_serving_state()
+        if spec:
+            check_spec_launches(f"sched {name}", counts, sched.spec_rounds,
+                                n_sals, paged=bool(ps))
+            if sched.spec_rounds != sched.steps:
+                raise AssertionError(f"spec sched {name}: a decode step ran "
+                                     "outside a verify window")
+        runs[name] = (toks, counts)
+        del eng, sched, reqs
+        torch.cuda.empty_cache()
+    same = {k: all(np.array_equal(a, b) for a, b in
+                   zip(runs[k][0], runs["sequential"][0]))
+            for k in ("paged", "dense")}
+    emit({"phase": "spec", "sched_tokens_equal_sequential": same})
+    if not all(same.values()):
+        raise AssertionError(f"spec sched: tokens differ from the "
+                             f"sequential scheduler's: {same}")
+    out["paged"] = runs["paged"][1]
+    del p32
+    torch.cuda.empty_cache()
+
+    # ---- (b) long context: the serve phase's prompts, bf16 ---------------
+    lens = [4096, 3584, 3072, 2560]
+    prompts = [corpus.batch(100 + i, 1, n)["tokens"][0]
+               for i, n in enumerate(lens)]
+    eng = ServeEngine(params, proj, cfg, ServeConfig(
+        max_seq_len=4160, max_batch=4, sals=sals, spec_window=q),
+        device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    res = eng.generate_speculative(prompts, max_new_tokens=n_new)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    st, tm = eng.spec_stats, eng.last_timing
+    check_spec_launches("long", counts, st["rounds"], n_sals, paged=False)
+    toks = np.stack([r.tokens for r in res])
+    row_rounds = st["proposed"] / (q - 1)
+    # every row has more than N_c selectable positions: all slots valid
+    if min(lens) - sals.n_recent - sals.n_sink < sals.n_critical:
+        raise AssertionError("spec (b): prompts too short for a full N_c")
+    win_ms, win_by = window_bound(
+        4, q, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+        sals.rank(cfg.kv_dim), sals.n_critical, 4 * sals.n_critical, 2,
+        sals.k_latent_dtype == "int8", sals.v_bits)
+    seq_row = serve_sals[0] if serve_sals else {}
+    row = dict(phase="spec", run="long", prompts=lens, new_tokens=n_new, q=q,
+               rounds=st["rounds"], acceptance=st["accepted_drafts"]
+               / max(1, st["proposed"]),
+               committed_per_row_round=st["committed"] / row_rounds,
+               committed_per_round=st["committed"] / st["rounds"],
+               ms_per_round=1e3 * tm["decode_s"] / st["rounds"],
+               decode_tok_s=st["committed"] / tm["decode_s"],
+               prefill_s=tm["prefill_s"],
+               sequential_decode_ms_per_step=seq_row.get(
+                   "decode_ms_per_step"),
+               sequential_decode_tok_s=seq_row.get("decode_tok_s"),
+               token_agreement_vs_sequential=float(
+                   (toks == serve_sals[1]).mean()) if serve_sals else None,
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               window_bound_ms=win_ms, window_bound_by=win_by,
+               window_bound_ms_per_committed_token=win_ms * st["rounds"]
+               / st["committed"], launches=counts)
+    emit(row)
+    if not (toks.shape == (4, n_new) and (toks >= 0).all()
+            and (toks < cfg.vocab_size).all()):
+        raise AssertionError("spec (b): generated tokens out of range")
+    out["long"] = (row, counts)
+    if prof:
+        with torch.inference_mode():
+            pos = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            toks = np.zeros((4, max(lens)), np.int32)
+            for i, p in enumerate(prompts):
+                toks[i, :len(p)] = p
+            _, cache = tf.prefill(params, proj, cfg, sals, {"tokens":
+                                  torch.as_tensor(toks, device="cuda")},
+                                  4160, lengths=pos)
+            wt = torch.ones((4, q), dtype=torch.int32, device="cuda")
+            one = torch.ones(4, dtype=torch.int32, device="cuda")
+
+            def rnd(t):
+                _, aux = tf.decode_window(params, proj, cache, wt, pos + t,
+                                          cfg, sals)
+                tf.commit_window(proj, cache, aux, pos + t, one, cfg, sals)
+
+            rnd(0)
+            torch.cuda.synchronize()
+            profile_steps(torch, lambda t: rnd(1 + t), 3, "verify_round")
+            del cache
+    del eng, res
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7: whole path, card vs CPU
 # ---------------------------------------------------------------------------
 
 def phase_whole(torch, n_new: int = 12, prompt_len: int = 1024):
@@ -766,16 +1230,26 @@ def main() -> int:
 
     kern = phase_kernels(torch) if "kernels" in phases else {}
     counts = {}
-    if "serve" in phases or "sched" in phases:
+    if any(p in phases for p in ("serve", "sched", "spec")):
         model = build_model(torch)
+        serve_sals = None
         if "serve" in phases:
-            counts.update(phase_serve(torch, model,
-                                      prof="profile" in phases))
+            serve_sals = phase_serve(torch, model, prof="profile" in phases)
+            counts.update(serve_sals[0]["launches"])
         if "sched" in phases:
             # the paged kernels' launches come from the sched paged run
             paged = phase_sched(torch, model, prof="profile" in phases)
             for k in ("latent_topk_paged", "sparse_recon_attention_paged"):
                 counts[k] = paged[k]
+        if "spec" in phases:
+            # the window kernels' launches: generate_speculative at long
+            # context (dense), the speculative scheduler's paged run
+            spec = phase_spec(torch, model, serve_sals,
+                              prof="profile" in phases)
+            counts["sparse_recon_attention_window"] = \
+                spec["long"][1]["sparse_recon_attention_window"]
+            counts["sparse_recon_attention_window_paged"] = \
+                spec["paged"]["sparse_recon_attention_window_paged"]
         del model
         torch.cuda.empty_cache()
     if "whole" in phases:
@@ -794,6 +1268,12 @@ def main() -> int:
         "sparse_recon_attention_paged": (
             "src/repro_torch/csrc/sparse_recon_attention.cu",
             "src/repro/kernels/sparse_recon_attention.py:462"),
+        "sparse_recon_attention_window": (
+            "src/repro_torch/csrc/sparse_recon_attention.cu",
+            "src/repro/kernels/sparse_recon_attention.py:273"),
+        "sparse_recon_attention_window_paged": (
+            "src/repro_torch/csrc/sparse_recon_attention.cu",
+            "src/repro/kernels/sparse_recon_attention.py:644"),
     }
     rows = []
     for name, (src, rep) in replaces.items():

@@ -48,6 +48,17 @@ def _row_positions(pos, batch: int, device) -> torch.Tensor:
         .reshape(-1).expand(batch)
 
 
+def _masked_put(arr: torch.Tensor, at: tuple, val: torch.Tensor,
+                keep: Optional[torch.Tensor]) -> None:
+    """``arr[at] = val`` in place, except batch rows whose ``keep`` (B,) is
+    False, which keep their bytes (``val`` is ([L,] B, ·))."""
+    val = val.to(arr.dtype)
+    if keep is not None:
+        rest = val.dim() - (len(at) - 1)
+        val = torch.where(keep.reshape(-1, *([1] * rest)), val, arr[at])
+    arr[at] = val
+
+
 @dataclasses.dataclass
 class LatentKVCache:
     """One SALS cache: a layer stack ([L,] leading axis) or one layer."""
@@ -244,34 +255,89 @@ class LatentKVCache:
         return self.write_latents(sals, pos, k_lat, v_flat) \
                    .write_ring(sals, pos, k_pre, v)
 
+    def write_window(self, sals: SALSConfig, pos, k_lat: torch.Tensor,
+                     v_flat: torch.Tensor, k_pre: torch.Tensor,
+                     v: torch.Tensor, n_accept) -> "LatentKVCache":
+        """Commit the ACCEPTED prefix of a speculative verify window, in
+        place.  Works on one layer or on a layer stack (every operand then
+        has a leading L axis).  k_lat: ([L,] B, Q, r) pre-RoPE latent keys;
+        v_flat: ([L,] B, Q, kv_dim); k_pre/v: ([L,] B, Q, n_kv, dh), the
+        window K/V of the read-only windowed attend.  ``pos`` (scalar or
+        (B,)) is the window base: slot t lands at pos + t iff t <
+        n_accept[b] ((B,) tensor or array, kept on the device: no per-row
+        host read).  Rejected and idle rows write nothing and their lengths
+        stay, so the committed bytes equal sequentially appending exactly
+        the accepted tokens.  Quantized once for the window, written one
+        slot at a time (Q <= 8)."""
+        lead = len(self._lead())
+        b, q = k_lat.shape[lead:lead + 2]
+        pos_v = _row_positions(pos, b, k_lat.device)
+        n_acc = torch.as_tensor(n_accept, device=k_lat.device) \
+            .reshape(-1).expand(b)
+        vals = self._quantized(sals, k_lat, v_flat)
+        for t in range(q):
+            keep = t < n_acc
+            self._put_token(pos_v + t, {f: a.select(lead + 1, t)
+                                        for f, a in vals.items()}, keep)
+            self.write_ring(sals, pos_v + t, k_pre.select(lead + 1, t),
+                            v.select(lead + 1, t), keep=keep)
+        return self
+
     def write_latents(self, sals: SALSConfig, pos, k_lat: torch.Tensor,
-                      v_flat: torch.Tensor) -> "LatentKVCache":
+                      v_flat: torch.Tensor,
+                      keep: Optional[torch.Tensor] = None
+                      ) -> "LatentKVCache":
         """Latent K + quantized V of one token at ``pos`` (scalar or (B,)).
         Paged: the logical position resolves through the page table to
         (physical page, in-page row); the page must be mapped already (the
         scheduler maps it before the step; an idle row's table row is 0,
-        the trash page)."""
-        b = k_lat.shape[0]
-        pos_v = _row_positions(pos, b, k_lat.device)
-        rows = torch.arange(b, device=k_lat.device)
+        the trash page).  ``keep`` (B,) bool masks the write per row: a
+        masked row's bytes and length stay as they are."""
+        pos_v = _row_positions(pos, k_lat.shape[-2], k_lat.device)
+        return self._put_token(pos_v, self._quantized(sals, k_lat, v_flat),
+                               keep)
+
+    def _lead(self) -> tuple:
+        """Index prefix of the layer axis: (slice,) on a stack, () on one
+        layer's view."""
+        return (slice(None),) if self.k_lat.dim() == 4 else ()
+
+    def _quantized(self, sals: SALSConfig, k_lat: torch.Tensor,
+                   v_flat: torch.Tensor) -> dict:
+        """Stored form of latent keys (..., r) and values (..., kv_dim):
+        {field: tensor} for the per-token fields."""
+        out = {}
+        if sals.k_latent_dtype == "int8":
+            out["k_lat"], out["k_scale"] = qz.quantize_latent_int8(k_lat)
+        else:
+            out["k_lat"] = k_lat.to(self.k_lat.dtype)
+        vq = qz.quantize(v_flat, sals.v_bits, sals.v_group)
+        out["v_q"], out["v_scale"], out["v_zero"] = \
+            vq["q"], vq["scale"], vq["zero"]
+        return out
+
+    def _put_token(self, pos_v: torch.Tensor, vals: dict,
+                   keep: Optional[torch.Tensor]) -> "LatentKVCache":
+        """Write one token's stored fields ([L,] B, ·) at (B,) positions,
+        rows with ``keep`` False left as they are; advance ``lengths``."""
+        b = pos_v.shape[0]
+        dev = pos_v.device
+        rows = torch.arange(b, device=dev)
+        lead = self._lead()
         if self.paged:
             ps = self.page_size
-            at = (self.page_table[rows, pos_v // ps].long(), pos_v % ps)
+            table = self.page_table[0] if lead else self.page_table
+            page = (pos_v // ps).clamp_max(table.shape[-1] - 1)
+            at = lead + (table[rows, page].long(), pos_v % ps)
         else:
-            at = (rows, pos_v)
-        if sals.k_latent_dtype == "int8":
-            q8, scale = qz.quantize_latent_int8(k_lat)
-            self.k_lat[at] = q8
-            self.k_scale[at] = scale
-        else:
-            self.k_lat[at] = k_lat.to(self.k_lat.dtype)
-        vq = qz.quantize(v_flat, sals.v_bits, sals.v_group)
-        self.v_q[at] = vq["q"]
-        self.v_scale[at] = vq["scale"]
-        self.v_zero[at] = vq["zero"]
+            at = lead + (rows, pos_v.clamp_max(self.k_lat.shape[-2] - 1))
+        for f, val in vals.items():
+            _masked_put(getattr(self, f), at, val, keep)
         if self.lengths is not None:
-            self.lengths.copy_(torch.maximum(self.lengths,
-                                             (pos_v + 1).to(torch.int32)))
+            adv = (pos_v + 1).to(torch.int32)
+            if keep is not None:
+                adv = torch.where(keep, adv, torch.zeros_like(adv))
+            self.lengths.copy_(torch.maximum(self.lengths, adv))
         return self
 
     def append_chunk(self, cfg: ModelConfig, sals: SALSConfig,
@@ -333,23 +399,27 @@ class LatentKVCache:
         return self
 
     def write_ring(self, sals: SALSConfig, pos, k_pre: torch.Tensor,
-                   v: torch.Tensor) -> "LatentKVCache":
+                   v: torch.Tensor, keep: Optional[torch.Tensor] = None
+                   ) -> "LatentKVCache":
         """Insert one token into the recent ring, and into the sink while
-        pos < n_sink.  k_pre/v: (B, n_kv, dh)."""
-        b = k_pre.shape[0]
+        pos < n_sink.  k_pre/v: ([L,] B, n_kv, dh); ``keep`` (B,) bool
+        masks the insert per row."""
+        b = k_pre.shape[-3]
         pos_v = _row_positions(pos, b, k_pre.device)
         rows = torch.arange(b, device=k_pre.device)
+        lead = self._lead()
         slot = torch.remainder(pos_v, sals.n_recent)
-        self.recent_k[rows, slot] = k_pre.to(self.recent_k.dtype)
-        self.recent_v[rows, slot] = v.to(self.recent_v.dtype)
+        _masked_put(self.recent_k, lead + (rows, slot), k_pre, keep)
+        _masked_put(self.recent_v, lead + (rows, slot), v, keep)
         # rows past the sink rewrite sink slot 0 with its own value (no
         # host sync on a data-dependent branch)
-        in_sink = (pos_v < sals.n_sink)[:, None, None]
-        sink_pos = torch.where(pos_v < sals.n_sink, pos_v,
-                               torch.zeros_like(pos_v))
-        for arr, val in ((self.sink_k, k_pre), (self.sink_v, v)):
-            arr[rows, sink_pos] = torch.where(in_sink, val.to(arr.dtype),
-                                              arr[rows, sink_pos])
+        in_sink = pos_v < sals.n_sink
+        if keep is not None:
+            in_sink = in_sink & keep
+        sink_at = lead + (rows, torch.where(in_sink, pos_v,
+                                            torch.zeros_like(pos_v)))
+        _masked_put(self.sink_k, sink_at, k_pre, in_sink)
+        _masked_put(self.sink_v, sink_at, v, in_sink)
         return self
 
     # ------------------------------------------------------------ slot arena

@@ -54,10 +54,19 @@ def sort_selected(idx: torch.Tensor, valid: torch.Tensor
     return torch.gather(idx, -1, order), torch.gather(valid, -1, order)
 
 
+def window_query(q_win: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Scoring query of a speculative verify window: (B, Q, H, dh) ->
+    (B, kv_dim).  Latent scores are RoPE-free, so one selection serves the
+    window; the FIRST window token (always committed) anchors it, and at
+    Q = 1 this is the sequential scoring query."""
+    return group_query(q_win[:, 0], cfg)
+
+
 def ring_positions(pos, n_recent: int) -> torch.Tensor:
     """Global position held by each ring slot at decode step ``pos`` (after
     the current token was inserted at slot pos % W); negative -> empty.
-    ``pos`` scalar -> (W,); (B,) -> (B, W)."""
+    ``pos`` scalar -> (W,); (B,) -> (B, W); (B, Q) per-query window
+    positions -> (B, Q, W) (query t sees the ring as of step base + t)."""
     p = torch.as_tensor(pos)
     i = torch.arange(n_recent, device=p.device)
     if p.dim() >= 1:

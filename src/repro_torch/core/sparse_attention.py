@@ -14,7 +14,11 @@ One decode step per SALS layer:
 
 Both layouts of the cache run through the same code: the dense slot arena,
 and the paged one, whose page table rides to both kernels (which then
-read the page pools).  The grouped (``n_groups > 1``) and tiered plans of
+read the page pools).
+
+:func:`sals_window_attend` is the speculative verify window: Q tokens at
+positions pos..pos+Q−1 through one selection and one windowed recon
+kernel, READ-ONLY on the cache (the caller commits the accepted prefix).  The grouped (``n_groups > 1``) and tiered plans of
 the reference are ported in later slices; the cache constructors and the
 engine raise ``NotImplementedError`` for them.
 """
@@ -56,18 +60,42 @@ def _region_logits(q_r: torch.Tensor, k_pre: torch.Tensor,
     return logits
 
 
+def _region_logits_window(q_r: torch.Tensor, k_pre: torch.Tensor,
+                          positions: torch.Tensor, cfg: ModelConfig
+                          ) -> torch.Tensor:
+    """Verify-window form of :func:`_region_logits`: q_r (B, Q, H, dh)
+    RoPE'd queries; k_pre (B, Q, N, Hkv, dh) PER-QUERY region keys (each
+    query sees the buffers its sequential step would read); positions
+    broadcastable to (B, Q, N).  Returns (B, Q, H, N) f32 logits."""
+    if cfg.use_rope:
+        k = apply_rope(k_pre, positions.expand(k_pre.shape[:-2]),
+                       cfg.rope_theta)
+    else:
+        k = k_pre
+    b, ql = q_r.shape[:2]
+    q_g = q_r.reshape(b, ql, cfg.n_kv_heads, cfg.group_size,
+                      cfg.head_dim).float()
+    logits = torch.einsum("bqkrd,bqnkd->bqkrn", q_g, k.float())
+    logits = logits.reshape(b, ql, cfg.n_heads, k.shape[2])
+    logits = logits * (cfg.head_dim ** -0.5)
+    if cfg.attn_logit_softcap:
+        logits = cfg.attn_logit_softcap * torch.tanh(
+            logits / cfg.attn_logit_softcap)
+    return logits
+
+
 def _partial_attend(logits: torch.Tensor, v: torch.Tensor, cfg: ModelConfig
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Flash-style partial softmax stats over the last axis.  logits:
-    (B, H, N) f32; v: (B, N, Hkv, dh) unexpanded.  Returns (m, l, o)."""
+    (..., H, N) f32; v: (..., N, Hkv, dh) unexpanded.  Returns (m, l, o)."""
     m = torch.max(logits, dim=-1).values
     p = torch.exp(logits - m[..., None])
     p = torch.where(logits <= NEG / 2, torch.zeros_like(p), p)
     l = torch.sum(p, dim=-1)
-    b, _, n = logits.shape
-    p_g = p.reshape(b, cfg.n_kv_heads, cfg.group_size, n)
-    o = torch.einsum("bkrn,bnkd->bkrd", p_g, v.float())
-    return m, l, o.reshape(b, cfg.n_heads, cfg.head_dim)
+    lead, n = logits.shape[:-2], logits.shape[-1]
+    p_g = p.reshape(*lead, cfg.n_kv_heads, cfg.group_size, n)
+    o = torch.einsum("...krn,...nkd->...krd", p_g, v.float())
+    return m, l, o.reshape(*lead, cfg.n_heads, cfg.head_dim)
 
 
 def _global_partials(q0, q_bar, u, cache: LatentKVCache, pos,
@@ -144,3 +172,114 @@ def sals_decode_attend(params, u: torch.Tensor, cache: LatentKVCache,
     numer = torch.sum(wc[..., None] * o_c, dim=1) + wsr[..., None] * o_sr
     o = numer / torch.clamp_min(denom, 1e-30)[..., None]
     return out_proj(params, o[:, None].to(x.dtype), cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# Speculative verify window: one selection, Q queries
+# ---------------------------------------------------------------------------
+
+def _global_window_partials(q, q_bar, u, cache: LatentKVCache, pos, ql: int,
+                            cfg: ModelConfig, sals: SALSConfig):
+    """Windowed :func:`_global_partials`: ONE global top-N_c, masked at the
+    window's LAST position so it covers every query's selectable range,
+    feeds the windowed recon kernel, which reconstructs each selected token
+    once and gates query t to positions ≤ pos + t − n_recent.  Returns
+    (m, l, o) with a G = 1 axis: (B, 1, Q, H[, dh])."""
+    r_star = sals.score_rank(cfg.kv_dim)
+    k_lat, k_scale = cache.latent_views()
+    pt = cache.page_table if cache.paged else None
+    ps = cache.page_size
+    idx, valid = sel.topk_latent(q_bar, u, k_lat, k_scale, pos + (ql - 1),
+                                 sals, r_star, page_table=pt, page_size=ps)
+    idx, valid = sel.sort_selected(idx, valid)
+    m, l, o = ops.sparse_recon_attention_window(
+        q.contiguous(), k_lat, k_scale, cache.v_q, cache.v_scale,
+        cache.v_zero, u, idx, valid, pos, n_kv=cfg.n_kv_heads,
+        n_recent=sals.n_recent, v_bits=sals.v_bits, v_group=sals.v_group,
+        theta=cfg.rope_theta, softcap=cfg.attn_logit_softcap,
+        use_rope=cfg.use_rope, page_table=pt, page_size=ps)
+    return m[:, None], l[:, None], o[:, None]
+
+
+def sals_window_attend(params, u: torch.Tensor, cache: LatentKVCache,
+                       x: torch.Tensor, pos, cfg: ModelConfig,
+                       sals: SALSConfig):
+    """Verify-window SALS attention for one layer.
+
+    x: (B, Q, d) — the pending token plus Q−1 drafts at positions
+    pos..pos+Q−1 (``pos`` scalar or (B,) per-row window base; Q ≤ n_recent
+    so the widest selection mask reaches no uncommitted position).
+    READ-ONLY on the cache: a rejected draft must never reach the ring,
+    sink or latent writes; the caller commits the accepted prefix with
+    :meth:`LatentKVCache.write_window` from the returned window K/V.
+
+    One latent selection (the first window token's grouped query, masked
+    at the window's last position) serves all Q queries through the
+    windowed recon kernel.  The sink / recent region is simulated per
+    query: the writes sequential steps pos..pos+t would make (ring slot
+    (pos+s) % W, sink while pos+s < n_sink) are replayed into per-query
+    views, so query t reads the buffers its sequential step would read.
+
+    Returns (y (B, Q, d), k_pre (B, Q, Hkv, dh), v (B, Q, Hkv, dh))."""
+    b, ql, _ = x.shape
+    dev = x.device
+    w = sals.n_recent
+    if ql > w:
+        raise ValueError(f"verify window {ql} > n_recent {w}: the widest "
+                         "selection mask would cover uncommitted positions")
+    pos_v = torch.as_tensor(pos, device=dev).to(torch.int32).reshape(-1) \
+        .expand(b).contiguous()
+    t_idx = torch.arange(ql, dtype=torch.int32, device=dev)
+    qpos = pos_v[:, None] + t_idx[None, :]                       # (B, Q)
+
+    q, k_new, v_new = qkv_proj(params, x, cfg)
+    q_bar = sel.window_query(q, cfg)
+    q_r = apply_rope(q, qpos, cfg.rope_theta) if cfg.use_rope else q
+
+    # ---- per-query sink + recent ring (replayed sequential writes) -------
+    # Q <= W, so ring slot j receives at most one window token, s_j =
+    # (j - pos) mod W, live for query t iff s_j <= t; sink position p in
+    # [pos, pos + t] holds window token p - pos
+    ns = sals.n_sink
+    k_win = k_new.to(cache.recent_k.dtype)
+    v_win = v_new.to(cache.recent_v.dtype)
+    bi = torch.arange(b, device=dev)[:, None]
+
+    def replay(buf_k, buf_v, s_j):
+        """(B, n) window-token index per buffer slot -> per-query (B, Q, n,
+        Hkv, dh) views of (buf_k, buf_v)."""
+        hit = ((s_j[:, None, :] >= 0)
+               & (s_j[:, None, :] <= t_idx[None, :, None]))[..., None, None]
+        s_c = s_j.clamp(0, ql - 1).long()
+        return (torch.where(hit, k_win[bi, s_c][:, None], buf_k[:, None]),
+                torch.where(hit, v_win[bi, s_c][:, None], buf_v[:, None]))
+
+    j = torch.arange(w, dtype=torch.int32, device=dev)[None, :]
+    ring_k, ring_v = replay(cache.recent_k, cache.recent_v,
+                            torch.remainder(j - pos_v[:, None], w))
+    sp = torch.arange(ns, dtype=torch.int32, device=dev)[None, :]
+    sink_k, sink_v = replay(cache.sink_k, cache.sink_v, sp - pos_v[:, None])
+    rec_pos = sel.ring_positions(qpos.long(), w)                 # (B, Q, w)
+    sink_pos = sp.long()[None].expand(b, ql, ns)
+
+    sr_k = torch.cat([sink_k, ring_k], dim=2)      # (B, Q, ns+w, Hkv, dh)
+    sr_v = torch.cat([sink_v, ring_v], dim=2)
+    sr_positions = torch.cat([sink_pos, rec_pos], dim=2)
+    sr_valid = (sr_positions >= 0) & (sr_positions <= qpos[..., None])
+    sr_logits = _region_logits_window(q_r, sr_k, sr_positions, cfg)
+    sr_logits = torch.where(sr_valid[:, :, None, :], sr_logits,
+                            torch.tensor(NEG, device=dev))
+    m_sr, l_sr, o_sr = _partial_attend(sr_logits, sr_v, cfg)
+
+    # ---- selected-token partials, (B, 1, Q, H[, dh]) ----------------------
+    m_c, l_c, o_c = _global_window_partials(q, q_bar, u, cache, pos_v, ql,
+                                            cfg, sals)
+
+    # ---- LSE merge ----------------------------------------------------------
+    m_all = torch.maximum(torch.max(m_c, dim=1).values, m_sr)   # (B,Q,H)
+    wc = torch.exp(m_c - m_all[:, None])
+    wsr = torch.exp(m_sr - m_all)
+    denom = torch.sum(wc * l_c, dim=1) + wsr * l_sr
+    numer = torch.sum(wc[..., None] * o_c, dim=1) + wsr[..., None] * o_sr
+    o = numer / torch.clamp_min(denom, 1e-30)[..., None]
+    return out_proj(params, o.to(x.dtype), cfg), k_new, v_new

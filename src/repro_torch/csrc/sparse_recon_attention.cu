@@ -1,7 +1,9 @@
 // Selected-token decode attention over the raw latent cache (SALS stages
 // 3-4), Hopper port of
 // repro/kernels/sparse_recon_attention.py::sparse_recon_attention_pallas
-// and (PAGED = true) ::sparse_recon_attention_paged_pallas.
+// and (PAGED = true) ::sparse_recon_attention_paged_pallas, and of their
+// speculative verify-window forms ::sparse_recon_attention_window_pallas and
+// ::sparse_recon_attention_window_paged_pallas.
 //
 // Grid (B, n_kv): one block per (batch row, kv head), so no reduction
 // crosses blocks.  The block walks the N_c selected slots in the order it
@@ -17,12 +19,23 @@
 //      once per tile instead of once per slot;
 //   3. RoPE at pos_base + idx, pairs (d, d + dh/2) exchanged through shared
 //      memory;
-//   4. score the `group` query heads (RoPE'd once at the row's q_pos),
-//      scale by dh^-1/2, softcap, NEG_INF where `valid` is false;
+//   4. score the `group` query heads of each of the `ql` window queries
+//      (query t RoPE'd once at q_pos + t), scale by dh^-1/2, softcap,
+//      NEG_INF where `valid` is false or, with n_recent > 0, where the
+//      slot's position exceeds q_pos + t - n_recent (the per-query mask
+//      advance of a verify window);
 //   5. dequantize the head's value channels (int8 +128, or int4 byte c/2
 //      with the low nibble for even c; group c / v_group);
-//   6. update an f32 online softmax slot by slot, in the given order.
-// Outputs the unnormalized partials m, l (B, H) and o (B, H, dh), f32.
+//   6. update ql * group * dh f32 online-softmax cells (kept in shared
+//      memory, each owned by one thread) slot by slot, in the given order.
+// Outputs the unnormalized partials m, l (B, ql, H) and o (B, ql, H, dh),
+// f32.  Each selected key is reconstructed once for the whole window.
+//
+// One body serves both: the single-token entry points are its ql = 1,
+// n_recent = 0 launch, so a one-query window equals the single-token
+// kernel bit for bit, and query t of a window equals the single-token
+// kernel at q_pos + t on the gated set (a gated slot is an exact no-op of
+// the online softmax: p = 0, alpha = expf(0) = 1).
 //
 // Paged layout: every cache operand is a pool (n_pages, ps, ·) and the
 // selected logical position p (clamped into [0, S), S = mp * ps) lives at
@@ -34,9 +47,10 @@
 // on few pages.
 //
 // Bound: the reconstruction is 2*B*N_c*kv_dim*r FLOP (14.5 GFLOP at the
-// llama2-7b slice shapes), which bounds it on the tensor cores; this first
-// version runs it on the CUDA cores in f32 (a wgmma tile of selected tokens
-// is the later redesign).
+// llama2-7b slice shapes) whatever the window length, plus ql times the
+// scoring; it bounds the kernel on the tensor cores.  This first version
+// runs it on the CUDA cores in f32 (a wgmma tile of selected tokens is the
+// later redesign).
 #include "common.cuh"
 
 #include <math.h>
@@ -45,6 +59,7 @@ constexpr int SRA_THREADS = 512;
 constexpr int SRA_T = 32;   // selected slots per tile
 constexpr int SRA_JT = 32;  // U columns per shared-memory chunk
 constexpr int SRA_LAT_LD = SRA_T + 4;  // lat_s row pitch (floats)
+constexpr int SRA_MAX_QL = 8;          // longest verify window
 
 // Where row b's logical cache position p lives (pages: see the header).
 struct SraLayout {
@@ -71,9 +86,9 @@ __global__ void __launch_bounds__(SRA_THREADS) sra_kernel(
     const uint8_t* __restrict__ valid, const int* __restrict__ q_pos,
     const int* __restrict__ pos_base, const float* __restrict__ freqs,
     float* __restrict__ m_out, float* __restrict__ l_out,
-    float* __restrict__ o_out, int H, int n_kv, int S, int r, int code_w,
-    int G, int v_group, int n_c, float softcap, int use_rope, int lat_vec,
-    int u_vec, SraLayout lay) {
+    float* __restrict__ o_out, int ql, int H, int n_kv, int S, int r,
+    int code_w, int G, int v_group, int n_c, int n_recent, float softcap,
+    int use_rope, int lat_vec, int u_vec, SraLayout lay) {
   constexpr int N_SG = SRA_THREADS / DH;  // slot groups
   constexpr int SPT = SRA_T / N_SG;       // slots per thread
   constexpr int HALF = DH / 2;
@@ -81,6 +96,7 @@ __global__ void __launch_bounds__(SRA_THREADS) sra_kernel(
                 "tile shape");
   static_assert(SRA_T == 32, "the gather maps one slot to each lane");
   const int group = H / n_kv;
+  const int nq = ql * group;  // (window query, head) pairs of this block
   const int b = blockIdx.x, h = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = SRA_THREADS / 32;
@@ -91,47 +107,53 @@ __global__ void __launch_bounds__(SRA_THREADS) sra_kernel(
   float* u_s = lat_s + (size_t)r * SRA_LAT_LD;       // DH x (JT+1)
   float* k_s = u_s + DH * (SRA_JT + 1);              // T x DH
   float* v_s = k_s + SRA_T * DH;                     // T x DH
-  float* q_s = v_s + SRA_T * DH;                     // group x DH
-  float* lg_s = q_s + group * DH;                    // T x group
-  int* row_s = reinterpret_cast<int*>(lg_s + SRA_T * group);  // T
+  float* q_s = v_s + SRA_T * DH;                     // nq x DH
+  float* lg_s = q_s + nq * DH;                       // T x nq
+  float* m_s = lg_s + SRA_T * nq;                    // nq*DH softmax cells
+  float* l_s = m_s + nq * DH;
+  float* o_s = l_s + nq * DH;
+  int* row_s = reinterpret_cast<int*>(o_s + nq * DH);  // T
   int* ok_s = row_s + SRA_T;                                    // T
   float* sc_s = reinterpret_cast<float*>(ok_s + SRA_T);         // T
   int* prow_s = reinterpret_cast<int*>(sc_s + SRA_T);  // T physical rows
 
-  // RoPE'd query heads of this kv group, once (rounded to q's dtype as the
-  // reference's oracle does)
-  for (int e = tid; e < group * DH; e += SRA_THREADS) {
-    const int gi = e / DH, d = e % DH;
-    q_s[e] = sals_load(q, q_dtype, ((size_t)b * H + h * group + gi) * DH + d);
+  // RoPE'd query heads of this kv group for every window query t (row
+  // qg = t * group + gi), once (rounded to q's dtype as the reference's
+  // oracle does)
+  for (int e = tid; e < nq * DH; e += SRA_THREADS) {
+    const int qg = e / DH, d = e % DH;
+    const int t = qg / group, gi = qg % group;
+    q_s[e] = sals_load(q, q_dtype,
+                       (((size_t)b * ql + t) * H + h * group + gi) * DH + d);
   }
   __syncthreads();
   if (use_rope) {
-    const float qp = (float)q_pos[b];
-    for (int e = tid; e < group * HALF; e += SRA_THREADS) {
-      const int gi = e / HALF, d = e % HALF;
+    for (int e = tid; e < nq * HALF; e += SRA_THREADS) {
+      const int qg = e / HALF, d = e % HALF;
+      const float qp = (float)(q_pos[b] + qg / group);
       const float ang = qp * freqs[d];
       const float c = cosf(ang), s = sinf(ang);
-      const float x1 = q_s[gi * DH + d], x2 = q_s[gi * DH + d + HALF];
+      const float x1 = q_s[qg * DH + d], x2 = q_s[qg * DH + d + HALF];
       float y1 = x1 * c - x2 * s, y2 = x2 * c + x1 * s;
       if (q_dtype == SALS_BF16) {
         y1 = __bfloat162float(__float2bfloat16(y1));
         y2 = __bfloat162float(__float2bfloat16(y2));
       }
-      q_s[gi * DH + d] = y1;
-      q_s[gi * DH + d + HALF] = y2;
+      q_s[qg * DH + d] = y1;
+      q_s[qg * DH + d + HALF] = y2;
     }
   }
 
-  // online-softmax state: each thread owns up to two (head, channel) cells
-  const int n_cells = group * DH;
-  float m_r[2], l_r[2], o_r[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    m_r[i] = SALS_NEG_INF;
-    l_r[i] = 0.f;
-    o_r[i] = 0.f;
+  // online-softmax state: cell (qg, d) belongs to thread cell % THREADS
+  // alone, so no barrier guards it
+  const int n_cells = nq * DH;
+  for (int cell = tid; cell < n_cells; cell += SRA_THREADS) {
+    m_s[cell] = SALS_NEG_INF;
+    l_s[cell] = 0.f;
+    o_s[cell] = 0.f;
   }
   const int base = pos_base[b];
+  const int qpos = q_pos[b];
   const int d_own = tid % DH, sg = tid / DH;
 
   for (int t0 = 0; t0 < n_c; t0 += SRA_T) {
@@ -277,155 +299,140 @@ __global__ void __launch_bounds__(SRA_THREADS) sra_kernel(
     }
     __syncthreads();
 
-    // 4. logits of the group's query heads, one warp per (slot, head)
-    for (int p = warp; p < count * group; p += nwarps) {
-      const int t = p / group, gi = p % group;
+    // 4. logits of every (window query, head), one warp per (slot, query,
+    //    head); query t sees the slot only if its position is at most
+    //    q_pos + t - n_recent (n_recent = 0: no gate)
+    for (int p = warp; p < count * nq; p += nwarps) {
+      const int t = p / nq, qg = p % nq;
       float a = 0.f;
-      for (int d = lane; d < DH; d += 32) a += q_s[gi * DH + d] * k_s[t * DH + d];
+      for (int d = lane; d < DH; d += 32) a += q_s[qg * DH + d] * k_s[t * DH + d];
       a = sals_warp_sum(a);
       if (lane == 0) {
         float x = a * scale;
         if (softcap != 0.f) x = softcap * tanhf(x / softcap);
-        lg_s[t * group + gi] = ok_s[t] ? x : SALS_NEG_INF;
+        const bool seen = n_recent == 0 ||
+                          base + row_s[t] <= qpos + qg / group - n_recent;
+        lg_s[t * nq + qg] = ok_s[t] && seen ? x : SALS_NEG_INF;
       }
     }
     __syncthreads();
 
     // 6. online softmax, slot by slot in the given order
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int cell = tid + i * SRA_THREADS;
-      if (cell < n_cells) {
-        const int gi = cell / DH, d = cell % DH;
-        float m = m_r[i], l = l_r[i], o = o_r[i];
-        for (int t = 0; t < count; ++t) {
-          const float x = lg_s[t * group + gi];
-          const float m_new = fmaxf(m, x);
-          const float p = x <= SALS_NEG_INF * 0.5f ? 0.f : expf(x - m_new);
-          const float alpha = expf(m - m_new);
-          l = l * alpha + p;
-          o = o * alpha + p * v_s[t * DH + d];
-          m = m_new;
-        }
-        m_r[i] = m;
-        l_r[i] = l;
-        o_r[i] = o;
+    for (int cell = tid; cell < n_cells; cell += SRA_THREADS) {
+      const int qg = cell / DH, d = cell % DH;
+      float m = m_s[cell], l = l_s[cell], o = o_s[cell];
+      for (int t = 0; t < count; ++t) {
+        const float x = lg_s[t * nq + qg];
+        const float m_new = fmaxf(m, x);
+        const float p = x <= SALS_NEG_INF * 0.5f ? 0.f : expf(x - m_new);
+        const float alpha = expf(m - m_new);
+        l = l * alpha + p;
+        o = o * alpha + p * v_s[t * DH + d];
+        m = m_new;
       }
+      m_s[cell] = m;
+      l_s[cell] = l;
+      o_s[cell] = o;
     }
   }
 
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int cell = tid + i * SRA_THREADS;
-    if (cell < n_cells) {
-      const int gi = cell / DH, d = cell % DH;
-      const size_t hq = (size_t)b * H + h * group + gi;
-      o_out[hq * DH + d] = o_r[i];
-      if (d == 0) {
-        m_out[hq] = m_r[i];
-        l_out[hq] = l_r[i];
-      }
+  for (int cell = tid; cell < n_cells; cell += SRA_THREADS) {
+    const int qg = cell / DH, d = cell % DH;
+    const int t = qg / group, gi = qg % group;
+    const size_t hq = ((size_t)b * ql + t) * H + h * group + gi;
+    o_out[hq * DH + d] = o_s[cell];
+    if (d == 0) {
+      m_out[hq] = m_s[cell];
+      l_out[hq] = l_s[cell];
     }
   }
 }
 
-size_t sra_smem_bytes(int r, int dh, int group) {
+size_t sra_smem_bytes(int r, int dh, int group, int ql) {
+  const size_t nq = (size_t)ql * group;
   return sizeof(float) * ((size_t)r * SRA_LAT_LD + dh * (SRA_JT + 1) +
-                          2 * SRA_T * dh + group * dh + SRA_T * group +
-                          SRA_T) +
+                          2 * SRA_T * dh + nq * dh + SRA_T * nq +
+                          3 * nq * dh + SRA_T) +
          3 * sizeof(int) * SRA_T;
 }
 
+// Everything one launch needs, as the C entry points receive it.
+struct SraCall {
+  const void *q, *k_lat, *k_scale, *v_q, *v_scale, *v_zero, *u, *idx,
+      *valid, *q_pos, *pos_base, *freqs;
+  void *m, *l, *o;
+  int q_dtype, u_dtype, B, ql, H, n_kv, S, r, code_w, G, v_group, n_c,
+      n_recent, use_rope;
+  float softcap;
+  SraLayout lay;
+};
+
 template <typename TK, int VBITS, int DH, bool PAGED>
-static int launch_sra(const void* q, int q_dtype, const void* k_lat,
-                      const void* k_scale, const void* v_q,
-                      const void* v_scale, const void* v_zero, const void* u,
-                      int u_dtype, const void* idx, const void* valid,
-                      const void* q_pos, const void* pos_base,
-                      const void* freqs, void* m, void* l, void* o, int B,
-                      int H, int n_kv, int S, int r, int code_w, int G,
-                      int v_group, int n_c, float softcap, int use_rope,
-                      SraLayout lay, cudaStream_t stream) {
-  const size_t smem = sra_smem_bytes(r, DH, H / n_kv);
+static int launch_sra(const SraCall& c, cudaStream_t stream) {
+  const size_t smem = sra_smem_bytes(c.r, DH, c.H / c.n_kv, c.ql);
   // 16-byte vector paths need aligned rows (and whole U chunks)
-  const int lat_vec = (reinterpret_cast<uintptr_t>(k_lat) % 16 == 0) &&
-                      ((size_t)r * sizeof(TK)) % 16 == 0;
-  const int u_vec = u_dtype == SALS_BF16 &&
-                    reinterpret_cast<uintptr_t>(u) % 16 == 0 &&
-                    r % SRA_JT == 0;
+  const int lat_vec = (reinterpret_cast<uintptr_t>(c.k_lat) % 16 == 0) &&
+                      ((size_t)c.r * sizeof(TK)) % 16 == 0;
+  const int u_vec = c.u_dtype == SALS_BF16 &&
+                    reinterpret_cast<uintptr_t>(c.u) % 16 == 0 &&
+                    c.r % SRA_JT == 0;
   cudaFuncSetAttribute(sra_kernel<TK, VBITS, DH, PAGED>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
-  dim3 grid(B, n_kv);
+  dim3 grid(c.B, c.n_kv);
   sra_kernel<TK, VBITS, DH, PAGED><<<grid, SRA_THREADS, smem, stream>>>(
-      q, q_dtype, static_cast<const TK*>(k_lat),
-      static_cast<const __nv_bfloat16*>(k_scale),
-      static_cast<const uint8_t*>(v_q),
-      static_cast<const __nv_bfloat16*>(v_scale),
-      static_cast<const __nv_bfloat16*>(v_zero), u, u_dtype,
-      static_cast<const int*>(idx), static_cast<const uint8_t*>(valid),
-      static_cast<const int*>(q_pos), static_cast<const int*>(pos_base),
-      static_cast<const float*>(freqs), static_cast<float*>(m),
-      static_cast<float*>(l), static_cast<float*>(o), H, n_kv, S, r, code_w,
-      G, v_group, n_c, softcap, use_rope, lat_vec, u_vec, lay);
+      c.q, c.q_dtype, static_cast<const TK*>(c.k_lat),
+      static_cast<const __nv_bfloat16*>(c.k_scale),
+      static_cast<const uint8_t*>(c.v_q),
+      static_cast<const __nv_bfloat16*>(c.v_scale),
+      static_cast<const __nv_bfloat16*>(c.v_zero), c.u, c.u_dtype,
+      static_cast<const int*>(c.idx), static_cast<const uint8_t*>(c.valid),
+      static_cast<const int*>(c.q_pos), static_cast<const int*>(c.pos_base),
+      static_cast<const float*>(c.freqs), static_cast<float*>(c.m),
+      static_cast<float*>(c.l), static_cast<float*>(c.o), c.ql, c.H, c.n_kv,
+      c.S, c.r, c.code_w, c.G, c.v_group, c.n_c, c.n_recent, c.softcap,
+      c.use_rope, lat_vec, u_vec, c.lay);
   return (int)cudaGetLastError();
 }
 
 template <typename TK, int VBITS, bool PAGED>
-static int dispatch_dh(int dh, const void* q, int q_dtype, const void* k_lat,
-                       const void* k_scale, const void* v_q,
-                       const void* v_scale, const void* v_zero,
-                       const void* u, int u_dtype, const void* idx,
-                       const void* valid, const void* q_pos,
-                       const void* pos_base, const void* freqs, void* m,
-                       void* l, void* o, int B, int H, int n_kv, int S, int r,
-                       int code_w, int G, int v_group, int n_c, float softcap,
-                       int use_rope, SraLayout lay, cudaStream_t st) {
-  if (dh == 128)
-    return launch_sra<TK, VBITS, 128, PAGED>(
-        q, q_dtype, k_lat, k_scale, v_q, v_scale, v_zero, u, u_dtype, idx,
-        valid, q_pos, pos_base, freqs, m, l, o, B, H, n_kv, S, r, code_w, G,
-        v_group, n_c, softcap, use_rope, lay, st);
-  if (dh == 64)
-    return launch_sra<TK, VBITS, 64, PAGED>(
-        q, q_dtype, k_lat, k_scale, v_q, v_scale, v_zero, u, u_dtype, idx,
-        valid, q_pos, pos_base, freqs, m, l, o, B, H, n_kv, S, r, code_w, G,
-        v_group, n_c, softcap, use_rope, lay, st);
+static int dispatch_dh(int dh, const SraCall& c, cudaStream_t st) {
+  if (dh == 128) return launch_sra<TK, VBITS, 128, PAGED>(c, st);
+  if (dh == 64) return launch_sra<TK, VBITS, 64, PAGED>(c, st);
   return (int)cudaErrorInvalidValue;
 }
 
 template <bool PAGED>
-static int dispatch_sra(
-    const void* q, int q_dtype, const void* k_lat, int k_dtype,
-    const void* k_scale, const void* v_q, int v_bits, const void* v_scale,
-    const void* v_zero, const void* u, int u_dtype, const void* idx,
-    const void* valid, const void* q_pos, const void* pos_base,
-    const void* freqs, void* m, void* l, void* o, int B, int H, int n_kv,
-    int dh, int S, int r, int code_w, int G, int v_group, int n_c,
-    float softcap, int use_rope, SraLayout lay, void* stream) {
+static int dispatch_sra(const SraCall& c, int k_dtype, int v_bits, int dh,
+                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SRA_ARGS                                                            \
-  dh, q, q_dtype, k_lat, k_scale, v_q, v_scale, v_zero, u, u_dtype, idx,   \
-      valid, q_pos, pos_base, freqs, m, l, o, B, H, n_kv, S, r, code_w, G,  \
-      v_group, n_c, softcap, use_rope, lay, st
   if (v_bits != 8 && v_bits != 4) return (int)cudaErrorInvalidValue;
+  if (c.ql < 1 || c.ql > SRA_MAX_QL || c.n_recent < 0)
+    return (int)cudaErrorInvalidValue;
   const bool v4 = v_bits == 4;
   switch (k_dtype) {
     case SALS_F32:
-      return v4 ? dispatch_dh<float, 4, PAGED>(SRA_ARGS)
-                : dispatch_dh<float, 8, PAGED>(SRA_ARGS);
+      return v4 ? dispatch_dh<float, 4, PAGED>(dh, c, st)
+                : dispatch_dh<float, 8, PAGED>(dh, c, st);
     case SALS_BF16:
-      return v4 ? dispatch_dh<__nv_bfloat16, 4, PAGED>(SRA_ARGS)
-                : dispatch_dh<__nv_bfloat16, 8, PAGED>(SRA_ARGS);
+      return v4 ? dispatch_dh<__nv_bfloat16, 4, PAGED>(dh, c, st)
+                : dispatch_dh<__nv_bfloat16, 8, PAGED>(dh, c, st);
     case SALS_I8:
-      return v4 ? dispatch_dh<int8_t, 4, PAGED>(SRA_ARGS)
-                : dispatch_dh<int8_t, 8, PAGED>(SRA_ARGS);
+      return v4 ? dispatch_dh<int8_t, 4, PAGED>(dh, c, st)
+                : dispatch_dh<int8_t, 8, PAGED>(dh, c, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
-#undef SRA_ARGS
 }
 
+static SraLayout paged_layout(const void* page_table, int S, int mp, int ps,
+                              int n_pages, bool* ok) {
+  *ok = mp >= 1 && ps >= 1 && n_pages >= 1 && S == mp * ps;
+  return SraLayout{static_cast<const int*>(page_table), mp, ps, n_pages};
+}
+
+// Single-token decode: q (B, H, dh); m, l (B, H), o (B, H, dh).  The
+// ql = 1, n_recent = 0 launch of the window body.
 extern "C" int sals_sparse_recon_attention(
     const void* q, int q_dtype, const void* k_lat, int k_dtype,
     const void* k_scale, const void* v_q, int v_bits, const void* v_scale,
@@ -434,11 +441,11 @@ extern "C" int sals_sparse_recon_attention(
     const void* freqs, void* m, void* l, void* o, int B, int H, int n_kv,
     int dh, int S, int r, int code_w, int G, int v_group, int n_c,
     float softcap, int use_rope, void* stream) {
-  return dispatch_sra<false>(q, q_dtype, k_lat, k_dtype, k_scale, v_q, v_bits,
-                             v_scale, v_zero, u, u_dtype, idx, valid, q_pos,
-                             pos_base, freqs, m, l, o, B, H, n_kv, dh, S, r,
-                             code_w, G, v_group, n_c, softcap, use_rope,
-                             SraLayout{nullptr, 0, 0, 0}, stream);
+  const SraCall c{q, k_lat, k_scale, v_q, v_scale, v_zero, u, idx, valid,
+                  q_pos, pos_base, freqs, m, l, o, q_dtype, u_dtype, B, 1,
+                  H, n_kv, S, r, code_w, G, v_group, n_c, 0, use_rope,
+                  softcap, SraLayout{nullptr, 0, 0, 0}};
+  return dispatch_sra<false>(c, k_dtype, v_bits, dh, stream);
 }
 
 // Paged: k_lat (n_pages, ps, r), k_scale (n_pages, ps), v_q (n_pages, ps,
@@ -453,12 +460,50 @@ extern "C" int sals_sparse_recon_attention_paged(
     int B, int H, int n_kv, int dh, int S, int r, int code_w, int G,
     int v_group, int n_c, float softcap, int use_rope, int mp, int ps,
     int n_pages, void* stream) {
-  if (mp < 1 || ps < 1 || n_pages < 1 || S != mp * ps)
-    return (int)cudaErrorInvalidValue;
-  return dispatch_sra<true>(
-      q, q_dtype, k_lat, k_dtype, k_scale, v_q, v_bits, v_scale, v_zero, u,
-      u_dtype, idx, valid, q_pos, pos_base, freqs, m, l, o, B, H, n_kv, dh,
-      S, r, code_w, G, v_group, n_c, softcap, use_rope,
-      SraLayout{static_cast<const int*>(page_table), mp, ps, n_pages},
-      stream);
+  bool ok;
+  const SraLayout lay = paged_layout(page_table, S, mp, ps, n_pages, &ok);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const SraCall c{q, k_lat, k_scale, v_q, v_scale, v_zero, u, idx, valid,
+                  q_pos, pos_base, freqs, m, l, o, q_dtype, u_dtype, B, 1,
+                  H, n_kv, S, r, code_w, G, v_group, n_c, 0, use_rope,
+                  softcap, lay};
+  return dispatch_sra<true>(c, k_dtype, v_bits, dh, stream);
+}
+
+// Verify window: q (B, ql, H, dh), query t RoPE'd at q_pos + t and (with
+// n_recent > 0) gated to positions <= q_pos + t - n_recent; m, l (B, ql,
+// H), o (B, ql, H, dh).  1 <= ql <= 8.
+extern "C" int sals_sparse_recon_attention_window(
+    const void* q, int q_dtype, const void* k_lat, int k_dtype,
+    const void* k_scale, const void* v_q, int v_bits, const void* v_scale,
+    const void* v_zero, const void* u, int u_dtype, const void* idx,
+    const void* valid, const void* q_pos, const void* pos_base,
+    const void* freqs, void* m, void* l, void* o, int B, int ql, int H,
+    int n_kv, int dh, int S, int r, int code_w, int G, int v_group, int n_c,
+    int n_recent, float softcap, int use_rope, void* stream) {
+  const SraCall c{q, k_lat, k_scale, v_q, v_scale, v_zero, u, idx, valid,
+                  q_pos, pos_base, freqs, m, l, o, q_dtype, u_dtype, B, ql,
+                  H, n_kv, S, r, code_w, G, v_group, n_c, n_recent, use_rope,
+                  softcap, SraLayout{nullptr, 0, 0, 0}};
+  return dispatch_sra<false>(c, k_dtype, v_bits, dh, stream);
+}
+
+// Paged verify window: the window over page pools, as the paged entry.
+extern "C" int sals_sparse_recon_attention_window_paged(
+    const void* q, int q_dtype, const void* k_lat, int k_dtype,
+    const void* k_scale, const void* v_q, int v_bits, const void* v_scale,
+    const void* v_zero, const void* u, int u_dtype, const void* idx,
+    const void* valid, const void* q_pos, const void* pos_base,
+    const void* freqs, const void* page_table, void* m, void* l, void* o,
+    int B, int ql, int H, int n_kv, int dh, int S, int r, int code_w, int G,
+    int v_group, int n_c, int n_recent, float softcap, int use_rope, int mp,
+    int ps, int n_pages, void* stream) {
+  bool ok;
+  const SraLayout lay = paged_layout(page_table, S, mp, ps, n_pages, &ok);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const SraCall c{q, k_lat, k_scale, v_q, v_scale, v_zero, u, idx, valid,
+                  q_pos, pos_base, freqs, m, l, o, q_dtype, u_dtype, B, ql,
+                  H, n_kv, S, r, code_w, G, v_group, n_c, n_recent, use_rope,
+                  softcap, lay};
+  return dispatch_sra<true>(c, k_dtype, v_bits, dh, stream);
 }

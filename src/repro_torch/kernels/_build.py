@@ -67,6 +67,15 @@ SIGNATURES = {
         _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
         _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P],
+    "sals_sparse_recon_attention_window": [
+        _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+        _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "sals_sparse_recon_attention_window_paged": [
+        _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+        _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I,
+        _P],
     "sals_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _F, _P],
 }

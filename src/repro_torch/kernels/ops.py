@@ -23,7 +23,8 @@ from repro_torch.kernels import sparse_recon_attention as _sra
 NEG_INF = _ref.NEG_INF
 
 COUNTERS = (_ls.launches, _sra.launches, _fa.launches,
-            _ls.paged_launches, _sra.paged_launches)
+            _ls.paged_launches, _sra.paged_launches, _sra.window_launches,
+            _sra.window_paged_launches)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -101,3 +102,31 @@ def sparse_recon_attention(q, k_lat, k_scale, v_q, v_scale, v_zero, u,
         return _ref.sparse_recon_attention_paged_ref(
             *args, **kw, page_table=page_table, page_size=page_size)
     return _ref.sparse_recon_attention_fused_ref(*args, **kw)
+
+
+def sparse_recon_attention_window(q, k_lat, k_scale, v_q, v_scale, v_zero,
+                                  u, idx, valid, q_pos, *, n_kv: int,
+                                  n_recent: int = 0, v_bits: int = 8,
+                                  v_group: int = 64, theta: float = 10_000.0,
+                                  softcap: float = 0.0, use_rope: bool = True,
+                                  pos_base: Optional[torch.Tensor] = None,
+                                  page_table: Optional[torch.Tensor] = None,
+                                  page_size: int = 0):
+    """Verify-window selected-token attention (speculative decode): as
+    :func:`sparse_recon_attention` with q (B, Q, H, dh) and ``q_pos`` the
+    window base — query t is RoPE'd at q_pos + t and, with ``n_recent`` >
+    0, sees only selected positions ≤ q_pos + t − n_recent.  One selected
+    set serves the window; each selected token is reconstructed once.
+    Returns f32 partials (m (B,Q,H), l (B,Q,H), o (B,Q,H,dh)); Q = 1
+    equals :func:`sparse_recon_attention` bit for bit."""
+    args = (q, k_lat, k_scale, v_q, v_scale, v_zero, u, idx, valid, q_pos)
+    kw = dict(n_kv=n_kv, n_recent=n_recent, v_bits=v_bits, v_group=v_group,
+              theta=theta, softcap=softcap, use_rope=use_rope,
+              pos_base=pos_base)
+    if _on_cuda(q):
+        return _sra.sparse_recon_attention_window_cuda(
+            *args, **kw, page_table=page_table, page_size=page_size)
+    if page_table is not None:
+        return _ref.sparse_recon_attention_window_paged_ref(
+            *args, **kw, page_table=page_table, page_size=page_size)
+    return _ref.sparse_recon_attention_fused_window_ref(*args, **kw)

@@ -170,6 +170,25 @@ def sparse_recon_attention_paged_ref(
         pos_base=pos_base)
 
 
+def sparse_recon_attention_window_paged_ref(
+        q, k_lat, k_scale, v_q, v_scale, v_zero, u, idx, valid, q_pos, *,
+        page_table: torch.Tensor, page_size: int, n_kv: int,
+        n_recent: int = 0, v_bits: int = 8, v_group: int = 64,
+        theta: float = 10_000.0, softcap: float = 0.0, use_rope: bool = True,
+        pos_base: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Paged verify-window twin: the cache operands are page pools, ``idx``
+    stays logical; gathers the (clamping) logical views and delegates."""
+    def view(a):
+        return None if a is None else \
+            paged_logical_view(a, page_table, page_size)
+    return sparse_recon_attention_fused_window_ref(
+        q, view(k_lat), view(k_scale), view(v_q), view(v_scale),
+        view(v_zero), u, idx, valid, q_pos, n_kv=n_kv, n_recent=n_recent,
+        v_bits=v_bits, v_group=v_group, theta=theta, softcap=softcap,
+        use_rope=use_rope, pos_base=pos_base)
+
+
 def dequantize_values_ref(code: torch.Tensor, scale: torch.Tensor,
                           zero: torch.Tensor, v_bits: int, v_group: int
                           ) -> torch.Tensor:
@@ -220,17 +239,68 @@ def sparse_recon_attention_fused_ref(
     """Index-taking twin: gather-then-attend.  Selected row n of batch row b
     sits at position ``pos_base[b] + idx[b, n]``.  Indices are clamped into
     [0, S) (invalid slots may carry anything)."""
-    s = k_lat.shape[1]
-    idx_c = idx.long().clamp(0, s - 1)
+    idx_c, sel_pos = _selected_positions(idx, k_lat.shape[1], pos_base)
     lat, v = gather_dequant_ref(k_lat, k_scale, v_q, v_scale, v_zero, idx_c,
                                 v_bits=v_bits, v_group=v_group)
-    sel_pos = idx_c
-    if pos_base is not None:
-        sel_pos = idx_c + row_vector(pos_base, idx.shape[0],
-                                      idx.device)[:, None]
     return sparse_recon_attention_ref(q, lat, v, u, sel_pos, valid, q_pos,
                                       n_kv=n_kv, theta=theta, softcap=softcap,
                                       use_rope=use_rope)
+
+
+def _selected_positions(idx: torch.Tensor, s: int, pos_base
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Clamped cache rows (B, N) and their positions pos_base[b] + row."""
+    idx_c = idx.long().clamp(0, s - 1)
+    if pos_base is None:
+        return idx_c, idx_c
+    return idx_c, idx_c + row_vector(pos_base, idx.shape[0],
+                                     idx.device)[:, None]
+
+
+def sparse_recon_attention_fused_window_ref(
+        q: torch.Tensor, k_lat: torch.Tensor, k_scale: Optional[torch.Tensor],
+        v_q: torch.Tensor, v_scale: torch.Tensor, v_zero: torch.Tensor,
+        u: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor, q_pos, *,
+        n_kv: int, n_recent: int = 0, v_bits: int = 8, v_group: int = 64,
+        theta: float = 10_000.0, softcap: float = 0.0, use_rope: bool = True,
+        pos_base: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Index-taking verify-window twin: gather-then-attend, as
+    :func:`sparse_recon_attention_fused_ref` with q (B, Q, H, dh) — see
+    :func:`sparse_recon_attention_window_ref`."""
+    idx_c, sel_pos = _selected_positions(idx, k_lat.shape[1], pos_base)
+    lat, v = gather_dequant_ref(k_lat, k_scale, v_q, v_scale, v_zero, idx_c,
+                                v_bits=v_bits, v_group=v_group)
+    return sparse_recon_attention_window_ref(
+        q, lat, v, u, sel_pos, valid, q_pos, n_kv=n_kv, n_recent=n_recent,
+        theta=theta, softcap=softcap, use_rope=use_rope)
+
+
+def sparse_recon_attention_window_ref(
+        q: torch.Tensor, lat_sel: torch.Tensor, v_sel: torch.Tensor,
+        u: torch.Tensor, sel_pos: torch.Tensor, valid: torch.Tensor, q_pos,
+        *, n_kv: int, n_recent: int = 0, theta: float = 10_000.0,
+        softcap: float = 0.0, use_rope: bool = True
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Verify-window reconstruct → RoPE → partial attention.
+
+    q: (B, Q, H, dh) pre-RoPE queries, query t at position q_pos + t
+    (``q_pos`` scalar or (B,), the window base).  One selected set serves
+    the whole window.  ``n_recent`` > 0 gates query t to selected positions
+    ≤ q_pos + t − n_recent (the positions sequential step q_pos + t could
+    select).  Query t IS :func:`sparse_recon_attention_ref` at q_pos + t on
+    its gated set, so Q = 1 and the mask advance equal the single-token
+    twin bit for bit.  Returns (m (B,Q,H), l (B,Q,H), o (B,Q,H,dh)) f32."""
+    base = row_vector(q_pos, q.shape[0], q.device)
+    parts = []
+    for t in range(q.shape[1]):
+        ok = valid
+        if n_recent:
+            ok = ok & (sel_pos <= (base + t)[:, None] - n_recent)
+        parts.append(sparse_recon_attention_ref(
+            q[:, t], lat_sel, v_sel, u, sel_pos, ok, base + t, n_kv=n_kv,
+            theta=theta, softcap=softcap, use_rope=use_rope))
+    return tuple(torch.stack(x, dim=1) for x in zip(*parts))
 
 
 def sparse_recon_attention_ref(q: torch.Tensor, lat_sel: torch.Tensor,

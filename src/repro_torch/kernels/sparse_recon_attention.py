@@ -3,10 +3,15 @@
 
 Replaces ``repro/kernels/sparse_recon_attention.py::
 sparse_recon_attention_pallas`` and ``::sparse_recon_attention_paged_pallas``
-(TPU) with the hand-written CUDA kernel in ``csrc/sparse_recon_attention.cu``
-(its ``PAGED`` instance for the page pool); the plain PyTorch twins are
-``kernels/ref.py::sparse_recon_attention_fused_ref`` and
-``::sparse_recon_attention_paged_ref``.
+(TPU), and their speculative verify-window forms
+``::sparse_recon_attention_window_pallas`` and
+``::sparse_recon_attention_window_paged_pallas``, with the hand-written CUDA
+kernel in ``csrc/sparse_recon_attention.cu`` (its ``PAGED`` instance for the
+page pool).  The single-token entry points launch the kernel's one-query
+window.  The plain PyTorch twins are ``kernels/ref.py::
+sparse_recon_attention_fused_ref``, ``::sparse_recon_attention_paged_ref``,
+``::sparse_recon_attention_fused_window_ref`` and
+``::sparse_recon_attention_window_paged_ref``.
 
 Bound on the H100: operations.  Reconstructing the N_c selected keys is
 2·B·N_c·kv_dim·r FLOP — 14.5 GFLOP at the llama2-7b slice shapes (B=4,
@@ -21,6 +26,10 @@ in f32 on the CUDA cores.  No gathered, dequantized or reconstructed buffer
 reaches device memory.  The tensor-core (wgmma) tile is the later redesign.
 The paged instance resolves each selected slot's pool row through the page
 table once per tile and shares every arithmetic line with the dense one.
+A verify window of Q ≤ 8 queries reconstructs each selected key once and
+scores it against all Q · group queries (Q times the scoring, the same
+reconstruction), keeping Q · group · dh online-softmax cells in shared
+memory.
 """
 from __future__ import annotations
 
@@ -34,17 +43,25 @@ from repro_torch.kernels.ref import row_vector
 
 launches = _build.LaunchCounter("sparse_recon_attention")
 paged_launches = _build.LaunchCounter("sparse_recon_attention_paged")
+window_launches = _build.LaunchCounter("sparse_recon_attention_window")
+window_paged_launches = _build.LaunchCounter(
+    "sparse_recon_attention_window_paged")
 
 _FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _K_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _SMEM_LIMIT = 232_448
 _THREADS, _T, _JT = 512, 32, 32
+MAX_WINDOW = 8
 
 
-def smem_bytes(r: int, dh: int, group: int) -> int:
-    """Dynamic shared memory one block uses (mirrors the kernel's layout)."""
-    floats = r * (_T + 4) + dh * (_JT + 1) + 2 * _T * dh + group * dh \
-        + _T * group + _T
+def smem_bytes(r: int, dh: int, group: int, ql: int = 1) -> int:
+    """Dynamic shared memory one block uses (mirrors the kernel's layout):
+    the latent tile, a U chunk, the reconstructed keys and values, the
+    ql · group RoPE'd queries, their logits per slot and their ql · group ·
+    dh online-softmax cells (m, l, o)."""
+    nq = ql * group
+    floats = r * (_T + 4) + dh * (_JT + 1) + 2 * _T * dh + nq * dh \
+        + _T * nq + 3 * nq * dh + _T
     return 4 * floats + 12 * _T
 
 
@@ -73,6 +90,45 @@ def sparse_recon_attention_cuda(
     pool with (n_pages, page_size) leading axes in place of (B, S), S is
     max_pages · page_size and ``idx`` stays logical.
     Returns f32 partials (m (B, H), l (B, H), o (B, H, dh))."""
+    require(q.dim() == 3, "q must be (B, H, dh)")
+    m, l, o = _launch(q[:, None], k_lat, k_scale, v_q, v_scale, v_zero, u,
+                      idx, valid, q_pos, n_kv=n_kv, n_recent=0,
+                      v_bits=v_bits, v_group=v_group, theta=theta,
+                      softcap=softcap, use_rope=use_rope, pos_base=pos_base,
+                      page_table=page_table, page_size=page_size,
+                      window=False)
+    return m[:, 0], l[:, 0], o[:, 0]
+
+
+def sparse_recon_attention_window_cuda(
+        q: torch.Tensor, k_lat: torch.Tensor, k_scale: Optional[torch.Tensor],
+        v_q: torch.Tensor, v_scale: torch.Tensor, v_zero: torch.Tensor,
+        u: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor, q_pos, *,
+        n_kv: int, n_recent: int = 0, v_bits: int = 8, v_group: int = 64,
+        theta: float = 10_000.0, softcap: float = 0.0, use_rope: bool = True,
+        pos_base=None, page_table: Optional[torch.Tensor] = None,
+        page_size: int = 0
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the verify-window kernel: as :func:`sparse_recon_attention_cuda`
+    but q is (B, Q, H, dh), Q ≤ 8, ``q_pos`` the window base (query t is
+    RoPE'd at q_pos + t) and, with ``n_recent`` > 0, query t sees only
+    selected positions ≤ q_pos + t − n_recent.  Returns f32 partials
+    (m (B, Q, H), l (B, Q, H), o (B, Q, H, dh))."""
+    require(q.dim() == 4 and 1 <= q.shape[1] <= MAX_WINDOW,
+            f"q must be (B, Q, H, dh) with 1 <= Q <= {MAX_WINDOW}")
+    require(n_recent >= 0, "n_recent must be >= 0")
+    return _launch(q, k_lat, k_scale, v_q, v_scale, v_zero, u, idx, valid,
+                   q_pos, n_kv=n_kv, n_recent=n_recent, v_bits=v_bits,
+                   v_group=v_group, theta=theta, softcap=softcap,
+                   use_rope=use_rope, pos_base=pos_base,
+                   page_table=page_table, page_size=page_size, window=True)
+
+
+def _launch(q, k_lat, k_scale, v_q, v_scale, v_zero, u, idx, valid, q_pos,
+            *, n_kv, n_recent, v_bits, v_group, theta, softcap, use_rope,
+            pos_base, page_table, page_size, window):
+    """Check the operands and launch one of the four C entry points with
+    q (B, Q, H, dh); returns (m (B, Q, H), l, o (B, Q, H, dh))."""
     dev = q.device
     tensors = [q, k_lat, v_q, v_scale, v_zero, u, idx, valid]
     if k_scale is not None:
@@ -84,13 +140,11 @@ def sparse_recon_attention_cuda(
             "tensors must share one CUDA device")
     require(all(t.is_contiguous() for t in tensors),
             "all operands must be contiguous")
-    require(q.dim() == 3 and q.dtype in _FLOAT_CODES, "q must be (B, H, dh) "
-            "bf16/f32")
-    b, h, dh = q.shape
+    require(q.dtype in _FLOAT_CODES, "q must be bf16/f32")
+    b, ql, h, dh = q.shape
     require(dh in (64, 128), f"head_dim {dh} not in (64, 128)")
     require(h % n_kv == 0, "n_heads must be a multiple of n_kv")
     group = h // n_kv
-    require(group * dh <= 2 * _THREADS, "group·head_dim > 1024")
     kvd = n_kv * dh
     require(k_lat.dim() == 3 and k_lat.dtype in _K_DTYPES,
             "k_lat must be (B, S, r) f32/bf16/int8 (paged: (n_pages, "
@@ -129,31 +183,36 @@ def sparse_recon_attention_cuda(
     require(idx.dim() == 2 and idx.shape[0] == b and idx.dtype == torch.int32
             and valid.shape == idx.shape and valid.dtype == torch.bool,
             "idx (B, N_c) int32 and valid (B, N_c) bool")
-    smem = smem_bytes(r, dh, group)
-    require(smem <= _SMEM_LIMIT, f"rank {r} needs {smem} B of shared memory")
+    smem = smem_bytes(r, dh, group, ql)
+    require(smem <= _SMEM_LIMIT, f"rank {r}, window {ql}, group {group} "
+            f"need {smem} B of shared memory (limit {_SMEM_LIMIT})")
     n_c = idx.shape[1]
     qpos_v = row_vector(q_pos, b, dev)
     base_v = row_vector(0 if pos_base is None else pos_base, b, dev)
     freqs = rope_inv_freqs(dh, theta, dev)
-    m = torch.empty((b, h), dtype=torch.float32, device=dev)
-    l = torch.empty((b, h), dtype=torch.float32, device=dev)
-    o = torch.empty((b, h, dh), dtype=torch.float32, device=dev)
+    m = torch.empty((b, ql, h), dtype=torch.float32, device=dev)
+    l = torch.empty((b, ql, h), dtype=torch.float32, device=dev)
+    o = torch.empty((b, ql, h, dh), dtype=torch.float32, device=dev)
     lib = _build.library()
     head = (ptr(q), _FLOAT_CODES[q.dtype], ptr(k_lat), _K_DTYPES[k_lat.dtype],
             ptr(k_scale), ptr(v_q), v_bits, ptr(v_scale), ptr(v_zero),
             ptr(u), _FLOAT_CODES[u.dtype], ptr(idx), ptr(valid),
             ptr(qpos_v), ptr(base_v), ptr(freqs))
-    dims = (b, h, n_kv, dh, s, r, code_w, g, v_group, n_c, float(softcap),
-            int(use_rope))
-    if paged:
-        err = lib.sals_sparse_recon_attention_paged(
-            *head, ptr(page_table), ptr(m), ptr(l), ptr(o), *dims, mp,
-            page_size, n_pages, _build.stream_handle(dev))
-        _build.check(err, "sparse_recon_attention_paged")
-        paged_launches.add()
+    outs = (ptr(m), ptr(l), ptr(o))
+    pages = (ptr(page_table),) if paged else ()
+    tail = (mp, page_size, n_pages) if paged else ()
+    if window:
+        name = "sparse_recon_attention_window" + ("_paged" if paged else "")
+        dims = (b, ql, h, n_kv, dh, s, r, code_w, g, v_group, n_c, n_recent,
+                float(softcap), int(use_rope))
+        counter = window_paged_launches if paged else window_launches
     else:
-        err = lib.sals_sparse_recon_attention(
-            *head, ptr(m), ptr(l), ptr(o), *dims, _build.stream_handle(dev))
-        _build.check(err, "sparse_recon_attention")
-        launches.add()
+        name = "sparse_recon_attention" + ("_paged" if paged else "")
+        dims = (b, h, n_kv, dh, s, r, code_w, g, v_group, n_c,
+                float(softcap), int(use_rope))
+        counter = paged_launches if paged else launches
+    err = getattr(lib, "sals_" + name)(*head, *pages, *outs, *dims, *tail,
+                                       _build.stream_handle(dev))
+    _build.check(err, name)
+    counter.add()
     return m, l, o

@@ -3,7 +3,7 @@ card (port of ``repro/launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \
         --requests 8 --max-new-tokens 32 [--sals 0.25|0.125|off] \
-        [--page-size 16] [--full] [--device cpu]
+        [--page-size 16] [--spec-window 4] [--full] [--device cpu]
 
 Weights are random, from ``--seed``.  Calibrates the SALS projectors on the
 synthetic corpus (paper §5.1), builds the engine, runs the requests through
@@ -98,6 +98,11 @@ def main(argv=None) -> None:
     ap.add_argument("--request-timeout-steps", type=int, default=0)
     ap.add_argument("--request-timeout-ms", type=float, default=0.0)
     ap.add_argument("--max-request-retries", type=int, default=2)
+    ap.add_argument("--spec-window", type=int, default=0,
+                    help="speculative decoding: verify-window width Q in "
+                         "[2, 8] (0/1 = off); each decode step drafts Q-1 "
+                         "tokens per row by n-gram prompt lookup and "
+                         "verifies them in one windowed forward (greedy)")
     ap.add_argument("--audit-every", type=int, default=0,
                     help="run the pager invariant audit every N steps")
     ap.add_argument("--seed", type=int, default=0)
@@ -137,6 +142,7 @@ def main(argv=None) -> None:
                        request_timeout_ms=args.request_timeout_ms,
                        max_request_retries=args.max_request_retries,
                        audit_every=args.audit_every,
+                       spec_window=args.spec_window,
                        sals=sals or SALSConfig(enabled=False))
     engine = ServeEngine(params, projectors, cfg, scfg, device=dev)
     sched = RequestScheduler(engine)
@@ -157,6 +163,13 @@ def main(argv=None) -> None:
           f"arch={args.arch}, page_size={args.page_size}, device={dev}, "
           f"{sched.steps} decode steps, {len(sched.prefill_chunks)} prefill "
           f"chunks, prefix hits {sched.prefix_hits})")
+    if args.spec_window > 1 and sched.spec_rounds:
+        acc = sched.spec_accepted / max(1, sched.spec_proposed)
+        print(f"[serve] speculative: window {args.spec_window}, "
+              f"{sched.spec_rounds} verify rounds, "
+              f"{sched.spec_committed} tokens committed "
+              f"({sched.spec_committed / sched.spec_rounds:.2f}/round), "
+              f"draft acceptance {acc:.1%}")
     bad = [r for r in done if not r.done]
     if bad:
         print("[serve] terminal non-success: "

@@ -18,6 +18,17 @@ full-precision decode paths of ``repro/models/attention.py``).
                              updated IN PLACE (the reference returns new
                              arrays).
 
+  * ``attend_decode_full_window`` — a speculative verify window of Q
+                             tokens against the same cache.  The window's
+                             K/V are written IN PLACE at positions pos..
+                             pos+Q−1, at or past the committed length,
+                             where no committed read looks; a later round
+                             or step overwrites the rejected ones, so
+                             committing the accepted prefix writes nothing
+                             (the reference scatters into a transient copy
+                             of the cache, B·S·kv_dim·2·2 bytes per layer
+                             and round).
+
 The SALS decode path is ``core/sparse_attention.py``; it reuses
 ``qkv_proj`` / ``out_proj`` from here.
 """
@@ -236,6 +247,54 @@ def attend_decode_full(params: Attention, x: torch.Tensor, cfg: ModelConfig,
                      v_cache.to(q.dtype).float())
     o = o.reshape(b, 1, cfg.n_heads, cfg.head_dim).to(x.dtype)
     return out_proj(params, o, cfg), k_cache, v_cache
+
+
+def attend_decode_full_window(params: Attention, x: torch.Tensor,
+                              cfg: ModelConfig, k_cache: torch.Tensor,
+                              v_cache: torch.Tensor, pos) -> torch.Tensor:
+    """Verify-window decode against a full-precision cache.
+
+    x: (B, Q, d) — the pending token plus Q−1 drafts at positions
+    pos..pos+Q−1 (``pos`` scalar or (B,) window base).  Their post-RoPE K
+    and V are written into the caches in place (positions past the end of
+    the cache are dropped: they are never committed), and query t attends
+    positions ≤ pos + t, as sequential step pos + t would.  Returns
+    y (B, Q, d)."""
+    b, ql, _ = x.shape
+    dev = x.device
+    pos_v = torch.as_tensor(pos, device=dev).to(torch.int64).reshape(-1) \
+        .expand(b)
+    qpos = pos_v[:, None] + torch.arange(ql, device=dev)[None, :]
+    q, k, v = qkv_proj(params, x, cfg)
+    if cfg.use_rope:
+        q = apply_rope(q, qpos, cfg.rope_theta)
+        k = apply_rope(k, qpos, cfg.rope_theta)
+    rows = torch.arange(b, device=dev)
+    s_max = k_cache.shape[1]
+    for t in range(ql):
+        # one slot per write: a clamped position can never alias another
+        # row's (or this row's kept) target within one index_put
+        inside = qpos[:, t] < s_max
+        at = (rows, qpos[:, t].clamp_max(s_max - 1))
+        for cache, val in ((k_cache, k), (v_cache, v)):
+            cache[at] = torch.where(inside[:, None, None],
+                                    val[:, t].to(cache.dtype), cache[at])
+    valid = torch.arange(s_max, device=dev)[None, None, :] \
+        <= qpos[:, :, None]                                    # (B, Q, S)
+    q_g = q.reshape(b, ql, cfg.n_kv_heads, cfg.group_size, cfg.head_dim)
+    logits = torch.einsum("bqkrd,bskd->bqkrs", q_g.float(),
+                          k_cache.to(q.dtype).float()) \
+        * cfg.head_dim ** -0.5
+    if cfg.attn_logit_softcap:
+        logits = cfg.attn_logit_softcap * torch.tanh(
+            logits / cfg.attn_logit_softcap)
+    logits = torch.where(valid[:, :, None, None, :], logits,
+                         torch.tensor(NEG_INF, device=dev))
+    p = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bqkrs,bskd->bqkrd", p.to(q.dtype).float(),
+                     v_cache.to(q.dtype).float())
+    o = o.reshape(b, ql, cfg.n_heads, cfg.head_dim).to(x.dtype)
+    return out_proj(params, o, cfg)
 
 
 def init_full_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype,

@@ -13,6 +13,8 @@ segments and a layer-stacked :class:`LatentKVCache` for the SALS segment
 (the dense slot arena, or page pools when ``page_size`` > 0).  Prefill is
 monolithic (:func:`prefill`) or chunked (:func:`prefill_chunk`, which
 serving uses); decode and chunked prefill update the caches in place.
+Speculative decode runs Q tokens through :func:`decode_window` and commits
+the accepted prefix with :func:`commit_window`.
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ from torch import nn
 
 from repro_torch.config import ModelConfig, SALSConfig
 from repro_torch.core.latent_cache import LatentKVCache
-from repro_torch.core.sparse_attention import sals_decode_attend
+from repro_torch.core.sparse_attention import (sals_decode_attend,
+                                               sals_window_attend)
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (MLP, Embedding, RMSNorm, embed_apply,
                                        mlp_apply, rmsnorm_apply,
@@ -303,3 +306,71 @@ def decode_step(params: Transformer, projectors: Optional[dict], cache: dict,
             x = _finish_block(bp, x, a, cfg)
     x = rmsnorm_apply(params.final_norm, x, cfg.norm_eps)
     return unembed_apply(params.embed, x, cfg)[:, 0], cache
+
+
+def decode_window(params: Transformer, projectors: Optional[dict],
+                  cache: dict, tokens: torch.Tensor, pos, cfg: ModelConfig,
+                  sals: Optional[SALSConfig]) -> Tuple[torch.Tensor, dict]:
+    """Speculative verify window: Q tokens through one forward.
+
+    tokens: (B, Q) — the pending token plus Q−1 drafts at positions
+    pos..pos+Q−1 (``pos`` scalar or (B,) window base).  The SALS layers
+    only read their caches (one latent selection per layer for the whole
+    window, ``sals_window_attend``); the full-precision layers write the
+    window's K/V in place at positions ≥ the committed length, where no
+    committed read looks.  Returns (logits (B, Q, V) f32, aux) —
+    ``aux["seg{i}"]`` holds each SALS segment's pre-RoPE window K/V
+    ((ls, B, Q, Hkv, dh)) for :func:`commit_window`."""
+    if not cfg.is_decoder:
+        raise ValueError("encoder family has no decode step")
+    x = embed_apply(params.embed, tokens, cfg)                # (B,Q,d)
+    aux: Dict[str, Any] = {}
+    for si, (i0, i1, mode) in enumerate(segment_plan(cfg, sals)):
+        seg = cache[f"seg{si}"]
+        ks, vs = [], []
+        for li in range(i0, i1):
+            bp = params.blocks[li]
+            h = rmsnorm_apply(bp.attn_norm, x, cfg.norm_eps)
+            if mode == "sals":
+                a, k_pre, v = sals_window_attend(
+                    bp.attn, projectors["u"][li], seg.layer_view(li - i0), h,
+                    pos, cfg, sals)
+                ks.append(k_pre)
+                vs.append(v)
+            else:
+                a = attn.attend_decode_full_window(
+                    bp.attn, h, cfg, seg["k"][li - i0], seg["v"][li - i0],
+                    pos)
+            x = _finish_block(bp, x, a, cfg)
+        if mode == "sals":
+            aux[f"seg{si}"] = {"k": torch.stack(ks), "v": torch.stack(vs)}
+    x = rmsnorm_apply(params.final_norm, x, cfg.norm_eps)
+    return unembed_apply(params.embed, x, cfg), aux
+
+
+def commit_window(projectors: Optional[dict], cache: dict, aux: dict, pos,
+                  n_accept, cfg: ModelConfig, sals: Optional[SALSConfig]
+                  ) -> dict:
+    """Commit a verify window's ACCEPTED prefix into the decode cache, in
+    place: window slot t of row b commits at pos + t iff t < n_accept[b]
+    ((B,) counts, a device tensor or a host array).  Each SALS segment
+    projects its window keys to the latent space with the (B, kv_dim) ·
+    U_r product sequential decode uses, one slot and layer at a time (so
+    the stored bytes are those sequential decode would store for the same
+    keys), and appends them through :meth:`LatentKVCache.write_window`,
+    all its layers at once.  The full-precision segments already hold the
+    window's K/V (:func:`decode_window`); the advanced positions make the
+    accepted prefix committed."""
+    for si, (i0, i1, mode) in enumerate(segment_plan(cfg, sals)):
+        if mode != "sals":
+            continue
+        seg, ax = cache[f"seg{si}"], aux[f"seg{si}"]
+        k_pre, v = ax["k"], ax["v"]                  # (ls, B, Q, Hkv, dh)
+        ls, b, ql = k_pre.shape[:3]
+        k_flat = k_pre.reshape(ls, b, ql, cfg.kv_dim)
+        k_lat = torch.stack([torch.stack(
+            [k_flat[l, :, t].float() @ projectors["u"][i0 + l].float()
+             for t in range(ql)], dim=1) for l in range(ls)])
+        seg.write_window(sals, pos, k_lat, v.reshape(ls, b, ql, cfg.kv_dim),
+                         k_pre, v, n_accept)
+    return cache

@@ -6,8 +6,11 @@ their true lengths (per-slot ``lengths`` on the latent cache, per-row decode
 positions through every kernel), so pad tokens are never selectable nor
 attended.  Decoding is greedy.
 
-Two ways in.  :meth:`ServeEngine.generate` prefills a batch monolithically
-and decodes it to the end.  The continuous-batching primitives that
+Three ways in.  :meth:`ServeEngine.generate` prefills a batch
+monolithically and decodes it to the end; :meth:`~ServeEngine.
+generate_speculative` does the same through the speculative verify window
+(prompt-lookup drafts, one windowed forward per round, the longest
+matching prefix committed).  The continuous-batching primitives that
 ``serve/scheduler.py`` drives let a single request join a RUNNING batch:
 :meth:`~ServeEngine.start_prefill` / :meth:`~ServeEngine.prefill_chunk_step`
 run its prompt as fixed-width chunks (resumable between decode steps, so
@@ -23,9 +26,8 @@ entry's resume state, a page-boundary ring snapshot, :meth:`resume_seed`'s
 result — is therefore a ``clone()``, never a view.
 
 Not yet ported (later slices): the two-tier page pool (``hbm_pages``),
-speculative decoding, temperature sampling (``torch.Generator`` numbers
-differ from ``jax.random``'s), and capturing the decode step as a CUDA
-graph.
+temperature sampling (``torch.Generator`` numbers differ from
+``jax.random``'s), and capturing the decode step as a CUDA graph.
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from repro_torch.config import ModelConfig, SALSConfig, ServeConfig
 from repro_torch.core.latent_cache import LatentKVCache
 from repro_torch.kernels.latent_score import BLOCK_S
 from repro_torch.models import transformer as tf
+from repro_torch.serve.draft import NgramDrafter
 from repro_torch.serve.faults import maybe_fault
 
 _PAGED_FIELDS = ("k_lat", "k_scale", "v_q", "v_scale", "v_zero")
@@ -100,8 +103,9 @@ class ServeEngine:
     """Holds params + projectors and runs batched greedy generation on
     ``device`` (the card unless the caller asks for the CPU).
 
-    After :meth:`generate`, ``last_timing`` holds host wall times: prefill
-    up to the first token on the host, and the decode steps after it."""
+    After :meth:`generate` (and :meth:`generate_speculative`),
+    ``last_timing`` holds host wall times: prefill up to the first token on
+    the host, and the decode steps (verify rounds) after it."""
 
     def __init__(self, params, projectors, cfg: ModelConfig,
                  scfg: ServeConfig, n_groups: int = 1, device="cuda"):
@@ -124,9 +128,6 @@ class ServeEngine:
         if scfg.max_seq_len % scfg.prefill_chunk:
             raise ValueError(f"max_seq_len {scfg.max_seq_len} must be a "
                              f"multiple of prefill_chunk {scfg.prefill_chunk}")
-        if scfg.spec_window > 1:
-            raise NotImplementedError("speculative decoding is ported in "
-                                      "slice 3")
         if scfg.hbm_pages > 0:
             raise NotImplementedError("the two-tier page pool (hbm_pages > "
                                       "0) is ported in slice 4")
@@ -186,6 +187,15 @@ class ServeEngine:
         in_vocab = (tok >= 0) & (tok < self.cfg.vocab_size)
         return tok, (finite & in_vocab).cpu().numpy()
 
+    def verify_checked(self, win_logits: torch.Tensor
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+        """Greedy continuations of a verify window plus a per-row verdict:
+        (preds (B, Q) int32, ok (B,) bool — False when row i's window
+        logits hold NaN/inf).  The one host read of a round."""
+        preds = torch.argmax(win_logits, dim=-1).to(torch.int32)
+        finite = torch.isfinite(win_logits).all(dim=-1).all(dim=-1)
+        return preds.cpu().numpy(), finite.cpu().numpy()
+
     # -- continuous-batching primitives (used by RequestScheduler) -----------
 
     def _latent_segs(self, cache) -> dict:
@@ -210,6 +220,26 @@ class ServeEngine:
         pos = torch.tensor(np.asarray(positions), device=self.device)
         return tf.decode_step(self.params, self.projectors, cache, tok, pos,
                               self.cfg, self.sals)
+
+    def decode_window(self, tokens, cache: dict, positions
+                      ) -> Tuple[torch.Tensor, dict]:
+        """One verify window of the whole arena: tokens (B, Q) = each row's
+        pending token plus Q−1 drafts, positions (B,) the window bases
+        (host arrays or tensors).  Reads the SALS caches only; returns
+        (logits (B, Q, V), aux) for :meth:`commit_window`."""
+        tok = torch.tensor(np.asarray(tokens), device=self.device)
+        pos = torch.tensor(np.asarray(positions), device=self.device)
+        return tf.decode_window(self.params, self.projectors, cache, tok, pos,
+                                self.cfg, self.sals)
+
+    def commit_window(self, cache: dict, aux: dict, positions,
+                      n_accept) -> dict:
+        """Commit each row's first ``n_accept[i]`` window slots at
+        positions[i]..; rejected and idle rows (0) write nothing."""
+        pos = torch.tensor(np.asarray(positions), device=self.device)
+        n = torch.tensor(np.asarray(n_accept, np.int32), device=self.device)
+        return tf.commit_window(self.projectors, cache, aux, pos, n,
+                                self.cfg, self.sals)
 
     def start_prefill(self, prompt: np.ndarray,
                       resume: Optional[Tuple] = None) -> PrefillTask:
@@ -441,5 +471,106 @@ class ServeEngine:
         self.last_timing = {"prefill_s": t_first - t0,
                             "decode_s": t_end - t_first,
                             "decode_steps": int(n_out.max()) - 1}
+        return [GenerationResult(out[i, :n_out[i]], lens[i], int(n_out[i]))
+                for i in range(b)]
+
+    @torch.inference_mode()
+    def generate_speculative(self, prompts: List[np.ndarray],
+                             max_new_tokens: Optional[int] = None,
+                             eos_id: Optional[int] = None
+                             ) -> List[GenerationResult]:
+        """Greedy generation through the speculative verify window.
+
+        Each round drafts ``spec_window`` − 1 tokens per row (prompt
+        lookup, :class:`~repro_torch.serve.draft.NgramDrafter`), runs ONE
+        windowed forward over [pending token + drafts] and commits the
+        longest prefix whose greedy continuations match the drafts.  Window
+        slot 0 is the already-emitted pending token, so every round makes
+        progress.  Each query of the window attends what its sequential
+        step would, so the stream is token-exact with :meth:`generate`
+        wherever N_c covers every selectable position.  Rows stop at their
+        own EOS; ``spec_stats`` afterwards holds the round / draft /
+        acceptance counters."""
+        q = self.scfg.spec_window
+        if q < 2:
+            raise ValueError("generate_speculative needs spec_window >= 2 "
+                             f"(got {q}); use generate() for sequential")
+        if self.scfg.temperature > 0:
+            raise ValueError("speculative verify is greedy: argmax "
+                             "continuations are compared token-exactly "
+                             "(temperature must be 0)")
+        mnt = max_new_tokens or self.scfg.max_new_tokens
+        b = len(prompts)
+        lens = [len(p) for p in prompts]
+        max_len = max(lens)
+        if max_len + mnt + q - 1 > self.scfg.max_seq_len:
+            # the last window may read (never commit) q - 1 positions past
+            # the final token
+            raise ValueError(f"prompt {max_len} + new {mnt} + window {q}-1 "
+                             f"exceeds max_seq {self.scfg.max_seq_len}")
+        toks = np.full((b, max_len), self.scfg.pad_id, np.int32)
+        for i, p in enumerate(prompts):
+            toks[i, :lens[i]] = p
+        dev = self.device
+        t0 = time.perf_counter()
+        logits, cache = tf.prefill(
+            self.params, self.projectors, self.cfg, self.sals,
+            {"tokens": torch.as_tensor(toks, device=dev)},
+            self.scfg.max_seq_len, n_groups=self.n_groups,
+            lengths=torch.as_tensor(lens, dtype=torch.int32, device=dev))
+        out = np.zeros((b, mnt), np.int32)
+        done = np.zeros((b,), bool)
+        n_out = np.ones((b,), np.int32)
+        pending = self._sample(logits).cpu().numpy()
+        t_first = time.perf_counter()
+        out[:, 0] = pending
+        if eos_id is not None:
+            done |= pending == eos_id
+        done |= n_out >= mnt
+        drafters = [NgramDrafter(list(map(int, prompts[i]))
+                                 + [int(pending[i])]) for i in range(b)]
+        pos = np.asarray(lens, np.int32)                 # window bases
+        self.spec_stats = {"rounds": 0, "proposed": 0, "accepted_drafts": 0,
+                           "committed": 0}
+        while not done.all():
+            wt = np.zeros((b, q), np.int32)
+            wt[:, 0] = pending
+            for i in range(b):
+                if not done[i]:
+                    wt[i, 1:] = drafters[i].propose(q - 1)
+            win_logits, aux = self.decode_window(wt, cache, pos)
+            preds = torch.argmax(win_logits, dim=-1).cpu().numpy()  # (B, Q)
+            n_matched = np.cumprod(wt[:, 1:] == preds[:, :-1],
+                                   axis=1).sum(axis=1)
+            n_emit = np.where(done, 0, np.minimum(n_matched + 1, mnt - n_out))
+            rows: List[List[int]] = []
+            for i in range(b):
+                row = [int(t) for t in preds[i, :n_emit[i]]]
+                if eos_id is not None and eos_id in row:
+                    row = row[:row.index(eos_id) + 1]    # stop at own EOS
+                rows.append(row)
+            # slot t's input is right for t < len(row); the last emitted
+            # token becomes the next window's slot 0
+            cache = self.commit_window(cache, aux, pos,
+                                       [len(r) for r in rows])
+            self.spec_stats["rounds"] += 1
+            for i, row in enumerate(rows):
+                if not row:
+                    continue
+                self.spec_stats["proposed"] += q - 1
+                self.spec_stats["accepted_drafts"] += int(n_matched[i])
+                self.spec_stats["committed"] += len(row)
+                out[i, n_out[i]:n_out[i] + len(row)] = row
+                n_out[i] += len(row)
+                pending[i] = row[-1]
+                pos[i] += len(row)
+                drafters[i].extend(row)
+                if (eos_id is not None and row[-1] == eos_id) \
+                        or n_out[i] >= mnt:
+                    done[i] = True
+        t_end = time.perf_counter()
+        self.last_timing = {"prefill_s": t_first - t0,
+                            "decode_s": t_end - t_first,
+                            "rounds": self.spec_stats["rounds"]}
         return [GenerationResult(out[i, :n_out[i]], lens[i], int(n_out[i]))
                 for i in range(b)]

@@ -12,6 +12,10 @@ the port's scheduler/engine/pager path visits:
     ``decode_step``    RequestScheduler decode loop, before the step
     ``nan_logits``     after decode: corrupt one live row's logits
     ``prefix_resume``  ServeEngine.start_prefill, on the prefix-hit branch
+    ``draft_verify``   RequestScheduler speculative loop, before the verify
+                       window's forward — the cache is still whole and
+                       drafting is pure host work, so the whole round
+                       retries like a ``decode_step`` fault
 
 Placement rule that makes injected faults *retryable*: every point fires
 BEFORE the call that changes the cache, so the arena, the page tables and

@@ -43,12 +43,26 @@ slot↔state coherence, every ``audit_every`` steps and on every teardown
 when auditing is on.  ``Request.on_token`` streams each token the step it
 commits.
 
+SPECULATIVE DECODING (``ServeConfig.spec_window`` = Q > 1): the arena's
+decode step becomes a VERIFY WINDOW — each resident's pending token plus
+Q−1 prompt-lookup drafts (``serve/draft.py``, per-slot ``_Slot.drafter``,
+rebuilt from prompt + output on every admission) run through one windowed
+forward (``engine.decode_window``: one latent selection per SALS layer,
+each selected token reconstructed once for the window); greedy verify
+keeps each row's longest matching draft prefix plus the model's own next
+token, and the masked ``engine.commit_window`` writes only those
+positions.  Paged rows map (and copy-on-write) every page the commit span
+min(Q, tokens left) can touch before the round.  ``on_token`` fires once
+per ACCEPTED token with contiguous indices; the ``draft_verify`` fault
+point fires before the window's forward, so the round retries like a
+``decode_step`` fault.  Counters: ``spec_rounds`` / ``spec_proposed`` /
+``spec_accepted`` / ``spec_committed``.
+
 Counters are plain int attributes with the reference's names.  Not ported
 here: static batching (the families slice), priority classes, preemption
-and tenant fairness (slice 4, with the two-tier pool), the speculative
-verify window (slice 3), and the metrics registry, tracer and traffic
-accounting (slice 5); the scheduler raises ``NotImplementedError`` for
-them.
+and tenant fairness (slice 4, with the two-tier pool), and the metrics
+registry, tracer and traffic accounting (slice 5); the scheduler raises
+``NotImplementedError`` for them.
 """
 from __future__ import annotations
 
@@ -64,6 +78,7 @@ import torch
 from repro_torch.core.pager import (PagePool, PageTable, PrefixIndex,
                                     audit_pager, PagerInvariantError)
 from repro_torch.serve import faults
+from repro_torch.serve.draft import NgramDrafter
 from repro_torch.serve.engine import GenerationResult, PrefillTask, ServeEngine
 from repro_torch.serve.lifecycle import (NanLogitsError, QueueFull,
                                          RequestCancelled, RequestState,
@@ -115,6 +130,9 @@ class _Slot:
     """One resident sequence of the continuous batch."""
     req: Request
     out: List[int]                 # generated token ids so far
+    # speculative decoding: prompt-lookup draft state, built from prompt +
+    # out at every admission (evictions and retries need no bookkeeping)
+    drafter: Optional[NgramDrafter] = None
 
 
 @dataclasses.dataclass
@@ -174,6 +192,10 @@ class RequestScheduler:
         self.shed = 0               # queue-policy sheds
         self.submitted = 0          # == done + failures + timeouts +
         self.done = 0               #    cancellations once drained
+        self.spec_rounds = 0        # verify windows executed
+        self.spec_proposed = 0      # draft tokens proposed
+        self.spec_accepted = 0      # draft tokens accepted
+        self.spec_committed = 0     # tokens committed through windows
         self.paged = engine.paged
         self.pool: Optional[PagePool] = None
         self.prefix_index: Optional[PrefixIndex] = None
@@ -352,6 +374,8 @@ class RequestScheduler:
         dirty = False              # host_table differs from the device's
         fault_streak = 0           # consecutive batch-wide decode faults
         pool = self.pool
+        # width of the verify window; 0 = sequential decode
+        spec_q = scfg.spec_window if scfg.spec_window > 1 else 0
 
         def clear_slot(i: int):
             """The idempotent slot teardown every exit path shares: frees
@@ -471,29 +495,34 @@ class RequestScheduler:
             return _Admission(req, free, task, ptab=ptab,
                               shared_pages=shared, entry=entry)
 
-        def ensure_writable(i: int):
-            """Map row i's next write page (allocating on a page crossing)
-            and copy-on-write it if still shared; evict the row itself when
-            the pool is exhausted even after dropping prefix entries."""
+        def ensure_writable(i: int, span: int = 1):
+            """Map every page row i's next ``span`` writes land in
+            (allocating on page crossings: a verify window commits up to
+            min(Q, tokens left) tokens in one round, which can cross into
+            the next page) and copy-on-write any that is still shared; evict
+            the row itself when the pool is exhausted even after dropping
+            prefix entries."""
             nonlocal dirty
             ptab = tables[i]
-            p = int(positions[i]) // ps
-            if p >= ptab.n_pages:
-                if pool.pages_free < 1 and not drop_entries(1):
-                    evict_to_requeue(i)
-                    return
-                ptab.ensure_for_position(p * ps)
-                host_table[i, :ptab.n_pages] = ptab.pages
-                dirty = True
-            elif pool.refcount(ptab.pages[p]) > 1:
-                if pool.pages_free < 1 and not drop_entries(1):
-                    evict_to_requeue(i)
-                    return
-                old, new = ptab.ensure_exclusive(p)
-                eng.copy_page(cache, old, new)
-                host_table[i, p] = new
-                dirty = True
-                self.cow_copies += 1
+            lo = int(positions[i]) // ps
+            hi = (int(positions[i]) + span - 1) // ps
+            for p in range(lo, hi + 1):
+                if p >= ptab.n_pages:
+                    if pool.pages_free < 1 and not drop_entries(1):
+                        evict_to_requeue(i)
+                        return
+                    ptab.ensure_for_position(p * ps)
+                    host_table[i, :ptab.n_pages] = ptab.pages
+                    dirty = True
+                elif pool.refcount(ptab.pages[p]) > 1:
+                    if pool.pages_free < 1 and not drop_entries(1):
+                        evict_to_requeue(i)
+                        return
+                    old, new = ptab.ensure_exclusive(p)
+                    eng.copy_page(cache, old, new)
+                    host_table[i, p] = new
+                    dirty = True
+                    self.cow_copies += 1
 
         def emit_tokens(i: int, n_new: int) -> bool:
             """Stream row i's ``n_new`` newest tokens through ``on_token``;
@@ -576,13 +605,94 @@ class RequestScheduler:
                     f"req {active.req.req_id}: non-finite prefill logits"))
                 return
             tok0 = int(tok_arr[0])
-            slots[i] = _Slot(active.req, out=[tok0])
+            slots[i] = _Slot(active.req, out=[tok0], drafter=NgramDrafter(
+                list(active.req.prompt) + [tok0]) if spec_q else None)
             tokens[i] = tok0
             positions[i] = len(active.req.prompt)
             self.admissions.append((self.steps, i, active.req.req_id))
             if emit_tokens(i, 1) and \
                     len(slots[i].out) >= active.req.max_new_tokens:
                 finish(i)
+
+        def decode_step() -> None:
+            """One ragged decode step of the whole arena, one token per
+            live row (empty slots idle at position 0; paged: the trash
+            page)."""
+            logits, _ = eng.decode(tokens, cache, positions)
+            live = [i for i in range(b) if slots[i] is not None]
+            pick = faults.maybe_pick("nan_logits", len(live))
+            if pick is not None:
+                logits[live[pick]] = float("nan")
+            tok_arr, ok = eng.sample_checked(logits)
+            new_toks = tok_arr.cpu().numpy()
+            self.steps += 1
+            for i in range(b):
+                if slots[i] is None:
+                    continue
+                if not ok[i]:
+                    fail_resident(i, NanLogitsError(
+                        f"req {slots[i].req.req_id}: non-finite logits or "
+                        f"out-of-vocab token at step {self.steps}"))
+                    continue
+                slots[i].out.append(int(new_toks[i]))
+                tokens[i] = new_toks[i]
+                positions[i] += 1
+                if not emit_tokens(i, 1):
+                    continue
+                if len(slots[i].out) >= slots[i].req.max_new_tokens:
+                    finish(i)
+
+        def verify_round() -> None:
+            """One speculative verify window of the whole arena: greedy
+            verify keeps each live row's longest matching draft prefix plus
+            the model's next token; the masked commit writes exactly those
+            positions (rejected, failed and idle rows none)."""
+            wt = np.zeros((b, spec_q), np.int32)
+            for i in range(b):
+                if slots[i] is not None:
+                    wt[i, 0] = tokens[i]
+                    wt[i, 1:] = slots[i].drafter.propose(spec_q - 1)
+            win_logits, aux = eng.decode_window(wt, cache, positions)
+            live = [i for i in range(b) if slots[i] is not None]
+            pick = faults.maybe_pick("nan_logits", len(live))
+            if pick is not None:
+                win_logits[live[pick]] = float("nan")
+            preds, finite = eng.verify_checked(win_logits)
+            n_matched = np.cumprod(wt[:, 1:] == preds[:, :-1],
+                                   axis=1).sum(axis=1)
+            n_commit = np.zeros((b,), np.int32)
+            emitted: List[List[int]] = [[] for _ in range(b)]
+            for i in live:
+                if not finite[i]:
+                    continue
+                left = slots[i].req.max_new_tokens - len(slots[i].out)
+                n_emit = int(min(n_matched[i] + 1, left))
+                emitted[i] = [int(t) for t in wt[i, 1:n_emit]] \
+                    + [int(preds[i, n_emit - 1])]
+                n_commit[i] = n_emit
+            # the committed slots are the pending token plus the accepted
+            # drafts; the last emitted token is the next pending token
+            eng.commit_window(cache, aux, positions, n_commit)
+            self.steps += 1
+            self.spec_rounds += 1
+            for i in live:
+                if not finite[i]:
+                    fail_resident(i, NanLogitsError(
+                        f"req {slots[i].req.req_id}: non-finite window "
+                        f"logits at step {self.steps}"))
+                    continue
+                row = emitted[i]
+                self.spec_proposed += spec_q - 1
+                self.spec_accepted += min(int(n_matched[i]), len(row) - 1)
+                self.spec_committed += len(row)
+                slots[i].out.extend(row)
+                slots[i].drafter.extend(row)
+                tokens[i] = row[-1]
+                positions[i] += len(row)
+                if not emit_tokens(i, len(row)):
+                    continue
+                if len(slots[i].out) >= slots[i].req.max_new_tokens:
+                    finish(i)
 
         while self.pending or self._active \
                 or any(s is not None for s in slots):
@@ -646,8 +756,11 @@ class RequestScheduler:
             if self.paged:
                 for i in range(b):
                     if slots[i] is not None:
+                        span = 1 if not spec_q else min(
+                            spec_q, slots[i].req.max_new_tokens
+                            - len(slots[i].out))
                         try:
-                            ensure_writable(i)
+                            ensure_writable(i, span)
                         except Exception as exc:   # alloc/COW fault
                             fail_resident(i, exc)
                 if dirty:
@@ -656,10 +769,12 @@ class RequestScheduler:
                 if not any(s is not None for s in slots):
                     continue
 
-            # ---- one ragged decode step for the whole arena (empty slots
-            # idle at position 0; paged: the trash page) -----------------
+            # ---- one ragged decode step, or verify window, for the whole
+            # arena (empty slots idle at position 0; paged: the trash page)
             try:
                 faults.maybe_fault("decode_step")
+                if spec_q:
+                    faults.maybe_fault("draft_verify")
             except faults.InjectedFault:
                 self.step_faults += 1
                 fault_streak += 1
@@ -667,29 +782,10 @@ class RequestScheduler:
                     raise
                 continue
             fault_streak = 0
-            logits, cache = eng.decode(tokens, cache, positions)
-            live = [i for i in range(b) if slots[i] is not None]
-            pick = faults.maybe_pick("nan_logits", len(live))
-            if pick is not None:
-                logits[live[pick]] = float("nan")
-            tok_arr, ok = eng.sample_checked(logits)
-            new_toks = tok_arr.cpu().numpy()
-            self.steps += 1
-            for i in range(b):
-                if slots[i] is None:
-                    continue
-                if not ok[i]:
-                    fail_resident(i, NanLogitsError(
-                        f"req {slots[i].req.req_id}: non-finite logits or "
-                        f"out-of-vocab token at step {self.steps}"))
-                    continue
-                slots[i].out.append(int(new_toks[i]))
-                tokens[i] = new_toks[i]
-                positions[i] += 1
-                if not emit_tokens(i, 1):
-                    continue
-                if len(slots[i].out) >= slots[i].req.max_new_tokens:
-                    finish(i)
+            if spec_q:
+                verify_round()
+            else:
+                decode_step()
             if self.paged:
                 self.pool_gauges.append({
                     "step": self.steps,
