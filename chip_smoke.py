@@ -20,7 +20,8 @@ Phases, each printing one JSON line:
               paged and dense cost compare at one shape.  The verify-window
               kernels (Q = 1, 2, 4, 8; dense and paged) must also equal the
               single-token kernel bit for bit at Q = 1 and, query by query,
-              on each query's gated set;
+              on each query's gated set; ``latent_score``'s scores, masked
+              and stable-sorted, must give ``latent_topk``'s indices;
 4. serve    — seeded paper-llama2-7b at full width and depth (bf16):
               calibrate U_r on the synthetic corpus, then
               ``ServeEngine.generate`` for 4 ragged prompts (4096, 3584,
@@ -35,7 +36,24 @@ Phases, each printing one JSON line:
               arena; tokens must match, and each run must have launched
               only its layout's SALS kernels, once per SALS layer and
               decode step;
-6. spec     — speculative decode (verify window of 4) on the same weights
+6. tier     — the sched traffic, paged, through the TWO-TIER pool,
+              keeping every prompt's prefix entry: once with a hot tier as
+              large as the pool (it measures each step's touched pages and
+              the peak of live pages), then with a hot tier of the largest
+              touched set + a write page per slot + 1 (+ 2 first, and the
+              smallest size only if that never spills), below that peak.
+              Tokens must equal the untiered paged run's, with zero
+              evictions and a clean audit, and the small tier must spill
+              and miss; spills, fetches, prefetch hits, reruns, PCIe bytes,
+              wall time and device memory;
+7. quality  — (run right after ``serve``) ``metrics.overlap_score``
+              for all 32 layers at position 4095 of two
+              4096-token prompts (one ``latent_score`` launch per layer and
+              prompt, nothing else), each layer's kernel scores against the
+              twin, and the effective rank of the keys before / after RoPE
+              and ``latent_mse`` on four layers.  Random weights: not the
+              paper's numbers;
+8. spec     — speculative decode (verify window of 4) on the same weights
               and U_r: (a) 4 prompts of 300-420 tokens from a repeated
               base, where N_c covers every selectable position, through
               ``generate`` and ``generate_speculative`` in bf16: token
@@ -49,7 +67,7 @@ Phases, each printing one JSON line:
               layout per SALS layer and round, and no single-token recon;
               (b) the serve phase's prompts in bf16: rounds, acceptance,
               tokens per round, ms per round beside the sequential decode;
-7. whole    — a full-width 2-layer model (SALS on layer 1) decoded on the
+9. whole    — a full-width 2-layer model (SALS on layer 1) decoded on the
               card (kernels) and on the CPU (twins) from the same weights
               and a 1024-token prompt (so top-k really selects), per-step
               logits compared under teacher forcing.
@@ -80,7 +98,8 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12
 
-PHASES = ("device", "build", "kernels", "serve", "sched", "spec", "whole")
+PHASES = ("device", "build", "kernels", "serve", "sched", "tier", "quality",
+          "spec", "whole")
 # "profile" (not run by default) adds a torch.profiler pass over four
 # chunked-prefill steps after the sched phase, and over three
 # decode steps of each serve run; tables go to chiprun_out/
@@ -309,6 +328,89 @@ def sra_case(torch, name, b, h, n_kv, dh, s, r, n_c, k_dtype, v_bits,
     if ps:
         out.update(bitwise_vs_dense=bitwise, **order)
     return out
+
+
+def score_case(torch, name, b, s, r, r_star, k_dtype, seed, flush):
+    """latent_score (plain (B, S) scores over the leading r* columns)
+    against its twin: max |kernel - twin| over the score scale (max |twin|)
+    within 1e-5 (the same f32 products summed in another order).  The
+    library yardstick is one ``torch.bmm`` of the r* columns with the query
+    (a bf16 or int8 cache needs a cast to f32 first, which is timed too)."""
+    from repro_torch.kernels import latent_score as ls
+    from repro_torch.kernels import ref
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q_lat = torch.randn((b, r_star), generator=g, device=dev)
+    lat = torch.randn((b, s, r), generator=g, device=dev)
+    k_scale = None
+    if k_dtype == "int8":
+        from repro_torch.core import quantization as qz
+        k_lat, k_scale = qz.quantize_latent_int8(lat)
+    else:
+        k_lat = lat.to({"bf16": torch.bfloat16, "f32": torch.float32}
+                       [k_dtype])
+    got = ls.latent_score_cuda(q_lat, k_lat, k_scale)
+    want = ref.latent_score_ref(q_lat, k_lat, k_scale)
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max()) / max(scale, 1e-30)
+    tol = 1e-5
+    kern_ms = time_ms(torch, lambda: ls.latent_score_cuda(q_lat, k_lat,
+                                                          k_scale), 20,
+                      flush=flush)
+    plain_ms = time_ms(torch, lambda: ref.latent_score_ref(q_lat, k_lat,
+                                                           k_scale), 5,
+                       flush=flush)
+
+    def library():
+        k = k_lat[..., :r_star]
+        out = torch.bmm(k if k.dtype == torch.float32 else k.float(),
+                        q_lat[..., None])[..., 0]
+        return out if k_scale is None else out * k_scale.float()
+
+    lib_ms = time_ms(torch, library, 20, flush=flush)
+    nbytes = b * r_star * 4 + b * s * r_star * k_lat.element_size() \
+        + b * s * 4 + (b * s * 2 if k_scale is not None else 0)
+    b_ms, b_by = bound(nbytes, 2.0 * b * s * r_star, F32_FLOP_PER_S)
+    return dict(case=name, max_abs_err=err, tol=tol, ms=kern_ms,
+                plain_ms=plain_ms, library_ms=lib_ms,
+                library_casts=k_lat.dtype != torch.float32, bound_ms=b_ms,
+                bound_by=b_by, ok=err <= tol)
+
+
+def score_topk_pin(torch, name, b, s, r, r_star, n_c, k_dtype, seed):
+    """latent_score's scores, masked by ``selection.selectable_mask`` and
+    stable-sorted to the top N_c (``selection.topk_global``), must give
+    latent_topk's indices and validity exactly: the two kernels score
+    through one device function."""
+    from repro_torch.config import SALSConfig
+    from repro_torch.core import quantization as qz
+    from repro_torch.core import selection as sel
+    from repro_torch.kernels import latent_score as ls
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    sals = SALSConfig(n_critical=n_c)
+    q_lat = torch.randn((b, r_star), generator=g, device=dev)
+    lat = torch.randn((b, s, r), generator=g, device=dev)
+    k_scale = None
+    if k_dtype == "int8":
+        k_lat, k_scale = qz.quantize_latent_int8(lat)
+    else:
+        k_lat = lat.to(torch.bfloat16)
+    pos = torch.tensor([max(1, s - 65 - 700 * i) for i in range(b)],
+                       dtype=torch.int32, device=dev)
+    idx_t, val_t = ls.latent_topk_cuda(q_lat, k_lat, k_scale, pos,
+                                       n_critical=n_c, n_sink=sals.n_sink,
+                                       n_recent=sals.n_recent)
+    scores = ls.latent_score_cuda(q_lat, k_lat, k_scale)
+    mask = sel.selectable_mask(torch.arange(s, device=dev)[None, :],
+                               pos[:, None], sals)
+    idx_s, val_s = sel.topk_global(scores, mask, n_c)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(val_s, val_t)) and bool(torch.equal(
+        torch.where(val_t, idx_s, 0), torch.where(val_t, idx_t, 0)))
+    return dict(case=name, n_critical=n_c, valid=int(val_t.sum()),
+                indices_equal=same, ok=same)
 
 
 def paired_times(torch, kern, dense, iters: int, flush) -> dict:
@@ -595,6 +697,22 @@ def phase_kernels(torch):
             window_case(torch, "llama2-7b Q4 int8-V ps8", 4, 4, 32, 32, 128,
                         4096, 1024, 432, "bf16", 8, 0.0, 29, flush, ps=8),
         ],
+        "latent_score": [
+            score_case(torch, "overlap_score path: f32 B2 S4096 r1024 r*512",
+                       2, 4096, 1024, 512, "f32", 31, flush),
+            score_case(torch, "llama2-7b B4 S4160 r1024 r*512 bf16", 4,
+                       4160, 1024, 512, "bf16", 32, flush),
+            score_case(torch, "llama2-7b B4 S4160 int8 + scale", 4, 4160,
+                       1024, 512, "int8", 33, flush),
+            score_case(torch, "f32 ragged S4000 r*500 (scalar loads)", 3,
+                       4000, 1024, 500, "f32", 34, flush),
+        ],
+        "latent_score_vs_topk": [
+            score_topk_pin(torch, "dense bf16 B4 S4160 N_c 432", 4, 4160,
+                           1024, 512, 432, "bf16", 35),
+            score_topk_pin(torch, "dense int8 B4 S4160 N_c 432", 4, 4160,
+                           1024, 512, 432, "int8", 36),
+        ],
         "flash_attention": [
             flash_case(torch, "llama2-7b B4 S4096 H32", 4, 4096, 4096, 32,
                        32, 128, 0.0, 6, flush),
@@ -759,6 +877,16 @@ def phase_serve(torch, model, n_new: int = 32, prof: bool = False):
     return runs["sals"]
 
 
+def sched_prompts(model):
+    """8 requests sharing a 512-token system prompt, 4000 ... 640 tokens."""
+    corpus = model["corpus"]
+    system = corpus.batch(300, 1, 512)["tokens"][0]     # 8 pages of 64
+    lens = [4000, 3584, 3072, 2560, 2048, 1536, 1024, 640]
+    return [np.concatenate([system, corpus.batch(310 + i, 1, n - 512)
+                            ["tokens"][0]]).astype(np.int32)
+            for i, n in enumerate(lens)]
+
+
 def phase_sched(torch, model, n_new: int = 32, prof: bool = False):
     """The serving entry point: ``RequestScheduler`` over the paged latent
     cache and over the dense slot arena, same requests, same weights.
@@ -771,12 +899,8 @@ def phase_sched(torch, model, n_new: int = 32, prof: bool = False):
     cfg, sals, params, proj = (model[k] for k in ("cfg", "sals", "params",
                                                   "proj"))
     n_sals = model["n_sals"]
-    corpus = model["corpus"]
-    system = corpus.batch(300, 1, 512)["tokens"][0]     # 8 pages of 64
-    lens = [4000, 3584, 3072, 2560, 2048, 1536, 1024, 640]
-    prompts = [np.concatenate([system, corpus.batch(310 + i, 1, n - 512)
-                               ["tokens"][0]]).astype(np.int32)
-               for i, n in enumerate(lens)]
+    prompts = sched_prompts(model)
+    lens = [len(p) for p in prompts]
     runs = {}
     for name, ps in (("paged", 64), ("dense", 0)):
         eng = ServeEngine(params, proj, cfg, ServeConfig(
@@ -833,7 +957,7 @@ def phase_sched(torch, model, n_new: int = 32, prof: bool = False):
                                  f"expected {want} of {mine} and no {other}")
         if ps and sched.prefix_hits < 1:
             raise AssertionError("sched paged: no prefix hit")
-        runs[name] = (counts, toks)
+        runs[name] = (counts, toks, wall)
         del eng, sched, reqs
         torch.cuda.empty_cache()
     same = all(np.array_equal(a, b) for a, b in
@@ -855,7 +979,263 @@ def phase_sched(torch, model, n_new: int = 32, prof: bool = False):
                           "prefill_chunk")
         del eng, task
         torch.cuda.empty_cache()
-    return runs["paged"][0]
+    return runs["paged"]
+
+
+# ---------------------------------------------------------------------------
+# the selection-quality path (paper Fig. 2 / Fig. 4)
+# ---------------------------------------------------------------------------
+
+QUALITY_RANK_LAYERS = (0, 1, 16, 31)
+
+
+def phase_quality(torch, model, seq: int = 4096):
+    """``metrics.overlap_score`` for every layer at position seq-1 of two
+    ``SyntheticCorpus`` prompts, on the full-width model and its calibrated
+    U_r: one ``latent_score`` launch per layer and prompt (counts zeroed
+    just before, read just after; no ``latent_topk``).  Then each layer's
+    kernel scores against the twin on the same CUDA tensors, and the
+    effective rank before / after RoPE and ``latent_mse`` on
+    QUALITY_RANK_LAYERS.  Random weights: these are not the paper's
+    numbers."""
+    from repro_torch.core import metrics
+    from repro_torch.core import selection as sel
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.attention import qkv_proj
+    from repro_torch.models.layers import rmsnorm_apply
+
+    cfg, sals, params, u = (model["cfg"], model["sals"], model["params"],
+                            model["proj"]["u"])
+    r_star = sals.score_rank(cfg.kv_dim)
+    pos = seq - 1
+    qs, ks = [], []                     # per prompt: per layer q, k_pre
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for i in range(2):
+            toks = torch.as_tensor(model["corpus"].batch(400 + i, 1, seq)
+                                   ["tokens"], device="cuda")
+            x, prefix_len = tf.embed_inputs(params, cfg, {"tokens": toks})
+            positions = torch.arange(seq, device="cuda")[None, :]
+            q_l, k_l = [], []
+            for bp in params.blocks:
+                h = rmsnorm_apply(bp.attn_norm, x[:, -1:], cfg.norm_eps)
+                q_l.append(qkv_proj(bp.attn, h, cfg)[0][:, 0])  # (1,H,dh)
+                x, ex = tf._block_fwd(bp, x, cfg, positions, prefix_len,
+                                      True)
+                k_l.append(ex["k_pre"])              # (1, S, Hkv, dh)
+            qs.append(q_l)
+            ks.append(k_l)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        overlap = [[float(metrics.overlap_score(qs[i][l], ks[i][l], u[l],
+                                                cfg, sals, pos)[0])
+                    for l in range(cfg.n_layers)] for i in range(2)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+
+        # the kernel's scores against the twin, layer by layer (after the
+        # counts were read: these launches compare, they do not count)
+        errs = []
+        for i in range(2):
+            for l in range(cfg.n_layers):
+                q_lat = sel.latent_query(sel.group_query(qs[i][l], cfg),
+                                         u[l], r_star)
+                k_lat = ks[i][l].reshape(1, seq, cfg.kv_dim).float() \
+                    @ u[l].float()
+                got = ops.latent_score(q_lat, k_lat)
+                want = ref.latent_score_ref(q_lat, k_lat)
+                errs.append(float((got - want).abs().max())
+                            / max(float(want.abs().max()), 1e-30))
+        ranks = {}
+        for l in QUALITY_RANK_LAYERS:
+            r_pre, r_post, _, _ = metrics.rank_pre_post_rope(
+                ks[0][l][0].float(), cfg)
+            ranks[l] = dict(rank_pre_rope=r_pre, rank_post_rope=r_post,
+                            latent_mse=float(metrics.latent_mse(ks[0][l],
+                                                                u[l])))
+        torch.cuda.synchronize()
+    want_n = cfg.n_layers * 2
+    row = dict(phase="quality", prompts=2, seq=seq, pos=pos,
+               note="random weights: not the paper's numbers",
+               overlap_per_layer=[(a + b) / 2 for a, b in zip(*overlap)],
+               overlap_per_prompt=overlap, setup_s=setup_s,
+               overlap_wall_s=wall, launches=counts,
+               max_rel_score_err_vs_twin=max(errs), tol=1e-5,
+               rank_layers=ranks)
+    emit(row)
+    others = {k: v for k, v in counts.items() if k != "latent_score"}
+    if counts["latent_score"] != want_n or any(others.values()):
+        raise AssertionError(f"quality: launches {counts}, expected "
+                             f"{want_n} of latent_score and nothing else")
+    if max(errs) > 1e-5:
+        raise AssertionError(f"quality: kernel vs twin {max(errs)}")
+    flat = [v for o in overlap for v in o]
+    if not all(0.0 < v <= 1.0 + 1e-6 for v in flat):
+        raise AssertionError(f"quality: overlap out of (0, 1]: {flat}")
+    del qs, ks
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# the two-tier page pool under the sched traffic
+# ---------------------------------------------------------------------------
+
+def phase_tier(torch, model, untiered_tokens, untiered_wall: float,
+               n_new: int = 32):
+    """The sched phase's traffic, paged, through a TWO-TIER pool.  A first
+    run with the hot tier as large as the pool measures each step's
+    touched set (distinct pages the selection reconstructs from) and the
+    peak of live pages.  The next run's hot tier is the largest touched
+    set plus a pinned write page per slot, one slot to fetch into and 2
+    more; if it never spills, one more run at the smallest safe size.
+    Every run must give the untiered paged run's tokens with zero
+    evictions and a clean audit; the last must sit below the peak of live
+    pages, spill and miss."""
+    from repro_torch.config import ServeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serve import Request, RequestScheduler, ServeEngine
+
+    cfg, sals, params, proj = (model[k] for k in ("cfg", "sals", "params",
+                                                  "proj"))
+    prompts = sched_prompts(model)
+    # every prompt's prefix entry is kept (the sched phase keeps 4): the
+    # finished prompts' pages stay live, which a host tier is for, so the
+    # pool holds more live pages than the steps touch
+    base = dict(max_seq_len=4096, max_batch=4, prefill_chunk=64,
+                page_size=64, prefill_token_budget=512, sals=sals,
+                prefix_cache_entries=len(prompts), audit_every=8)
+    pool_pages = ServeConfig(**base).pool_pages
+
+    def nbytes(tree) -> int:
+        return sum(int(t.numel() * t.element_size())
+                   for fl in tree.values() for t in fl.values())
+
+    def run(hbm_pages):
+        eng = ServeEngine(params, proj, cfg, ServeConfig(
+            hbm_pages=hbm_pages, **base), device="cuda")
+        stats = dict(decode_runs=0, max_touched=0, h2d_bytes=0,
+                     d2h_bytes=0)
+        decode_sel, load, read, extract = (eng.decode_sel, eng.load_page,
+                                           eng.read_page_payload,
+                                           eng.extract_page_payload_dense)
+
+        def spy_decode(tokens, cache, positions):
+            logits, cache, touched = decode_sel(tokens, cache, positions)
+            table = next(iter(eng._latent_segs(cache).values())) \
+                .page_table[0]
+            pids = torch.unique(table[touched])
+            stats["decode_runs"] += 1
+            stats["max_touched"] = max(stats["max_touched"],
+                                       int((pids > 0).sum()))
+            return logits, cache, touched
+
+        def spy_load(cache, slot, payload):
+            stats["h2d_bytes"] += nbytes(payload)
+            return load(cache, slot, payload)
+
+        def spy_read(cache, slot):
+            out = read(cache, slot)
+            stats["d2h_bytes"] += nbytes(out)
+            return out
+
+        def spy_extract(one, page):
+            out = extract(one, page)
+            stats["d2h_bytes"] += nbytes(out)
+            return out
+
+        eng.decode_sel, eng.load_page = spy_decode, spy_load
+        eng.read_page_payload = spy_read
+        eng.extract_page_payload_dense = spy_extract
+        sched = RequestScheduler(eng)
+        reqs = [Request(p, max_new_tokens=n_new) for p in prompts]
+        for r in reqs:
+            sched.submit(r)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        sched.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        toks = [r.result.tokens if r.done else None for r in reqs]
+        g = sched.pool_gauges
+        row = dict(phase="tier", hbm_pages=hbm_pages, pool_pages=pool_pages,
+                   wall_s=wall, untiered_wall_s=untiered_wall,
+                   decode_steps=sched.steps,
+                   reruns=stats["decode_runs"] - sched.steps,
+                   max_touched_pages=stats["max_touched"],
+                   peak_live_pages=max(x["pages_in_use"] for x in g),
+                   host_high_water_pages=max(x["host_pages"] for x in g),
+                   spills=sched.pool.spills, fetches=sched.pool.fetches,
+                   fetch_hits=sched.fetch_hits,
+                   prefetch_hits=sched.prefetch_hits,
+                   cold_misses=sched.cold_misses, evictions=sched.evictions,
+                   failures=sched.failures,
+                   pcie_h2d_bytes=stats["h2d_bytes"],
+                   pcie_d2h_bytes=stats["d2h_bytes"],
+                   max_memory_allocated=torch.cuda.max_memory_allocated(),
+                   launches=counts,
+                   tokens_equal_untiered=all(
+                       a is not None and np.array_equal(a, b)
+                       for a, b in zip(toks, untiered_tokens)),
+                   states=[r.state.value for r in reqs])
+        sched.audit_serving_state()
+        del eng, sched, reqs
+        torch.cuda.empty_cache()
+        return row
+
+    big = run(pool_pages)
+    emit(big)
+    # a step fits when its touched pages, the pinned write pages and one
+    # slot to fetch into are hot: the smallest safe tier is touched + B + 1;
+    # two slots more first, the smallest if that one never has to spill
+    page_bytes = cache_page_bytes(cfg, sals, base["page_size"], model)
+    need = big["max_touched_pages"] + base["max_batch"] + 1
+    rows = [big]
+    for hot in (need + 2, need):
+        small = run(min(hot, pool_pages))
+        small["hot_tier_below_peak_live"] = hot < big["peak_live_pages"]
+        # device bytes of the payload pools this hot tier does not hold
+        # (the score pool it adds shows in max_memory_allocated)
+        small["payload_bytes_per_page"] = page_bytes
+        small["payload_pool_bytes_saved"] = (pool_pages - hot) * page_bytes
+        emit(small)
+        rows.append(small)
+        if small["spills"] > 0:
+            break
+    for row in rows:
+        if not (row["tokens_equal_untiered"] and row["evictions"] == 0
+                and row["failures"] == 0):
+            raise AssertionError(f"tier {row['hbm_pages']}: tokens / "
+                                 "evictions / failures")
+        # every run of a step (reruns too) goes through both paged kernels
+        # on the score pool / hot table, once per SALS layer
+        want = model["n_sals"] * (row["decode_steps"] + row["reruns"])
+        mine = ("latent_topk_paged", "sparse_recon_attention_paged")
+        if any(row["launches"][k] != want for k in mine) or any(
+                v for k, v in row["launches"].items() if k not in mine):
+            raise AssertionError(f"tier {row['hbm_pages']}: launches "
+                                 f"{row['launches']}, expected {want} of "
+                                 f"{mine} and nothing else")
+    if not (small["hot_tier_below_peak_live"] and small["spills"] > 0
+            and small["cold_misses"] > 0):
+        raise AssertionError("tier: the small hot tier did not engage")
+    return small
+
+
+def cache_page_bytes(cfg, sals, page_size: int, model) -> int:
+    """Payload bytes (full-r latents + quantized V) of one page over every
+    SALS layer, from ``cache_bytes_per_token``."""
+    from repro_torch.core.latent_cache import cache_bytes_per_token
+    return int(cache_bytes_per_token(cfg, sals) * page_size
+               * model["n_sals"])
 
 
 # ---------------------------------------------------------------------------
@@ -1230,17 +1610,28 @@ def main() -> int:
 
     kern = phase_kernels(torch) if "kernels" in phases else {}
     counts = {}
-    if any(p in phases for p in ("serve", "sched", "spec")):
+    if "tier" in phases and "sched" not in phases:
+        raise SystemExit("the tier phase compares with the sched phase's "
+                         "untiered paged run: add sched")
+    if any(p in phases for p in ("serve", "sched", "quality", "spec")):
         model = build_model(torch)
         serve_sals = None
         if "serve" in phases:
             serve_sals = phase_serve(torch, model, prof="profile" in phases)
-            counts.update(serve_sals[0]["launches"])
+            for k in ("latent_topk", "sparse_recon_attention",
+                      "flash_attention"):
+                counts[k] = serve_sals[0]["launches"][k]
+        if "quality" in phases:
+            counts["latent_score"] = phase_quality(torch, model)[
+                "latent_score"]
         if "sched" in phases:
             # the paged kernels' launches come from the sched paged run
-            paged = phase_sched(torch, model, prof="profile" in phases)
+            paged, paged_toks, paged_wall = phase_sched(
+                torch, model, prof="profile" in phases)
             for k in ("latent_topk_paged", "sparse_recon_attention_paged"):
                 counts[k] = paged[k]
+            if "tier" in phases:
+                phase_tier(torch, model, paged_toks, paged_wall)
         if "spec" in phases:
             # the window kernels' launches: generate_speculative at long
             # context (dense), the speculative scheduler's paged run
@@ -1274,6 +1665,8 @@ def main() -> int:
         "sparse_recon_attention_window_paged": (
             "src/repro_torch/csrc/sparse_recon_attention.cu",
             "src/repro/kernels/sparse_recon_attention.py:644"),
+        "latent_score": ("src/repro_torch/csrc/latent_topk.cu",
+                         "src/repro/kernels/latent_score.py:164"),
     }
     rows = []
     for name, (src, rep) in replaces.items():
@@ -1287,6 +1680,9 @@ def main() -> int:
                      "bound_by": main_case.get("bound_by"),
                      "library_ms": main_case.get("library_ms")})
     emit({"kernels": rows})
+    idle = [r["name"] for r in rows if r["launches"] == 0]
+    if idle:    # None: its path did not run; 0: it ran without the kernel
+        raise AssertionError(f"kernels never launched on their path: {idle}")
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

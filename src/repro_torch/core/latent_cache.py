@@ -20,6 +20,17 @@ pool row ``(page_table[b, t // ps], t % ps)``.  The sink/recent windows and
 ``lengths`` stay per slot.  Unmapped table entries are 0, the trash page:
 the kernels mask by per-row position, so its bytes are never selectable.
 
+TWO-TIER paged layout (``hbm_pages`` > 0, ``core/tiering.py``): the five
+payload pools shrink to ``hbm_pages + 1`` device SLOTS (slot 0 is the
+trash slot) and three fields appear: ``k_score`` ``([L,] n_pages, ps,
+r*)``, the leading r* latent columns of EVERY live page (the score kernel
+reads it through ``page_table``: the same bytes as the untiered
+``k_lat[..., :r*]``, so selection is bit-equal and oblivious to tiering);
+``k_scale_score`` ``([L,] n_pages, ps)``, the int8 latents' scale beside
+it; and ``hot_table`` ``([L,] B, max_pages)``, row b's logical page j ->
+its payload slot (0 = cold or unmapped: the trash slot), which the
+reconstruction kernel takes instead of ``page_table``.
+
 Unlike the reference, whose arrays are immutable and whose methods return
 new caches, the port's arrays are preallocated arena tensors that
 :meth:`LatentKVCache.write` (and the layer views of :meth:`layer_view`)
@@ -39,7 +50,8 @@ from repro_torch.core.projection import to_latent
 
 _PER_TOKEN_FIELDS = ("k_lat", "k_scale", "v_q", "v_scale", "v_zero")
 _ALL_FIELDS = ("k_lat", "v_q", "v_scale", "v_zero", "sink_k", "sink_v",
-               "recent_k", "recent_v", "k_scale", "lengths", "page_table")
+               "recent_k", "recent_v", "k_scale", "lengths", "page_table",
+               "k_score", "k_scale_score", "hot_table")
 
 
 def _row_positions(pos, batch: int, device) -> torch.Tensor:
@@ -75,10 +87,19 @@ class LatentKVCache:
     lengths: Optional[torch.Tensor] = None  # ([L,] B) int32 tokens per slot
     page_table: Optional[torch.Tensor] = None  # ([L,] B, max_pages) int32
     page_size: int = 0                     # 0 = dense arena; >0 = pools
+    # two-tier layout only (see the module docstring)
+    k_score: Optional[torch.Tensor] = None        # ([L,] n_pages, ps, r*)
+    k_scale_score: Optional[torch.Tensor] = None  # ([L,] n_pages, ps)
+    hot_table: Optional[torch.Tensor] = None      # ([L,] B, max_pages)
 
     @property
     def paged(self) -> bool:
         return self.page_size > 0
+
+    @property
+    def tiered(self) -> bool:
+        """Two-tier layout: payload pools hold hot slots only."""
+        return self.hot_table is not None
 
     # ------------------------------------------------------------------ init
 
@@ -118,34 +139,49 @@ class LatentKVCache:
     def init_paged(cls, cfg: ModelConfig, sals: SALSConfig, n_layers: int,
                    batch: int, max_seq: int, n_pages: int, page_size: int,
                    dtype=torch.bfloat16, n_groups: int = 1,
-                   device="cuda") -> "LatentKVCache":
+                   hbm_pages: int = 0, device="cuda") -> "LatentKVCache":
         """Zero-initialized PAGED cache: the per-token fields are pools of
         ``n_pages`` pages of ``page_size`` tokens; ``max_seq`` only sizes
-        the per-row page table (``max_seq // page_size`` entries)."""
+        the per-row page table (``max_seq // page_size`` entries).
+        ``hbm_pages`` > 0 builds the two-tier layout: payload pools of
+        ``hbm_pages + 1`` slots (slot 0 = trash), a full-size ``k_score``
+        (+ ``k_scale_score``) pool and the ``hot_table``."""
         if max_seq % page_size:
             raise ValueError(f"max_seq {max_seq} must be a multiple of "
                              f"page_size {page_size}")
         if n_pages * page_size < max_seq:
             raise ValueError(f"pool {n_pages}×{page_size} cannot hold one "
                              f"max_seq {max_seq} sequence")
+        if hbm_pages and hbm_pages + 1 > n_pages:
+            raise ValueError(f"hbm_pages {hbm_pages} exceeds the pool "
+                             f"({n_pages} incl. trash)")
         # (L, 1, ps, ·) template -> (L, n_pages, ps, ·) pools
         one = cls.init(cfg, sals, n_layers, 1, page_size, dtype, n_groups,
                        device="meta")
+        payload_pages = hbm_pages + 1 if hbm_pages else n_pages
         pools = {f: None if getattr(one, f) is None else torch.zeros(
-                     (n_layers, n_pages, *getattr(one, f).shape[2:]),
+                     (n_layers, payload_pages, *getattr(one, f).shape[2:]),
                      dtype=getattr(one, f).dtype, device=device)
                  for f in _PER_TOKEN_FIELDS}
         win = (n_layers, batch, sals.n_sink, cfg.n_kv_heads, cfg.head_dim)
         ring = (n_layers, batch, sals.n_recent, cfg.n_kv_heads, cfg.head_dim)
+        mp = max_seq // page_size
 
         def z(shape, dt):
             return torch.zeros(shape, dtype=dt, device=device)
 
+        if hbm_pages:
+            r_star = sals.score_rank(cfg.kv_dim)
+            pools["k_score"] = z((n_layers, n_pages, page_size, r_star),
+                                 one.k_lat.dtype)
+            if one.k_scale is not None:
+                pools["k_scale_score"] = z((n_layers, n_pages, page_size),
+                                           one.k_scale.dtype)
+            pools["hot_table"] = z((n_layers, batch, mp), torch.int32)
         return cls(**pools, sink_k=z(win, dtype), sink_v=z(win, dtype),
                    recent_k=z(ring, dtype), recent_v=z(ring, dtype),
                    lengths=z((n_layers, batch), torch.int32),
-                   page_table=z((n_layers, batch, max_seq // page_size),
-                                torch.int32),
+                   page_table=z((n_layers, batch, mp), torch.int32),
                    page_size=page_size)
 
     @classmethod
@@ -291,8 +327,15 @@ class LatentKVCache:
         Paged: the logical position resolves through the page table to
         (physical page, in-page row); the page must be mapped already (the
         scheduler maps it before the step; an idle row's table row is 0,
-        the trash page).  ``keep`` (B,) bool masks the write per row: a
-        masked row's bytes and length stay as they are."""
+        the trash page).  Two-tier: the payload lands in the page's hot
+        SLOT (the scheduler pins each row's write page hot) and the
+        leading r* columns of the SAME stored rows (int8: the same codes
+        and scale) in the score pool at the physical page, so the tiered
+        score pass reads exactly the untiered bytes.  ``keep`` (B,) bool
+        masks the write per row: a masked row's bytes and length stay as
+        they are.  Every write is a set at a fixed position, so running a
+        step again over its own writes (the tiered fetch-and-rerun) leaves
+        the bytes of one clean run."""
         pos_v = _row_positions(pos, k_lat.shape[-2], k_lat.device)
         return self._put_token(pos_v, self._quantized(sals, k_lat, v_flat),
                                keep)
@@ -329,6 +372,16 @@ class LatentKVCache:
             table = self.page_table[0] if lead else self.page_table
             page = (pos_v // ps).clamp_max(table.shape[-1] - 1)
             at = lead + (table[rows, page].long(), pos_v % ps)
+            if self.tiered:
+                hot = self.hot_table[0] if lead else self.hot_table
+                score_at, at = at, lead + (hot[rows, page].long(),
+                                           pos_v % ps)
+                r_star = self.k_score.shape[-1]
+                _masked_put(self.k_score, score_at,
+                            vals["k_lat"][..., :r_star], keep)
+                if self.k_scale_score is not None:
+                    _masked_put(self.k_scale_score, score_at,
+                                vals["k_scale"], keep)
         else:
             at = lead + (rows, pos_v.clamp_max(self.k_lat.shape[-2] - 1))
         for f, val in vals.items():
@@ -442,14 +495,16 @@ class LatentKVCache:
 
     def free_slot(self, slot: int) -> "LatentKVCache":
         """Release batch row ``slot`` — METADATA ONLY: its length (and,
-        paged, its page-table row) is reset; the payload bytes stay.
+        paged, its page-table and hot-table rows) is reset; the payload
+        bytes stay.
         Per-row positions gate every read and the next admission rewrites
         the row's windows and per-token data, so recycled bytes are never
         selectable."""
         ax = 1 if self.k_lat.dim() == 4 else 0
         self.lengths.select(ax, slot).zero_()
-        if self.page_table is not None:
-            self.page_table.select(ax, slot).zero_()
+        for table in (self.page_table, self.hot_table):
+            if table is not None:
+                table.select(ax, slot).zero_()
         return self
 
     # ------------------------------------------------------------ bookkeeping

@@ -413,7 +413,11 @@ def audit_pager(pool: PagePool, tables, entries, gauges=None) -> None:
       3. global conservation: free + live == n_pages − n_reserved (implied
          by 1, restated over the external census so a drifted gauge or a
          table row pointing at a reserved page is caught here);
-      4. gauge consistency with the pool.
+      4. gauge consistency with the pool;
+      5. tier conservation when the pool is a
+         :class:`~repro_torch.core.tiering.TieredPagePool` (hot ⊎ cold ⊎
+         fresh ⊎ in-flight == live pages, hot-slot uniqueness, pins
+         hot-only — see its ``audit_tiers``).
     """
     pool.check()
     held = np.zeros((pool.n_pages,), np.int64)
@@ -454,3 +458,8 @@ def audit_pager(pool: PagePool, tables, entries, gauges=None) -> None:
             if key in gauges and gauges[key] != want:
                 raise PagerInvariantError(
                     f"gauge {key}={gauges[key]} drifted from pool {want}")
+    # duck-typed so this module never imports core.tiering (which imports
+    # the fault hook from here — the same acyclicity rule as serve.faults)
+    audit_tiers = getattr(pool, "audit_tiers", None)
+    if audit_tiers is not None:
+        audit_tiers(gauges)

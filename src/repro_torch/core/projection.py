@@ -36,3 +36,24 @@ def to_latent(u: torch.Tensor, k_flat: torch.Tensor) -> torch.Tensor:
 def reconstruct(u: torch.Tensor, lat: torch.Tensor) -> torch.Tensor:
     """K ≈ K̃·U_rᵀ. lat: (..., r) -> (..., kv_dim)."""
     return (lat.float() @ u.float().T).to(lat.dtype)
+
+
+def captured_energy(eigvals, rank: int) -> torch.Tensor:
+    """Fraction of total variance captured by the leading ``rank``
+    components (eigvals descending, last axis)."""
+    ev = torch.as_tensor(eigvals)
+    return torch.sum(ev[..., :rank], dim=-1) / \
+        torch.clamp_min(torch.sum(ev, dim=-1), 1e-12)
+
+
+def effective_rank(eigvals, v: float = 90.0) -> int:
+    """Rank_l(v) (the Loki metric of the paper's appendix): the smallest d
+    whose top-d eigenvalues capture at least v% of the total variance.
+    A handful of values, summed on the host in float64."""
+    ev = np.sort(np.asarray(torch.as_tensor(eigvals).detach().cpu(),
+                            np.float64))[::-1]
+    total = ev.sum()
+    if total <= 0:
+        return len(ev)
+    c = np.cumsum(ev) / total
+    return int(np.searchsorted(c, v / 100.0) + 1)

@@ -3,7 +3,10 @@ global plan of ``repro/core/selection.py``.
 
 The query is head-group-summed, projected by U_r and truncated to r*; it is
 scored against the leading r* dims of every cached latent (fused with the
-top-N_c in ``kernels.ops.latent_topk``).
+top-N_c in ``kernels.ops.latent_topk`` on the decode path; as plain (B, S)
+scores through ``kernels.ops.latent_score`` + :func:`topk_global` for the
+quality metrics).  The grouped top-k (``topk_grouped``) comes with the
+layouts slice.
 """
 from __future__ import annotations
 
@@ -13,6 +16,7 @@ import torch
 
 from repro_torch.config import ModelConfig, SALSConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import topk_desc_stable
 
 NEG = -2.0 ** 30
 
@@ -22,6 +26,14 @@ def group_query(q: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     b = q.shape[0]
     qg = q.reshape(b, cfg.n_kv_heads, cfg.group_size, cfg.head_dim)
     return torch.sum(qg, dim=2).reshape(b, cfg.kv_dim)
+
+
+def latent_scores(q_bar: torch.Tensor, u: torch.Tensor, k_lat: torch.Tensor,
+                  r_star: int) -> torch.Tensor:
+    """s_j = q̃[:r*]·k̃_j[:r*].  q_bar: (B, kv_dim); k_lat: (B, S, r).
+    Returns (B, S) f32 through ``ops.latent_score`` (the CUDA kernel on the
+    card)."""
+    return ops.latent_score(latent_query(q_bar, u, r_star), k_lat)
 
 
 def latent_query(q_bar: torch.Tensor, u: torch.Tensor,
@@ -52,6 +64,25 @@ def sort_selected(idx: torch.Tensor, valid: torch.Tensor
     key = torch.where(valid, idx, torch.full_like(idx, big))
     order = torch.argsort(key, dim=-1, stable=True)
     return torch.gather(idx, -1, order), torch.gather(valid, -1, order)
+
+
+def selectable_mask(seq_positions: torch.Tensor, pos,
+                    sals: SALSConfig) -> torch.Tensor:
+    """True where a cached token may be SELECTED: not a sink, not in the
+    recent ring, already written.  seq_positions: integer positions."""
+    return (seq_positions >= sals.n_sink) & \
+        (seq_positions <= pos - sals.n_recent)
+
+
+def topk_global(scores: torch.Tensor, mask: torch.Tensor, n_critical: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Paper-faithful top-N_c.  scores/mask: (B, S).  Returns (idx (B, Nc)
+    int32, valid (B, Nc) bool); ``valid`` is False for slots that fell on
+    masked entries.  Ties go to the lower index, as ``lax.top_k`` breaks
+    them (a stable descending sort, never ``torch.topk``)."""
+    masked = torch.where(mask, scores, torch.full_like(scores, NEG))
+    vals, idx = topk_desc_stable(masked, n_critical)
+    return idx.to(torch.int32), vals > NEG / 2
 
 
 def window_query(q_win: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

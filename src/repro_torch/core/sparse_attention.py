@@ -14,13 +14,18 @@ One decode step per SALS layer:
 
 Both layouts of the cache run through the same code: the dense slot arena,
 and the paged one, whose page table rides to both kernels (which then
-read the page pools).
+read the page pools).  The two-tier paged layout routes through two
+tables: scoring reads the always-resident ``k_score`` pool through the
+page table, reconstruction reads the payload pools through ``hot_table``
+(a cold page's entry is 0, the trash slot; the scheduler fetches it and
+reruns the step).  The same two kernels take either table as they are.
 
 :func:`sals_window_attend` is the speculative verify window: Q tokens at
 positions pos..pos+Q−1 through one selection and one windowed recon
-kernel, READ-ONLY on the cache (the caller commits the accepted prefix).  The grouped (``n_groups > 1``) and tiered plans of
-the reference are ported in later slices; the cache constructors and the
-engine raise ``NotImplementedError`` for them.
+kernel, READ-ONLY on the cache (the caller commits the accepted prefix);
+it needs the untiered cache.  The grouped (``n_groups > 1``) plan of the
+reference is ported in a later slice; the cache constructors and the
+engine raise ``NotImplementedError`` for it.
 """
 from __future__ import annotations
 
@@ -98,16 +103,38 @@ def _partial_attend(logits: torch.Tensor, v: torch.Tensor, cfg: ModelConfig
     return m, l, o.reshape(*lead, cfg.n_heads, cfg.head_dim)
 
 
+def _touched_pages(idx: torch.Tensor, valid: torch.Tensor, page_size: int,
+                   max_pages: int) -> torch.Tensor:
+    """Selected logical indices (B, K) -> (B, max_pages) bool mask of the
+    pages they fall in; invalid slots mark nothing."""
+    b = idx.shape[0]
+    page = torch.where(valid, idx.long() // page_size,
+                       torch.full_like(idx, max_pages, dtype=torch.long))
+    touched = torch.zeros((b, max_pages + 1), dtype=torch.bool,
+                          device=idx.device)
+    touched[torch.arange(b, device=idx.device)[:, None], page] = True
+    return touched[:, :max_pages]
+
+
 def _global_partials(q0, q_bar, u, cache: LatentKVCache, pos,
-                     cfg: ModelConfig, sals: SALSConfig):
+                     cfg: ModelConfig, sals: SALSConfig,
+                     collect: bool = False):
     """Paper-faithful global top-N_c → fused recon attention, over the
-    dense arena or the page pools.  Returns (m, l, o) with a G=1 axis."""
+    dense arena or the page pools.  Returns (m, l, o) with a G=1 axis, and
+    the (B, max_pages) touched-page mask when ``collect`` (paged only)."""
     r_star = sals.score_rank(cfg.kv_dim)
     k_lat, k_scale = cache.latent_views()
     pt = cache.page_table if cache.paged else None
     ps = cache.page_size
-    idx, valid = sel.topk_latent(q_bar, u, k_lat, k_scale, pos, sals, r_star,
-                                 page_table=pt, page_size=ps)
+    if cache.tiered:
+        # two tables: scores from the always-resident r* pool at physical
+        # pages, reconstruction from the payload pools at hot slots
+        score_k, score_scale, recon_table = \
+            cache.k_score, cache.k_scale_score, cache.hot_table
+    else:
+        score_k, score_scale, recon_table = k_lat, k_scale, pt
+    idx, valid = sel.topk_latent(q_bar, u, score_k, score_scale, pos, sals,
+                                 r_star, page_table=pt, page_size=ps)
     # ascending positions, invalid slots last: the same accumulation order
     # for both layouts, so paged and dense agree bit for bit
     idx, valid = sel.sort_selected(idx, valid)
@@ -116,18 +143,26 @@ def _global_partials(q0, q_bar, u, cache: LatentKVCache, pos,
         cache.v_zero, u, idx, valid, pos, n_kv=cfg.n_kv_heads,
         v_bits=sals.v_bits, v_group=sals.v_group, theta=cfg.rope_theta,
         softcap=cfg.attn_logit_softcap, use_rope=cfg.use_rope,
-        page_table=pt, page_size=ps)
-    return m[:, None], l[:, None], o[:, None]
+        page_table=recon_table, page_size=ps)
+    out = (m[:, None], l[:, None], o[:, None])
+    if collect:
+        if not cache.paged:
+            raise ValueError("selection collection requires the paged cache")
+        out += (_touched_pages(idx, valid, ps, pt.shape[1]),)
+    return out
 
 
 def sals_decode_attend(params, u: torch.Tensor, cache: LatentKVCache,
                        x: torch.Tensor, pos, cfg: ModelConfig,
-                       sals: SALSConfig):
+                       sals: SALSConfig, collect: bool = False):
     """One-token SALS attention for one layer (the global plan; the cache
     constructors refuse the grouped layout).
 
     x: (B, 1, d); pos: scalar or (B,) per-row positions; ``cache`` is a
-    single-layer view, updated in place.  Returns (y (B, 1, d), cache)."""
+    single-layer view, updated in place.  Returns (y (B, 1, d), cache),
+    plus the (B, max_pages) bool mask of the logical pages the selection
+    reconstructed from when ``collect`` (paged caches only: the tiered
+    fetch-and-rerun loop reads it)."""
     b = x.shape[0]
     dev = x.device
     kvd = cfg.kv_dim
@@ -161,8 +196,8 @@ def sals_decode_attend(params, u: torch.Tensor, cache: LatentKVCache,
     m_sr, l_sr, o_sr = _partial_attend(sr_logits, sr_v, cfg)
 
     # ---- stages 2-4: fused selected-token partials (B, 1, H[, dh]) ------
-    m_c, l_c, o_c = _global_partials(q[:, 0], q_bar, u, cache, pos_v, cfg,
-                                     sals)
+    m_c, l_c, o_c, *touched = _global_partials(q[:, 0], q_bar, u, cache,
+                                               pos_v, cfg, sals, collect)
 
     # ---- stage 5: LSE merge -----------------------------------------------
     m_all = torch.maximum(torch.max(m_c, dim=1).values, m_sr)
@@ -171,7 +206,7 @@ def sals_decode_attend(params, u: torch.Tensor, cache: LatentKVCache,
     denom = torch.sum(wc * l_c, dim=1) + wsr * l_sr
     numer = torch.sum(wc[..., None] * o_c, dim=1) + wsr[..., None] * o_sr
     o = numer / torch.clamp_min(denom, 1e-30)[..., None]
-    return out_proj(params, o[:, None].to(x.dtype), cfg), cache
+    return (out_proj(params, o[:, None].to(x.dtype), cfg), cache, *touched)
 
 
 # ---------------------------------------------------------------------------
@@ -224,6 +259,9 @@ def sals_window_attend(params, u: torch.Tensor, cache: LatentKVCache,
     b, ql, _ = x.shape
     dev = x.device
     w = sals.n_recent
+    if cache.tiered:
+        raise ValueError("speculative windows need the untiered cache: the "
+                         "hot-set fetch contract is per committed step")
     if ql > w:
         raise ValueError(f"verify window {ql} > n_recent {w}: the widest "
                          "selection mask would cover uncommitted positions")

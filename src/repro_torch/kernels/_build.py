@@ -60,6 +60,7 @@ SIGNATURES = {
         _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
         _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    "sals_latent_score": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
     "sals_latent_topk_paged": [_P, _P, _I, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                _I, _I, _I, _P],

@@ -24,7 +24,7 @@ NEG_INF = _ref.NEG_INF
 
 COUNTERS = (_ls.launches, _sra.launches, _fa.launches,
             _ls.paged_launches, _sra.paged_launches, _sra.window_launches,
-            _sra.window_paged_launches)
+            _sra.window_paged_launches, _ls.score_launches)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -58,6 +58,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return _fa.flash_attention_cuda(q, k, v, causal=causal,
                                         softcap=softcap)
     return _ref.attention_ref(q, k, v, causal=causal, softcap=softcap)
+
+
+def latent_score(q_lat: torch.Tensor, k_lat: torch.Tensor,
+                 k_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q_lat (B, r*), k_lat (B, S, r >= r*) raw latents (+ the int8
+    per-token ``k_scale`` (B, S)) -> (B, S) f32 scores over the leading r*
+    columns, read in place (no slice, pad or dequantized copy)."""
+    if _on_cuda(q_lat):
+        return _ls.latent_score_cuda(q_lat, k_lat, k_scale)
+    return _ref.latent_score_ref(q_lat, k_lat, k_scale)
 
 
 def latent_topk(q_lat: torch.Tensor, k_lat: torch.Tensor,

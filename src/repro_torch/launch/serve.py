@@ -88,6 +88,18 @@ def main(argv=None) -> None:
                          "a multiple of --prefill-chunk")
     ap.add_argument("--n-pages", type=int, default=0,
                     help="page-pool size (0 = max-batch·max-seq/page-size)")
+    ap.add_argument("--hbm-pages", type=int, default=0,
+                    help="two-tier page pool: device payload slots of the "
+                         "hot tier (0 = every page resident).  Needs "
+                         "--page-size; >= max-batch + 1 (each resident "
+                         "pins its write page hot) and <= the pool size.  "
+                         "Score columns stay resident for every page; "
+                         "other payloads spill to pinned host mirrors")
+    ap.add_argument("--no-tier-prefetch", dest="tier_prefetch",
+                    action="store_false", default=True,
+                    help="two-tier pool: no selection-driven prefetch; cold "
+                         "pages are fetched on demand only, inside the "
+                         "fetch-and-rerun decode step")
     ap.add_argument("--no-prefix-cache", dest="prefix_cache",
                     action="store_false", default=True,
                     help="disable copy-on-write prefix sharing (paged)")
@@ -135,6 +147,8 @@ def main(argv=None) -> None:
                        prefill_chunk=args.prefill_chunk,
                        prefill_token_budget=args.prefill_budget,
                        page_size=args.page_size, n_pages=args.n_pages,
+                       hbm_pages=args.hbm_pages,
+                       tier_prefetch=args.tier_prefetch,
                        prefix_cache=args.prefix_cache,
                        max_queue=args.max_queue,
                        queue_policy=args.queue_policy,
@@ -163,6 +177,13 @@ def main(argv=None) -> None:
           f"arch={args.arch}, page_size={args.page_size}, device={dev}, "
           f"{sched.steps} decode steps, {len(sched.prefill_chunks)} prefill "
           f"chunks, prefix hits {sched.prefix_hits})")
+    if sched.tiered:
+        hh = max((g["host_pages"] for g in sched.pool_gauges), default=0)
+        print(f"[serve] two-tier: {args.hbm_pages} hot slots, "
+              f"host high-water {hh} pages, spills={sched.pool.spills} "
+              f"fetch_hits={sched.fetch_hits} "
+              f"prefetch_hits={sched.prefetch_hits} "
+              f"cold_misses={sched.cold_misses}")
     if args.spec_window > 1 and sched.spec_rounds:
         acc = sched.spec_accepted / max(1, sched.spec_proposed)
         print(f"[serve] speculative: window {args.spec_window}, "

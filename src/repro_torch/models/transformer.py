@@ -146,12 +146,14 @@ def _finish_block(bp: Block, x, a, cfg: ModelConfig):
 
 def init_cache(cfg: ModelConfig, sals: Optional[SALSConfig], batch: int,
                max_seq: int, dtype=None, n_groups: int = 1,
-               page_size: int = 0, n_pages: int = 0,
+               page_size: int = 0, n_pages: int = 0, hbm_pages: int = 0,
                device="cuda") -> dict:
     """Zero caches for every segment (see the module docstring).
     ``page_size`` > 0 backs the SALS segments with ``n_pages`` physical
     pages instead of the dense (B, max_seq, ·) arena; the full segments
-    keep their dense per-slot caches."""
+    keep their dense per-slot caches.  ``hbm_pages`` > 0 makes the pool
+    two-tier: payload pools of that many device slots (+1 trash), while
+    the r* score pool and the page table keep all ``n_pages``."""
     dtype = torch_dtype(dtype or cfg.dtype)
     cache: Dict[str, Any] = {}
     for si, (i0, i1, mode) in enumerate(segment_plan(cfg, sals)):
@@ -164,7 +166,7 @@ def init_cache(cfg: ModelConfig, sals: Optional[SALSConfig], batch: int,
         elif page_size:
             cache[f"seg{si}"] = LatentKVCache.init_paged(
                 cfg, sals, ls, batch, max_seq, n_pages, page_size, dtype,
-                n_groups=n_groups, device=device)
+                n_groups=n_groups, hbm_pages=hbm_pages, device=device)
         else:
             cache[f"seg{si}"] = LatentKVCache.init(
                 cfg, sals, ls, batch, max_seq, dtype, n_groups=n_groups,
@@ -283,29 +285,40 @@ def prefill_chunk(params: Transformer, projectors: Optional[dict],
 
 def decode_step(params: Transformer, projectors: Optional[dict], cache: dict,
                 tokens: torch.Tensor, pos, cfg: ModelConfig,
-                sals: Optional[SALSConfig]):
+                sals: Optional[SALSConfig], collect_selection: bool = False):
     """One decode step.  tokens: (B,) int; pos: scalar or (B,) per-row
     positions.  Updates ``cache`` in place; returns (logits (B, V) f32,
-    cache)."""
+    cache).  With ``collect_selection`` (paged SALS caches only) it also
+    returns {seg_name: (ls, B, max_pages) bool}: which LOGICAL pages each
+    SALS layer's selection reconstructed from, the tiered scheduler's
+    fetch oracle."""
     if not cfg.is_decoder:
         raise ValueError("encoder family has no decode step")
     x = embed_apply(params.embed, tokens[:, None], cfg)       # (B,1,d)
+    touched: Dict[str, Any] = {}
     for si, (i0, i1, mode) in enumerate(segment_plan(cfg, sals)):
         seg = cache[f"seg{si}"]
+        seg_touch = []
         for li in range(i0, i1):
             bp = params.blocks[li]
             h = rmsnorm_apply(bp.attn_norm, x, cfg.norm_eps)
             if mode == "sals":
-                a, _ = sals_decode_attend(bp.attn, projectors["u"][li],
-                                          seg.layer_view(li - i0), h, pos,
-                                          cfg, sals)
+                a, _, *t = sals_decode_attend(
+                    bp.attn, projectors["u"][li], seg.layer_view(li - i0), h,
+                    pos, cfg, sals, collect=collect_selection)
+                seg_touch += t
             else:
                 a, _, _ = attn.attend_decode_full(
                     bp.attn, h, cfg, seg["k"][li - i0], seg["v"][li - i0],
                     pos)
             x = _finish_block(bp, x, a, cfg)
+        if seg_touch:
+            touched[f"seg{si}"] = torch.stack(seg_touch)
     x = rmsnorm_apply(params.final_norm, x, cfg.norm_eps)
-    return unembed_apply(params.embed, x, cfg)[:, 0], cache
+    logits = unembed_apply(params.embed, x, cfg)[:, 0]
+    if collect_selection:
+        return logits, cache, touched
+    return logits, cache
 
 
 def decode_window(params: Transformer, projectors: Optional[dict],

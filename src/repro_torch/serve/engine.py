@@ -20,13 +20,23 @@ the finished single-request cache into a free slot.  With ``page_size`` >
 0 the SALS segments live in a refcounted page pool (``core/pager.py`` keeps
 the host bookkeeping) with prefix sharing and copy-on-write.
 
+With ``hbm_pages`` > 0 the pool is TWO-TIER (``core/tiering.py`` keeps the
+residency state): the payload pools hold ``hbm_pages`` device slots, the
+r* score pool every live page, and cold payloads live in host mirrors —
+{segment: {field: (ls, ps, ·) tensor}} in pinned host memory on the card.
+:meth:`~ServeEngine.read_page_payload` (spill), :meth:`~ServeEngine.
+load_page` (fetch) and :meth:`~ServeEngine.extract_page_payload_dense`
+(cold admission) copy on a dedicated copy stream; events order each spill
+after the work already queued on the compute stream and before any later
+compute-stream use of its slot, and each fetch before the step that reads
+it.  Copies do not overlap compute yet.
+
 The reference's arrays are immutable; the port's caches are updated IN
 PLACE.  Everything that must outlive the next write — a prefix-cache
 entry's resume state, a page-boundary ring snapshot, :meth:`resume_seed`'s
 result — is therefore a ``clone()``, never a view.
 
-Not yet ported (later slices): the two-tier page pool (``hbm_pages``),
-temperature sampling (``torch.Generator`` numbers differ from
+Not yet ported (later slices): park/resume, temperature sampling (``torch.Generator`` numbers differ from
 ``jax.random``'s), and capturing the decode step as a CUDA graph.
 """
 from __future__ import annotations
@@ -128,9 +138,6 @@ class ServeEngine:
         if scfg.max_seq_len % scfg.prefill_chunk:
             raise ValueError(f"max_seq_len {scfg.max_seq_len} must be a "
                              f"multiple of prefill_chunk {scfg.prefill_chunk}")
-        if scfg.hbm_pages > 0:
-            raise NotImplementedError("the two-tier page pool (hbm_pages > "
-                                      "0) is ported in slice 4")
         if scfg.page_size > 0 and self.sals is None:
             raise ValueError("page_size > 0 needs SALS latent segments "
                              "(sals enabled on an attention family) — the "
@@ -162,12 +169,20 @@ class ServeEngine:
         if p_dev != self.device:
             raise ValueError(f"params on {p_dev}, engine on {self.device}")
         self.last_timing: Optional[dict] = None
+        self._stream: Optional[torch.cuda.Stream] = None   # tier copies
 
     @property
     def paged(self) -> bool:
         """SALS segments backed by the refcounted page pool instead of the
         dense slot arena."""
         return self.sals is not None and self.scfg.page_size > 0
+
+    @property
+    def tiered(self) -> bool:
+        """Two-tier page pool: payload pools hold ``scfg.hbm_pages`` hot
+        device slots; the r* score pool keeps every live page resident,
+        cold payloads live in host mirrors."""
+        return self.paged and self.scfg.hbm_pages > 0
 
     # -- sampling ------------------------------------------------------------
 
@@ -210,7 +225,8 @@ class ServeEngine:
                              self.scfg.max_seq_len, n_groups=self.n_groups,
                              page_size=self.scfg.page_size if self.paged
                              else 0, n_pages=self.scfg.pool_pages + 1,
-                             device=self.device)
+                             hbm_pages=self.scfg.hbm_pages if self.paged
+                             else 0, device=self.device)
 
     def decode(self, tokens, cache: dict, positions) -> Tuple[torch.Tensor,
                                                               dict]:
@@ -220,6 +236,24 @@ class ServeEngine:
         pos = torch.tensor(np.asarray(positions), device=self.device)
         return tf.decode_step(self.params, self.projectors, cache, tok, pos,
                               self.cfg, self.sals)
+
+    def decode_sel(self, tokens, cache: dict, positions
+                   ) -> Tuple[torch.Tensor, dict, torch.Tensor]:
+        """:meth:`decode` that also reports which logical pages the SALS
+        selection reconstructed from, unioned over layers into one
+        (B, max_pages) bool mask: the tiered fetch-and-rerun loop's
+        residency probe (``RequestScheduler``)."""
+        tok = torch.tensor(np.asarray(tokens), device=self.device)
+        pos = torch.tensor(np.asarray(positions), device=self.device)
+        logits, cache, touched = tf.decode_step(
+            self.params, self.projectors, cache, tok, pos, self.cfg,
+            self.sals, collect_selection=True)
+        union = torch.zeros((tok.shape[0], self.scfg.max_seq_len
+                             // self.scfg.page_size), dtype=torch.bool,
+                            device=self.device)
+        for seg_touch in touched.values():          # (ls, B, max_pages)
+            union |= seg_touch.any(dim=0)
+        return logits, cache, union
 
     def decode_window(self, tokens, cache: dict, positions
                       ) -> Tuple[torch.Tensor, dict]:
@@ -334,42 +368,176 @@ class ServeEngine:
         not written (their bytes already live in the pool, stored once).
         The windows, the length and the page-table row are set per slot;
         full-precision segments are row splices as in :meth:`admit`."""
+        return self._admit_pages(cache, one_cache, slot, page_ids, None,
+                                 start_page, prompt_len)
+
+    def admit_tiered(self, cache: dict, one_cache: dict, slot: int,
+                     page_ids, hot_slots, start_page: int,
+                     prompt_len: int) -> dict:
+        """Tiered admission, in place: as :meth:`admit_paged`, but the
+        payload rows of page j go into hot SLOT ``hot_slots[j]`` (0: the
+        page was admitted cold, its payload goes to a host mirror instead,
+        :meth:`extract_page_payload_dense`, and nothing lands here), while
+        every page's leading r* rows go into the score pool at its
+        physical page.  Installs both table rows of the slot."""
+        return self._admit_pages(cache, one_cache, slot, page_ids, hot_slots,
+                                 start_page, prompt_len)
+
+    def _admit_pages(self, cache: dict, one_cache: dict, slot: int, page_ids,
+                     hot_slots, start_page: int, prompt_len: int) -> dict:
         maybe_fault("admit")              # before the arena changes
         ps = self.scfg.page_size
         mp = self.scfg.max_seq_len // ps
-        n_req = -(-prompt_len // ps)
-        row = torch.zeros((mp,), dtype=torch.int32)
-        row[:len(page_ids)] = torch.as_tensor(list(page_ids),
-                                              dtype=torch.int32)
-        row = row.to(self.device)
-        take = torch.arange(start_page, n_req, device=self.device)
-        tgt = row[take].long()
+        row = np.zeros((mp,), np.int32)
+        row[:len(page_ids)] = list(page_ids)
+        take = np.arange(start_page, -(-prompt_len // ps))
+        pay_row, take_pay = row, take     # payload pool index of each page
+        if hot_slots is not None:
+            pay_row = np.zeros((mp,), np.int32)
+            pay_row[:len(hot_slots)] = list(hot_slots)
+            take_pay = take[pay_row[take] > 0]
+
+        def dev(a):
+            return torch.as_tensor(a, dtype=torch.long, device=self.device)
+
         for k, seg in cache.items():
             one = one_cache[k]
             if not isinstance(seg, LatentKVCache):
                 for name, arr in seg.items():
                     arr[:, slot] = one[name][:, 0]
                 continue
+
+            def pages(name):                      # (L, mp, ps, ·) view
+                dense = getattr(one, name)        # (L, 1, S, ·)
+                return dense.reshape(dense.shape[0], mp, ps,
+                                     *dense.shape[3:])
+
             for name in _PAGED_FIELDS:
                 pool = getattr(seg, name)
-                if pool is None:
-                    continue
-                dense = getattr(one, name)            # (L, 1, S, ·)
-                pages = dense.reshape(dense.shape[0], mp, ps,
-                                      *dense.shape[3:])
-                pool[:, tgt] = pages[:, take].to(pool.dtype)
+                if pool is not None:
+                    pool[:, dev(pay_row[take_pay])] = \
+                        pages(name)[:, dev(take_pay)].to(pool.dtype)
+            if seg.tiered:
+                r_star = seg.k_score.shape[-1]
+                seg.k_score[:, dev(row[take])] = \
+                    pages("k_lat")[:, dev(take), :, :r_star]
+                if seg.k_scale_score is not None:
+                    seg.k_scale_score[:, dev(row[take])] = \
+                        pages("k_scale")[:, dev(take)]
+                seg.hot_table[:, slot] = torch.as_tensor(pay_row,
+                                                         device=self.device)
             for name in _WINDOW_FIELDS:
                 getattr(seg, name)[:, slot] = getattr(one, name)[:, 0]
             seg.lengths[:, slot] = prompt_len
-            seg.page_table[:, slot] = row
+            seg.page_table[:, slot] = torch.as_tensor(row, device=self.device)
         return cache
 
     def copy_page(self, cache: dict, src: int, dst: int) -> dict:
         """Device half of copy-on-write: duplicate pool page ``src`` into
-        ``dst`` in every SALS segment and layer."""
+        ``dst`` in every SALS segment and layer (tiered: payload SLOTS)."""
         maybe_fault("cow_copy")           # before the pool changes
         for seg in self._latent_segs(cache).values():
             for name in _PAGED_FIELDS:
+                pool = getattr(seg, name)
+                if pool is not None:
+                    pool[:, dst] = pool[:, src]
+        return cache
+
+    # -- two-tier transfers (host mirrors; see the module docstring) ---------
+
+    def _copy_stream(self) -> Optional[torch.cuda.Stream]:
+        """The tier copy stream (None on the CPU, where copies are
+        synchronous)."""
+        if self.device.type != "cuda":
+            return None
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        return self._stream
+
+    def _to_host(self, views: dict) -> dict:
+        """{seg: {field: device view}} -> host mirror of the same shape.
+        On the card: pinned buffers filled on the copy stream after the
+        work already queued on the compute stream."""
+        st = self._copy_stream()
+        if st is None:
+            return {k: {f: v.clone() for f, v in fl.items()}
+                    for k, fl in views.items()}
+        st.wait_stream(torch.cuda.current_stream(self.device))
+        out = {}
+        with torch.cuda.stream(st):
+            for k, fl in views.items():
+                out[k] = {}
+                for f, v in fl.items():
+                    v.record_stream(st)     # the source may be freed early
+                    h = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                    h.copy_(v, non_blocking=True)
+                    out[k][f] = h
+        return out
+
+    def read_page_payload(self, cache: dict, slot: int) -> dict:
+        """Spill, device half: payload slot ``slot`` of every SALS segment
+        as a host mirror {seg: {field: (ls, ps, ·)}}.  On the card the
+        compute stream waits for the copy, so nothing queued after it can
+        overwrite the slot first."""
+        mirror = self._to_host({
+            k: {f: getattr(seg, f)[:, slot] for f in _PAGED_FIELDS
+                if getattr(seg, f) is not None}
+            for k, seg in self._latent_segs(cache).items()})
+        st = self._copy_stream()
+        if st is not None:
+            torch.cuda.current_stream(self.device).wait_stream(st)
+        return mirror
+
+    def extract_page_payload_dense(self, one_cache: dict, page: int) -> dict:
+        """Host mirror of logical page ``page`` of a finished prefill task's
+        dense single-request cache: the cold half of a tiered admission
+        (pages past the hot tier never touch the device payload pools)."""
+        ps = self.scfg.page_size
+        span = slice(page * ps, (page + 1) * ps)
+        return self._to_host({
+            k: {f: getattr(seg, f)[:, 0, span] for f in _PAGED_FIELDS
+                if getattr(seg, f) is not None}
+            for k, seg in self._latent_segs(one_cache).items()})
+
+    def load_page(self, cache: dict, slot: int, payload: dict) -> dict:
+        """Fetch, device half: install a host mirror into payload slot
+        ``slot`` of every SALS segment (the pool fires the ``host_fetch``
+        fault point before this, in ``begin_fetch``).  On the card the copy
+        waits for the work already queued (earlier readers of the slot) and
+        the compute stream waits for the copy (the step that reads it)."""
+        st = self._copy_stream()
+        if st is None:
+            for k, fl in payload.items():
+                for f, v in fl.items():
+                    getattr(cache[k], f)[:, slot] = v
+            return cache
+        cur = torch.cuda.current_stream(self.device)
+        st.wait_stream(cur)
+        with torch.cuda.stream(st):
+            for k, fl in payload.items():
+                for f, v in fl.items():
+                    getattr(cache[k], f)[:, slot].copy_(v, non_blocking=True)
+        cur.wait_stream(st)
+        return cache
+
+    def clone_payload(self, mirror: dict) -> dict:
+        """A host mirror's own copy (copy-on-write of a cold page); waits
+        for the copies that may still be filling it."""
+        st = self._copy_stream()
+        if st is not None:
+            st.synchronize()
+        return self._to_host(mirror) if st is None else {
+            k: {f: torch.empty(v.shape, dtype=v.dtype,
+                               pin_memory=True).copy_(v)
+                for f, v in fl.items()} for k, fl in mirror.items()}
+
+    def copy_score_page(self, cache: dict, src: int, dst: int) -> dict:
+        """Tiered copy-on-write, score half: duplicate physical page
+        ``src`` into ``dst`` in the r* score pool (the payload half is
+        :meth:`copy_page` on hot slots, or :meth:`clone_payload` of a cold
+        source's mirror, which fire the ``cow_copy`` point first)."""
+        for seg in self._latent_segs(cache).values():
+            for name in ("k_score", "k_scale_score"):
                 pool = getattr(seg, name)
                 if pool is not None:
                     pool[:, dst] = pool[:, src]
@@ -382,14 +550,20 @@ class ServeEngine:
             seg.free_slot(slot)
         return cache
 
-    def with_page_tables(self, cache: dict, table: np.ndarray) -> dict:
-        """Install the host page table ((B, max_pages) int32) into every
-        SALS segment, broadcast over its layer axis."""
-        row = torch.as_tensor(np.asarray(table, np.int32),
-                              device=self.device)
-        for seg in self._latent_segs(cache).values():
-            if seg.paged:
-                seg.page_table.copy_(row.expand_as(seg.page_table))
+    def with_page_tables(self, cache: dict, table: np.ndarray,
+                         hot_table: Optional[np.ndarray] = None) -> dict:
+        """Install the host page table ((B, max_pages) int32) — and, when
+        tiered, the hot-slot table — into every SALS segment, broadcast
+        over its layer axis."""
+        for name, host in (("page_table", table), ("hot_table", hot_table)):
+            if host is None:
+                continue
+            row = torch.as_tensor(np.asarray(host, np.int32),
+                                  device=self.device)
+            for seg in self._latent_segs(cache).values():
+                if seg.paged:
+                    dst = getattr(seg, name)
+                    dst.copy_(row.expand_as(dst))
         return cache
 
     def sals_ring_state(self, cache: dict) -> dict:

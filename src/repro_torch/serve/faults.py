@@ -12,6 +12,10 @@ the port's scheduler/engine/pager path visits:
     ``decode_step``    RequestScheduler decode loop, before the step
     ``nan_logits``     after decode: corrupt one live row's logits
     ``prefix_resume``  ServeEngine.start_prefill, on the prefix-hit branch
+    ``host_fetch``     TieredPagePool.begin_fetch, before the host -> device
+                       copy (the page stays cold)
+    ``spill``          TieredPagePool.begin_spill, before the device -> host
+                       copy (the page stays hot)
     ``draft_verify``   RequestScheduler speculative loop, before the verify
                        window's forward — the cache is still whole and
                        drafting is pure host work, so the whole round

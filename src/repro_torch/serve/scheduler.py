@@ -58,11 +58,37 @@ point fires before the window's forward, so the round retries like a
 ``decode_step`` fault.  Counters: ``spec_rounds`` / ``spec_proposed`` /
 ``spec_accepted`` / ``spec_committed``.
 
+TWO-TIER pool (``ServeConfig.hbm_pages`` > 0, paged only): the pool is a
+:class:`~repro_torch.core.tiering.TieredPagePool` — live-page capacity
+stays ``pool_pages`` while only ``hbm_pages`` payload slots live on the
+device; the r* score pool keeps every live page resident, so selection
+always runs on true data:
+
+  * each resident's WRITE page is pinned hot (a growth page takes a slot
+    at once; a write into a spilled page fetches it);
+  * before each step the previous step's selected pages are fetched hot
+    (``tier_prefetch``: the paper's step-to-step selection stability);
+  * FETCH-AND-RERUN: the step runs with selection collection; if any
+    selected page was cold (its reconstruction read the trash slot), the
+    scheduler fetches it and reruns the SAME step.  Every cache write is
+    a set at a fixed position, so the final run leaves the bytes and the
+    logits of an all-resident step;
+  * a slot is found by spilling the least recently touched unpinned hot
+    page to a host mirror;
+  * when a row's working set (pins + this step's pages) cannot fit the
+    hot tier (:class:`~repro_torch.core.tiering.HotTierThrash`), the
+    scheduler sheds LOAD, not the request: the row evicts itself to the
+    queue head (``shed_thrash``); a sole thrashing resident fails through
+    the retry budget;
+  * counters ``spills`` (on the pool), ``fetch_hits``, ``prefetch_hits``,
+    ``cold_misses``; ``host_pages`` rides on ``pool_gauges``; the audit
+    checks tier conservation.
+
 Counters are plain int attributes with the reference's names.  Not ported
-here: static batching (the families slice), priority classes, preemption
-and tenant fairness (slice 4, with the two-tier pool), and the metrics
-registry, tracer and traffic accounting (slice 5); the scheduler raises
-``NotImplementedError`` for them.
+here: static batching (the families slice), priority classes, preemption,
+park/resume and tenant fairness (the SLO half of slice 4), and the
+metrics registry, tracer and traffic accounting (slice 5); the scheduler
+raises ``NotImplementedError`` for them.
 """
 from __future__ import annotations
 
@@ -77,6 +103,7 @@ import torch
 
 from repro_torch.core.pager import (PagePool, PageTable, PrefixIndex,
                                     audit_pager, PagerInvariantError)
+from repro_torch.core.tiering import HotTierThrash, TieredPagePool
 from repro_torch.serve import faults
 from repro_torch.serve.draft import NgramDrafter
 from repro_torch.serve.engine import GenerationResult, PrefillTask, ServeEngine
@@ -167,7 +194,7 @@ class RequestScheduler:
             raise ValueError(f"unknown scheduler mode {mode!r}")
         if scfg.priority_classes > 1:
             raise NotImplementedError("priority classes and preemption are "
-                                      "ported in slice 4")
+                                      "ported in slice 4's SLO half")
         self.engine = engine
         self.mode = mode
         # source of request_timeout_ms deadlines; tests inject a fake one
@@ -196,15 +223,23 @@ class RequestScheduler:
         self.spec_proposed = 0      # draft tokens proposed
         self.spec_accepted = 0      # draft tokens accepted
         self.spec_committed = 0     # tokens committed through windows
+        self.fetch_hits = 0         # touched pages already hot
+        self.prefetch_hits = 0      # ... warmed by the prefetcher
+        self.cold_misses = 0        # demand host -> device fetches
         self.paged = engine.paged
+        self.tiered = engine.tiered
         self.pool: Optional[PagePool] = None
         self.prefix_index: Optional[PrefixIndex] = None
-        if self.paged:
+        if self.tiered:
             # +1 / n_reserved=1: physical page 0 is the trash page
+            self.pool = TieredPagePool(scfg.pool_pages + 1, scfg.page_size,
+                                       hbm_slots=scfg.hbm_pages,
+                                       n_reserved=1)
+        elif self.paged:
             self.pool = PagePool(scfg.pool_pages + 1, scfg.page_size,
                                  n_reserved=1)
-            if scfg.prefix_cache:
-                self.prefix_index = PrefixIndex(self.pool)
+        if self.paged and scfg.prefix_cache:
+            self.prefix_index = PrefixIndex(self.pool)
         # live loop state, mirrored so audit_serving_state sees it mid-run
         self._slots: List[Optional[_Slot]] = []
         self._tables: List[Optional[PageTable]] = []
@@ -214,7 +249,7 @@ class RequestScheduler:
         scfg = self.engine.scfg
         if req.priority != 0 or req.tenant_id != "default":
             raise NotImplementedError("request priorities and tenants are "
-                                      "ported in slice 4")
+                                      "ported in slice 4's SLO half")
         if req.max_new_tokens < 1:
             raise ValueError(f"req {req.req_id}: max_new_tokens must be >= 1 "
                              "(prefill always emits the first token)")
@@ -376,15 +411,31 @@ class RequestScheduler:
         pool = self.pool
         # width of the verify window; 0 = sequential decode
         spec_q = scfg.spec_window if scfg.spec_window > 1 else 0
+        # tiered: the host mirror of the device hot-slot table, each row's
+        # pinned write page, each row's previous selection (the prefetch
+        # oracle)
+        host_hot = np.zeros((b, mp), np.int32) if self.tiered else None
+        hot_dirty = False
+        write_pin: List[Optional[int]] = [None] * b
+        prev_selected: List[set] = [set() for _ in range(b)]
 
         def clear_slot(i: int):
             """The idempotent slot teardown every exit path shares: frees
             the row (idle at position 0; paged: the trash page), its pages
             and its table row.  Request state is the caller's job."""
-            nonlocal dirty
+            nonlocal dirty, hot_dirty
             slots[i] = None
             tokens[i] = 0
             positions[i] = 0
+            if self.tiered:
+                # unpin BEFORE release_all: freeing a pinned page is an
+                # invariant violation by design (it catches leaked pins)
+                if write_pin[i] is not None:
+                    pool.unpin(write_pin[i])
+                    write_pin[i] = None
+                prev_selected[i] = set()
+                host_hot[i] = 0
+                hot_dirty = True
             if self.paged:
                 if tables[i] is not None:
                     tables[i].release_all()
@@ -495,14 +546,182 @@ class RequestScheduler:
             return _Admission(req, free, task, ptab=ptab,
                               shared_pages=shared, entry=entry)
 
+        # ---- two-tier helpers ---------------------------------------------
+
+        def shed_thrash(i: int, exc: HotTierThrash):
+            """Hot-tier thrash on row ``i``: shed load, not the request.
+            With other residents live, row i evicts itself to the queue head
+            (its pins and hot pages free at once; greedy decode keeps its
+            re-run token-identical).  A SOLE thrashing resident cannot fit
+            its own per-step selection, and self-eviction would livelock,
+            so it goes through the transient retry budget."""
+            if sum(s is not None for s in slots) > 1:
+                evict_to_requeue(i)
+            else:
+                fail_resident(i, exc)
+
+        def claim_slot(exclude) -> int:
+            """A free hot payload slot, spilling the least recently touched
+            unpinned hot page not in ``exclude`` (pages this step reads or
+            writes) if none is free.  Raises HotTierThrash when there is no
+            such page."""
+            nonlocal hot_dirty
+            slot = pool.take_slot()
+            if slot is None:
+                victim = pool.spill_victim(exclude)
+                if victim is None:
+                    raise HotTierThrash(
+                        f"no spillable hot page among {len(pool.hot)} "
+                        f"({len(pool.pins)} pinned)")
+                vslot = pool.begin_spill(victim)   # fires "spill" first
+                pool.finish_spill(victim, eng.read_page_payload(cache, vslot))
+                hot_dirty = True
+                slot = pool.take_slot()
+            return slot
+
+        def fetch_page(pid: int, exclude) -> None:
+            """Host -> device fetch of cold page ``pid``.  The fault points
+            fire before any state change or copy, so an injected host_fetch
+            / spill fault leaves both tiers intact."""
+            nonlocal hot_dirty
+            slot = claim_slot(exclude)
+            try:
+                payload = pool.begin_fetch(pid)    # fires "host_fetch" first
+            except BaseException:
+                pool.give_slot(slot)
+                raise
+            try:
+                eng.load_page(cache, slot, payload)
+            except BaseException:
+                pool.abort_fetch(pid)
+                pool.give_slot(slot)
+                raise
+            pool.finish_fetch(pid, slot)
+            hot_dirty = True
+
+        def ensure_write_pin(i: int):
+            """Pin row i's current write page hot: the decode write lands in
+            it through the hot table every step.  A growth page takes a slot
+            at once, its bytes garbage until written (position masks keep
+            them unselectable)."""
+            nonlocal hot_dirty
+            pid = tables[i].pages[int(positions[i]) // ps]
+            if write_pin[i] == pid:
+                return
+            if write_pin[i] is not None:
+                pool.unpin(write_pin[i])
+                write_pin[i] = None
+            if pid in pool.fresh:          # growth page: slot, no transfer
+                pool.set_hot(pid, claim_slot({pid}))
+            elif pid in pool.cold:         # write into a spilled page
+                fetch_page(pid, {pid})
+                self.cold_misses += 1
+            pool.pin(pid)
+            write_pin[i] = pid
+            hot_dirty = True
+
+        def push_tables():
+            """Push the host page table — and, tiered, the hot-slot table
+            rebuilt from the pool's residency — to the device cache."""
+            nonlocal dirty, hot_dirty
+            if self.tiered and (dirty or hot_dirty):
+                slot_of = np.zeros((pool.n_pages,), np.int32)
+                for pid, sl in pool.hot.items():
+                    slot_of[pid] = sl
+                host_hot[:] = slot_of[host_table]
+                eng.with_page_tables(cache, host_table, host_hot)
+                dirty = hot_dirty = False
+            elif dirty:
+                eng.with_page_tables(cache, host_table)
+                dirty = False
+
+        def assign_residency(adm: _Admission) -> List[int]:
+            """First residency of an admission's FRESH pages: hot while free
+            slots last, cold past them (mirror taken from the task's dense
+            cache; those pages never touch the device payload pools).
+            Admission never spills residents.  Returns the hot-slot row of
+            the reservation (shared pages keep their residency)."""
+            nonlocal hot_dirty
+            hot_row = []
+            for j, pid in enumerate(adm.ptab.pages):
+                if pid in pool.fresh:
+                    slot = pool.take_slot()
+                    if slot is not None:
+                        pool.set_hot(pid, slot)
+                    else:
+                        pool.set_cold(pid, eng.extract_page_payload_dense(
+                            adm.task.cache, j))
+                hot_row.append(pool.hot.get(pid, 0))
+            hot_dirty = True
+            return hot_row
+
+        def tiered_decode(prefetched: set):
+            """The tiered decode step: FETCH-AND-RERUN.  Run the step with
+            selection collection; if a selected page was cold, fetch it hot
+            and rerun the same step on the same cache.  Every cache write
+            of a step is a set at a fixed position (latents, score pool,
+            ring, sink, the full layers' K/V; ``lengths`` by maximum), so
+            the last run is bit-identical to an all-resident step.  It
+            converges because the score pool is always true: each rerun
+            fixes at least one more layer.  Returns the final logits, or
+            None when fetch faults tore every resident down."""
+            rounds = 0
+            while True:
+                logits, _, touched = eng.decode_sel(tokens, cache,
+                                                    positions)
+                tnp = touched.cpu().numpy()
+                touched_all: set = set()
+                new_prev: Dict[int, set] = {}
+                demand: List[tuple] = []
+                for i in range(b):
+                    if slots[i] is None:
+                        continue
+                    pids = {int(host_table[i, j])
+                            for j in np.nonzero(tnp[i])[0]}
+                    pids.discard(0)
+                    new_prev[i] = pids
+                    touched_all |= pids
+                    for pid in sorted(pids):
+                        if pid in pool.cold:
+                            demand.append((i, pid))
+                pool.touch(p for p in sorted(touched_all) if p in pool.hot)
+                if rounds == 0:
+                    self.fetch_hits += sum(
+                        1 for p in touched_all if p in pool.hot)
+                    self.prefetch_hits += len(touched_all & prefetched)
+                if not demand:
+                    for i, pids in new_prev.items():
+                        prev_selected[i] = pids
+                    return logits
+                rounds += 1
+                if rounds > eng.cfg.n_layers + 2:
+                    raise PagerInvariantError(
+                        "tiered fetch-and-rerun did not converge in "
+                        f"{rounds} rounds")
+                for i, pid in demand:
+                    if slots[i] is None:       # row died earlier this pass
+                        continue
+                    if pid not in pool.cold:   # fetched for an earlier row
+                        continue
+                    try:
+                        fetch_page(pid, touched_all)
+                        self.cold_misses += 1
+                    except faults.InjectedFault as exc:
+                        fail_resident(i, exc)
+                    except HotTierThrash as exc:
+                        shed_thrash(i, exc)
+                if not any(s is not None for s in slots):
+                    return None
+                push_tables()
+
         def ensure_writable(i: int, span: int = 1):
             """Map every page row i's next ``span`` writes land in
             (allocating on page crossings: a verify window commits up to
             min(Q, tokens left) tokens in one round, which can cross into
             the next page) and copy-on-write any that is still shared; evict
             the row itself when the pool is exhausted even after dropping
-            prefix entries."""
-            nonlocal dirty
+            prefix entries.  Tiered: also pins the write page hot."""
+            nonlocal dirty, hot_dirty
             ptab = tables[i]
             lo = int(positions[i]) // ps
             hi = (int(positions[i]) + span - 1) // ps
@@ -519,10 +738,26 @@ class RequestScheduler:
                         evict_to_requeue(i)
                         return
                     old, new = ptab.ensure_exclusive(p)
-                    eng.copy_page(cache, old, new)
+                    if self.tiered:
+                        # score page by physical id; payload by hot slot,
+                        # or a host-mirror copy of a cold source
+                        eng.copy_score_page(cache, old, new)
+                        if old in pool.hot:
+                            slot = claim_slot({old, new})
+                            eng.copy_page(cache, pool.hot[old], slot)
+                            pool.set_hot(new, slot)
+                        else:
+                            faults.maybe_fault("cow_copy")
+                            pool.set_cold(new, eng.clone_payload(
+                                pool.cold[old]))
+                        hot_dirty = True
+                    else:
+                        eng.copy_page(cache, old, new)
                     host_table[i, p] = new
                     dirty = True
                     self.cow_copies += 1
+            if self.tiered:
+                ensure_write_pin(i)
 
         def emit_tokens(i: int, n_new: int) -> bool:
             """Stream row i's ``n_new`` newest tokens through ``on_token``;
@@ -577,7 +812,15 @@ class RequestScheduler:
             nonlocal dirty
             i = active.slot
             try:
-                if self.paged:
+                if self.tiered:
+                    # residency first: the cold mirrors read the task's
+                    # dense cache
+                    hot_row = assign_residency(active)
+                    eng.admit_tiered(cache, active.task.cache, i,
+                                     active.ptab.pages, hot_row,
+                                     active.shared_pages,
+                                     active.task.prompt_len)
+                elif self.paged:
                     eng.admit_paged(cache, active.task.cache, i,
                                     active.ptab.pages, active.shared_pages,
                                     active.task.prompt_len)
@@ -614,11 +857,17 @@ class RequestScheduler:
                     len(slots[i].out) >= active.req.max_new_tokens:
                 finish(i)
 
-        def decode_step() -> None:
+        def decode_step(prefetched: set) -> bool:
             """One ragged decode step of the whole arena, one token per
             live row (empty slots idle at position 0; paged: the trash
-            page)."""
-            logits, _ = eng.decode(tokens, cache, positions)
+            page).  Tiered: through fetch-and-rerun; False when its fetch
+            faults tore every resident down (no step was taken)."""
+            if self.tiered:
+                logits = tiered_decode(prefetched)
+                if logits is None:
+                    return False
+            else:
+                logits, _ = eng.decode(tokens, cache, positions)
             live = [i for i in range(b) if slots[i] is not None]
             pick = faults.maybe_pick("nan_logits", len(live))
             if pick is not None:
@@ -641,6 +890,7 @@ class RequestScheduler:
                     continue
                 if len(slots[i].out) >= slots[i].req.max_new_tokens:
                     finish(i)
+            return True
 
         def verify_round() -> None:
             """One speculative verify window of the whole arena: greedy
@@ -753,6 +1003,7 @@ class RequestScheduler:
 
             # ---- paged upkeep: map / COW every row's write page, then push
             # the host table to the device ------------------------------------
+            prefetched: set = set()
             if self.paged:
                 for i in range(b):
                     if slots[i] is not None:
@@ -761,11 +1012,26 @@ class RequestScheduler:
                             - len(slots[i].out))
                         try:
                             ensure_writable(i, span)
+                        except HotTierThrash as exc:
+                            shed_thrash(i, exc)    # load, not the request
                         except Exception as exc:   # alloc/COW fault
                             fail_resident(i, exc)
-                if dirty:
-                    eng.with_page_tables(cache, host_table)
-                    dirty = False
+                # ---- selection-driven prefetch: warm each row's previous
+                # selection (the next one mostly repeats it) ---------------
+                if self.tiered and scfg.tier_prefetch:
+                    for i in range(b):
+                        if slots[i] is None:
+                            continue
+                        try:
+                            for pid in sorted(prev_selected[i]):
+                                if pid in pool.cold:
+                                    fetch_page(pid, prev_selected[i])
+                                    prefetched.add(pid)
+                        except HotTierThrash:
+                            break   # hot tier saturated: best effort only
+                        except faults.InjectedFault as exc:
+                            fail_resident(i, exc)
+                push_tables()
                 if not any(s is not None for s in slots):
                     continue
 
@@ -784,10 +1050,10 @@ class RequestScheduler:
             fault_streak = 0
             if spec_q:
                 verify_round()
-            else:
-                decode_step()
+            elif not decode_step(prefetched):
+                continue
             if self.paged:
-                self.pool_gauges.append({
+                row = {
                     "step": self.steps,
                     "pages_in_use": pool.pages_in_use,
                     "pages_free": pool.pages_free,
@@ -797,7 +1063,14 @@ class RequestScheduler:
                     "evictions": self.evictions,
                     "prefix_entries": len(self.prefix_index.entries)
                     if self.prefix_index else 0,
-                })
+                }
+                if self.tiered:
+                    row.update({"host_pages": pool.host_pages,
+                                "fetch_hits": self.fetch_hits,
+                                "prefetch_hits": self.prefetch_hits,
+                                "cold_misses": self.cold_misses,
+                                "spills": pool.spills})
+                self.pool_gauges.append(row)
             if audit_on and self.steps % scfg.audit_every == 0:
                 self.audit_serving_state(
                     self.pool_gauges[-1] if self.pool_gauges else None)
@@ -811,7 +1084,8 @@ class RequestScheduler:
         """Cross-structure invariant audit: the pool, every live page
         table (residents + in-flight admission), the prefix index's pins
         and the exported gauges agree (page conservation, no
-        use-after-free, no leak), and every resident is DECODING.  Raises
+        use-after-free, no leak; tiered: tier conservation), and every
+        resident is DECODING.  Raises
         :class:`PagerInvariantError`.  Host-side only."""
         for i, s in enumerate(self._slots):
             if s is not None and s.req.state is not RequestState.DECODING:

@@ -120,13 +120,13 @@ def test_unported_options_raise():
         ServeEngine(tp, None, cfg, ServeConfig(max_seq_len=32, sals=off),
                     n_groups=2, device="cpu")
     # the page pool backs the SALS latents: without SALS it is refused,
-    # as in the reference; the two-tier pool is a later slice
+    # as in the reference, two-tier or not
     with pytest.raises(ValueError, match="page_size"):
         ServeEngine(tp, None, cfg, ServeConfig(max_seq_len=32, sals=off,
                                                page_size=16,
                                                prefill_chunk=16),
                     device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="page_size"):
         ServeEngine(tp, None, cfg, ServeConfig(max_seq_len=32, sals=off,
                                                page_size=16, hbm_pages=3,
                                                max_batch=2,

@@ -344,5 +344,5 @@ def test_unported_options_raise(model):
                                  prefill_chunk=8, priority_classes=2,
                                  preempt_policy="evict"))
     with pytest.raises(NotImplementedError):
-        _engine(model, max_seq_len=64, max_batch=2, prefill_chunk=8,
-                page_size=16, hbm_pages=3)
+        RequestScheduler(eng).submit(Request(np.arange(1, 5),
+                                             tenant_id="other"))
