@@ -6,12 +6,20 @@
 Phases, each printing one JSON line:
 
 1. device   — the card, as ``nvidia-smi`` reports its name and power limit;
-2. build    — nvcc builds ``src/repro_torch/csrc/*.cu`` into ``build/``;
+2. build    — nvcc builds ``src/repro_torch/csrc/*.cu`` into ``build/``
+              (registers, shared memory and spills of the flash and recon
+              kernels as ``-Xptxas -v`` reports them);
 3. kernels  — each CUDA kernel against its plain PyTorch twin on the card,
               at the llama2-7b slice shapes, a GQA case at mistral-7b
-              widths and an int4-value case: max error against a stated
-              tolerance, median kernel / twin / library times, and the
-              least time the card could take (``bound_ms``).  The paged
+              widths and an int4-value case (flash also at dh 64 and
+              non-causal; the recon body also with f32 latents and with an
+              f32 ``u`` beside int8 latents): max error against a
+              stated tolerance, median kernel / twin / library times of
+              one eager call (``ms``; the flash and recon kernels and the
+              library call also as CUDA-graph replays, ``graph_ms``, timed
+              in turns with the eager call), the least time the card could
+              take (``bound_ms``) and the share of it or of the peak that
+              the replay reached.  The paged
               kernels run over a shuffled page table whose unmapped tail
               holds ids outside the pool (pages of 8, 16 and 64 tokens),
               and must also equal the dense kernels bit for bit on the
@@ -82,6 +90,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -102,7 +111,9 @@ PHASES = ("device", "build", "kernels", "serve", "sched", "tier", "quality",
           "spec", "whole")
 # "profile" (not run by default) adds a torch.profiler pass over four
 # chunked-prefill steps after the sched phase, and over three
-# decode steps of each serve run; tables go to chiprun_out/
+# decode steps of each serve run; tables go to chiprun_out/.  "scan" (not
+# run by default) adds recon cases over N_c x r to the kernels phase, to
+# show where the recon body's time goes
 
 
 def emit(obj) -> None:
@@ -121,6 +132,68 @@ def bound(bytes_moved: float, flops: float, peak_flops: float):
     t_ops = flops / peak_flops
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def ptxas_stats(log: str, names=("flash_fwd_kernel", "sra_kernel",
+                                   "sra_f32_kernel")) -> dict:
+    """Registers, spills and shared memory that ``nvcc -Xptxas -v`` reports
+    for each instance of the named kernels (mangled name -> counts)."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            cur = name[:name.find("Ev") + 1] if any(
+                re.search(rf"\d{n}I", name) for n in names) else None
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out.setdefault(cur, {}).update(spill_stores=int(m.group(1)),
+                                           spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(cur, {})["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[cur]["static_smem"] = int(m.group(1)) if m else 0
+    return out
+
+
+def as_graph(torch, fn):
+    """``fn`` captured into a CUDA graph; returns its replay."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="thread_local"):
+        fn()
+    torch.cuda.synchronize()
+    return g.replay
+
+
+def eager_graph_ms(torch, fn, iters: int, flush) -> dict:
+    """Median CUDA-event times of one eager call of ``fn`` (``ms``, as a
+    serving step pays it: the card may wait for the wrapper's Python) and
+    of its CUDA-graph replay (``graph_ms``, the launches alone), taken in
+    turns — eager, replay, replay, eager, ... — with L2 flushed before each
+    run, so that an order or clock drift weighs on both alike."""
+    replay = as_graph(torch, fn)
+    fn()
+    replay()
+    times = {"ms": [], "graph_ms": []}
+    for i in range(2 * iters):
+        key = "ms" if i % 4 in (0, 3) else "graph_ms"
+        run = fn if key == "ms" else replay
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        times[key].append(start.elapsed_time(end))
+    return {k: statistics.median(v) for k, v in times.items()}
 
 
 def time_ms(torch, fn, iters: int, warmup: int = 2, flush=None) -> float:
@@ -238,9 +311,11 @@ def topk_case(torch, name, b, s, r, r_star, n_c, k_dtype, seed, flush,
 
 
 def sra_case(torch, name, b, h, n_kv, dh, s, r, n_c, k_dtype, v_bits,
-             softcap, seed, flush, ps=0):
+             softcap, seed, flush, ps=0, u_dtype="bf16"):
     """sparse_recon_attention on selected sets shaped like the main path's
     (ascending valid indices, invalid slots last; one all-invalid row).
+    f32 latents or an f32 ``u`` take the CUDA-core body, whose bound is
+    set at the float32 peak.
     ``ps`` > 0: every cache operand is a page pool behind a shuffled table
     whose last page per row is unmapped, and the paged kernel must also
     equal the dense kernel bit for bit on the same logical contents."""
@@ -260,11 +335,12 @@ def sra_case(torch, name, b, h, n_kv, dh, s, r, n_c, k_dtype, v_bits,
     if k_dtype == "int8":
         k_lat, k_scale = qz.quantize_latent_int8(lat)
     else:
-        k_lat = lat.to(torch.bfloat16)
+        k_lat = lat.to({"bf16": torch.bfloat16, "f32": torch.float32}
+                       [k_dtype])
     vq = qz.quantize(torch.randn((*rows, kvd), generator=g, device=dev),
                      v_bits, 64)
-    u = (torch.randn((kvd, r), generator=g, device=dev)
-         * r ** -0.5).to(torch.bfloat16)
+    u = (torch.randn((kvd, r), generator=g, device=dev) * r ** -0.5).to(
+        {"bf16": torch.bfloat16, "f32": torch.float32}[u_dtype])
     idx = torch.zeros((b, n_c), dtype=torch.int32, device=dev)
     valid = torch.zeros((b, n_c), dtype=torch.bool, device=dev)
     n_valid = [n_c, n_c, n_c // 3, 0][:b] + [n_c] * max(0, b - 4)
@@ -304,11 +380,12 @@ def sra_case(torch, name, b, h, n_kv, dh, s, r, n_c, k_dtype, v_bits,
     dead_ok = bool((m_k[dead] == ref.NEG_INF).all() and (l_k[dead] == 0).all()
                    and (o_k[dead] == 0).all() and torch.isfinite(o_k).all())
     tol = 2e-3
-    order = paired_times(
-        torch, lambda: sra.sparse_recon_attention_cuda(*args(cache), **kw,
-                                                       **pg),
-        (lambda: sra.sparse_recon_attention_cuda(*args(logical), **kw))
-        if ps else None, 10, flush)
+    kern = lambda: sra.sparse_recon_attention_cuda(*args(cache), **kw, **pg)
+    order = eager_graph_ms(torch, kern, 10, flush)
+    if ps:
+        order.update(paired_times(
+            torch, kern, lambda: sra.sparse_recon_attention_cuda(
+                *args(logical), **kw), 10, flush))
     kern_ms = order["ms"]
     plain_ms = time_ms(torch, lambda: twin(*args(cache), **kw, **pg), 5,
                        flush=flush)
@@ -316,14 +393,16 @@ def sra_case(torch, name, b, h, n_kv, dh, s, r, n_c, k_dtype, v_bits,
     code_w = kvd if v_bits == 8 else kvd // 2
     row_bytes = r * k_lat.element_size() + (2 if k_scale is not None else 0) \
         + code_w + 2 * 2 * (kvd // 64)
-    nbytes = q.numel() * 2 + nv * row_bytes + u.numel() * 2 \
+    nbytes = q.numel() * 2 + nv * row_bytes + u.numel() * u.element_size() \
         + b * n_c * 5 + b * 4 + b * h * (2 + dh) * 4 \
         + (b * (s // ps) * 4 if ps else 0)
     flops = 2.0 * nv * kvd * r + 4.0 * nv * (h // n_kv) * kvd
-    b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+    b_ms, b_by = bound(nbytes, flops, F32_FLOP_PER_S if "f32" in (
+        k_dtype, u_dtype) else BF16_FLOP_PER_S)
     out = dict(case=name, max_abs_err=err, tol=tol, all_invalid_row_ok=dead_ok,
                ms=kern_ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-               bound_by=b_by,
+               bound_by=b_by, graph_ms=order["graph_ms"],
+               share_of_bound=b_ms / order["graph_ms"],
                ok=err <= tol and dead_ok and bitwise is not False)
     if ps:
         out.update(bitwise_vs_dense=bitwise, **order)
@@ -396,7 +475,8 @@ def score_topk_pin(torch, name, b, s, r, r_star, n_c, k_dtype, seed):
     if k_dtype == "int8":
         k_lat, k_scale = qz.quantize_latent_int8(lat)
     else:
-        k_lat = lat.to(torch.bfloat16)
+        k_lat = lat.to({"bf16": torch.bfloat16, "f32": torch.float32}
+                       [k_dtype])
     pos = torch.tensor([max(1, s - 65 - 700 * i) for i in range(b)],
                        dtype=torch.int32, device=dev)
     idx_t, val_t = ls.latent_topk_cuda(q_lat, k_lat, k_scale, pos,
@@ -460,7 +540,8 @@ def window_case(torch, name, b, ql, h, n_kv, dh, s, r, n_c, k_dtype, v_bits,
     if k_dtype == "int8":
         k_lat, k_scale = qz.quantize_latent_int8(lat)
     else:
-        k_lat = lat.to(torch.bfloat16)
+        k_lat = lat.to({"bf16": torch.bfloat16, "f32": torch.float32}
+                       [k_dtype])
     vq = qz.quantize(torch.randn((*rows, kvd), generator=g, device=dev),
                      v_bits, 64)
     u = (torch.randn((kvd, r), generator=g, device=dev)
@@ -516,8 +597,10 @@ def window_case(torch, name, b, ql, h, n_kv, dh, s, r, n_c, k_dtype, v_bits,
     dead_ok = bool((m_k[dead] == ref.NEG_INF).all() and (l_k[dead] == 0).all()
                    and (o_k[dead] == 0).all() and torch.isfinite(o_k).all())
     tol = 2e-3
-    order = paired_times(torch, lambda: win(cache, **pg),
-                         (lambda: win(logical)) if ps else None, 10, flush)
+    order = eager_graph_ms(torch, lambda: win(cache, **pg), 10, flush)
+    if ps:
+        order.update(paired_times(torch, lambda: win(cache, **pg),
+                                  lambda: win(logical), 10, flush))
     plain_ms = time_ms(torch, lambda: twin(
         q, *cache, u, idx, valid, q_pos, n_recent=n_recent, **kw, **pg), 3,
         warmup=1, flush=flush)
@@ -530,7 +613,8 @@ def window_case(torch, name, b, ql, h, n_kv, dh, s, r, n_c, k_dtype, v_bits,
                all_invalid_row_ok=dead_ok, q1_equals_single=q1,
                mask_advance_bitwise=advance, plain_ms=plain_ms,
                single_ms=single_ms, library_ms=None, bound_ms=b_ms,
-               bound_by=b_by, **order,
+               bound_by=b_by, share_of_bound=b_ms / order["graph_ms"],
+               **order,
                ok=err <= tol and dead_ok and q1 and advance
                and bitwise is not False)
     if ps:
@@ -543,7 +627,8 @@ def window_bound(b, ql, h, n_kv, dh, r, n_c, nv, lat_bytes, scaled, v_bits,
     """Least time of one verify-window launch: the bf16 q, the ``nv`` valid
     selected rows, U_r, indices and outputs moved once; one reconstruction
     of the selected keys plus Q times the scoring, at the bf16 peak (the
-    gate drops no operation the kernel does)."""
+    float32 one for f32 latents, the CUDA-core body; the gate drops no
+    operation the kernel does)."""
     kvd = n_kv * dh
     code_w = kvd if v_bits == 8 else kvd // 2
     row_bytes = r * lat_bytes + (2 if scaled else 0) + code_w \
@@ -552,7 +637,8 @@ def window_bound(b, ql, h, n_kv, dh, r, n_c, nv, lat_bytes, scaled, v_bits,
         + b * n_c * 5 + b * 4 + b * ql * h * (2 + dh) * 4 \
         + b * pages_per_row * 4
     flops = 2.0 * nv * kvd * r + 4.0 * nv * ql * h * dh
-    return bound(nbytes, flops, BF16_FLOP_PER_S)
+    return bound(nbytes, flops,
+                 F32_FLOP_PER_S if lat_bytes == 4 else BF16_FLOP_PER_S)
 
 
 # Flash output check: per (b, q, h) row, the largest |kernel - f32 twin|
@@ -566,7 +652,8 @@ def row_rel_err(out, ref) -> float:
     return float((diff / ref.abs().amax(-1).clamp_min(1e-30)).max())
 
 
-def flash_case(torch, name, b, sq, sk, h, hkv, dh, softcap, seed, flush):
+def flash_case(torch, name, b, sq, sk, h, hkv, dh, softcap, seed, flush,
+               causal=True):
     """flash_attention against the twin run in f32 on the same bf16 inputs.
     Two planted faults on the longest quarter of the rows (one 64-key tile
     dropped, the logit scale off by 1%) must fail the same check."""
@@ -580,18 +667,18 @@ def flash_case(torch, name, b, sq, sk, h, hkv, dh, softcap, seed, flush):
         .to(torch.bfloat16)
     v = torch.randn((b, sk, hkv, dh), generator=g, device=dev) \
         .to(torch.bfloat16)
-    out_k = fa.flash_attention_cuda(q, k, v, causal=True, softcap=softcap)
+    out_k = fa.flash_attention_cuda(q, k, v, causal=causal, softcap=softcap)
     q32, k32, v32 = q.float(), k.float(), v.float()
-    out_t = ref.attention_ref(q32, k32, v32, causal=True, softcap=softcap)
+    out_t = ref.attention_ref(q32, k32, v32, causal=causal, softcap=softcap)
     err = row_rel_err(out_k, out_t)
     long_rows = slice(sq - sq // 4, sq)
     tile = sk // 2 // 64 * 64
     keep = torch.ones((1, sq, sk), dtype=torch.bool, device=dev)
     keep[0, long_rows, tile:tile + 64] = False
     planted = {
-        "skip_kv_tile": ref.attention_ref(q32, k32, v32, causal=True,
+        "skip_kv_tile": ref.attention_ref(q32, k32, v32, causal=causal,
                                           softcap=softcap, mask=keep),
-        "scale_1pct": ref.attention_ref(q32 * 1.01, k32, v32, causal=True,
+        "scale_1pct": ref.attention_ref(q32 * 1.01, k32, v32, causal=causal,
                                         softcap=softcap),
     }
     fault_err = {f: row_rel_err(o.to(torch.bfloat16)[:, long_rows],
@@ -601,24 +688,27 @@ def flash_case(torch, name, b, sq, sk, h, hkv, dh, softcap, seed, flush):
     abs_err = float((out_k.float() - out_t).abs().max())
     del planted, keep, out_t
     torch.cuda.synchronize()
-    kern_ms = time_ms(torch, lambda: fa.flash_attention_cuda(
-        q, k, v, causal=True, softcap=softcap), 5, flush=flush)
+    kern = lambda: fa.flash_attention_cuda(q, k, v, causal=causal,
+                                           softcap=softcap)
+    times = eager_graph_ms(torch, kern, 10, flush)
     plain_ms = time_ms(torch, lambda: ref.attention_ref(
-        q, k, v, causal=True, softcap=softcap), 2, warmup=1, flush=flush)
-    library_ms = None
+        q, k, v, causal=causal, softcap=softcap), 2, warmup=1, flush=flush)
+    library = {"ms": None, "graph_ms": None}
     if not softcap:
         # the library call takes (B, H, S, dh); GQA K/V are expanded first
         qt, kt, vt = (torch.repeat_interleave(x, h // x.shape[2], dim=2)
                       .transpose(1, 2).contiguous() for x in (q, k, v))
         mask = None
-        if sq != sk:    # decode-style alignment: the library's is_causal
+        if causal and sq != sk:    # decode-style alignment: is_causal
             mask = (torch.arange(sq, device=dev)[:, None] + (sk - sq)
                     >= torch.arange(sk, device=dev)[None, :])
-        library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, is_causal=mask is None), 5,
-            flush=flush)
+        library = eager_graph_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask,
+                is_causal=causal and mask is None), 10, flush)
     q_off = sk - sq
-    pairs = sum(min(sk, q_off + i + 1) for i in range(sq))
+    pairs = sum(min(sk, q_off + i + 1) for i in range(sq)) if causal \
+        else sq * sk
     flops = 4.0 * b * h * dh * pairs
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
@@ -626,12 +716,17 @@ def flash_case(torch, name, b, sq, sk, h, hkv, dh, softcap, seed, flush):
     return dict(case=name, max_abs_err=abs_err, max_row_rel_err=err,
                 long_rows_rel_err=long_err, tol=FLASH_TOL,
                 planted_fault_rel_err=fault_err, faults_caught=faults_caught,
-                ms=kern_ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=b_ms, bound_by=b_by,
+                ms=times["ms"], graph_ms=times["graph_ms"],
+                plain_ms=plain_ms, library_ms=library["ms"],
+                library_graph_ms=library["graph_ms"], bound_ms=b_ms,
+                bound_by=b_by,
+                achieved_tflops=flops / times["graph_ms"] * 1e-9,
+                share_of_peak=flops / times["graph_ms"] * 1e3
+                / BF16_FLOP_PER_S,
                 ok=err <= FLASH_TOL and faults_caught)
 
 
-def phase_kernels(torch):
+def phase_kernels(torch, scan: bool = False):
     flush = torch.empty(96 * 2 ** 20, dtype=torch.uint8, device="cuda")
     res = {
         "latent_topk": [
@@ -647,7 +742,17 @@ def phase_kernels(torch):
                      128, 4160, 256, 432, "int8", 8, 0.0, 4, flush),
             sra_case(torch, "llama2-7b int4-V softcap30", 4, 32, 32, 128,
                      4160, 1024, 432, "bf16", 4, 30.0, 5, flush),
-        ],
+            sra_case(torch, "llama2-7b f32 latents (CUDA-core body)", 4, 32,
+                     32, 128, 4160, 1024, 432, "f32", 8, 0.0, 10, flush),
+            sra_case(torch, "dh64 GQA int8-lat int4-V", 4, 16, 4, 64, 2100,
+                     256, 300, "int8", 4, 0.0, 18, flush),
+            sra_case(torch, "f32 u int8-lat (CUDA-core body)", 4, 32, 8, 128,
+                     4160, 256, 432, "int8", 8, 0.0, 31, flush,
+                     u_dtype="f32"),
+        ] + ([   # where the recon body's time goes: passes x ring stages
+            sra_case(torch, f"scan N_c {n_c} r {r}", 4, 32, 32, 128, 4160, r,
+                     n_c, "bf16", 8, 0.0, 3, flush)
+            for n_c in (128, 432) for r in (256, 1024)] if scan else []),
         "latent_topk_paged": [
             topk_case(torch, "llama2-7b B4 S4096 r1024 r*512 bf16 ps64", 4,
                       4096, 1024, 512, 432, "bf16", 11, flush, ps=64),
@@ -670,6 +775,8 @@ def phase_kernels(torch):
             sra_case(torch, "llama2-7b B4 H32 S4096 r1024 int8-V ps8", 4,
                      32, 32, 128, 4096, 1024, 432, "bf16", 8, 0.0, 17, flush,
                      ps=8),
+            sra_case(torch, "f32 latents ps16 (CUDA-core body)", 4, 32, 8,
+                     128, 4096, 256, 432, "f32", 8, 0.0, 19, flush, ps=16),
         ],
         "sparse_recon_attention_window": [
             window_case(torch, "llama2-7b B4 Q4 H32 S4160 r1024 int8-V", 4, 4,
@@ -686,6 +793,8 @@ def phase_kernels(torch):
                         flush),
             window_case(torch, "llama2-7b Q4 int4-V softcap30", 4, 4, 32, 32,
                         128, 4160, 1024, 432, "bf16", 4, 30.0, 26, flush),
+            window_case(torch, "f32 latents Q4 GQA (CUDA-core body)", 4, 4,
+                        32, 8, 128, 4160, 256, 432, "f32", 8, 0.0, 30, flush),
         ],
         "sparse_recon_attention_window_paged": [
             window_case(torch, "llama2-7b B4 Q4 S4096 r1024 int8-V ps64", 4,
@@ -720,6 +829,10 @@ def phase_kernels(torch):
                        32, 8, 128, 0.0, 7, flush),
             flash_case(torch, "Sq1000<Sk3000 softcap50", 1, 1000, 3000, 32,
                        32, 128, 50.0, 8, flush),
+            flash_case(torch, "dh64 B4 S4096 H32", 4, 4096, 4096, 32, 32, 64,
+                       0.0, 9, flush),
+            flash_case(torch, "dh64 MQA Sq1000 non-causal Sk1500", 2, 1000,
+                       1500, 16, 1, 64, 0.0, 10, flush, causal=False),
         ],
     }
     for name, cases in res.items():
@@ -1583,7 +1696,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES)
-                    + " (add 'profile' for decode and prefill-chunk profiles)")
+                    + " (add 'profile' for decode and prefill-chunk profiles,"
+                    " 'scan' for the recon body over N_c x r)")
     phases = ap.parse_args().phases.split(",")
 
     import torch
@@ -1605,10 +1719,12 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "nvcc_seconds": _build.build_seconds})
+          "nvcc_seconds": _build.build_seconds,
+          "ptxas": ptxas_stats(_build.build_log)})
     (OUT_DIR / "build.log").write_text(_build.build_log)
 
-    kern = phase_kernels(torch) if "kernels" in phases else {}
+    kern = phase_kernels(torch, scan="scan" in phases) \
+        if "kernels" in phases else {}
     counts = {}
     if "tier" in phases and "sched" not in phases:
         raise SystemExit("the tier phase compares with the sched phase's "
@@ -1675,6 +1791,7 @@ def main() -> int:
                      "replaces": rep, "launches": counts.get(name),
                      "max_abs_err": main_case.get("max_abs_err"),
                      "ms": main_case.get("ms"),
+                     "graph_ms": main_case.get("graph_ms"),
                      "plain_ms": main_case.get("plain_ms"),
                      "bound_ms": main_case.get("bound_ms"),
                      "bound_by": main_case.get("bound_by"),

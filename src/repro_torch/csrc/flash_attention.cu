@@ -1,203 +1,310 @@
 // Forward flash attention (prefill), Hopper port of
 // repro/kernels/flash_attention.py::flash_attention_pallas.
 //
-// Grid (B*H, ceil(Sq/64)), 128 threads (4 warps).  A block keeps a 64-row
-// Q tile in shared memory and streams 64-row K/V tiles through it; tiles
-// wholly above the causal diagonal (offset q_off = Sk - Sq) are never
-// loaded.  S = Q K^T and O += P V run on the tensor cores through WMMA
-// (bf16 operands, f32 accumulation); the scale, softcap, mask and the
-// online softmax run in f32 (P is rounded to bf16 for the PV product, as
-// the reference's chunked path does), and the output is written in bf16.
-// K/V of kv head h / (H / Hkv) serve query head h, so GQA needs no
-// repeat_kv copy.  Each warp owns 16 query rows end to end, so within a
-// tile only warp-level synchronisation separates the three phases.
+// Bound: 4*B*H*Sq*Sk*dh FLOP (about halved by causality) on the bf16 tensor
+// cores: 550 GFLOP, 0.556 ms at B 4, S 4096, H 32, dh 128.  The kernel is
+// built to keep those tensor cores fed:
 //
-// Bound: 4*B*H*Sq*Sk*dh FLOP (halved by causality) on the bf16 tensor
-// cores.  WMMA without a TMA/wgmma pipeline leaves much of that on the
-// table; this is the simple version.
+// * Grid (B*H, ceil(Sq/128)), 384 threads: one producer warpgroup (one
+//   thread issues every load; setmaxnreg gives its registers away) and two
+//   consumer warpgroups, each owning 64 of the block's 128 query rows.
+//   Query tiles run in reverse order (blockIdx.y = 0 is the last tile), so
+//   under causality the longest rows start first and the last wave is short.
+// * TMA brings the Q tile once and 128-key K and V tiles through a ring of
+//   two stages under full/empty mbarriers, over 4-D tensor maps (dh, heads,
+//   S, B) with the 128-byte swizzle (a dh-128 tile is two 64-column
+//   boxes).  Query head h reads kv head h / (H / Hkv): GQA needs no copy.
+//   TMA zero-fills rows past Sk; the kernel masks kp >= Sk and the causal
+//   diagonal (q_off = Sk - Sq) itself, on the tiles that cross them only.
+//   Tiles wholly above the diagonal are never loaded.
+// * S = Q K^T is one wgmma m64n128k16 chain per consumer from swizzled
+//   shared memory (both K-major).  The scale, softcap (f32 tanh), mask and
+//   online softmax run on the accumulator registers (exp2, row max and sum
+//   across the four threads of a row); P is rounded to bf16 in place, the
+//   accumulator fragment being wgmma's A-register fragment, and O += P V
+//   is a wgmma m64n{dh}k16 chain with A from registers and V read through
+//   the transposed (MN-major) descriptor.  O, the row max and the row sum
+//   stay in registers for the whole KV loop: no S, P or O tile goes through
+//   shared memory.
+// * The epilogue divides by the row sum and writes bf16, rows >= Sq masked.
 #include "common.cuh"
+#include "tma.cuh"
+#include "wgmma.cuh"
 
 #include <math.h>
-#include <mma.h>
 
-using namespace nvcuda;
-
-constexpr int FA_BQ = 64;
-constexpr int FA_BK = 64;
-constexpr int FA_THREADS = 128;
+constexpr int FA_BM = 128;       // query rows per block
+constexpr int FA_BN = 128;       // keys per K/V tile
+constexpr int FA_STAGES = 2;     // K/V ring depth
+constexpr int FA_THREADS = 384;  // producer + two consumer warpgroups
 
 template <int DH>
 struct FaSmem {
-  static constexpr int LDQ = DH + 8;     // bf16 pitch of Q/K/V tiles
-  static constexpr int LDS = FA_BK + 4;  // f32 pitch of S
-  static constexpr int LDP = FA_BK + 8;  // bf16 pitch of P
-  static constexpr int LDO = DH + 4;     // f32 pitch of O
-  static constexpr size_t Q = (size_t)FA_BQ * LDQ * 2;
-  static constexpr size_t KV = (size_t)FA_BK * LDQ * 2;
-  static constexpr size_t S = (size_t)FA_BQ * LDS * 4;
-  static constexpr size_t P = (size_t)FA_BQ * LDP * 2;
-  static constexpr size_t O = (size_t)FA_BQ * LDO * 4;
-  static constexpr size_t BYTES = Q + 2 * KV + S + P + O;
+  static constexpr size_t Q = (size_t)FA_BM * DH * 2;
+  static constexpr size_t KV = (size_t)FA_BN * DH * 2;
+  static constexpr size_t BARS = 8 * (1 + 4 * FA_STAGES);
+  // + 1024: the tiles start on a 1024-byte boundary (the swizzle's period)
+  static constexpr size_t BYTES = 1024 + Q + 2 * FA_STAGES * KV + BARS;
 };
 
+__device__ __forceinline__ float fa_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t fa_pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 template <int DH>
-__global__ void __launch_bounds__(FA_THREADS) flash_fwd_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+__global__ void __launch_bounds__(FA_THREADS, 1) flash_fwd_kernel(
+    const __grid_constant__ CUtensorMap tm_q,
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
     int Sq, int Sk, int H, int Hkv, int causal, float softcap, float scale) {
   using L = FaSmem<DH>;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw + L::Q);
-  __nv_bfloat16* Vs =
-      reinterpret_cast<__nv_bfloat16*>(smem_raw + L::Q + L::KV);
-  float* Ss = reinterpret_cast<float*>(smem_raw + L::Q + 2 * L::KV);
-  __nv_bfloat16* Ps =
-      reinterpret_cast<__nv_bfloat16*>(smem_raw + L::Q + 2 * L::KV + L::S);
-  float* Os = reinterpret_cast<float*>(smem_raw + L::Q + 2 * L::KV + L::S +
-                                       L::P);
+  constexpr int NB = DH / 64;  // 64-column boxes per row
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* q_s = base;
+  unsigned char* k_s = q_s + L::Q;
+  unsigned char* v_s = k_s + FA_STAGES * L::KV;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(v_s + FA_STAGES * L::KV);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* k_empty = k_full + FA_STAGES;
+  uint64_t* v_full = k_empty + FA_STAGES;
+  uint64_t* v_empty = v_full + FA_STAGES;
 
+  const int qt = gridDim.y - 1 - blockIdx.y;  // longest rows first
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int hk = h / (H / Hkv);
-  const int q0 = blockIdx.y * FA_BQ;
-  const int tid = threadIdx.x, warp = tid >> 5;
+  const int q0 = qt * FA_BM;
   const int q_off = Sk - Sq;
-  const size_t q_row = (size_t)H * DH, kv_row = (size_t)Hkv * DH;
-  const __nv_bfloat16* qb = q + (size_t)b * Sq * q_row + (size_t)h * DH;
-  const __nv_bfloat16* kb = k + (size_t)b * Sk * kv_row + (size_t)hk * DH;
-  const __nv_bfloat16* vb = v + (size_t)b * Sk * kv_row + (size_t)hk * DH;
-  constexpr int VPR = DH / 8;  // 16-byte vectors per row
+  const int kv_end = causal ? min(Sk, q_off + q0 + FA_BM) : Sk;
+  const int n_tiles = (kv_end + FA_BN - 1) / FA_BN;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
 
-  for (int e = tid; e < FA_BQ * VPR; e += FA_THREADS) {
-    const int rr = e / VPR, c = (e % VPR) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (q0 + rr < Sq)
-      val = *reinterpret_cast<const uint4*>(qb + (size_t)(q0 + rr) * q_row + c);
-    *reinterpret_cast<uint4*>(Qs + rr * L::LDQ + c) = val;
-  }
-  for (int e = tid; e < FA_BQ * L::LDO; e += FA_THREADS) Os[e] = 0.f;
-
-  // softmax ownership: thread pair (2 row, 2 row + 1) owns row `row`,
-  // halves of its columns; row lies in this warp's 16-row slab
-  const int row = tid >> 1, hf = tid & 1;
-  const int qp = q_off + q0 + row;
-  float m_i = SALS_NEG_INF, l_i = 0.f;
-  const int kv_end = causal ? min(Sk, q_off + q0 + FA_BQ) : Sk;
-  const int n_tiles = (kv_end + FA_BK - 1) / FA_BK;
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * FA_BK;
-    __syncthreads();  // previous tile's K/V consumed (and Q/O initialised)
-    for (int e = tid; e < FA_BK * VPR; e += FA_THREADS) {
-      const int rr = e / VPR, c = (e % VPR) * 8;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-      if (k0 + rr < Sk) {
-        kv = *reinterpret_cast<const uint4*>(kb + (size_t)(k0 + rr) * kv_row + c);
-        vv = *reinterpret_cast<const uint4*>(vb + (size_t)(k0 + rr) * kv_row + c);
-      }
-      *reinterpret_cast<uint4*>(Ks + rr * L::LDQ + c) = kv;
-      *reinterpret_cast<uint4*>(Vs + rr * L::LDQ + c) = vv;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < FA_STAGES; ++s) {
+      mbar_init(k_full + s, 1);
+      mbar_init(v_full + s, 1);
+      mbar_init(k_empty + s, 2);  // one arrive per consumer warpgroup
+      mbar_init(v_empty + s, 2);
     }
-    __syncthreads();
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sacc[FA_BK / 16];
+  if (wg == 0) {
+    // ---- producer: one thread keeps the ring full ----
+    setmaxnreg_dec<24>();
+    if (tid == 0) {
+      mbar_expect_tx(q_full, (uint32_t)L::Q);
 #pragma unroll
-      for (int n = 0; n < FA_BK / 16; ++n) wmma::fill_fragment(sacc[n], 0.f);
+      for (int nb = 0; nb < NB; ++nb)
+        tma_load_4d(q_s + nb * FA_BM * 128, &tm_q, q_full, nb * 64, h, q0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % FA_STAGES;
+        const uint32_t ph = (t / FA_STAGES) & 1;
+        mbar_wait(k_empty + s, ph ^ 1);
+        mbar_expect_tx(k_full + s, (uint32_t)L::KV);
 #pragma unroll
-      for (int kk = 0; kk < DH; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> a;
-        wmma::load_matrix_sync(a, Qs + warp * 16 * L::LDQ + kk, L::LDQ);
+        for (int nb = 0; nb < NB; ++nb)
+          tma_load_4d(k_s + s * L::KV + nb * FA_BN * 128, &tm_k, k_full + s,
+                      nb * 64, hk, t * FA_BN, b);
+        mbar_wait(v_empty + s, ph ^ 1);
+        mbar_expect_tx(v_full + s, (uint32_t)L::KV);
 #pragma unroll
-        for (int n = 0; n < FA_BK / 16; ++n) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::col_major> bf;
-          wmma::load_matrix_sync(bf, Ks + n * 16 * L::LDQ + kk, L::LDQ);
-          wmma::mma_sync(sacc[n], a, bf, sacc[n]);
+        for (int nb = 0; nb < NB; ++nb)
+          tma_load_4d(v_s + s * L::KV + nb * FA_BN * 128, &tm_v, v_full + s,
+                      nb * 64, hk, t * FA_BN, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: 64 query rows each ----
+  setmaxnreg_inc<240>();
+  const int cw = wg - 1;
+  const int warp = tid / 32, lane = tid % 32, quad = lane % 4;
+  // this thread's rows (accumulator rows lane/4 and lane/4 + 8 of its warp)
+  const int row0 = q0 + cw * 64 + warp * 16 + lane / 4;
+  const int wg_qp_lo = q_off + q0 + cw * 64;  // smallest position of the WG
+  const float LOG2E = 1.4426950408889634f;
+  const float scale_log2 = scale * LOG2E;
+
+  float acc_o[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc_o[i] = 0.f;
+  float m_i[2] = {-INFINITY, -INFINITY};
+  float l_i[2] = {0.f, 0.f};  // this thread's share of the row sums
+
+  const uint32_t q_addr = sals_smem(q_s) + cw * 64 * 128;
+  mbar_wait(q_full, 0);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % FA_STAGES;
+    const uint32_t ph = (t / FA_STAGES) & 1;
+    const int k0 = t * FA_BN;
+
+    // S = Q K^T
+    float sc[FA_BN / 2];
+#pragma unroll
+    for (int i = 0; i < FA_BN / 2; ++i) sc[i] = 0.f;
+    mbar_wait(k_full + s, ph);
+    const uint32_t k_addr = sals_smem(k_s + s * L::KV);
+    wgmma_hold<FA_BN / 2>(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;  // 16 columns = 32 bytes
+      const uint64_t da =
+          gmma_desc(q_addr + (kk / 4) * FA_BM * 128 + off, 16, 1024);
+      const uint64_t db =
+          gmma_desc(k_addr + (kk / 4) * FA_BN * 128 + off, 16, 1024);
+      wgmma_ss<FA_BN>(sc, da, db, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_hold<FA_BN / 2>(sc);
+    if (tid == 0) mbar_arrive(k_empty + s);
+
+    // logits in log2 units, masked where the tile crosses Sk or the diagonal
+    const bool need_mask =
+        k0 + FA_BN > Sk || (causal && k0 + FA_BN - 1 > wg_qp_lo);
+#pragma unroll
+    for (int j = 0; j < FA_BN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[4 * j + e];
+        if (softcap != 0.f)
+          x = softcap * tanhf(x * scale / softcap) * LOG2E;
+        else
+          x *= scale_log2;
+        if (need_mask) {
+          const int kp = k0 + 8 * j + 2 * quad + (e & 1);
+          const int qp = q_off + row0 + 8 * (e >> 1);
+          if (kp >= Sk || (causal && kp > qp)) x = -INFINITY;
+        }
+        sc[4 * j + e] = x;
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < FA_BN / 8; ++j)
+        mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * i], sc[4 * j + 2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_i[i], mx);
+      // a row with nothing unmasked yet keeps m = -inf: subtract 0
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      alpha[i] = fa_exp2(m_i[i] - m_use);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < FA_BN / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float p = fa_exp2(sc[4 * j + 2 * i + c] - m_use);
+          sc[4 * j + 2 * i + c] = p;
+          sum += p;
         }
       }
-#pragma unroll
-      for (int n = 0; n < FA_BK / 16; ++n)
-        wmma::store_matrix_sync(Ss + warp * 16 * L::LDS + n * 16, sacc[n],
-                                L::LDS, wmma::mem_row_major);
+      l_i[i] = l_i[i] * alpha[i] + sum;
+      m_i[i] = m_new;
     }
-    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      acc_o[4 * j + 0] *= alpha[0];
+      acc_o[4 * j + 1] *= alpha[0];
+      acc_o[4 * j + 2] *= alpha[1];
+      acc_o[4 * j + 3] *= alpha[1];
+    }
+    // P in bf16, in place: keys 16kk..16kk+15 of the S fragment are the A
+    // fragment of k-step kk
+    uint32_t pa[FA_BN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < FA_BN / 16; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        pa[kk][e] = fa_pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
+    }
 
-    // online softmax over this row's half of the tile
-    float* srow = Ss + row * L::LDS;
-    float mx = SALS_NEG_INF;
-    for (int c = hf * (FA_BK / 2); c < (hf + 1) * (FA_BK / 2); ++c) {
-      float x = srow[c] * scale;
-      if (softcap != 0.f) x = softcap * tanhf(x / softcap);
-      const int kp = k0 + c;
-      if (kp >= Sk || (causal && kp > qp)) x = SALS_NEG_INF;
-      srow[c] = x;
-      mx = fmaxf(mx, x);
+    // O += P V
+    mbar_wait(v_full + s, ph);
+    const uint32_t v_addr = sals_smem(v_s + s * L::KV);
+    wgmma_hold<DH / 2>(acc_o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < FA_BN / 16; ++kk) {
+      const uint64_t db = gmma_desc(v_addr + kk * 16 * 128, FA_BN * 128, 1024);
+      wgmma_rs<DH>(acc_o, pa[kk], db, 1);
     }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_i, mx);
-    float sum = 0.f;
-    for (int c = hf * (FA_BK / 2); c < (hf + 1) * (FA_BK / 2); ++c) {
-      const float x = srow[c];
-      const float p = x <= SALS_NEG_INF * 0.5f ? 0.f : expf(x - m_new);
-      Ps[row * L::LDP + c] = __float2bfloat16(p);
-      sum += p;
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    const float alpha = expf(m_i - m_new);
-    l_i = l_i * alpha + sum;
-    m_i = m_new;
-    for (int c = hf * (DH / 2); c < (hf + 1) * (DH / 2); ++c)
-      Os[row * L::LDO + c] *= alpha;
-    __syncwarp();
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_hold<DH / 2>(acc_o);
+    if (tid == 0) mbar_arrive(v_empty + s);
+  }
 
-    // O += P V for this warp's 16 rows
+  // epilogue: O / l in bf16
+  const size_t q_row = (size_t)H * DH;
 #pragma unroll
-    for (int n = 0; n < DH / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc;
-      wmma::load_matrix_sync(oacc, Os + warp * 16 * L::LDO + n * 16, L::LDO,
-                             wmma::mem_row_major);
+  for (int i = 0; i < 2; ++i) {
+    float l = l_i[i];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    const int row = row0 + 8 * i;
+    if (row < Sq) {
+      __nv_bfloat16* orow =
+          o + ((size_t)b * Sq + row) * q_row + (size_t)h * DH + 2 * quad;
 #pragma unroll
-      for (int kk = 0; kk < FA_BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> a;
-        wmma::load_matrix_sync(a, Ps + warp * 16 * L::LDP + kk, L::LDP);
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> bf;
-        wmma::load_matrix_sync(bf, Vs + kk * L::LDQ + n * 16, L::LDQ);
-        wmma::mma_sync(oacc, a, bf, oacc);
+      for (int j = 0; j < DH / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
+            __floats2bfloat162_rn(acc_o[4 * j + 2 * i] * inv,
+                                  acc_o[4 * j + 2 * i + 1] * inv);
       }
-      wmma::store_matrix_sync(Os + warp * 16 * L::LDO + n * 16, oacc, L::LDO,
-                              wmma::mem_row_major);
     }
-    __syncwarp();
   }
+}
 
-  if (q0 + row < Sq) {
-    const float den = fmaxf(l_i, 1e-30f);
-    __nv_bfloat16* orow = o + (size_t)b * Sq * q_row + (size_t)(q0 + row) * q_row +
-                          (size_t)h * DH;
-    for (int c = hf * (DH / 2); c < (hf + 1) * (DH / 2); ++c)
-      orow[c] = __float2bfloat16(Os[row * L::LDO + c] / den);
-  }
+// 4-D map (dh, heads, S, B) of a (B, S, heads, dh) bf16 tensor, boxes of
+// 64 x 1 x rows x 1.
+static int fa_tmap(CUtensorMap* map, const void* p, int B, int S, int heads,
+                   int dh, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)dh * 2,
+                                 (cuuint64_t)heads * dh * 2,
+                                 (cuuint64_t)S * heads * dh * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  return sals_tmap_bf16(map, p, 4, dims, strides, box);
 }
 
 template <int DH>
 static int launch_fa(const void* q, const void* k, const void* v, void* o,
                      int B, int Sq, int Sk, int H, int Hkv, int causal,
                      float softcap, cudaStream_t st) {
+  CUtensorMap tq, tk, tv;
+  int err = fa_tmap(&tq, q, B, Sq, H, DH, FA_BM);
+  if (!err) err = fa_tmap(&tk, k, B, Sk, Hkv, DH, FA_BN);
+  if (!err) err = fa_tmap(&tv, v, B, Sk, Hkv, DH, FA_BN);
+  if (err) return err;
   const size_t smem = FaSmem<DH>::BYTES;
   cudaFuncSetAttribute(flash_fwd_kernel<DH>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
-  dim3 grid(B * H, (Sq + FA_BQ - 1) / FA_BQ);
+  dim3 grid(B * H, (Sq + FA_BM - 1) / FA_BM);
   flash_fwd_kernel<DH><<<grid, FA_THREADS, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      Sq, Sk, H, Hkv, causal, softcap, (float)(1.0 / sqrt((double)DH)));
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Sk, H, Hkv, causal,
+      softcap, (float)(1.0 / sqrt((double)DH)));
   return (int)cudaGetLastError();
 }
 
@@ -206,6 +313,8 @@ extern "C" int sals_flash_attention(const void* q, const void* k,
                                     int Sk, int H, int Hkv, int dh,
                                     int causal, float softcap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Sq < 1 || Sk < 1 || (causal && Sq > Sk) || Hkv < 1 || H % Hkv)
+    return (int)cudaErrorInvalidValue;
   if (dh == 128)
     return launch_fa<128>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, softcap, st);
   if (dh == 64)

@@ -20,20 +20,25 @@ while the gathered rows plus the resident U_r are about 20 MB (≈ 6 µs).
 Design: grid (B, n_kv), one block per row and kv head, so no reduction
 crosses blocks and the slot order is fixed (the ascending order
 ``selection.sort_selected`` gives, invalid slots last — ragged rows stay
-deterministic).  Selected tokens are reconstructed 32 at a time, with U_r
-streamed through shared memory once per tile and the products accumulated
-in f32 on the CUDA cores.  No gathered, dequantized or reconstructed buffer
-reaches device memory.  The tensor-core (wgmma) tile is the later redesign.
-The paged instance resolves each selected slot's pool row through the page
-table once per tile and shares every arithmetic line with the dense one.
-A verify window of Q ≤ 8 queries reconstructs each selected key once and
-scores it against all Q · group queries (Q times the scoring, the same
-reconstruction), keeping Q · group · dh online-softmax cells in shared
-memory.
+deterministic).  For bf16 and int8 latents the reconstruction runs on the
+tensor cores: a producer warpgroup gathers 128 selected latent rows at a
+time into 128-byte-swizzled shared memory (cp.async; int8 converted to
+bf16 exactly) in 64-column stages of a ring, beside the matching chunk of
+U_h by TMA (U_h read once per 128 slots), and two consumer warpgroups each
+compute a 64 × dh key tile with wgmma (f32 accumulate), scale int8 rows by
+their per-token scale, apply RoPE and score the window's queries in
+registers, and update the online softmax once per 128 slots.  f32 latents
+(the float32 exactness runs) keep the first version's CUDA-core body: TF32
+would round the latents.  So do bf16 / int8 latents beside a u that is not
+bf16 (a float32 model with int8 latents): its U_h is read as it is stored.  No gathered, dequantized or reconstructed buffer
+reaches device memory.  The paged instance resolves each selected slot's
+pool row through the page table once per pass and shares every arithmetic
+line with the dense one.  A verify window of Q ≤ 8 queries reconstructs
+each selected key once and scores it against all Q · group queries.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -50,27 +55,79 @@ window_paged_launches = _build.LaunchCounter(
 _FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _K_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _SMEM_LIMIT = 232_448
-_THREADS, _T, _JT = 512, 32, 32
 MAX_WINDOW = 8
+# the tensor-core body (bf16 / int8 latents): slots per pass, latent columns
+# per ring stage, deepest ring
+_PASS, _KC, _MAX_STAGES = 128, 64, 6
+# the CUDA-core body (f32 latents): slots per tile, U columns per chunk
+_F32_T, _F32_JT = 32, 32
 
 
-def smem_bytes(r: int, dh: int, group: int, ql: int = 1) -> int:
-    """Dynamic shared memory one block uses (mirrors the kernel's layout):
-    the latent tile, a U chunk, the reconstructed keys and values, the
-    ql · group RoPE'd queries, their logits per slot and their ql · group ·
-    dh online-softmax cells (m, l, o)."""
+def _tc_fixed_bytes(dh: int, nq: int, v_bits: int, v_group: int) -> int:
+    """Shared memory of the tensor-core body besides its ring (mirrors
+    ``sra_tc_layout``): value codes and the (scale, zero) pairs of the
+    head's groups for two passes, the RoPE'd queries, the pass's logits,
+    the output cells, m / l / alpha, slot metadata of two passes, the
+    barriers."""
+    vrow = dh if v_bits == 8 else dh // 2
+    groups = (dh - 1) // v_group + 2
+    vsz = (2 * _PASS * groups * 4 + 15) // 16 * 16
+    stats = (3 * nq * 4 + 15) // 16 * 16
+    return 2 * _PASS * vrow + vsz + 4 * nq * dh + 4 * nq * _PASS \
+        + 4 * nq * dh + stats + 2 * _PASS * 16 + 8 * (2 * _MAX_STAGES + 4)
+
+
+def ring_stages(dh: int, group: int, ql: int = 1, v_bits: int = 8,
+                v_group: int = 64) -> int:
+    """Ring depth of the tensor-core body: as many 64-column stages (a
+    128-slot latent tile + a dh x 64 U_h chunk) as fit beside the fixed
+    part, at most six.  The kernel needs two."""
+    stage = _PASS * 128 + dh * 128
+    room = _SMEM_LIMIT - 1024 - _tc_fixed_bytes(dh, ql * group, v_bits,
+                                                v_group)
+    return max(0, min(_MAX_STAGES, room // stage))
+
+
+def tensor_cores(k_dtype: torch.dtype, u_dtype: torch.dtype) -> bool:
+    """Whether a launch takes the tensor-core body: bf16 / int8 latents with
+    a bf16 u.  Anything else takes the CUDA-core body."""
+    return k_dtype != torch.float32 and u_dtype == torch.bfloat16
+
+
+def smem_bytes(r: int, dh: int, group: int, ql: int = 1, *,
+               k_dtype: torch.dtype = torch.bfloat16,
+               u_dtype: torch.dtype = torch.bfloat16, v_bits: int = 8,
+               v_group: int = 64) -> int:
+    """Dynamic shared memory one block uses (mirrors the kernel's layout).
+    Tensor-core body: the 1024-byte alignment slack, the ring and the fixed
+    part — independent of r.  CUDA-core body: the f32 latent tile, a U
+    chunk, the reconstructed keys and values, the ql · group RoPE'd
+    queries, their logits per slot and their ql · group · dh online-softmax
+    cells (m, l, o)."""
     nq = ql * group
-    floats = r * (_T + 4) + dh * (_JT + 1) + 2 * _T * dh + nq * dh \
-        + _T * nq + 3 * nq * dh + _T
-    return 4 * floats + 12 * _T
+    if not tensor_cores(k_dtype, u_dtype):
+        floats = r * (_F32_T + 4) + dh * (_F32_JT + 1) + 2 * _F32_T * dh \
+            + nq * dh + _F32_T * nq + 3 * nq * dh + _F32_T
+        return 4 * floats + 12 * _F32_T
+    stage = _PASS * 128 + dh * 128
+    return 1024 + ring_stages(dh, group, ql, v_bits, v_group) * stage \
+        + _tc_fixed_bytes(dh, nq, v_bits, v_group)
+
+
+_FREQS: Dict[tuple, torch.Tensor] = {}
 
 
 def rope_inv_freqs(dh: int, theta: float, device) -> torch.Tensor:
-    """(dh/2,) f32 inverse frequencies, the twin's formula."""
-    half = dh // 2
-    ar = torch.arange(half, dtype=torch.float32, device=device) / half
-    return (1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                         device=device), ar)).contiguous()
+    """(dh/2,) f32 inverse frequencies, the twin's formula, made once per
+    (dh, theta, device): a decode step asks for them at every SALS layer,
+    and making them moves a scalar from the host."""
+    key = (dh, float(theta), torch.device(device))
+    if key not in _FREQS:
+        half = dh // 2
+        ar = torch.arange(half, dtype=torch.float32, device=device) / half
+        _FREQS[key] = (1.0 / torch.pow(torch.tensor(
+            theta, dtype=torch.float32, device=device), ar)).contiguous()
+    return _FREQS[key]
 
 
 def sparse_recon_attention_cuda(
@@ -136,8 +193,6 @@ def _launch(q, k_lat, k_scale, v_q, v_scale, v_zero, u, idx, valid, q_pos,
     paged = page_table is not None
     if paged:
         tensors.append(page_table)
-    require(q.is_cuda and all(t.device == dev for t in tensors),
-            "tensors must share one CUDA device")
     require(all(t.is_contiguous() for t in tensors),
             "all operands must be contiguous")
     require(q.dtype in _FLOAT_CODES, "q must be bf16/f32")
@@ -183,12 +238,27 @@ def _launch(q, k_lat, k_scale, v_q, v_scale, v_zero, u, idx, valid, q_pos,
     require(idx.dim() == 2 and idx.shape[0] == b and idx.dtype == torch.int32
             and valid.shape == idx.shape and valid.dtype == torch.bool,
             "idx (B, N_c) int32 and valid (B, N_c) bool")
-    smem = smem_bytes(r, dh, group, ql)
-    require(smem <= _SMEM_LIMIT, f"rank {r}, window {ql}, group {group} "
-            f"need {smem} B of shared memory (limit {_SMEM_LIMIT})")
+    if not tensor_cores(k_lat.dtype, u.dtype):
+        smem = smem_bytes(r, dh, group, ql, k_dtype=k_lat.dtype,
+                          u_dtype=u.dtype)
+        require(smem <= _SMEM_LIMIT, f"rank {r}, window {ql}, group {group} "
+                f"need {smem} B of shared memory (limit {_SMEM_LIMIT})")
+    else:
+        require(ring_stages(dh, group, ql, v_bits, v_group) >= 2,
+                f"window {ql}, group {group}, value group {v_group} leave "
+                f"no room for two ring stages in {_SMEM_LIMIT} B of shared "
+                "memory")
+        require(r % 8 == 0, f"rank {r} must be a multiple of 8 (16-byte "
+                "latent rows)")
+        require(all(t.data_ptr() % 16 == 0 for t in (k_lat, v_q, u)),
+                "k_lat, v_q and u must start on 16 bytes")
+    # last, so that every check above runs (and is tested) on any device
+    require(q.is_cuda and all(t.device == dev for t in tensors),
+            "tensors must share one CUDA device")
     n_c = idx.shape[1]
     qpos_v = row_vector(q_pos, b, dev)
-    base_v = row_vector(0 if pos_base is None else pos_base, b, dev)
+    base_v = torch.zeros(b, dtype=torch.int32, device=dev) \
+        if pos_base is None else row_vector(pos_base, b, dev)
     freqs = rope_inv_freqs(dh, theta, dev)
     m = torch.empty((b, ql, h), dtype=torch.float32, device=dev)
     l = torch.empty((b, ql, h), dtype=torch.float32, device=dev)

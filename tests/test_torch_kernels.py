@@ -237,19 +237,37 @@ def test_sparse_recon_attention_kernel_vs_twin(cuda):
     (33, 33, 4, 1, 25.0),       # MQA, softcap, ragged block edge
 ])
 def test_flash_attention(backend, sq, sk, h, hkv, softcap):
+    _flash_both(backend, sq, sk, h, hkv, softcap, causal=True, dh=16)
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("sq,sk,h,hkv,softcap,causal,dh", [
+    (40, 72, 4, 2, 0.0, False, 16),     # non-causal, Sq < Sk, GQA
+    (33, 33, 4, 1, 25.0, False, 64),    # non-causal dh 64, MQA, softcap
+    (24, 56, 4, 2, 0.0, True, 64),      # causal dh 64, Sq < Sk
+    (1, 37, 2, 1, 0.0, True, 128),      # one query, dh 128
+])
+def test_flash_attention_shape_classes(backend, sq, sk, h, hkv, softcap,
+                                       causal, dh):
+    """The shape classes the CUDA kernel's own cases cover (non-causal,
+    dh 64 and 128, a single query): the twin against the JAX reference."""
+    _flash_both(backend, sq, sk, h, hkv, softcap, causal=causal, dh=dh)
+
+
+def _flash_both(backend, sq, sk, h, hkv, softcap, *, causal, dh):
     rng = np.random.default_rng(13)
-    q = rng.standard_normal((2, sq, h, 16)).astype(np.float32)
-    k = rng.standard_normal((2, sk, hkv, 16)).astype(np.float32)
-    v = rng.standard_normal((2, sk, hkv, 16)).astype(np.float32)
+    q = rng.standard_normal((2, sq, h, dh)).astype(np.float32)
+    k = rng.standard_normal((2, sk, hkv, dh)).astype(np.float32)
+    v = rng.standard_normal((2, sk, hkv, dh)).astype(np.float32)
     kk, vv = np.repeat(k, h // hkv, 2), np.repeat(v, h // hkv, 2)
     if backend == "pallas":
         from repro.kernels.flash_attention import flash_attention_pallas
-        jo = flash_attention_pallas(_j(q), _j(kk), _j(vv), causal=True,
+        jo = flash_attention_pallas(_j(q), _j(kk), _j(vv), causal=causal,
                                     softcap=softcap)
     else:
-        jo = jops.flash_attention(_j(q), _j(kk), _j(vv), causal=True,
+        jo = jops.flash_attention(_j(q), _j(kk), _j(vv), causal=causal,
                                   softcap=softcap, backend=backend)
-    to = ops.flash_attention(_t(q), _t(k), _t(v), causal=True,
+    to = ops.flash_attention(_t(q), _t(k), _t(v), causal=causal,
                              softcap=softcap)
     np.testing.assert_allclose(np.asarray(jo), to.numpy(), **TOL)
 
@@ -277,3 +295,63 @@ def test_flash_attention_kernel_vs_twin(cuda):
     # largest output
     diff = (co.cpu().float() - to).abs().amax(-1)
     assert float((diff / to.abs().amax(-1)).max()) <= 2.0 ** -7
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dh,b,sq,sk,h,hkv,softcap,causal", [
+    (64, 2, 300, 300, 4, 1, 0.0, True),      # MQA, Sq not a multiple of 128
+    (128, 1, 200, 520, 8, 2, 0.0, True),     # GQA, Sq < Sk
+    (128, 2, 129, 129, 4, 4, 30.0, True),    # softcap, one row past a tile
+    (64, 1, 100, 333, 4, 2, 0.0, False),     # non-causal, ragged Sk
+    (128, 1, 256, 256, 2, 2, 0.0, False),
+    (64, 1, 1, 77, 2, 1, 0.0, True),         # one query at the end
+])
+def test_flash_attention_kernel_cases(cuda, dh, b, sq, sk, h, hkv, softcap,
+                                      causal):
+    """Every shape class of the TMA + wgmma kernel against the f32 twin:
+    per-row error within 2 bf16 ulps of the row's largest output."""
+    rng = np.random.default_rng(dh + sq + sk)
+    q = _t(rng.standard_normal((b, sq, h, dh)).astype(np.float32),
+           torch.bfloat16)
+    k = _t(rng.standard_normal((b, sk, hkv, dh)).astype(np.float32),
+           torch.bfloat16)
+    v = _t(rng.standard_normal((b, sk, hkv, dh)).astype(np.float32),
+           torch.bfloat16)
+    to = ops.flash_attention(q.float(), k.float(), v.float(), causal=causal,
+                             softcap=softcap)
+    co = ops.flash_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                             causal=causal, softcap=softcap)
+    diff = (co.cpu().float() - to).abs().amax(-1)
+    assert float((diff / to.abs().amax(-1)).max()) <= 2.0 ** -7
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("lat_dtype,u_dtype", [
+    ("bf16", "bf16"), ("int8", "bf16"), ("f32", "bf16"),
+    ("int8", "f32"), ("bf16", "f32")])
+@pytest.mark.parametrize("dh,v_bits", [(128, 8), (64, 4)])
+def test_sparse_recon_attention_kernel_instances(cuda, lat_dtype, u_dtype,
+                                                 dh, v_bits):
+    """Each instance of the recon body (tensor cores for bf16 / int8
+    latents with a bf16 u, CUDA cores for f32 latents or an f32 u — a
+    float32 model's int8 cache) against its twin, over three passes of
+    128 slots (the last partial) and a ragged, an empty row."""
+    inputs = _sra_inputs(16, 3, 8, 2, dh, 400, 128, 300,
+                         "bf16" if lat_dtype == "f32" else lat_dtype, v_bits)
+    q, lat, scale, vq, vs, vz, u, idx, valid, q_pos = inputs
+    tl = {"bf16": torch.bfloat16, "int8": torch.int8,
+          "f32": torch.float32}[lat_dtype]
+    args = [_t(q), _t(lat, tl),
+            None if scale is None else _t(scale, torch.bfloat16), _t(vq),
+            _t(vs, torch.bfloat16), _t(vz, torch.bfloat16),
+            _t(u, {"bf16": torch.bfloat16, "f32": torch.float32}[u_dtype]),
+            _t(idx), _t(valid), _t(q_pos)]
+    kw = dict(n_kv=2, v_bits=v_bits, v_group=16, softcap=0.0)
+    tm, tl_, to = ops.sparse_recon_attention(*args, **kw)
+    dev = [None if a is None else a.to(cuda) for a in args]
+    cm, cl, co = ops.sparse_recon_attention(*dev, **kw)
+    torch.testing.assert_close(cm.cpu(), tm, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(cl.cpu(), tl_, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(co.cpu(), to, rtol=1e-4, atol=1e-4)
+    assert (cm[2] == ref.NEG_INF).all() and (cl[2] == 0).all() \
+        and (co[2] == 0).all()

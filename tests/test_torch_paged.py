@@ -33,7 +33,8 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 FIELDS = ("k_lat", "k_scale", "v_q", "v_scale", "v_zero", "sink_k", "sink_v",
           "recent_k", "recent_v", "lengths", "page_table")
 JD = {"bf16": jnp.bfloat16, "int8": jnp.int8}
-TD = {"bf16": torch.bfloat16, "int8": torch.int8}
+TD = {"bf16": torch.bfloat16, "int8": torch.int8,
+      "f32": torch.float32}
 
 
 def _t(a, dtype=None):
@@ -313,7 +314,9 @@ def test_prefill_into_slot_and_free_slot():
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("ps,lat_dtype,v_bits", [(8, "bf16", 8),
-                                                 (64, "int8", 4)])
+                                                 (64, "int8", 4),
+                                                 (16, "f32", 8),
+                                                 (16, "bf16", 4)])
 def test_paged_kernels_vs_twin_and_dense_kernel(cuda, ps, lat_dtype, v_bits):
     d = _paged_inputs(60 + ps, ps, lat_dtype, v_bits, garbage="wild")
     a = dict(_torch_args(d), ps=ps)

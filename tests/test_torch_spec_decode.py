@@ -108,7 +108,8 @@ def _win_inputs(seed, b, ql, h, n_kv, dh, s, r, n_c, lat_dtype, v_bits):
 
 
 _LAT = {"bf16": (jnp.bfloat16, torch.bfloat16), "int8": (jnp.int8,
-                                                         torch.int8)}
+                                                         torch.int8),
+        "f32": (jnp.float32, torch.float32)}
 
 
 def _torch_args(inputs, lat_dtype):
@@ -252,11 +253,24 @@ def test_window_wrapper_limits():
             torch.zeros((1, 4), dtype=torch.bool), 0, n_kv=4)
     # the group·dh and Q·group terms scale with Q; every supported model
     # fits at Q = 8 (llama2 r 1024, mistral group 4 r 256, yi group 8 r 128)
-    assert sra.smem_bytes(1024, 128, 1, 8) - sra.smem_bytes(1024, 128, 1) \
-        == 4 * 7 * (4 * 128 + 32)
+    # in both bodies: the CUDA-core one (f32 latents) ...
+    f32 = dict(k_dtype=torch.float32)
+    assert sra.smem_bytes(1024, 128, 1, 8, **f32) \
+        - sra.smem_bytes(1024, 128, 1, **f32) == 4 * 7 * (4 * 128 + 32)
+    for r, group in ((1024, 1), (256, 4), (128, 8)):
+        assert sra.smem_bytes(r, 128, group, 8, **f32) <= sra._SMEM_LIMIT
+    assert sra.smem_bytes(1024, 128, 8, 8, **f32) > sra._SMEM_LIMIT
+    # ... and the tensor-core one (bf16 / int8 latents), whose fixed part
+    # grows by the queries, logits, cells and stats of each window query
+    # (a ring stage of 32 KB gives way where they no longer fit)
+    fixed = [sra.smem_bytes(1024, 128, 1, ql) - sra.ring_stages(128, 1, ql)
+             * (128 * 128 + 128 * 128) for ql in (1, 8)]
+    # (q, logits and o in f32 per query row; m / l / alpha, 16-byte padded)
+    assert fixed[1] - fixed[0] == 4 * 7 * (128 + 128 + 128) + (96 - 16)
     for r, group in ((1024, 1), (256, 4), (128, 8)):
         assert sra.smem_bytes(r, 128, group, 8) <= sra._SMEM_LIMIT
-    assert sra.smem_bytes(1024, 128, 8, 8) > sra._SMEM_LIMIT
+        assert sra.ring_stages(128, group, 8) >= 2
+    assert sra.ring_stages(128, 64, 8) < 2
 
 
 # ---------------------------------------------------------------------------
@@ -686,3 +700,41 @@ def test_window_kernel_vs_twin(cuda, paged):
         if t == 0:
             for a, b_ in zip(one, single):
                 assert torch.equal(a[:, 0], b_)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("lat_dtype", ["bf16", "int8", "f32"])
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_window_kernel_instances_q1_equals_single(cuda, lat_dtype, paged):
+    """Each instance of the recon body (bf16 / int8 latents on the tensor
+    cores, f32 on the CUDA cores): the window against its twin, a one-query
+    window equal to the single-token kernel bit for bit, and (paged) the
+    paged window equal to the dense one on the same logical contents."""
+    inputs = _win_inputs(32, 3, 3, 8, 2, 128, 300, 128, 200, lat_dtype, 8)
+    kw = dict(n_kv=2, n_recent=8, v_bits=8, v_group=16)
+    args = _torch_args(inputs, lat_dtype)
+    dense_dev = [None if a is None else a.to(cuda) for a in args]
+    pg, dpg = {}, {}
+    if paged:
+        inputs, table = _paged(inputs, 16, 9)
+        args = _torch_args(inputs, lat_dtype)
+        pg = dict(page_table=_t(table), page_size=16)
+        dpg = {k: v.to(cuda) if torch.is_tensor(v) else v
+               for k, v in pg.items()}
+    tw = ops.sparse_recon_attention_window(*args, **kw, **pg)
+    dev = [None if a is None else a.to(cuda) for a in args]
+    kern = ops.sparse_recon_attention_window(*dev, **kw, **dpg)
+    for a, b_ in zip(kern, tw):
+        torch.testing.assert_close(a.cpu(), b_, rtol=1e-4, atol=1e-4)
+    q, rest, idx, valid, q_pos = dev[0], dev[1:7], dev[7], dev[8], dev[9]
+    one = ops.sparse_recon_attention_window(q[:, :1].contiguous(), *rest,
+                                            idx, valid, q_pos, **kw, **dpg)
+    kw1 = {k: v for k, v in kw.items() if k != "n_recent"}
+    single = ops.sparse_recon_attention(q[:, 0].contiguous(), *rest, idx,
+                                        valid, q_pos, **kw1, **dpg)
+    for a, b_ in zip(one, single):
+        assert torch.equal(a[:, 0], b_)
+    if paged:
+        dense = ops.sparse_recon_attention_window(*dense_dev, **kw)
+        for a, b_ in zip(kern, dense):
+            assert torch.equal(a, b_)
