@@ -15,11 +15,15 @@ Phases, each printing one JSON line:
               non-causal; the recon body also with f32 latents and with an
               f32 ``u`` beside int8 latents): max error against a
               stated tolerance, median kernel / twin / library times of
-              one eager call (``ms``; the flash and recon kernels and the
-              library call also as CUDA-graph replays, ``graph_ms``, timed
-              in turns with the eager call), the least time the card could
-              take (``bound_ms``) and the share of it or of the peak that
-              the replay reached.  The paged
+              one eager call (``ms``; the kernels and the library call
+              also as CUDA-graph replays, ``graph_ms``, timed in turns with
+              the eager call; the top-k's score pass and selection also
+              alone), the least time the card could take (``bound_ms``) and
+              the share of it or of the peak that the replay reached.  The
+              top-k also runs adversarial cases (all scores equal, fewer
+              selectable rows than N_c, S < N_c, B 1, r* 500, rows loaded
+              element by element, a tiered score pool, pos_base, S > 8192,
+              N_c 20 and 1000) for exact indices and validity.  The paged
               kernels run over a shuffled page table whose unmapped tail
               holds ids outside the pool (pages of 8, 16 and 64 tokens),
               and must also equal the dense kernels bit for bit on the
@@ -196,6 +200,37 @@ def eager_graph_ms(torch, fn, iters: int, flush) -> dict:
     return {k: statistics.median(v) for k, v in times.items()}
 
 
+def kernel_device_ms(torch, fn, iters: int, flush, mode: str = "zero"
+                     ) -> dict:
+    """Mean device time per call of ``fn`` by kernel (CUPTI durations
+    through torch.profiler, launch gaps excluded).  ``mode`` says how L2
+    is emptied before each call: "zero" fills the 96 MB ``flush`` buffer
+    (as every other timing here; its dirty lines are written back while
+    ``fn`` runs), "read" reads it (clean lines), "none" leaves L2 as the
+    last call left it (inputs that fit stay hot).  The flush's own kernel
+    (and the reduction's memset) is left out.  Keys: kernel names cut at
+    the template arguments."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    prep, own = {"zero": (flush.zero_, ("FillFunctor",)),
+                 "read": (flush.max, ("reduce_kernel", "Memset")),
+                 "none": (lambda: None, ())}[mode]
+    fn()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            prep()
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or any(o in e.key for o in own):
+            continue
+        short = e.key.split("<")[0].split("(")[0].strip()[:60]
+        out[short] = out.get(short, 0.0) \
+            + e.self_device_time_total / 1e3 / iters
+    return out
+
+
 def time_ms(torch, fn, iters: int, warmup: int = 2, flush=None) -> float:
     """Median CUDA-event time of ``fn`` (ms), L2 flushed before each run."""
     for _ in range(warmup):
@@ -237,76 +272,127 @@ def paged_pool(torch, g, b, s, ps, live_tokens):
     return pt, n_pages
 
 
+def topk_parts_ms(torch, q_lat, k_lat, k_scale, pos, kw, pg, flush):
+    """The two halves of one ``latent_topk_cuda`` call, each timed alone
+    (eager and graph replay, in turns): the score pass and the selection.
+    L2 is flushed before each run, so the second half reads its input from
+    device memory, not L2."""
+    from repro_torch.kernels import latent_score as ls
+    launch = ls.topk_launcher(q_lat, k_lat, k_scale, pos, **kw, **pg)[0]
+    launch(ls.TOPK_SCORE)
+    return {"score_pass": eager_graph_ms(
+                torch, lambda: launch(ls.TOPK_SCORE), 20, flush),
+            "select": eager_graph_ms(
+                torch, lambda: launch(ls.TOPK_SELECT), 20, flush)}
+
+
 def topk_case(torch, name, b, s, r, r_star, n_c, k_dtype, seed, flush,
-              ps=0):
-    """latent_topk at a main-path shape.  Integer-valued latents and query
-    make every score exact in f32 (ties included), so indices must match
-    the twin exactly — tie-breaks too.  ``ps`` > 0: the latents are a page
-    pool behind a shuffled table (``paged_pool``), and the paged kernel
-    must also equal the dense kernel bit for bit on the same logical
-    contents."""
+              ps=0, pos=None, pos_base=None, zero_q=False, timed=True):
+    """latent_topk at a main-path shape, or an adversarial one (untimed).
+    Integer-valued latents and query make every score exact in f32 (ties
+    included), so indices and validity must equal the twin's exactly,
+    tie-breaks and invalid slots too; ``zero_q``: every score is 0, so the
+    N_c come purely by lowest index.  ``pos`` defaults to ragged decode
+    positions as on the main path's last step; ``pos_base`` shifts row b's
+    positions.  ``ps`` > 0: the latents are a page pool behind a shuffled
+    table (``paged_pool``), and the paged kernel must also equal the dense
+    kernel bit for bit on the same logical contents.  A case with r = r*
+    (a tiered score pool's shape) must also select as the same columns
+    inside a wider cache (r* + 256) do.  Timed cases: the whole call (eager
+    ``ms`` and replay ``graph_ms`` in turns), its two halves alone
+    (``parts``), paged against dense in turns (paged, dense, dense, paged)."""
     from repro_torch.kernels import latent_score as ls
     from repro_torch.kernels import ref
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
     q_lat = torch.randint(-3, 4, (b, r_star), generator=g, device=dev).float()
-    # ragged decode positions as on the main path's last step
-    pos = [max(1, s - 65 - 512 * i) for i in range(b)]
+    if zero_q:
+        q_lat.zero_()
+    base = [0] * b if pos_base is None else list(pos_base)
+    if pos is None:
+        pos = [base[i] + max(1, s - 65 - 512 * i) for i in range(b)]
     pg, rows = {}, (b, s)
     if ps:
-        pt, n_pages = paged_pool(torch, g, b, s, ps, [p + 1 for p in pos])
+        pt, n_pages = paged_pool(torch, g, b, s, ps, [
+            min(s, max(0, p - q + 1)) for p, q in zip(pos, base)])
         pg, rows = dict(page_table=pt, page_size=ps), (n_pages, ps)
+    dtype = {"bf16": torch.bfloat16, "f32": torch.float32}
     k_scale = None
+    wide = r + 256 if r == r_star else r
     if k_dtype == "int8":
-        k_lat = torch.randint(-3, 4, (*rows, r), generator=g, device=dev,
-                              dtype=torch.int8)
+        k_full = torch.randint(-3, 4, (*rows, wide), generator=g, device=dev,
+                               dtype=torch.int8)
         k_scale = torch.full(rows, 0.5, device=dev, dtype=torch.bfloat16)
     else:
-        k_lat = torch.randint(-3, 4, (*rows, r), generator=g,
-                              device=dev).to(torch.bfloat16)
+        k_full = torch.randint(-3, 4, (*rows, wide), generator=g,
+                               device=dev).to(dtype[k_dtype])
+    k_lat = k_full if wide == r else k_full[..., :r].contiguous()
     pos = torch.tensor(pos, device=dev, dtype=torch.int32)
-    kw = dict(n_critical=n_c, n_sink=16, n_recent=64)
+    kw = dict(n_critical=n_c, n_sink=16, n_recent=64,
+              pos_base=torch.tensor(base, device=dev, dtype=torch.int32))
     twin = ref.latent_topk_paged_ref if ps else ref.latent_topk_ref
     idx_k, val_k = ls.latent_topk_cuda(q_lat, k_lat, k_scale, pos, **kw, **pg)
     idx_t, val_t = twin(q_lat, k_lat, k_scale, pos, **kw, **pg)
+    pins = {}
+    if wide != r:
+        idx_w, val_w = ls.latent_topk_cuda(q_lat, k_full, k_scale, pos, **kw,
+                                           **pg)
+        pins["equals_wider_cache"] = bool(torch.equal(idx_k, idx_w)
+                                          and torch.equal(val_k, val_w))
     k_log, s_log = k_lat, k_scale
-    bitwise = None
     if ps:
         k_log = ref.paged_logical_view(k_lat, pt, ps).contiguous()
         s_log = None if k_scale is None else \
             ref.paged_logical_view(k_scale, pt, ps).contiguous()
         idx_d, val_d = ls.latent_topk_cuda(q_lat, k_log, s_log, pos, **kw)
-        bitwise = bool(torch.equal(idx_k, idx_d) and torch.equal(val_k, val_d))
+        pins["bitwise_vs_dense"] = bool(torch.equal(idx_k, idx_d)
+                                        and torch.equal(val_k, val_d))
     torch.cuda.synchronize()
     scores = ref.latent_score_ref(q_lat, k_log, s_log)
     sel_k = torch.gather(scores, 1, idx_k.long().clamp(0, s - 1))
     sel_t = torch.gather(scores, 1, idx_t.long().clamp(0, s - 1))
-    err = float(((sel_k - sel_t).abs() * val_t).max())
-    exact = bool(torch.equal(val_k, val_t)) and bool(
-        torch.equal(torch.where(val_t, idx_k, 0), torch.where(val_t, idx_t, 0)))
+    err = float(((sel_k - sel_t).abs() * val_t).max()) if n_c else 0.0
+    exact = bool(torch.equal(val_k, val_t) and torch.equal(idx_k, idx_t))
+    out = dict(case=name, exact_idx=exact, valid=int(val_t.sum()),
+               max_abs_err=err, tol=0.0, **pins,
+               ok=exact and err <= 0.0 and all(pins.values()))
+    if not timed:
+        return out
+
     def kern():
         ls.latent_topk_cuda(q_lat, k_lat, k_scale, pos, **kw, **pg)
 
     def dense():
         ls.latent_topk_cuda(q_lat, k_log, s_log, pos, **kw)
 
-    # paged: the dense kernel on the same logical contents, timed in turns
-    # (paged, dense, dense, paged) so an order effect shows
-    order = paired_times(torch, kern, dense if ps else None, 20, flush)
-    kern_ms = order["ms"]
+    if ps:
+        whole, dense_t, turns = paired_times(torch, kern, dense, 20, flush)
+        out.update(dense_fields(dense_t, turns))
+    else:
+        whole = eager_graph_ms(torch, kern, 20, flush)
+    parts = topk_parts_ms(torch, q_lat, k_lat, k_scale, pos, kw, pg, flush)
+    device, device_read, device_warm = (
+        kernel_device_ms(torch, kern, 20, flush, m)
+        for m in ("zero", "read", "none"))
     plain_ms = time_ms(torch, lambda: twin(
         q_lat, k_lat, k_scale, pos, **kw, **pg), 5, flush=flush)
+    # the bytes the function needs: the selectable rows' r* columns (and
+    # scales), the query, positions, the outputs and the page table
+    j = torch.arange(s, device=dev)[None, :] + kw["pos_base"][:, None]
+    n_sel = int(((j >= kw["n_sink"])
+                 & (j <= pos[:, None] - kw["n_recent"])).sum())
     kb = k_lat.element_size()
-    nbytes = b * r_star * 4 + b * s * r_star * kb + 2 * b * 4 \
-        + b * n_c * 5 + (b * s * 2 if k_scale is not None else 0) \
+    nbytes = b * r_star * 4 + n_sel * r_star * kb + 2 * b * 4 + b * n_c * 5 \
+        + (n_sel * 2 if k_scale is not None else 0) \
         + (b * (s // ps) * 4 if ps else 0)
-    b_ms, b_by = bound(nbytes, 2.0 * b * s * r_star, F32_FLOP_PER_S)
-    out = dict(case=name, exact_idx=exact, max_abs_err=err, tol=0.0,
-               ms=kern_ms, plain_ms=plain_ms, library_ms=None,
-               bound_ms=b_ms, bound_by=b_by,
-               ok=exact and err <= 0.0 and bitwise is not False)
-    if ps:
-        out.update(bitwise_vs_dense=bitwise, **order)
+    b_ms, b_by = bound(nbytes, 2.0 * n_sel * r_star, F32_FLOP_PER_S)
+    out.update(ms=whole["ms"], graph_ms=whole["graph_ms"], parts=parts,
+               device_ms=device, device_ms_sum=sum(device.values()),
+               device_ms_read_flush=device_read,
+               device_ms_no_flush=device_warm,
+               plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+               bound_by=b_by, selectable_rows=n_sel,
+               share_of_bound=b_ms / whole["graph_ms"])
     return out
 
 
@@ -381,11 +467,12 @@ def sra_case(torch, name, b, h, n_kv, dh, s, r, n_c, k_dtype, v_bits,
                    and (o_k[dead] == 0).all() and torch.isfinite(o_k).all())
     tol = 2e-3
     kern = lambda: sra.sparse_recon_attention_cuda(*args(cache), **kw, **pg)
-    order = eager_graph_ms(torch, kern, 10, flush)
     if ps:
-        order.update(paired_times(
+        order, dense_t, turns = paired_times(
             torch, kern, lambda: sra.sparse_recon_attention_cuda(
-                *args(logical), **kw), 10, flush))
+                *args(logical), **kw), 10, flush)
+    else:
+        order = eager_graph_ms(torch, kern, 10, flush)
     kern_ms = order["ms"]
     plain_ms = time_ms(torch, lambda: twin(*args(cache), **kw, **pg), 5,
                        flush=flush)
@@ -405,7 +492,7 @@ def sra_case(torch, name, b, h, n_kv, dh, s, r, n_c, k_dtype, v_bits,
                share_of_bound=b_ms / order["graph_ms"],
                ok=err <= tol and dead_ok and bitwise is not False)
     if ps:
-        out.update(bitwise_vs_dense=bitwise, **order)
+        out.update(bitwise_vs_dense=bitwise, **dense_fields(dense_t, turns))
     return out
 
 
@@ -414,7 +501,8 @@ def score_case(torch, name, b, s, r, r_star, k_dtype, seed, flush):
     against its twin: max |kernel - twin| over the score scale (max |twin|)
     within 1e-5 (the same f32 products summed in another order).  The
     library yardstick is one ``torch.bmm`` of the r* columns with the query
-    (a bf16 or int8 cache needs a cast to f32 first, which is timed too)."""
+    (a bf16 or int8 cache needs a cast to f32 first, which is timed too),
+    timed in turns with the kernel (kernel, library, library, kernel)."""
     from repro_torch.kernels import latent_score as ls
     from repro_torch.kernels import ref
     dev = "cuda"
@@ -434,9 +522,10 @@ def score_case(torch, name, b, s, r, r_star, k_dtype, seed, flush):
     scale = float(want.abs().max())
     err = float((got - want).abs().max()) / max(scale, 1e-30)
     tol = 1e-5
-    kern_ms = time_ms(torch, lambda: ls.latent_score_cuda(q_lat, k_lat,
-                                                          k_scale), 20,
-                      flush=flush)
+
+    def kernel():
+        return ls.latent_score_cuda(q_lat, k_lat, k_scale)
+
     plain_ms = time_ms(torch, lambda: ref.latent_score_ref(q_lat, k_lat,
                                                            k_scale), 5,
                        flush=flush)
@@ -447,14 +536,27 @@ def score_case(torch, name, b, s, r, r_star, k_dtype, seed, flush):
                         q_lat[..., None])[..., 0]
         return out if k_scale is None else out * k_scale.float()
 
-    lib_ms = time_ms(torch, library, 20, flush=flush)
+    kern, lib, _ = paired_times(torch, kernel, library, 20, flush)
+    device, device_read, device_warm = (
+        kernel_device_ms(torch, kernel, 20, flush, m)
+        for m in ("zero", "read", "none"))
+    lib_device, lib_read, lib_warm = (
+        kernel_device_ms(torch, library, 20, flush, m)
+        for m in ("zero", "read", "none"))
     nbytes = b * r_star * 4 + b * s * r_star * k_lat.element_size() \
         + b * s * 4 + (b * s * 2 if k_scale is not None else 0)
     b_ms, b_by = bound(nbytes, 2.0 * b * s * r_star, F32_FLOP_PER_S)
-    return dict(case=name, max_abs_err=err, tol=tol, ms=kern_ms,
-                plain_ms=plain_ms, library_ms=lib_ms,
+    return dict(case=name, max_abs_err=err, tol=tol, ms=kern["ms"],
+                graph_ms=kern["graph_ms"], plain_ms=plain_ms,
+                library_ms=lib["ms"], library_graph_ms=lib["graph_ms"],
+                device_ms=device, library_device_ms=lib_device,
+                device_ms_read_flush=device_read,
+                library_device_ms_read_flush=lib_read,
+                device_ms_no_flush=device_warm,
+                library_device_ms_no_flush=lib_warm,
                 library_casts=k_lat.dtype != torch.float32, bound_ms=b_ms,
-                bound_by=b_by, ok=err <= tol)
+                bound_by=b_by, share_of_bound=b_ms / kern["graph_ms"],
+                ok=err <= tol)
 
 
 def score_topk_pin(torch, name, b, s, r, r_star, n_c, k_dtype, seed):
@@ -493,20 +595,25 @@ def score_topk_pin(torch, name, b, s, r, r_star, n_c, k_dtype, seed):
                 indices_equal=same, ok=same)
 
 
-def paired_times(torch, kern, dense, iters: int, flush) -> dict:
-    """Kernel time; with ``dense`` (the dense kernel on the same logical
-    contents) both are timed in turns — kernel, dense, dense, kernel — and
-    each order is reported, so a paged-vs-dense gap that is an order
-    effect shows as one."""
-    if dense is None:
-        return {"ms": time_ms(torch, kern, iters, flush=flush)}
-    k1 = time_ms(torch, kern, iters, flush=flush)
-    d1 = time_ms(torch, dense, iters, flush=flush)
-    d2 = time_ms(torch, dense, iters, flush=flush)
-    k2 = time_ms(torch, kern, iters, flush=flush)
-    return {"ms": (k1 + k2) / 2, "dense_ms": (d1 + d2) / 2,
-            "paged_ms_first_last": [k1, k2],
-            "dense_ms_second_third": [d1, d2]}
+def paired_times(torch, kern, other, iters: int, flush):
+    """``kern`` and ``other`` (the dense kernel on the same logical
+    contents, or a library call) each timed by :func:`eager_graph_ms`, in
+    turns — kern, other, other, kern — so that an order effect or a clock
+    drift weighs on both alike, and shows between the first and the last
+    turn.  Returns (kern's mean, other's mean, the four turns)."""
+    turns = [eager_graph_ms(torch, f, iters, flush)
+             for f in (kern, other, other, kern)]
+    mean = lambda a, b: {k: (a[k] + b[k]) / 2 for k in a}
+    return mean(turns[0], turns[3]), mean(turns[1], turns[2]), turns
+
+
+def dense_fields(dense, turns) -> dict:
+    """A paged kernel's line: the dense kernel's times from
+    :func:`paired_times`, and the paged kernel's first and last turn."""
+    return dict(dense_ms=dense["ms"], dense_graph_ms=dense["graph_ms"],
+                paged_ms_first_last=[turns[0]["ms"], turns[3]["ms"]],
+                paged_graph_ms_first_last=[turns[0]["graph_ms"],
+                                           turns[3]["graph_ms"]])
 
 
 def window_case(torch, name, b, ql, h, n_kv, dh, s, r, n_c, k_dtype, v_bits,
@@ -597,10 +704,12 @@ def window_case(torch, name, b, ql, h, n_kv, dh, s, r, n_c, k_dtype, v_bits,
     dead_ok = bool((m_k[dead] == ref.NEG_INF).all() and (l_k[dead] == 0).all()
                    and (o_k[dead] == 0).all() and torch.isfinite(o_k).all())
     tol = 2e-3
-    order = eager_graph_ms(torch, lambda: win(cache, **pg), 10, flush)
     if ps:
-        order.update(paired_times(torch, lambda: win(cache, **pg),
-                                  lambda: win(logical), 10, flush))
+        order, dense_t, turns = paired_times(
+            torch, lambda: win(cache, **pg), lambda: win(logical), 10, flush)
+        order.update(dense_fields(dense_t, turns))
+    else:
+        order = eager_graph_ms(torch, lambda: win(cache, **pg), 10, flush)
     plain_ms = time_ms(torch, lambda: twin(
         q, *cache, u, idx, valid, q_pos, n_recent=n_recent, **kw, **pg), 3,
         warmup=1, flush=flush)
@@ -734,6 +843,32 @@ def phase_kernels(torch, scan: bool = False):
                       1024, 512, 432, "bf16", 1, flush),
             topk_case(torch, "mistral-7b GQA r256 r*128 int8", 4, 4160, 256,
                       128, 432, "int8", 2, flush),
+            # adversarial cases, untimed: exact indices and validity
+            topk_case(torch, "all scores equal (zero query)", 4, 4160, 1024,
+                      512, 432, "bf16", 40, flush, zero_q=True, timed=False),
+            topk_case(torch, "fewer than N_c selectable (short pos)", 4,
+                      4160, 1024, 512, 432, "bf16", 41, flush,
+                      pos=[300, 200, 100, 90], timed=False),
+            topk_case(torch, "S 300 < N_c", 4, 300, 1024, 512, 432, "bf16",
+                      42, flush, pos=[299, 250, 200, 150], timed=False),
+            topk_case(torch, "B 1", 1, 4160, 1024, 512, 432, "bf16", 43,
+                      flush, timed=False),
+            topk_case(torch, "f32 r* 500", 3, 4000, 1024, 500, 432, "f32",
+                      44, flush, timed=False),
+            topk_case(torch, "bf16 r 1020 r* 500 (element loads)",
+                      3, 4000, 1020, 500, 432, "bf16", 45, flush,
+                      timed=False),
+            topk_case(torch, "tiered score pool r = r* 512", 4, 4160, 512,
+                      512, 432, "bf16", 46, flush, timed=False),
+            topk_case(torch, "pos_base != 0", 4, 4160, 1024, 512, 432,
+                      "bf16", 47, flush, pos_base=[0, 512, 1024, 2048],
+                      timed=False),
+            topk_case(torch, "S 10000 > 8192 (keys re-read from L2) int8", 2,
+                      10000, 256, 128, 432, "int8", 48, flush, timed=False),
+            topk_case(torch, "N_c 1000 > 512 (block bitonic sort)", 3, 4160,
+                      1024, 512, 1000, "bf16", 50, flush, timed=False),
+            topk_case(torch, "N_c 20 (one run)", 3, 4160, 1024, 512, 20,
+                      "bf16", 51, flush, timed=False),
         ],
         "sparse_recon_attention": [
             sra_case(torch, "llama2-7b B4 H32 S4160 r1024 int8-V", 4, 32, 32,
@@ -761,6 +896,9 @@ def phase_kernels(torch, scan: bool = False):
                       12, flush, ps=16),
             topk_case(torch, "llama2-7b B4 S4096 r1024 r*512 bf16 ps8", 4,
                       4096, 1024, 512, 432, "bf16", 16, flush, ps=8),
+            topk_case(torch, "tiered score pool r = r* 512 ps16, pos_base",
+                      4, 4096, 512, 512, 432, "bf16", 49, flush, ps=16,
+                      pos_base=[0, 64, 128, 192], timed=False),
         ],
         "sparse_recon_attention_paged": [
             sra_case(torch, "llama2-7b B4 H32 S4096 r1024 int8-V ps64", 4,
@@ -906,10 +1044,11 @@ def profile_steps(torch, step, steps: int, name: str) -> None:
     emit({"phase": "profile", "run": name, "steps": steps,
           "wall_ms_per_step": 1e3 * wall / steps,
           "device_ms_per_step": dev_us / 1e3 / steps,
+          "device_launches_per_step": sum(e.count for e in kernels) / steps,
           "device_busy_share": dev_us / 1e6 / wall,
           "top_device_ms_per_step": [
               [e.key[:70], e.self_device_time_total / 1e3 / steps,
-               e.count / steps] for e in top[:10]]})
+               e.count / steps] for e in top[:25]]})
 
 
 def build_model(torch):

@@ -10,7 +10,7 @@
 # chiprun_out/turn_<n>_<tree>.txt; each tree builds its kernels into its
 # own build/ once, so only its first turn pays for nvcc.  Prints one line
 # per turn with its exit code, then every kernels-phase case as
-# "turn kernel case ms graph_ms", and fails if a turn failed.
+# "turn kernel case ms graph_ms [parts]", and fails if a turn failed.
 set -u
 parent=$(cd "$1" && pwd)
 phases=${2:-device,build,kernels}
@@ -35,7 +35,10 @@ for f in sorted(pathlib.Path(sys.argv[1]).glob("turn_*.txt")):
             continue
         rec = json.loads(line)
         if rec.get("phase") == "kernels":
+            parts = {k: (v["ms"], v["graph_ms"])
+                     for k, v in rec.get("parts", {}).items()}
             print(f.stem[5:], rec["kernel"], "|", rec["case"], "|",
-                  rec.get("ms"), rec.get("graph_ms"))
+                  rec.get("ms"), rec.get("graph_ms"), *(
+                      [parts] if parts else []))
 PY
 exit $rc_all

@@ -54,16 +54,16 @@ _F = ctypes.c_float
 # C signatures: every pointer and the stream are c_void_p (a bare int would
 # be passed as 32 bits and cut the pointer)
 SIGNATURES = {
-    "sals_latent_topk": [_P, _P, _I, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "sals_latent_topk": [_P, _P, _I, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "sals_sparse_recon_attention": [
         _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
         _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
     "sals_latent_score": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
-    "sals_latent_topk_paged": [_P, _P, _I, _P, _P, _P, _P, _P, _P,
+    "sals_latent_topk_paged": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                               _I, _I, _I, _P],
+                               _I, _I, _P],
     "sals_sparse_recon_attention_paged": [
         _P, _I, _P, _I, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
         _P, _P, _P, _P,

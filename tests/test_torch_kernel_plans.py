@@ -8,6 +8,7 @@ import torch
 from repro_torch.config import SALSConfig
 from repro_torch.configs import _ARCH_MODULES, get_config
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import latent_score as ls
 from repro_torch.kernels import sparse_recon_attention as sra
 
 LIMIT = 232_448
@@ -126,3 +127,86 @@ def test_sra_body_choice(lat_dtype, u_dtype, tensor_cores):
     args, opts = _sra_args(**kw)
     with pytest.raises(ValueError, match="CUDA device"):
         sra.sparse_recon_attention_window_cuda(*args, **opts)
+
+
+# ---------------------------------------------------------------------------
+# latent score / top-k
+# ---------------------------------------------------------------------------
+
+def _latent_args(*, lat_dtype=torch.bfloat16, scale="auto", r=32, r_star=16,
+                 transposed=False, q_dtype=torch.float32, paged=False,
+                 pt_dtype=torch.int32, pt_batch=2, ps=8):
+    b, s = 2, 48
+    q_lat = torch.zeros((b, r_star), dtype=q_dtype)
+    rows = (7, ps) if paged else (b, s)
+    if transposed:
+        k_lat = torch.zeros((rows[0], r, rows[1]), dtype=lat_dtype) \
+            .transpose(1, 2)
+    else:
+        k_lat = torch.zeros((*rows, r), dtype=lat_dtype)
+    if scale == "auto":
+        scale = lat_dtype == torch.int8
+    k_scale = torch.ones(rows, dtype=torch.bfloat16) if scale else None
+    kw = {}
+    if paged:
+        kw = dict(page_table=torch.zeros((pt_batch, s // ps),
+                                         dtype=pt_dtype),
+                  page_size=ps)
+    return (q_lat, k_lat, k_scale), kw
+
+
+_LATENT_CASES = [
+    ("f16 latents", dict(lat_dtype=torch.float16), "f32/bf16/int8"),
+    ("f64 query", dict(q_dtype=torch.float64), "q_lat must be"),
+    ("r* > r", dict(r=16, r_star=24), "exceeds the latent rank"),
+    ("non-contiguous latents", dict(transposed=True), "contiguous"),
+    ("r* over the query's shared memory", dict(
+        r=ls.MAX_R_STAR + 8, r_star=ls.MAX_R_STAR + 8), "r\\* above"),
+]
+
+
+@pytest.mark.parametrize("case,kw,match", _LATENT_CASES + [
+    ("int8 without k_scale", dict(lat_dtype=torch.int8, scale=False),
+     "int8 latents need k_scale"),
+    ("scale with bf16 latents", dict(scale=True), "int8 latents need"),
+    ("page table int64", dict(paged=True, pt_dtype=torch.int64),
+     "page_table"),
+    ("page table batch", dict(paged=True, pt_batch=3), "page_table"),
+    ("valid", {}, "CUDA device"),
+    ("valid int8 paged", dict(lat_dtype=torch.int8, paged=True),
+     "CUDA device"),
+    ("valid f32 r* 15 (element loads)", dict(
+        lat_dtype=torch.float32, r=33, r_star=15), "CUDA device"),
+])
+def test_latent_topk_wrapper_refuses_before_launch(case, kw, match):
+    args, opts = _latent_args(**kw)
+    with pytest.raises(ValueError, match=match):
+        ls.latent_topk_cuda(*args, 40, n_critical=8, n_sink=2, n_recent=4,
+                            **opts)
+
+
+@pytest.mark.parametrize("case,kw,match", _LATENT_CASES + [
+    ("scale of the wrong shape", dict(lat_dtype=torch.int8, paged=True),
+     "k_scale must be"),
+    ("valid", {}, "CUDA device"),
+    ("valid int8 + scale", dict(lat_dtype=torch.int8), "CUDA device"),
+])
+def test_latent_score_wrapper_refuses_before_launch(case, kw, match):
+    (q_lat, k_lat, k_scale), opts = _latent_args(**kw)
+    if opts:     # the plain scores take no pool: a pool's scale shape
+        k_lat = torch.zeros((2, 48, k_lat.shape[2]), dtype=k_lat.dtype)
+    with pytest.raises(ValueError, match=match):
+        ls.latent_score_cuda(q_lat, k_lat, k_scale)
+
+
+def test_latent_topk_limits():
+    """N_c beyond the selection's shared-memory sort is refused; N_c = 0
+    and N_c > S reach the device check."""
+    args, _ = _latent_args()
+    with pytest.raises(ValueError, match="n_critical"):
+        ls.latent_topk_cuda(*args, 40, n_critical=ls.MAX_CRITICAL + 1,
+                            n_sink=2, n_recent=4)
+    for n_c in (0, 100):
+        with pytest.raises(ValueError, match="CUDA device"):
+            ls.latent_topk_cuda(*args, 40, n_critical=n_c, n_sink=2,
+                                n_recent=4)

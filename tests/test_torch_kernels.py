@@ -121,18 +121,139 @@ def test_latent_topk_random_near_ties_compare_scores():
                                np.take_along_axis(scores, ti, 1) * tv, **TOL)
 
 
+def _paged_table(rng, b, s, ps, live):
+    """A shuffled (B, S/ps) page table over a pool with spare pages; each
+    row's unmapped tail holds ids outside the pool (clamped by the kernel,
+    kept unselectable by the position mask)."""
+    mp = s // ps
+    n_pages = b * mp + 5
+    perm = rng.permutation(n_pages)
+    pt = rng.integers(-30, n_pages + 30, (b, mp)).astype(np.int32)
+    at = 0
+    for i in range(b):
+        n = -(-min(s, live[i]) // ps)
+        pt[i, :n] = perm[at:at + n]
+        at += n
+    return pt, n_pages
+
+
+# (b, s, r, r*, N_c, latents, pos, pos_base, zero query, page size)
+_TOPK_KERNEL_CASES = {
+    "base": (3, 2100, 64, 32, 100, "bf16", [2099, 1500, 40], None, False, 0),
+    "all scores equal": (2, 1500, 64, 32, 100, "bf16", [1499, 900], None,
+                         True, 0),
+    "fewer selectable than N_c": (2, 1500, 64, 32, 100, "bf16", [150, 90],
+                                  None, False, 0),
+    "S < N_c": (2, 60, 64, 32, 100, "int8", [59, 40], None, False, 0),
+    "B 1": (1, 2100, 64, 32, 100, "bf16", [2099], None, False, 0),
+    "f32 r* 500": (2, 700, 512, 500, 64, "f32", [699, 500], None, False, 0),
+    "bf16 r* 500 (element loads)": (2, 700, 512, 500, 64, "bf16",
+                                    [699, 500], None, False, 0),
+    "tiered pool r = r*": (2, 1500, 32, 32, 100, "bf16", [1499, 900], None,
+                           False, 0),
+    "pos_base": (3, 1500, 64, 32, 100, "int8", [1499, 2000, 2600],
+                 [0, 512, 1024], False, 0),
+    "S > 8192": (2, 9000, 32, 16, 300, "bf16", [8999, 6000], None, False, 0),
+    "N_c 20": (2, 1500, 64, 32, 20, "bf16", [1499, 900], None, False, 0),
+    "N_c 700 > 512": (2, 1500, 64, 32, 700, "bf16", [1499, 900], None, False,
+                      0),
+    "paged 8": (3, 1024, 64, 32, 100, "bf16", [1023, 700, 300], None, False,
+                8),
+    "paged 16 pos_base": (3, 1024, 64, 32, 100, "int8", [1023, 900, 700],
+                          [0, 64, 128], False, 16),
+    "paged 64": (2, 2048, 64, 32, 100, "bf16", [2047, 1100], None, False,
+                 64),
+}
+
+
+# The dense edge cases the kernel test pins exactly, held here against the
+# reference, invalid slots included.  The xla oracle's ``lax.top_k`` refuses
+# N_c > S, so "S < N_c" (padding with (NEG_INF, index 0)) is held against
+# the Pallas kernel only.
+_TOPK_EDGE_VS_REFERENCE = [
+    (case, backend)
+    for case in ("all scores equal", "fewer selectable than N_c", "S < N_c",
+                 "N_c 700 > 512")
+    for backend in ("xla", "pallas")
+    if not (case == "S < N_c" and backend == "xla")]
+
+
+@pytest.mark.parametrize("case,backend", _TOPK_EDGE_VS_REFERENCE)
+def test_latent_topk_edge_cases_vs_reference(case, backend):
+    """The twin's tie order, padding and invalid-slot indices on the
+    kernel test's edge cases equal the reference's, so the kernel is pinned
+    to the reference's contract and not only to the twin's."""
+    b, s, r, r_star, n_c, lat, pos, base, zero_q, ps = \
+        _TOPK_KERNEL_CASES[case]
+    assert ps == 0 and base is None
+    q, k, scale = _topk_inputs(8, b, s, r, r_star, lat, True)
+    if zero_q:
+        q = np.zeros_like(q)
+    (ji, jv), (ti, tv) = _topk_both(q, k, scale, np.array(pos, np.int32),
+                                    None, lat, backend, n_critical=n_c,
+                                    n_sink=16, n_recent=64)
+    assert ti.shape == (b, n_c)
+    np.testing.assert_array_equal(jv, tv)
+    np.testing.assert_array_equal(ji, ti)
+
+
 @pytest.mark.requires_cuda
-def test_latent_topk_kernel_vs_twin(cuda):
-    b, s, r, r_star = 3, 2100, 64, 32
-    q, k, scale = _topk_inputs(8, b, s, r, r_star, "bf16", True)
-    pos = torch.tensor([2099, 1500, 40], dtype=torch.int32)
-    kw = dict(n_critical=100, n_sink=16, n_recent=64)
-    qt, kt = _t(q), _t(k, torch.bfloat16)
-    ti, tv = ops.latent_topk(qt, kt, None, pos, **kw)
-    ci, cv = ops.latent_topk(qt.to(cuda), kt.to(cuda), None, pos.to(cuda),
-                             **kw)
+@pytest.mark.parametrize("case", sorted(_TOPK_KERNEL_CASES))
+def test_latent_topk_kernel_vs_twin(cuda, case):
+    """The score pass + selection against the twin: exact indices and
+    validity (integer-valued inputs: ties are deliberate), invalid slots
+    too; paged kernels also bit for bit the dense kernel on the same
+    logical contents; r = r* (a tiered score pool) selects as the same
+    columns inside a wider cache."""
+    b, s, r, r_star, n_c, lat, pos, base, zero_q, ps = \
+        _TOPK_KERNEL_CASES[case]
+    rng = np.random.default_rng(8)
+    pt = None
+    if ps:
+        live = [p + 1 - (0 if base is None else base[i])
+                for i, p in enumerate(pos)]
+        pt, n_pages = _paged_table(rng, b, s, ps, live)
+        q, k, scale = _topk_inputs(8, 1, n_pages * ps, r, r_star, lat, True)
+        k = k.reshape(n_pages, ps, r)
+        scale = None if scale is None else scale.reshape(n_pages, ps)
+        q = rng.integers(-2, 3, (b, r_star)).astype(np.float32)
+    else:
+        q, k, scale = _topk_inputs(8, b, s, r, r_star, lat, True)
+    if zero_q:
+        q = np.zeros_like(q)
+    td = {"bf16": torch.bfloat16, "int8": torch.int8, "f32": torch.float32}
+    qt, kt = _t(q), _t(k, td[lat])
+    st = None if scale is None else _t(scale, torch.bfloat16)
+    kw = dict(n_critical=n_c, n_sink=16, n_recent=64,
+              pos_base=None if base is None else torch.tensor(
+                  base, dtype=torch.int32))
+    pos = torch.tensor(pos, dtype=torch.int32)
+    pg = {} if pt is None else dict(page_table=torch.from_numpy(pt),
+                                    page_size=ps)
+
+    def on(dev, x):
+        return None if x is None else x.to(dev)
+
+    ti, tv = ops.latent_topk(qt, kt, st, pos, **kw, **pg)
+    dkw = {**kw, "pos_base": on(cuda, kw["pos_base"])}
+    dpg = {k_: on(cuda, v) if k_ == "page_table" else v
+           for k_, v in pg.items()}
+    ci, cv = ops.latent_topk(qt.to(cuda), kt.to(cuda), on(cuda, st),
+                             pos.to(cuda), **dkw, **dpg)
     assert torch.equal(cv.cpu(), tv)
-    assert torch.equal(torch.where(tv, ci.cpu(), 0), torch.where(tv, ti, 0))
+    assert torch.equal(ci.cpu(), ti)
+    if pt is not None:
+        view = ref.paged_logical_view
+        di, dv = ops.latent_topk(
+            qt.to(cuda), view(kt, pg["page_table"], ps).contiguous().to(cuda),
+            None if st is None else view(st, pg["page_table"], ps)
+            .contiguous().to(cuda), pos.to(cuda), **dkw)
+        assert torch.equal(di, ci) and torch.equal(dv, cv)
+    if r == r_star:
+        wide = torch.cat([kt, torch.ones_like(kt)], dim=-1)
+        wi, wv = ops.latent_topk(qt.to(cuda), wide.to(cuda), on(cuda, st),
+                                 pos.to(cuda), **dkw, **dpg)
+        assert torch.equal(wi, ci) and torch.equal(wv, cv)
 
 
 # ---------------------------------------------------------------------------

@@ -563,23 +563,37 @@ def _run_sched(make_eng, make_req, sched_cls, prompts, mnt):
 
 @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
 def test_scheduler_speculative_matches_reference(model, paged):
+    """The port's speculative scheduler is token-exact with the reference's
+    sequential scheduler and with its own.  On this jax the reference's
+    speculative stream is not reliably equal to its own sequential one
+    (its window is not bit-exact with its step; ROADMAP Queue C), so its
+    speculative tokens and counters are compared whenever that stream
+    matches its sequential one, as in the engine test above."""
     kw = dict(prefill_chunk=8, prefill_token_budget=32, audit_every=1)
     if paged:
         kw.update(page_size=16, n_pages=40)
     prompts = _shared_prompts()
+    _, jq, _ = _run_sched(lambda: _jengine(model, 0, **kw), JRequest,
+                          JScheduler, prompts, 17)
     js, jr, _ = _run_sched(lambda: _jengine(model, 4, **kw), JRequest,
                            JScheduler, prompts, 17)
     ts, tr, streams = _run_sched(lambda: _engine(model, 4, **kw), Request,
                                  RequestScheduler, prompts, 17)
     seq, sr, _ = _run_sched(lambda: _engine(model, 0, **kw), Request,
                             RequestScheduler, prompts, 17)
-    for a, b_, c in zip(jr, tr, sr):
-        assert a.state.value == b_.state.value == c.state.value == "done"
-        np.testing.assert_array_equal(b_.result.tokens, a.result.tokens)
+    for q, b_, c in zip(jq, tr, sr):
+        assert q.state.value == b_.state.value == c.state.value == "done"
+        np.testing.assert_array_equal(b_.result.tokens, q.result.tokens)
         np.testing.assert_array_equal(b_.result.tokens, c.result.tokens)
-    for name in ("spec_rounds", "spec_proposed", "spec_accepted",
-                 "spec_committed", "steps", "prefix_hits", "cow_copies"):
-        assert int(getattr(ts, name)) == int(getattr(js, name)), name
+    if all(a.state.value == "done"
+           and np.array_equal(a.result.tokens, q.result.tokens)
+           for a, q in zip(jr, jq)):
+        for a, b_ in zip(jr, tr):
+            np.testing.assert_array_equal(b_.result.tokens, a.result.tokens)
+        for name in ("spec_rounds", "spec_proposed", "spec_accepted",
+                     "spec_committed", "steps", "prefix_hits",
+                     "cow_copies"):
+            assert int(getattr(ts, name)) == int(getattr(js, name)), name
     assert ts.spec_rounds == ts.steps > 0
     assert ts.spec_accepted > 0          # repetitive heads: drafts land
     if paged:
