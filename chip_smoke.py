@@ -39,15 +39,23 @@ Phases, each printing one JSON line:
               ``ServeEngine.generate`` for 4 ragged prompts (4096, 3584,
               3072, 2560 tokens) x 32 new tokens with SALS-25% and with
               SALS disabled; launch counters are zeroed just before each
-              run and read just after;
+              run and read just after.  Its decode steps replay the
+              engine's step program (a CUDA graph); then the same prompts
+              are decoded in turns — eager (``tf.decode_step`` called
+              directly), graph (``ServeEngine.decode``), graph, eager —
+              and every step's logits, the tokens and the launch counts
+              must equal the eager ones bit for bit; ms per step of each
+              turn, capture time, graph nodes, peak memory;
 5. sched    — the same model and U_r through ``RequestScheduler``
               (continuous batching, 64-token chunked prefill, 4 slots): 8
               requests sharing a 512-token system prompt (4000 ... 640
               tokens) x 32 new tokens, once on the paged latent cache
               (64-token pages, prefix sharing) and once on the dense slot
-              arena; tokens must match, and each run must have launched
-              only its layout's SALS kernels, once per SALS layer and
-              decode step;
+              arena; tokens must match, each replayed step of the dense
+              run must equal the eager step on a copy of the arena (logits
+              and arena bitwise), and each run must have launched only its
+              layout's SALS kernels, once per SALS layer and decode step;
+              the chunked-prefill share of the wall time;
 6. tier     — the sched traffic, paged, through the TWO-TIER pool,
               keeping every prompt's prefix entry: once with a hot tier as
               large as the pool (it measures each step's touched pages and
@@ -74,11 +82,13 @@ Phases, each printing one JSON line:
               shape-dependent bf16 rounding; (c) 8 requests sharing a
               256-token system prompt (also saturated) through the
               scheduler in float32, paged (64-token pages, prefix sharing)
-              and dense: tokens must equal the sequential scheduler's, and
-              each run must launch one window kernel and one top-k of its
-              layout per SALS layer and round, and no single-token recon;
-              (b) the serve phase's prompts in bf16: rounds, acceptance,
-              tokens per round, ms per round beside the sequential decode;
+              and dense: tokens must equal the sequential scheduler's (run
+              eagerly), and each run must launch one window kernel and one
+              top-k of its layout per SALS layer and round, and no
+              single-token recon; (b) the serve phase's prompts in bf16:
+              rounds, acceptance, tokens per round, ms per round replayed
+              and eager, beside the sequential decode; (a) and (b) must
+              also give the eager ``generate_speculative``'s tokens;
 9. whole    — a full-width 2-layer model (SALS on layer 1) decoded on the
               card (kernels) and on the CPU (twins) from the same weights
               and a 1024-token prompt (so top-k really selects), per-step
@@ -93,6 +103,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import re
 import statistics
@@ -986,38 +997,204 @@ def phase_kernels(torch, scan: bool = False):
 # phase 4: the serving main path
 # ---------------------------------------------------------------------------
 
-def profile_decode(torch, params, proj, cfg, sals, prompts, name,
-                   steps: int = 3):
-    """torch.profiler over a few steady decode steps (after prefill and one
-    warm step): device time by kernel, and the device's busy share of the
-    window.  The full table goes to chiprun_out/."""
-    from torch.profiler import ProfilerActivity, profile
+def eager_entries(torch, eng):
+    """``eng`` with its decode entries run op by op: ``decode``,
+    ``decode_window`` and ``commit_window`` call the transformer's step
+    functions directly, as the engine did before its step programs, with
+    inputs made by ``torch.as_tensor``.  ``generate``,
+    ``generate_speculative`` and the scheduler go through these entries, so
+    this is the eager side of every graph-against-eager check."""
     from repro_torch.models import transformer as tf
-    b = len(prompts)
-    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32,
-                        device="cuda")
-    toks = np.zeros((b, max(len(p) for p in prompts)), np.int32)
+
+    def dev(a):
+        return a if isinstance(a, torch.Tensor) else torch.as_tensor(
+            np.asarray(a, np.int32), device=eng.device)
+
+    def decode(tokens, cache, positions):
+        return tf.decode_step(eng.params, eng.projectors, cache, dev(tokens),
+                              dev(positions), eng.cfg, eng.sals)
+
+    def decode_window(tokens, cache, positions):
+        return tf.decode_window(eng.params, eng.projectors, cache,
+                                dev(tokens), dev(positions), eng.cfg,
+                                eng.sals)
+
+    def commit_window(cache, aux, positions, n_accept):
+        return tf.commit_window(eng.projectors, cache, aux, dev(positions),
+                                dev(n_accept), eng.cfg, eng.sals)
+
+    eng.decode, eng.decode_window = decode, decode_window
+    eng.commit_window = commit_window
+    return eng
+
+
+def eager_step_check(torch, eng) -> dict:
+    """Hold every ``eng.decode`` (a replay of the step program) against
+    the eager step — ``tf.decode_step`` called directly on a copy of the
+    arena taken just before it: logits and the arena after the step must
+    be bitwise equal.  Returns the running counts {steps, logits_equal,
+    cache_equal} and ``spans``, (end, seconds) of each check's own work
+    (the copy, the eager step, the comparison; the replay is synchronized
+    before and after it, as the step's host read would).  The eager steps'
+    kernel launches are taken back out of the launch counters: they check
+    the path, they are not on it."""
+    from repro_torch.core.latent_cache import LatentKVCache
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+
+    def tensors(cache):
+        for k in sorted(cache):
+            seg = cache[k]
+            if isinstance(seg, LatentKVCache):
+                for f in dataclasses.fields(seg):
+                    if isinstance(getattr(seg, f.name), torch.Tensor):
+                        yield getattr(seg, f.name)
+            else:
+                yield from (seg[n] for n in sorted(seg))
+
+    def clone(cache):
+        return {k: dataclasses.replace(seg, **{
+                    f.name: getattr(seg, f.name).clone()
+                    for f in dataclasses.fields(seg)
+                    if isinstance(getattr(seg, f.name), torch.Tensor)})
+                if isinstance(seg, LatentKVCache)
+                else {n: a.clone() for n, a in seg.items()}
+                for k, seg in cache.items()}
+
+    stats = dict(steps=0, logits_equal=0, cache_equal=0, spans=[])
+    decode = eng.decode
+
+    def checked(tokens, cache, positions):
+        t0 = time.perf_counter()
+        twin = clone(cache)
+        tok, pos = (torch.as_tensor(np.asarray(a, np.int32), device="cuda")
+                    for a in (tokens, positions))
+        torch.cuda.synchronize()
+        spent = time.perf_counter() - t0
+        logits, cache = decode(tokens, cache, positions)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        before = ops.launch_counts()
+        want, twin = tf.decode_step(eng.params, eng.projectors, twin, tok,
+                                    pos, eng.cfg, eng.sals)
+        after = ops.launch_counts()
+        ops.add_launch_counts({k: before[k] - after[k] for k in after})
+        stats["steps"] += 1
+        stats["logits_equal"] += bool(torch.equal(logits, want))
+        stats["cache_equal"] += all(torch.equal(a, b) for a, b in
+                                    zip(tensors(cache), tensors(twin)))
+        end = time.perf_counter()
+        stats["spans"].append((end, spent + end - t0))
+        return logits, cache
+
+    eng.decode = checked
+    return stats
+
+
+def prefill_batch(torch, eng, prompts):
+    """Monolithic prefill of right-padded ``prompts``: (logits, cache,
+    host lengths)."""
+    from repro_torch.models import transformer as tf
+    lens = np.array([len(p) for p in prompts], np.int32)
+    toks = np.zeros((len(prompts), lens.max()), np.int32)
     for i, p in enumerate(prompts):
         toks[i, :len(p)] = p
+    logits, cache = tf.prefill(
+        eng.params, eng.projectors, eng.cfg, eng.sals,
+        {"tokens": torch.as_tensor(toks, device="cuda")},
+        eng.scfg.max_seq_len,
+        lengths=torch.as_tensor(lens, device="cuda"))
+    return logits, cache, lens
+
+
+def decode_turn(torch, eng, prompts, n_new: int, graph: bool) -> dict:
+    """Prefill, then ``n_new`` - 1 greedy decode steps through the engine's
+    step program (``eng.decode``: its first step captures it) or through
+    ``tf.decode_step`` called directly.  Returns the tokens, every step's
+    logits (kept on the card), each step's host ms (a step ends in the host
+    read of its tokens), the peak device memory of the decode steps and
+    their launch counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
     with torch.inference_mode():
-        logits, cache = tf.prefill(params, proj, cfg, sals,
-                                   {"tokens": torch.as_tensor(toks,
-                                                              device="cuda")},
-                                   4160, lengths=lens)
-        tok = logits.argmax(-1).int()
-        logits, cache = tf.decode_step(params, proj, cache, tok, lens, cfg,
-                                       sals)
-        tok = logits.argmax(-1).int()
-        torch.cuda.synchronize()
-
-        def step(t):
-            nonlocal logits, cache, tok
-            logits, cache = tf.decode_step(params, proj, cache, tok,
-                                           lens + 1 + t, cfg, sals)
-            tok = logits.argmax(-1).int()
-
-        profile_steps(torch, step, steps, f"decode_{name}")
+        logits, cache, lens = prefill_batch(torch, eng, prompts)
+        tok = logits.argmax(-1).to(torch.int32)
+        out = [tok.cpu().numpy()]
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        cap0 = eng._decode.capture_s
+        steps, ms = [], []
+        for t in range(n_new - 1):
+            t0 = time.perf_counter()
+            if graph:
+                logits, _ = eng.decode(tok, cache, lens + t)
+            else:
+                logits, _ = tf.decode_step(
+                    eng.params, eng.projectors, cache, tok,
+                    torch.as_tensor(lens + t, device="cuda"), eng.cfg,
+                    eng.sals)
+            steps.append(logits.clone())
+            tok = logits.argmax(-1).to(torch.int32)
+            out.append(tok.cpu().numpy())
+            ms.append(1e3 * (time.perf_counter() - t0))
+        counts = ops.launch_counts()
     del cache
+    return dict(tokens=np.stack(out, 1), logits=steps, ms=ms,
+                capture_s=eng._decode.capture_s - cap0, launches=counts,
+                peak_memory=torch.cuda.max_memory_allocated())
+
+
+def profile_decode(torch, eng, prompts, name, steps: int = 3):
+    """torch.profiler over a few steady decode steps (after prefill and one
+    warm step, which captures the step program), replayed and eager:
+    device time by kernel, and the device's busy share of the window.  The
+    full tables go to chiprun_out/.  Then the next step, ten times back to
+    back with no host read between (each run writes the same bytes at the
+    same positions): CUDA-event ms per call, the replay's pace with the
+    host out of the way, and the host's own ms per call (the key, the
+    input copies and the graph launch, which the card runs behind)."""
+    from repro_torch.models import transformer as tf
+    with torch.inference_mode():
+        for graph in (True, False):
+            logits, cache, lens = prefill_batch(torch, eng, prompts)
+            tok = logits.argmax(-1).to(torch.int32)
+
+            def step(t):
+                nonlocal tok
+                if graph:
+                    lg, _ = eng.decode(tok, cache, lens + t)
+                else:
+                    lg, _ = tf.decode_step(
+                        eng.params, eng.projectors, cache, tok,
+                        torch.as_tensor(lens + t, device="cuda"), eng.cfg,
+                        eng.sals)
+                tok = lg.argmax(-1).to(torch.int32)
+                tok.cpu()       # the host read that ends a serving step
+
+            step(0)
+            torch.cuda.synchronize()
+            profile_steps(torch, lambda t: step(1 + t), steps,
+                          f"decode_{name}_{'graph' if graph else 'eager'}")
+            if graph:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                # positions on the card, so that no call waits for the
+                # staging buffer's previous copy, which queues behind the
+                # previous replay
+                pos = torch.as_tensor(lens + steps + 1, device="cuda")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                start.record()
+                for _ in range(10):
+                    eng.decode(tok, cache, pos)
+                end.record()
+                host = time.perf_counter() - t0
+                end.synchronize()
+                emit({"phase": "profile", "run": f"decode_{name}_graph",
+                      "back_to_back_ms_per_replay":
+                      start.elapsed_time(end) / 10,
+                      "host_ms_per_call": 1e3 * host / 10})
+            del cache
 
 
 def profile_steps(torch, step, steps: int, name: str) -> None:
@@ -1077,6 +1254,11 @@ def build_model(torch):
 
 
 def phase_serve(torch, model, n_new: int = 32, prof: bool = False):
+    """``ServeEngine.generate`` (its decode steps replay the step program)
+    with SALS-25% and with SALS off; then decode steps taken in turns —
+    eager, graph, graph, eager — from the same prompts: the replayed
+    tokens and every step's logits must equal the eager ones bit for bit,
+    and so must ``generate``'s tokens and each turn's launch counts."""
     from repro_torch.config import SALSConfig, ServeConfig
     from repro_torch.kernels import ops
     from repro_torch.serve import ServeEngine
@@ -1100,12 +1282,43 @@ def phase_serve(torch, model, n_new: int = 32, prof: bool = False):
         timing = eng.last_timing
         toks = np.stack([r.tokens for r in out])
         steps = timing["decode_steps"]
+        turns = [decode_turn(torch, eng, prompts, n_new, graph)
+                 for graph in (False, True, True, False)]
+        eager, graph = turns[0], turns[1]
+        same_logits = [all(torch.equal(a, b) for a, b in
+                           zip(eager["logits"], t["logits"]))
+                       for t in turns[1:]]
+        first_diff = next((i for i, (a, b) in enumerate(
+            zip(eager["logits"], graph["logits"])) if not torch.equal(a, b)),
+            None)
+
+        def med(t):     # a turn's ms per step, the capture step left out
+            return statistics.median(t["ms"][1:])
+
         row = dict(phase="serve", run=name, prompts=lens, new_tokens=n_new,
                    prefill_s=timing["prefill_s"],
                    decode_tok_s=len(lens) * steps / timing["decode_s"],
                    decode_ms_per_step=1e3 * timing["decode_s"] / steps,
+                   capture_s=timing["capture_s"],
+                   graph_nodes=eng._decode.nodes,
                    max_memory_allocated=torch.cuda.max_memory_allocated(),
-                   launches=counts, decode_steps=steps)
+                   launches=counts, decode_steps=steps,
+                   turn_ms_per_step=[med(t) for t in turns],
+                   turn_first_step_ms=[t["ms"][0] for t in turns],
+                   turn_capture_s=[t["capture_s"] for t in turns],
+                   turn_peak_memory=[t["peak_memory"] for t in turns],
+                   eager_ms_per_step=statistics.median(
+                       [med(turns[0]), med(turns[3])]),
+                   graph_ms_per_step=statistics.median(
+                       [med(turns[1]), med(turns[2])]),
+                   logits_bitwise_equal_eager=same_logits,
+                   first_differing_step=first_diff,
+                   tokens_equal_eager=[bool(np.array_equal(
+                       t["tokens"], eager["tokens"])) for t in turns[1:]]
+                   + [bool(np.array_equal(toks, eager["tokens"]))])
+        if first_diff is not None:
+            a, b = eager["logits"][first_diff], graph["logits"][first_diff]
+            row["first_diff_max_abs"] = float((a - b).abs().max())
         if not (toks.shape == (4, n_new) and (toks >= 0).all()
                 and (toks < cfg.vocab_size).all()):
             raise AssertionError(f"{name}: generated tokens out of range")
@@ -1117,15 +1330,24 @@ def phase_serve(torch, model, n_new: int = 32, prof: bool = False):
         if counts["flash_attention"] < cfg.n_layers:
             raise AssertionError(f"{name}: prefill launched flash "
                                  f"{counts['flash_attention']} times")
+        if any(t["launches"] != eager["launches"] for t in turns):
+            raise AssertionError(f"{name}: the turns' launch counts differ: "
+                                 f"{[t['launches'] for t in turns]}")
         runs[name] = (row, toks)
         if prof:
-            profile_decode(torch, params, proj, cfg, eng.sals, prompts, name)
-        del eng, out
+            profile_decode(torch, eng, prompts, name)
+        del eng, out, turns, eager, graph
+        gc.collect()
         torch.cuda.empty_cache()
     agree = float((runs["sals"][1] == runs["full"][1]).mean())
     for name, (row, _) in runs.items():
         row["token_agreement_vs_full"] = agree
         emit(row)
+    for name, (row, _) in runs.items():
+        if not (all(row["logits_bitwise_equal_eager"])
+                and all(row["tokens_equal_eager"])):
+            raise AssertionError(f"serve {name}: the replayed step differs "
+                                 "from the eager one")
     return runs["sals"]
 
 
@@ -1141,9 +1363,15 @@ def sched_prompts(model):
 
 def phase_sched(torch, model, n_new: int = 32, prof: bool = False):
     """The serving entry point: ``RequestScheduler`` over the paged latent
-    cache and over the dense slot arena, same requests, same weights.
-    ``prof``: afterwards, a torch.profiler pass over four chunked-prefill
-    steps of one request (chunks 8-11 of the 4000-token prompt)."""
+    cache and over the dense slot arena, same requests, same weights; the
+    tokens must be equal.  Every replayed decode step of the dense run is
+    held against the eager step on a copy of the arena taken before it
+    (``eager_step_check``): logits and arena bitwise equal, so both runs'
+    tokens are the eager path's.  The check's own seconds are left out of
+    the dense run's wall time and step times.  The chunked-prefill share
+    of wall time is each chunk's time between two synchronizations.  ``prof``:
+    afterwards, a torch.profiler pass over four chunked-prefill steps of
+    one request (chunks 8-11 of the 4000-token prompt)."""
     from repro_torch.config import ServeConfig
     from repro_torch.kernels import ops
     from repro_torch.serve import Request, RequestScheduler, ServeEngine
@@ -1158,6 +1386,19 @@ def phase_sched(torch, model, n_new: int = 32, prof: bool = False):
         eng = ServeEngine(params, proj, cfg, ServeConfig(
             max_seq_len=4096, max_batch=4, prefill_chunk=64, page_size=ps,
             prefill_token_budget=512, sals=sals), device="cuda")
+        checked = None if ps else eager_step_check(torch, eng)
+        chunk_s = []
+        chunk_step = eng.prefill_chunk_step
+
+        def timed_chunk(task, chunk_step=chunk_step, chunk_s=chunk_s):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            done = chunk_step(task)
+            torch.cuda.synchronize()
+            chunk_s.append(time.perf_counter() - t0)
+            return done
+
+        eng.prefill_chunk_step = timed_chunk
         sched = RequestScheduler(eng)
         reqs = [Request(p, max_new_tokens=n_new) for p in prompts]
         for r in reqs:
@@ -1170,12 +1411,17 @@ def phase_sched(torch, model, n_new: int = 32, prof: bool = False):
         sched.run(on_step=lambda s_, step: ticks.append(
             (step, time.perf_counter())))
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        spans = checked["spans"] if checked else []
+
+        def check_s(a=-np.inf, b=np.inf):   # the check's seconds in (a, b]
+            return sum(sec for end, sec in spans if a < end <= b)
+
+        wall = time.perf_counter() - t0 - check_s()
         counts = ops.launch_counts()
         # decode ms per step: on_step intervals of the iterations that ran
         # no prefill chunk (ledger step k-1 holds iteration k's chunks)
         chunk_steps = {c[0] for c in sched.prefill_chunks}
-        gaps = [(t1 - t0_) * 1e3 for (k0, t0_), (k1, t1)
+        gaps = [(t1 - t0_ - check_s(t0_, t1)) * 1e3 for (k0, t0_), (k1, t1)
                 in zip(ticks, ticks[1:]) if k1 - 1 not in chunk_steps]
         toks = [r.result.tokens if r.done else None for r in reqs]
         n_tok = sum(len(t) for t in toks if t is not None)
@@ -1185,6 +1431,11 @@ def phase_sched(torch, model, n_new: int = 32, prof: bool = False):
                    else None, decode_only_iterations=len(gaps),
                    decode_steps=sched.steps,
                    prefill_chunks=len(sched.prefill_chunks),
+                   prefill_chunk_s=sum(chunk_s),
+                   prefill_share=sum(chunk_s) / wall,
+                   capture_s=eng._decode.capture_s,
+                   graph_nodes=eng._decode.nodes,
+                   graph_replays=eng._decode.replays,
                    max_memory_allocated=torch.cuda.max_memory_allocated(),
                    launches=counts, prefix_hits=sched.prefix_hits,
                    evictions=sched.evictions,
@@ -1194,7 +1445,16 @@ def phase_sched(torch, model, n_new: int = 32, prof: bool = False):
             row["pool_high_water_pages"] = max(
                 g["pages_in_use"] for g in sched.pool_gauges)
             row["pool_pages"] = eng.scfg.pool_pages
+        else:
+            row["eager_step_check"] = {k: v for k, v in checked.items()
+                                       if k != "spans"}
+            row["eager_check_s"] = check_s()
         emit(row)
+        if checked and not (checked["steps"] == sched.steps
+                            == checked["logits_equal"]
+                            == checked["cache_equal"]):
+            raise AssertionError(f"sched {name}: replayed steps differ from "
+                                 f"eager ones: {row['eager_step_check']}")
         if not all(r.done for r in reqs):
             raise AssertionError(f"sched {name}: not every request is DONE")
         sched.audit_serving_state()
@@ -1211,6 +1471,7 @@ def phase_sched(torch, model, n_new: int = 32, prof: bool = False):
             raise AssertionError("sched paged: no prefix hit")
         runs[name] = (counts, toks, wall)
         del eng, sched, reqs
+        gc.collect()
         torch.cuda.empty_cache()
     same = all(np.array_equal(a, b) for a, b in
                zip(runs["paged"][1], runs["dense"][1]))
@@ -1346,9 +1607,10 @@ def phase_tier(torch, model, untiered_tokens, untiered_wall: float,
     peak of live pages.  The next run's hot tier is the largest touched
     set plus a pinned write page per slot, one slot to fetch into and 2
     more; if it never spills, one more run at the smallest safe size.
-    Every run must give the untiered paged run's tokens with zero
-    evictions and a clean audit; the last must sit below the peak of live
-    pages, spill and miss."""
+    Every run must give the untiered paged run's tokens (equal to the
+    dense run's, which the sched phase held step by step to the eager
+    path's) with zero evictions and a clean audit; the last must sit below
+    the peak of live pages, spill and miss."""
     from repro_torch.config import ServeConfig
     from repro_torch.kernels import ops
     from repro_torch.serve import Request, RequestScheduler, ServeEngine
@@ -1437,9 +1699,12 @@ def phase_tier(torch, model, untiered_tokens, untiered_wall: float,
                    tokens_equal_untiered=all(
                        a is not None and np.array_equal(a, b)
                        for a, b in zip(toks, untiered_tokens)),
+                   graph_replays=eng._decode_sel.replays,
+                   capture_s=eng._decode_sel.capture_s,
                    states=[r.state.value for r in reqs])
         sched.audit_serving_state()
         del eng, sched, reqs
+        gc.collect()
         torch.cuda.empty_cache()
         return row
 
@@ -1575,8 +1840,12 @@ def phase_spec(torch, model, serve_sals, n_new: int = 32,
     give the sequential scheduler's tokens on the same saturated requests,
     with exact launch counts.  (b) the serve phase's long prompts (bf16):
     the cost of a round and the tokens it commits, beside that phase's
-    sequential decode.  ``prof``: a torch.profiler pass over three verify
-    rounds (window forward + commit of one token) at the (b) shapes."""
+    sequential decode.  Every decode entry replays its step program; the
+    eager side (``eager_entries``) must give the same tokens: (a) and (b)
+    run ``generate_speculative`` eagerly too, and (c)'s sequential
+    scheduler runs eagerly.  ``prof``: a torch.profiler pass over three
+    verify rounds (window forward + commit of one token) at the (b)
+    shapes, replayed and eager."""
     from repro_torch.config import ServeConfig
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as tf
@@ -1609,10 +1878,15 @@ def phase_spec(torch, model, serve_sals, n_new: int = 32,
     counts = ops.launch_counts()
     check_spec_launches("saturated", counts, eng.spec_stats["rounds"],
                         n_sals, paged=False)
+    eager = np.stack([r.tokens for r in eager_entries(torch, ServeEngine(
+        params, proj, cfg, ServeConfig(spec_window=q, **scfg),
+        device="cuda")).generate_speculative(prompts,
+                                             max_new_tokens=n_new)])
     row = dict(phase="spec", run="saturated_bf16", prompts=lens,
                new_tokens=n_new, q=q, selectable_max=selectable,
                n_critical=sals.n_critical,
                tokens_equal_sequential=bool(np.array_equal(got, want)),
+               tokens_equal_eager=bool(np.array_equal(got, eager)),
                token_agreement=float((got == want).mean()),
                first_divergence=[int(np.argmax(g != w)) if (g != w).any()
                                  else None for g, w in zip(got, want)],
@@ -1623,6 +1897,9 @@ def phase_spec(torch, model, serve_sals, n_new: int = 32,
     if not (got.shape == want.shape and (got >= 0).all()
             and (got < cfg.vocab_size).all()):
         raise AssertionError("spec (a): generated tokens out of range")
+    if not row["tokens_equal_eager"]:
+        raise AssertionError("spec (a): replayed windows give other tokens "
+                             "than eager ones")
     del seq, eng
     torch.cuda.empty_cache()
     cfg32 = dataclasses.replace(cfg, dtype="float32")
@@ -1642,6 +1919,8 @@ def phase_spec(torch, model, serve_sals, n_new: int = 32,
             max_seq_len=512, max_batch=4, prefill_chunk=64, page_size=ps,
             prefill_token_budget=512, sals=sals, spec_window=spec,
             audit_every=16), device="cuda")
+        if not spec:        # the reference stream: eager, sequential
+            eager_entries(torch, eng)
         sched = RequestScheduler(eng)
         reqs = [Request(p, max_new_tokens=n_new) for p in prompts]
         for r in reqs:
@@ -1655,6 +1934,7 @@ def phase_spec(torch, model, serve_sals, n_new: int = 32,
         counts = ops.launch_counts()
         toks = [r.result.tokens if r.done else None for r in reqs]
         row = dict(phase="spec", run=f"sched_{name}_float32", q=spec,
+                   eager=not spec,
                    prompts=[len(p) for p in prompts], new_tokens=n_new,
                    wall_s=wall, steps=sched.steps,
                    spec_rounds=sched.spec_rounds,
@@ -1677,6 +1957,7 @@ def phase_spec(torch, model, serve_sals, n_new: int = 32,
                                      "outside a verify window")
         runs[name] = (toks, counts)
         del eng, sched, reqs
+        gc.collect()
         torch.cuda.empty_cache()
     same = {k: all(np.array_equal(a, b) for a, b in
                    zip(runs[k][0], runs["sequential"][0]))
@@ -1693,9 +1974,17 @@ def phase_spec(torch, model, serve_sals, n_new: int = 32,
     lens = [4096, 3584, 3072, 2560]
     prompts = [corpus.batch(100 + i, 1, n)["tokens"][0]
                for i, n in enumerate(lens)]
-    eng = ServeEngine(params, proj, cfg, ServeConfig(
-        max_seq_len=4160, max_batch=4, sals=sals, spec_window=q),
-        device="cuda")
+    long_cfg = ServeConfig(max_seq_len=4160, max_batch=4, sals=sals,
+                           spec_window=q)
+    eager_eng = eager_entries(torch, ServeEngine(params, proj, cfg, long_cfg,
+                                                 device="cuda"))
+    ops.reset_launch_counts()
+    eager = np.stack([r.tokens for r in eager_eng.generate_speculative(
+        prompts, max_new_tokens=n_new)])
+    torch.cuda.synchronize()
+    eager_counts, eager_tm = ops.launch_counts(), eager_eng.last_timing
+    del eager_eng
+    eng = ServeEngine(params, proj, cfg, long_cfg, device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -1720,6 +2009,13 @@ def phase_spec(torch, model, serve_sals, n_new: int = 32,
                committed_per_row_round=st["committed"] / row_rounds,
                committed_per_round=st["committed"] / st["rounds"],
                ms_per_round=1e3 * tm["decode_s"] / st["rounds"],
+               eager_ms_per_round=1e3 * eager_tm["decode_s"]
+               / eager_tm["rounds"],
+               capture_s=tm["capture_s"],
+               graph_nodes=[eng._decode_window.nodes,
+                            eng._commit_window.nodes],
+               tokens_equal_eager=bool(np.array_equal(toks, eager)),
+               eager_launches_equal=eager_counts == counts,
                decode_tok_s=st["committed"] / tm["decode_s"],
                prefill_s=tm["prefill_s"],
                sequential_decode_ms_per_step=seq_row.get(
@@ -1735,6 +2031,9 @@ def phase_spec(torch, model, serve_sals, n_new: int = 32,
     if not (toks.shape == (4, n_new) and (toks >= 0).all()
             and (toks < cfg.vocab_size).all()):
         raise AssertionError("spec (b): generated tokens out of range")
+    if not (row["tokens_equal_eager"] and row["eager_launches_equal"]):
+        raise AssertionError("spec (b): replayed rounds differ from eager "
+                             "ones")
     out["long"] = (row, counts)
     if prof:
         with torch.inference_mode():
@@ -1748,14 +2047,23 @@ def phase_spec(torch, model, serve_sals, n_new: int = 32,
             wt = torch.ones((4, q), dtype=torch.int32, device="cuda")
             one = torch.ones(4, dtype=torch.int32, device="cuda")
 
-            def rnd(t):
-                _, aux = tf.decode_window(params, proj, cache, wt, pos + t,
-                                          cfg, sals)
-                tf.commit_window(proj, cache, aux, pos + t, one, cfg, sals)
+            def rnd(t, graph):
+                if graph:
+                    lg, aux = eng.decode_window(wt, cache, pos + t)
+                    eng.commit_window(cache, aux, pos + t, one)
+                else:
+                    lg, aux = tf.decode_window(params, proj, cache, wt,
+                                               pos + t, cfg, sals)
+                    tf.commit_window(proj, cache, aux, pos + t, one, cfg,
+                                     sals)
+                lg.argmax(-1).cpu()     # the host read that ends a round
 
-            rnd(0)
-            torch.cuda.synchronize()
-            profile_steps(torch, lambda t: rnd(1 + t), 3, "verify_round")
+            for graph in (True, False):
+                rnd(0, graph)
+                torch.cuda.synchronize()
+                profile_steps(torch, lambda t: rnd(1 + t, graph), 3,
+                              "verify_round_" + ("graph" if graph
+                                                 else "eager"))
             del cache
     del eng, res
     torch.cuda.empty_cache()
@@ -1862,31 +2170,45 @@ def main() -> int:
           "ptxas": ptxas_stats(_build.build_log)})
     (OUT_DIR / "build.log").write_text(_build.build_log)
 
+    seconds = {"build": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+
+    def lap(name):      # wall seconds of the phase that just ended
+        nonlocal t0
+        seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
     kern = phase_kernels(torch, scan="scan" in phases) \
         if "kernels" in phases else {}
+    lap("kernels")
     counts = {}
     if "tier" in phases and "sched" not in phases:
         raise SystemExit("the tier phase compares with the sched phase's "
                          "untiered paged run: add sched")
     if any(p in phases for p in ("serve", "sched", "quality", "spec")):
         model = build_model(torch)
+        lap("model")
         serve_sals = None
         if "serve" in phases:
             serve_sals = phase_serve(torch, model, prof="profile" in phases)
             for k in ("latent_topk", "sparse_recon_attention",
                       "flash_attention"):
                 counts[k] = serve_sals[0]["launches"][k]
+            lap("serve")
         if "quality" in phases:
             counts["latent_score"] = phase_quality(torch, model)[
                 "latent_score"]
+            lap("quality")
         if "sched" in phases:
             # the paged kernels' launches come from the sched paged run
             paged, paged_toks, paged_wall = phase_sched(
                 torch, model, prof="profile" in phases)
             for k in ("latent_topk_paged", "sparse_recon_attention_paged"):
                 counts[k] = paged[k]
+            lap("sched")
             if "tier" in phases:
                 phase_tier(torch, model, paged_toks, paged_wall)
+                lap("tier")
         if "spec" in phases:
             # the window kernels' launches: generate_speculative at long
             # context (dense), the speculative scheduler's paged run
@@ -1896,10 +2218,13 @@ def main() -> int:
                 spec["long"][1]["sparse_recon_attention_window"]
             counts["sparse_recon_attention_window_paged"] = \
                 spec["paged"]["sparse_recon_attention_window_paged"]
+            lap("spec")
         del model
         torch.cuda.empty_cache()
     if "whole" in phases:
         phase_whole(torch)
+        lap("whole")
+    emit({"phase": "seconds", **seconds})
 
     replaces = {
         "latent_topk": ("src/repro_torch/csrc/latent_topk.cu",

@@ -432,8 +432,7 @@ class LatentKVCache:
         # (mod w); p outside [off, min(len, off+C)) leaves the slot alone
         w = sals.n_recent
         bi = torch.arange(b, device=dev)[:, None]
-        last = torch.minimum(len_v, torch.tensor(off + c, device=dev)) \
-            [:, None] - 1
+        last = torch.clamp_max(len_v, off + c)[:, None] - 1
         p = last - torch.remainder(last - torch.arange(w, device=dev), w)
         keep = ((p >= off) & (len_v[:, None] > off))[..., None, None]
         pc = (p - off).clamp(0, c - 1)

@@ -112,8 +112,9 @@ def _touched_pages(idx: torch.Tensor, valid: torch.Tensor, page_size: int,
                        torch.full_like(idx, max_pages, dtype=torch.long))
     touched = torch.zeros((b, max_pages + 1), dtype=torch.bool,
                           device=idx.device)
-    touched[torch.arange(b, device=idx.device)[:, None], page] = True
-    return touched[:, :max_pages]
+    # a scatter of the scalar (``touched[rows, page] = True`` would copy a
+    # host-made True to the device)
+    return touched.scatter_(1, page, True)[:, :max_pages]
 
 
 def _global_partials(q0, q_bar, u, cache: LatentKVCache, pos,
@@ -191,8 +192,7 @@ def sals_decode_attend(params, u: torch.Tensor, cache: LatentKVCache,
     sr_positions = torch.cat([sink_pos, rec_pos], dim=1)
     sr_valid = (sr_positions >= 0) & (sr_positions <= pos_v[:, None])
     sr_logits = _region_logits(q_r, sr_k, sr_positions, cfg)
-    sr_logits = torch.where(sr_valid[:, None, :], sr_logits,
-                            torch.tensor(NEG, device=dev))
+    sr_logits = torch.where(sr_valid[:, None, :], sr_logits, NEG)
     m_sr, l_sr, o_sr = _partial_attend(sr_logits, sr_v, cfg)
 
     # ---- stages 2-4: fused selected-token partials (B, 1, H[, dh]) ------
@@ -305,8 +305,7 @@ def sals_window_attend(params, u: torch.Tensor, cache: LatentKVCache,
     sr_positions = torch.cat([sink_pos, rec_pos], dim=2)
     sr_valid = (sr_positions >= 0) & (sr_positions <= qpos[..., None])
     sr_logits = _region_logits_window(q_r, sr_k, sr_positions, cfg)
-    sr_logits = torch.where(sr_valid[:, :, None, :], sr_logits,
-                            torch.tensor(NEG, device=dev))
+    sr_logits = torch.where(sr_valid[:, :, None, :], sr_logits, NEG)
     m_sr, l_sr, o_sr = _partial_attend(sr_logits, sr_v, cfg)
 
     # ---- selected-token partials, (B, 1, Q, H[, dh]) ----------------------

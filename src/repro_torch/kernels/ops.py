@@ -37,6 +37,15 @@ def reset_launch_counts() -> None:
         c.reset()
 
 
+def add_launch_counts(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (kernel name -> launches) to the counters.  A CUDA
+    graph launches its kernels without entering the wrappers: its capture
+    records what the wrappers counted and takes it back (nothing ran), and
+    each replay adds it (``serve/step_graph.py``)."""
+    for c in COUNTERS:
+        c.count += counts.get(c.name, 0)
+
+
 def _on_cuda(t: torch.Tensor) -> bool:
     if t.device.type == "cuda":
         return True

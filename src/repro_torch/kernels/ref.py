@@ -20,8 +20,8 @@ def _rope(x: torch.Tensor, positions: torch.Tensor,
     Returns x's dtype, as the reference does."""
     half = x.shape[-1] // 2
     ar = torch.arange(half, dtype=torch.float32, device=x.device) / half
-    freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                         device=x.device), ar)
+    freqs = 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                       device=x.device), ar)
     ang = positions[..., :, None].float() * freqs
     cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x32 = x.float()
@@ -54,12 +54,10 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if causal:
             cm = (torch.arange(sq, device=q.device)[:, None] + (sk - sq)
                   >= torch.arange(sk, device=q.device)[None, :])
-            logits = torch.where(cm[None], logits,
-                                 torch.tensor(NEG_INF, device=q.device))
+            logits = torch.where(cm[None], logits, NEG_INF)
         if mask is not None:
             mi = mask[i] if mask.shape[0] == b else mask[0]
-            logits = torch.where(mi, logits,
-                                 torch.tensor(NEG_INF, device=q.device))
+            logits = torch.where(mi, logits, NEG_INF)
         p = torch.softmax(logits, dim=-1)
         o = torch.einsum("hqk,khd->qhd", p.to(v.dtype).float(), v[i].float())
         outs.append(o.to(v.dtype))
@@ -79,7 +77,11 @@ def latent_score_ref(q_lat: torch.Tensor, k_lat: torch.Tensor,
 
 
 def row_vector(x, b: int, device) -> torch.Tensor:
-    """Scalar-or-(B,) integer -> contiguous (B,) int32 on ``device``."""
+    """Scalar-or-(B,) integer -> contiguous (B,) int32 on ``device``.  A
+    Python int is filled on the device (no host-to-device copy: a CUDA
+    graph can capture it)."""
+    if isinstance(x, int):
+        return torch.full((b,), x, dtype=torch.int32, device=device)
     t = torch.as_tensor(x, dtype=torch.int32, device=device).reshape(-1)
     return t.expand(b).contiguous()
 
@@ -113,7 +115,7 @@ def latent_topk_ref(q_lat: torch.Tensor, k_lat: torch.Tensor,
     pos_b = row_vector(pos, b, dev)
     positions = torch.arange(s, device=dev)[None, :] + base[:, None]
     mask = (positions >= n_sink) & (positions <= pos_b[:, None] - n_recent)
-    masked = torch.where(mask, scores, torch.tensor(NEG_INF, device=dev))
+    masked = torch.where(mask, scores, NEG_INF)
     if s < n_critical:
         masked = torch.cat([masked, torch.full((b, n_critical - s), NEG_INF,
                                                device=dev)], dim=1)
@@ -332,8 +334,7 @@ def sparse_recon_attention_ref(q: torch.Tensor, lat_sel: torch.Tensor,
                           kk.float()) * dh ** -0.5
     if softcap:
         logits = softcap * torch.tanh(logits / softcap)
-    neg = torch.tensor(NEG_INF, device=q.device)
-    logits = torch.where(valid[:, None, :], logits, neg)
+    logits = torch.where(valid[:, None, :], logits, NEG_INF)
     m = torch.max(logits, dim=-1).values
     p = torch.where(logits <= NEG_INF / 2, torch.zeros_like(logits),
                     torch.exp(logits - m[..., None]))

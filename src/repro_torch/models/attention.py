@@ -182,17 +182,16 @@ def attend_prefill_chunk(params: Attention, x: torch.Tensor, cfg: ModelConfig,
         k_r = apply_rope(k_pre, positions, cfg.rope_theta)
     else:
         q_r, k_r = q, k_pre
-    neg = torch.tensor(NEG_INF, device=dev)
 
     # cache partial: history positions < off
     hist = torch.arange(k_cache.shape[1], device=dev) < off
-    lg_h = torch.where(hist, _chunk_logits(q_r, k_cache, cfg), neg)
+    lg_h = torch.where(hist, _chunk_logits(q_r, k_cache, cfg), NEG_INF)
     m_h, l_h, o_h = _chunk_partial(lg_h, v_cache, cfg)
 
     # chunk partial: intra-chunk causal
     ar = torch.arange(c, device=dev)
     causal = ar[:, None] >= ar[None, :]
-    lg_c = torch.where(causal, _chunk_logits(q_r, k_r, cfg), neg)
+    lg_c = torch.where(causal, _chunk_logits(q_r, k_r, cfg), NEG_INF)
     m_c, l_c, o_c = _chunk_partial(lg_c, v, cfg)
 
     # LSE merge (the chunk partial always holds the self entry: denom > 0)
@@ -240,8 +239,7 @@ def attend_decode_full(params: Attention, x: torch.Tensor, cfg: ModelConfig,
     if cfg.attn_logit_softcap:
         logits = cfg.attn_logit_softcap * torch.tanh(
             logits / cfg.attn_logit_softcap)
-    logits = torch.where(valid[:, None, None, :], logits,
-                         torch.tensor(NEG_INF, device=dev))
+    logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
     p = torch.softmax(logits, dim=-1)
     o = torch.einsum("bkrs,bskd->bkrd", p.to(q.dtype).float(),
                      v_cache.to(q.dtype).float())
@@ -288,8 +286,7 @@ def attend_decode_full_window(params: Attention, x: torch.Tensor,
     if cfg.attn_logit_softcap:
         logits = cfg.attn_logit_softcap * torch.tanh(
             logits / cfg.attn_logit_softcap)
-    logits = torch.where(valid[:, :, None, None, :], logits,
-                         torch.tensor(NEG_INF, device=dev))
+    logits = torch.where(valid[:, :, None, None, :], logits, NEG_INF)
     p = torch.softmax(logits, dim=-1)
     o = torch.einsum("bqkrs,bskd->bqkrd", p.to(q.dtype).float(),
                      v_cache.to(q.dtype).float())

@@ -55,11 +55,13 @@ def rmsnorm_apply(params: RMSNorm, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    """Inverse frequencies, shape (head_dim//2,), f32."""
+    """Inverse frequencies, shape (head_dim//2,), f32.  The base is filled
+    on the device (no host-to-device copy, so a CUDA graph can capture
+    it), with the bits ``torch.tensor(theta, dtype=f32)`` would hold."""
     half = head_dim // 2
     ar = torch.arange(0, half, dtype=torch.float32, device=device) / half
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), ar)
+    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                      device=device), ar)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -132,8 +134,9 @@ def embed_apply(params: Embedding, tokens: torch.Tensor,
                 cfg: ModelConfig) -> torch.Tensor:
     x = params.embedding[tokens.long()]
     # gemma-style sqrt(d) scaling, in the embedding's dtype as the reference
-    return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
-                            device=x.device)
+    # (a device fill, not a host-to-device copy)
+    return x * torch.full((), math.sqrt(cfg.d_model), dtype=x.dtype,
+                          device=x.device)
 
 
 def unembed_apply(params: Embedding, x: torch.Tensor,

@@ -36,8 +36,21 @@ PLACE.  Everything that must outlive the next write — a prefix-cache
 entry's resume state, a page-boundary ring snapshot, :meth:`resume_seed`'s
 result — is therefore a ``clone()``, never a view.
 
-Not yet ported (later slices): park/resume, temperature sampling (``torch.Generator`` numbers differ from
-``jax.random``'s), and capturing the decode step as a CUDA graph.
+The reference compiles its four decode steps with ``jax.jit``; here
+``_decode``, ``_decode_sel``, ``_decode_window`` and ``_commit_window``
+are :class:`~repro_torch.serve.step_graph.StepGraph` s: on the card each
+step (every layer, the SALS kernels, the final norm and unembedding) is
+one CUDA graph, captured on a key's first call and replayed after.  Every
+decode path goes through them (:meth:`~ServeEngine.decode`,
+:meth:`~ServeEngine.decode_sel`, :meth:`~ServeEngine.decode_window`,
+:meth:`~ServeEngine.commit_window`, :meth:`~ServeEngine.generate`,
+:meth:`~ServeEngine.generate_speculative`, and so the scheduler).  Their
+outputs (the logits, a window's ``aux``) belong to the graph and are
+overwritten by its next call.  Prefill, chunked prefill and the cache
+upkeep run eagerly.
+
+Not yet ported (later slices): park/resume, temperature sampling
+(``torch.Generator`` numbers differ from ``jax.random``'s).
 """
 from __future__ import annotations
 
@@ -54,6 +67,7 @@ from repro_torch.kernels.latent_score import BLOCK_S
 from repro_torch.models import transformer as tf
 from repro_torch.serve.draft import NgramDrafter
 from repro_torch.serve.faults import maybe_fault
+from repro_torch.serve.step_graph import StepGraph
 
 _PAGED_FIELDS = ("k_lat", "k_scale", "v_q", "v_scale", "v_zero")
 _WINDOW_FIELDS = ("sink_k", "sink_v", "recent_k", "recent_v")
@@ -115,7 +129,8 @@ class ServeEngine:
 
     After :meth:`generate` (and :meth:`generate_speculative`),
     ``last_timing`` holds host wall times: prefill up to the first token on
-    the host, and the decode steps (verify rounds) after it."""
+    the host, the decode steps (verify rounds) after it, and apart from
+    them the capture of the step graphs (``capture_s``)."""
 
     def __init__(self, params, projectors, cfg: ModelConfig,
                  scfg: ServeConfig, n_groups: int = 1, device="cuda"):
@@ -170,6 +185,21 @@ class ServeEngine:
             raise ValueError(f"params on {p_dev}, engine on {self.device}")
         self.last_timing: Optional[dict] = None
         self._stream: Optional[torch.cuda.Stream] = None   # tier copies
+
+        # the reference's four compiled decode programs
+        # (repro/serve/engine.py:157-164), keyed on the params and
+        # projectors besides their own arguments
+        def keyed():
+            return self.params, self.projectors
+
+        self._decode = StepGraph(self._decode_impl, self.device, (0, 2),
+                                 keyed)
+        self._decode_sel = StepGraph(self._decode_sel_impl, self.device,
+                                     (0, 2), keyed)
+        self._decode_window = StepGraph(self._decode_window_impl,
+                                        self.device, (0, 2), keyed)
+        self._commit_window = StepGraph(self._commit_window_impl,
+                                        self.device, (2, 3), keyed)
 
     @property
     def paged(self) -> bool:
@@ -228,14 +258,40 @@ class ServeEngine:
                              hbm_pages=self.scfg.hbm_pages if self.paged
                              else 0, device=self.device)
 
+    # -- the step programs (the reference's jitted bodies) ------------------
+
+    def _decode_impl(self, tokens, cache, pos):
+        return tf.decode_step(self.params, self.projectors, cache, tokens,
+                              pos, self.cfg, self.sals)[0]
+
+    def _decode_sel_impl(self, tokens, cache, pos):
+        logits, _, touched = tf.decode_step(
+            self.params, self.projectors, cache, tokens, pos, self.cfg,
+            self.sals, collect_selection=True)
+        union = torch.zeros((tokens.shape[0], self.scfg.max_seq_len
+                             // self.scfg.page_size), dtype=torch.bool,
+                            device=self.device)
+        for seg_touch in touched.values():          # (ls, B, max_pages)
+            union |= seg_touch.any(dim=0)
+        return logits, union
+
+    def _decode_window_impl(self, tokens, cache, pos):
+        return tf.decode_window(self.params, self.projectors, cache, tokens,
+                                pos, self.cfg, self.sals)
+
+    def _commit_window_impl(self, cache, aux, pos, n_accept):
+        tf.commit_window(self.projectors, cache, aux, pos, n_accept,
+                         self.cfg, self.sals)
+
+    # -- decode entries (tokens, positions, n_accept: host arrays or tensors
+    # on the engine's device; the outputs are the step program's) ----------
+
     def decode(self, tokens, cache: dict, positions) -> Tuple[torch.Tensor,
                                                               dict]:
         """One ragged decode step of the whole arena (tokens, positions:
-        (B,) host arrays or tensors); updates ``cache`` in place."""
-        tok = torch.tensor(np.asarray(tokens), device=self.device)
-        pos = torch.tensor(np.asarray(positions), device=self.device)
-        return tf.decode_step(self.params, self.projectors, cache, tok, pos,
-                              self.cfg, self.sals)
+        (B,)); updates ``cache`` in place.  Returns (logits (B, V) f32,
+        cache); the logits are overwritten by the next step."""
+        return self._decode(tokens, cache, positions), cache
 
     def decode_sel(self, tokens, cache: dict, positions
                    ) -> Tuple[torch.Tensor, dict, torch.Tensor]:
@@ -243,37 +299,26 @@ class ServeEngine:
         selection reconstructed from, unioned over layers into one
         (B, max_pages) bool mask: the tiered fetch-and-rerun loop's
         residency probe (``RequestScheduler``)."""
-        tok = torch.tensor(np.asarray(tokens), device=self.device)
-        pos = torch.tensor(np.asarray(positions), device=self.device)
-        logits, cache, touched = tf.decode_step(
-            self.params, self.projectors, cache, tok, pos, self.cfg,
-            self.sals, collect_selection=True)
-        union = torch.zeros((tok.shape[0], self.scfg.max_seq_len
-                             // self.scfg.page_size), dtype=torch.bool,
-                            device=self.device)
-        for seg_touch in touched.values():          # (ls, B, max_pages)
-            union |= seg_touch.any(dim=0)
+        logits, union = self._decode_sel(tokens, cache, positions)
         return logits, cache, union
 
     def decode_window(self, tokens, cache: dict, positions
                       ) -> Tuple[torch.Tensor, dict]:
         """One verify window of the whole arena: tokens (B, Q) = each row's
-        pending token plus Q−1 drafts, positions (B,) the window bases
-        (host arrays or tensors).  Reads the SALS caches only; returns
-        (logits (B, Q, V), aux) for :meth:`commit_window`."""
-        tok = torch.tensor(np.asarray(tokens), device=self.device)
-        pos = torch.tensor(np.asarray(positions), device=self.device)
-        return tf.decode_window(self.params, self.projectors, cache, tok, pos,
-                                self.cfg, self.sals)
+        pending token plus Q−1 drafts, positions (B,) the window bases.
+        Reads the SALS caches only; returns (logits (B, Q, V), aux) for
+        :meth:`commit_window`, both overwritten by the next window."""
+        return self._decode_window(tokens, cache, positions)
 
     def commit_window(self, cache: dict, aux: dict, positions,
                       n_accept) -> dict:
         """Commit each row's first ``n_accept[i]`` window slots at
-        positions[i]..; rejected and idle rows (0) write nothing."""
-        pos = torch.tensor(np.asarray(positions), device=self.device)
-        n = torch.tensor(np.asarray(n_accept, np.int32), device=self.device)
-        return tf.commit_window(self.projectors, cache, aux, pos, n,
-                                self.cfg, self.sals)
+        positions[i]..; rejected and idle rows (0) write nothing.  Without
+        SALS segments there is nothing to commit: the full-precision
+        layers hold the window's K/V already."""
+        if self.sals is not None:
+            self._commit_window(cache, aux, positions, n_accept)
+        return cache
 
     def start_prefill(self, prompt: np.ndarray,
                       resume: Optional[Tuple] = None) -> PrefillTask:
@@ -616,18 +661,21 @@ class ServeEngine:
             toks[i, :lens[i]] = p
         dev = self.device
         t0 = time.perf_counter()
-        pos0 = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+        pos0 = np.asarray(lens, np.int32)
         logits, cache = tf.prefill(
             self.params, self.projectors, self.cfg, self.sals,
             {"tokens": torch.as_tensor(toks, device=dev)},
-            self.scfg.max_seq_len, n_groups=self.n_groups, lengths=pos0)
+            self.scfg.max_seq_len, n_groups=self.n_groups,
+            lengths=torch.as_tensor(pos0, device=dev))
         out = np.zeros((b, mnt), np.int32)
         done = np.zeros((b,), bool)
         n_out = np.zeros((b,), np.int32)
         next_tok = self._sample(logits)
         t_first = None
+        cap0 = self._decode.capture_s
         for t in range(mnt):
-            out[:, t] = next_tok.cpu().numpy()      # waits for the device
+            # waits for the device: the host read that ends every step
+            out[:, t] = next_tok.cpu().numpy()
             if t_first is None:
                 t_first = time.perf_counter()
             n_out[~done] = t + 1
@@ -637,14 +685,14 @@ class ServeEngine:
                     break
             if t == mnt - 1:
                 break
-            logits, cache = tf.decode_step(self.params, self.projectors,
-                                           cache, next_tok, pos0 + t,
-                                           self.cfg, self.sals)
+            logits, cache = self.decode(next_tok, cache, pos0 + t)
             next_tok = self._sample(logits)
         t_end = time.perf_counter()
+        capture_s = self._decode.capture_s - cap0
         self.last_timing = {"prefill_s": t_first - t0,
-                            "decode_s": t_end - t_first,
-                            "decode_steps": int(n_out.max()) - 1}
+                            "decode_s": t_end - t_first - capture_s,
+                            "decode_steps": int(n_out.max()) - 1,
+                            "capture_s": capture_s}
         return [GenerationResult(out[i, :n_out[i]], lens[i], int(n_out[i]))
                 for i in range(b)]
 
@@ -703,6 +751,8 @@ class ServeEngine:
         done |= n_out >= mnt
         drafters = [NgramDrafter(list(map(int, prompts[i]))
                                  + [int(pending[i])]) for i in range(b)]
+        graphs = (self._decode_window, self._commit_window)
+        cap0 = sum(g.capture_s for g in graphs)
         pos = np.asarray(lens, np.int32)                 # window bases
         self.spec_stats = {"rounds": 0, "proposed": 0, "accepted_drafts": 0,
                            "committed": 0}
@@ -743,8 +793,10 @@ class ServeEngine:
                         or n_out[i] >= mnt:
                     done[i] = True
         t_end = time.perf_counter()
+        capture_s = sum(g.capture_s for g in graphs) - cap0
         self.last_timing = {"prefill_s": t_first - t0,
-                            "decode_s": t_end - t_first,
-                            "rounds": self.spec_stats["rounds"]}
+                            "decode_s": t_end - t_first - capture_s,
+                            "rounds": self.spec_stats["rounds"],
+                            "capture_s": capture_s}
         return [GenerationResult(out[i, :n_out[i]], lens[i], int(n_out[i]))
                 for i in range(b)]

@@ -1,0 +1,258 @@
+"""One decode-step program, captured once and replayed: the port's
+counterpart of the reference's ``jax.jit(fn, donate_argnums=...)`` around
+``ServeEngine._decode_impl`` and its three siblings
+(``repro/serve/engine.py``).
+
+``jax.jit`` compiles a step into one program that runs with one launch, and
+``donate_argnums`` lets that program update the donated cache in place.
+Here a step is Python that issues some 5,500 kernels one at a time
+(``models/transformer.py``); on the card :class:`StepGraph` captures the
+whole step into one CUDA graph and replays it.  The port's caches are
+updated in place anyway, so what donation buys the reference the graph has
+by construction: it writes the arena it was captured on.
+
+A graph holds addresses, not tensors.  So:
+
+* **inputs** — the small integer arguments (tokens, positions,
+  ``n_accept``) — are copied before each replay into int32 buffers the
+  graph owns: from a pinned host staging buffer (a host array) or from the
+  device tensor the caller passed.
+* **state** — every other argument (the cache, a window's ``aux``) and
+  what ``state()`` returns (the params and projectors) — keys the graph:
+  the address, shape, stride and dtype of each tensor, and each other leaf
+  (a page size).  A call whose key differs captures again.  The scheduler
+  updates its arena in place, so one capture serves a whole run;
+  ``generate`` builds a new cache per call, so it captures once per call.
+* **outputs** are tensors the graph owns, overwritten by its next replay:
+  a caller reads (samples) them before it calls again, and a window's
+  ``aux`` stays untouched until the commit that reads it (only the window
+  graph writes it).
+
+The first call for a key runs the step eagerly on the capture stream.
+That run is the call's own step, and the warm-up that makes everything
+lazy exist before capture: the kernel library, cuBLAS's workspace on that
+stream, ``kernels/sparse_recon_attention.py::rope_inv_freqs``'s cache.
+Then the step is captured (a capture records, it runs nothing) and the
+eager outputs are copied into the graph's, so a capture call leaves the
+bytes of one eager step.  A replay repeats a step only where a caller
+repeats it (the tiered fetch-and-rerun), which is safe because every write
+of a step is a set at a fixed position (``core/latent_cache.py::
+_put_token``).
+
+Each graph has a memory pool of its own: a pool shared by graphs whose
+replays interleave in another order than their captures could hand one
+graph's intermediates the memory of another's live output.
+
+Launch counters: the kernel wrappers count in Python, so a replay would
+count nothing.  A capture takes back what its wrappers counted (nothing
+ran) and each replay adds it (``kernels/ops.py::add_launch_counts``).
+
+On the CPU the same object does all of it but the capture: it copies the
+inputs into its buffers, runs the step on them and copies the results into
+the outputs of the key's first call, so the CPU tests exercise the buffers
+and the output aliasing.  A failed capture raises; nothing falls back to
+eager.
+"""
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import dataclasses
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import ops
+
+_CAPTURE_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
+
+
+def _leaves(tree, out: Optional[List[Any]] = None) -> List[Any]:
+    """Leaves of a state tree (dicts, lists, tuples, dataclasses such as
+    ``LatentKVCache``, ``nn.Module``s) in a fixed order, dict keys
+    included.  (Plain recursion: a closure that calls itself is a
+    reference cycle, which would hold every leaf until a garbage
+    collection.)"""
+    out = [] if out is None else out
+    if isinstance(tree, torch.Tensor):
+        out.append(tree)
+    elif isinstance(tree, torch.nn.Module):
+        out.extend(tree.parameters())
+        out.extend(tree.buffers())
+    elif isinstance(tree, dict):
+        for k in sorted(tree):
+            out.append(k)
+            _leaves(tree[k], out)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _leaves(v, out)
+    elif dataclasses.is_dataclass(tree):
+        for f in dataclasses.fields(tree):
+            _leaves(getattr(tree, f.name), out)
+    else:
+        out.append(tree)
+    return out
+
+
+def _tensors(tree) -> List[torch.Tensor]:
+    return [t for t in _leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def _signature(tree) -> tuple:
+    """What a graph over ``tree`` depends on: each tensor's address, shape,
+    stride and dtype, and every other leaf."""
+    return tuple((t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+                 if isinstance(t, torch.Tensor) else t
+                 for t in _leaves(tree))
+
+
+def _copy(dst, src) -> None:
+    """Copy the tensors of ``src`` into those of ``dst`` (same tree)."""
+    d, s = _tensors(dst), _tensors(src)
+    if len(d) != len(s):
+        raise RuntimeError("the step returned another output tree")
+    for a, b in zip(d, s):
+        a.copy_(b)
+
+
+def graph_nodes(graph: torch.cuda.CUDAGraph) -> int:
+    """Nodes of a captured graph (kept with ``keep_graph=True``), through
+    ``cuGraphGetNodes`` of ``libcuda``."""
+    lib = ctypes.CDLL("libcuda.so.1")
+    n = ctypes.c_size_t(0)
+    err = lib.cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()), None,
+                              ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"cuGraphGetNodes: CUDA error {err}")
+    return n.value
+
+
+class StepGraph:
+    """``fn(*args)`` as one CUDA graph per key, replayed (see the module
+    docstring).  ``inputs``: the positions of the integer arguments copied
+    into the graph's buffers; ``state()``: what keys the graph besides the
+    other arguments.
+
+    Statistics: ``calls``, ``captures``, ``capture_s`` (host seconds spent
+    capturing and instantiating, the eager step excluded), ``nodes`` (the
+    current graph's), ``replays``."""
+
+    def __init__(self, fn: Callable, device: torch.device,
+                 inputs: Sequence[int],
+                 state: Callable[[], Any] = lambda: None):
+        self.fn = fn
+        self.device = torch.device(device)
+        self.inputs = tuple(inputs)
+        self.state = state
+        self._bufs: Dict[int, torch.Tensor] = {}
+        self._staging: Dict[int, torch.Tensor] = {}
+        self._staged: Optional[torch.cuda.Event] = None
+        self._key = None
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._out = None
+        self._counts: Dict[str, int] = {}
+        self.calls = 0
+        self.captures = 0
+        self.capture_s = 0.0
+        self.nodes = 0
+        self.replays = 0
+
+    @property
+    def on_cuda(self) -> bool:
+        return self.device.type == "cuda"
+
+    @torch.inference_mode()
+    def __call__(self, *args):
+        self.calls += 1
+        args = list(args)
+        for i in self.inputs:
+            args[i] = self._stage(i, args[i])
+        if self.on_cuda and self._staged is not None:
+            self._staged.record()
+        key = _signature((args, self.state()))
+        if key != self._key:
+            self._first(args, key)
+        elif self.on_cuda:
+            self._graph.replay()
+            ops.add_launch_counts(self._counts)
+            self.replays += 1
+        else:
+            _copy(self._out, self.fn(*args))
+        return self._out
+
+    def _stage(self, i: int, value) -> torch.Tensor:
+        """Copy integer input ``i`` (a host array, or a tensor on the
+        engine's device) into its int32 buffer; returns the buffer."""
+        on_dev = isinstance(value, torch.Tensor) and \
+            value.device == self.device
+        host = None if on_dev else np.asarray(value, np.int32)
+        shape = tuple(value.shape) if on_dev else host.shape
+        buf = self._bufs.get(i)
+        if buf is None or tuple(buf.shape) != shape:
+            buf = self._bufs[i] = torch.empty(shape, dtype=torch.int32,
+                                              device=self.device)
+            if self.on_cuda:
+                self._staging[i] = torch.empty(shape, dtype=torch.int32,
+                                               pin_memory=True)
+        if on_dev:
+            buf.copy_(value)
+        elif not self.on_cuda:
+            buf.copy_(torch.from_numpy(host))
+        else:
+            if self._staged is None:
+                self._staged = torch.cuda.Event()
+            else:
+                # the copy out of the staging buffer from the previous call
+                # must have run before the buffer is written again.  Each
+                # step's caller reads the step's tokens on the host first,
+                # so it has; the event makes it hold for any caller
+                self._staged.synchronize()
+            self._staging[i].numpy()[...] = host
+            buf.copy_(self._staging[i], non_blocking=True)
+        return buf
+
+    def _first(self, args: list, key) -> None:
+        """The first call for ``key``: the eager step, then (on the card)
+        the capture.  The previous key's graph and outputs go first."""
+        self._graph = self._out = self._key = None
+        if not self.on_cuda:
+            self._out = self.fn(*args)
+            self._key = key
+            return
+        cur = torch.cuda.current_stream(self.device)
+        cs = _CAPTURE_STREAMS.get(self.device)
+        if cs is None:
+            cs = _CAPTURE_STREAMS[self.device] = torch.cuda.Stream(
+                self.device)
+        cs.wait_stream(cur)
+        with torch.cuda.stream(cs):
+            eager = self.fn(*args)
+        t0 = time.perf_counter()
+        before = ops.launch_counts()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        try:
+            with torch.cuda.stream(cs):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    out = self.fn(*args)
+                except BaseException:
+                    # end the capture the error invalidated; the error is
+                    # the one to report
+                    with contextlib.suppress(RuntimeError):
+                        graph.capture_end()
+                    raise
+                graph.capture_end()
+        finally:
+            after = ops.launch_counts()
+            self._counts = {k: after[k] - before[k] for k in after}
+            ops.add_launch_counts({k: -v for k, v in self._counts.items()})
+        self.nodes = graph_nodes(graph)
+        graph.instantiate()
+        with torch.cuda.stream(cs):
+            _copy(out, eager)
+        cur.wait_stream(cs)
+        self._graph, self._out, self._key = graph, out, key
+        self.captures += 1
+        self.capture_s += time.perf_counter() - t0
