@@ -55,7 +55,15 @@ Phases, each printing one JSON line:
               run must equal the eager step on a copy of the arena (logits
               and arena bitwise), and each run must have launched only its
               layout's SALS kernels, once per SALS layer and decode step;
-              the chunked-prefill share of the wall time;
+              each run captures the chunked-prefill program once (a CUDA
+              graph over the engine's prefill workspace) and replays it
+              for every other chunk, and every chunk of the dense run's
+              first request and of the paged run's first resumed request
+              must equal the eager chunk on a copy of the workspace
+              (logits, cache and scratch bitwise); the chunked-prefill
+              share of the wall time, the replayed chunks' median ms;
+              then one request's chunks in turns eager / replayed /
+              replayed / eager (median ms, peak memory, logits equal);
 6. tier     — the sched traffic, paged, through the TWO-TIER pool,
               keeping every prompt's prefix entry: once with a hot tier as
               large as the pool (it measures each step's touched pages and
@@ -65,7 +73,7 @@ Phases, each printing one JSON line:
               Tokens must equal the untiered paged run's, with zero
               evictions and a clean audit, and the small tier must spill
               and miss; spills, fetches, prefetch hits, reruns, PCIe bytes,
-              wall time and device memory;
+              wall time, device memory, the chunk program's one capture;
 7. quality  — (run right after ``serve``) ``metrics.overlap_score``
               for all 32 layers at position 4095 of two
               4096-token prompts (one ``latent_score`` launch per layer and
@@ -83,11 +91,12 @@ Phases, each printing one JSON line:
               256-token system prompt (also saturated) through the
               scheduler in float32, paged (64-token pages, prefix sharing)
               and dense: tokens must equal the sequential scheduler's (run
-              eagerly), and each run must launch one window kernel and one
-              top-k of its layout per SALS layer and round, and no
-              single-token recon; (b) the serve phase's prompts in bf16:
-              rounds, acceptance, tokens per round, ms per round replayed
-              and eager, beside the sequential decode; (a) and (b) must
+              eagerly, chunked prefill included), and each run must
+              launch one window kernel and one top-k of its layout per
+              SALS layer and round, and no single-token recon; (b) the
+              serve phase's prompts in bf16: rounds, acceptance, tokens
+              per round, ms per round replayed and eager, beside the
+              sequential decode; (a) and (b) must
               also give the eager ``generate_speculative``'s tokens;
 9. whole    — a full-width 2-layer model (SALS on layer 1) decoded on the
               card (kernels) and on the CPU (twins) from the same weights
@@ -124,8 +133,9 @@ F32_FLOP_PER_S = 67e12
 
 PHASES = ("device", "build", "kernels", "serve", "sched", "tier", "quality",
           "spec", "whole")
-# "profile" (not run by default) adds a torch.profiler pass over four
-# chunked-prefill steps after the sched phase, and over three
+# "profile" (not run by default) adds torch.profiler passes over four
+# chunked-prefill steps after the sched phase (replayed and eager, and the
+# host's issue time of a chunk), and over three
 # decode steps of each serve run; tables go to chiprun_out/.  "scan" (not
 # run by default) adds recon cases over N_c x r to the kernels phase, to
 # show where the recon body's time goes
@@ -997,11 +1007,23 @@ def phase_kernels(torch, scan: bool = False):
 # phase 4: the serving main path
 # ---------------------------------------------------------------------------
 
+def eager_chunk_program(torch, eng):
+    """The chunk program of ``eng`` run op by op: ``_prefill_chunk_impl``
+    called directly on inputs made by ``torch.as_tensor``, as the engine
+    ran a chunk before its step program."""
+    def chunk(tokens, off, lengths, cache, scratch):
+        return eng._prefill_chunk_impl(
+            *(torch.as_tensor(np.asarray(a, np.int32), device=eng.device)
+              for a in (tokens, off, lengths)), cache, scratch)
+    return chunk
+
+
 def eager_entries(torch, eng):
-    """``eng`` with its decode entries run op by op: ``decode``,
-    ``decode_window`` and ``commit_window`` call the transformer's step
-    functions directly, as the engine did before its step programs, with
-    inputs made by ``torch.as_tensor``.  ``generate``,
+    """``eng`` with its decode entries and its chunk program run op by op:
+    ``decode``, ``decode_window`` and ``commit_window`` call the
+    transformer's step functions directly, as the engine did before its
+    step programs, with inputs made by ``torch.as_tensor``, and
+    ``prefill_chunk_step`` runs :func:`eager_chunk_program`.  ``generate``,
     ``generate_speculative`` and the scheduler go through these entries, so
     this is the eager side of every graph-against-eager check."""
     from repro_torch.models import transformer as tf
@@ -1025,6 +1047,7 @@ def eager_entries(torch, eng):
 
     eng.decode, eng.decode_window = decode, decode_window
     eng.commit_window = commit_window
+    eng._prefill_chunk = eager_chunk_program(torch, eng)
     return eng
 
 
@@ -1089,6 +1112,170 @@ def eager_step_check(torch, eng) -> dict:
 
     eng.decode = checked
     return stats
+
+
+def chunk_timer(torch, eng) -> list:
+    """Time every ``eng.prefill_chunk_step`` between two synchronizations:
+    appends (seconds, replayed) to the list it returns; ``replayed``: the
+    call replayed the chunk program (not its capture, not an eager
+    chunk)."""
+    rows = []
+    step = eng.prefill_chunk_step
+
+    def timed(task):
+        replays = getattr(eng._prefill_chunk, "replays", 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = step(task)
+        torch.cuda.synchronize()
+        rows.append((time.perf_counter() - t0,
+                     getattr(eng._prefill_chunk, "replays", 0) > replays))
+        return done
+
+    eng.prefill_chunk_step = timed
+    return rows
+
+
+# the engine's cache upkeep, which runs eagerly; the reference compiles
+# all but the page-table install (repro/serve/engine.py:170-183)
+UPKEEP = ("admit", "admit_paged", "admit_tiered", "copy_page",
+          "copy_score_page", "load_page", "release_slot",
+          "with_page_tables")
+
+
+def upkeep_timer(eng) -> dict:
+    """Host seconds of every call of the engine's upkeep entries
+    (``UPKEEP``), no synchronization: what the host spends issuing each.
+    Returns {name: [seconds, ...]}, filled as the run goes."""
+    times = {}
+
+    def wrap(name, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            times.setdefault(name, []).append(time.perf_counter() - t0)
+            return out
+        return timed
+
+    for name in UPKEEP:
+        setattr(eng, name, wrap(name, getattr(eng, name)))
+    return times
+
+
+def upkeep_fields(times) -> dict:
+    return {"upkeep_host_ms": {
+        k: dict(calls=len(v), ms_per_call=1e3 * sum(v) / len(v),
+                ms_median=1e3 * statistics.median(v))
+        for k, v in sorted(times.items())}}
+
+
+def chunk_fields(name, eng, chunks) -> dict:
+    """A scheduler run's chunk program: captures (exactly 1 when the run
+    went through the program: raises otherwise), capture seconds, nodes,
+    replays, and the median ms of its replayed chunks."""
+    g = eng._prefill_chunk
+    replayed = [sec for sec, rep in chunks if rep]
+    if not hasattr(g, "captures"):          # eager_entries: no program
+        return dict(prefill_graph=None, prefill_chunk_ms_replayed=None)
+    if g.captures != 1 or g.replays != len(chunks) - 1:
+        raise AssertionError(f"{name}: the chunk program was captured "
+                             f"{g.captures} times, replayed {g.replays} "
+                             f"times over {len(chunks)} chunks")
+    return dict(prefill_graph=dict(captures=g.captures,
+                                   capture_s=g.capture_s, nodes=g.nodes,
+                                   replays=g.replays),
+                prefill_chunk_ms_replayed=1e3 * statistics.median(replayed)
+                if replayed else None)
+
+
+def eager_chunk_check(torch, eng, pick) -> dict:
+    """Hold every chunk of one task — the first that ``pick(task)``
+    accepts — against the eager chunk: ``_prefill_chunk_impl`` called
+    directly on a copy of the prefill workspace taken just before it, on
+    inputs made by ``torch.as_tensor``; logits, cache and scratch after
+    the chunk must be bitwise equal.  Returns the running counts {chunks,
+    equal} and ``spans``, (end, seconds) of each check's own work (the
+    copy, the eager chunk, the comparison), as :func:`eager_step_check`."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.step_graph import tree_tensors
+
+    stats = dict(chunks=0, equal=0, spans=[])
+    step, eager = eng.prefill_chunk_step, eager_chunk_program(torch, eng)
+    target = []
+
+    def checked(task):
+        if not target and pick(task):
+            target.append(task)
+        if not target or task is not target[0]:
+            return step(task)
+        t0 = time.perf_counter()
+        c, j = eng.scfg.prefill_chunk, task.next_chunk
+        twin = eng.prefill_state_copy(task)
+        torch.cuda.synchronize()
+        spent = time.perf_counter() - t0
+        done = step(task)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        before = ops.launch_counts()
+        want = eager(task.tokens[:, j * c:(j + 1) * c], j * c,
+                     [task.prompt_len], *twin)
+        after = ops.launch_counts()
+        ops.add_launch_counts({k: before[k] - after[k] for k in after})
+        stats["chunks"] += 1
+        stats["equal"] += bool(torch.equal(task.logits, want)) and all(
+            torch.equal(a, b) for a, b in
+            zip(tree_tensors((task.cache, task.scratch)),
+                tree_tensors(twin)))
+        end = time.perf_counter()
+        stats["spans"].append((end, spent + end - t0))
+        return done
+
+    eng.prefill_chunk_step = checked
+    return stats
+
+
+def chunk_turns(torch, model, prompt) -> dict:
+    """One request's chunks on a fresh dense engine at the sched phase's
+    settings, in turns eager / replayed / replayed / eager
+    (:func:`eager_chunk_program` against the engine's chunk program): the
+    median ms of a chunk between two synchronizations in each turn (the
+    replayed turns without the capture call) and each turn's peak device
+    memory; every turn's next-token logits must be bitwise equal."""
+    from repro_torch.config import ServeConfig
+    from repro_torch.serve import ServeEngine
+
+    eng = ServeEngine(model["params"], model["proj"], model["cfg"],
+                      ServeConfig(max_seq_len=4096, max_batch=4,
+                                  prefill_chunk=64, sals=model["sals"]),
+                      device="cuda")
+    graph, eager = eng._prefill_chunk, eager_chunk_program(torch, eng)
+    chunks = chunk_timer(torch, eng)
+    turns, logits = [], []
+    with torch.inference_mode():
+        for mode in ("eager", "graph", "graph", "eager"):
+            eng._prefill_chunk = graph if mode == "graph" else eager
+            del chunks[:]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            task = eng.start_prefill(prompt)
+            while not task.done:
+                eng.prefill_chunk_step(task)
+            logits.append(task.logits.clone())
+            sec = [s for s, rep in chunks if rep or mode == "eager"]
+            turns.append(dict(mode=mode, chunks=len(sec),
+                              ms_median=1e3 * statistics.median(sec),
+                              max_memory_allocated=
+                              torch.cuda.max_memory_allocated()))
+    row = dict(phase="sched", run="chunk_turns", prompt=len(prompt),
+               chunks=task.n_chunks, turns=turns,
+               logits_equal=all(torch.equal(x, logits[0]) for x in logits),
+               prefill_graph=dict(captures=graph.captures,
+                                  capture_s=graph.capture_s,
+                                  nodes=graph.nodes, replays=graph.replays))
+    emit(row)
+    if not row["logits_equal"] or graph.captures != 1:
+        raise AssertionError(f"sched chunk turns: {row}")
+    return row
 
 
 def prefill_batch(torch, eng, prompts):
@@ -1367,11 +1554,17 @@ def phase_sched(torch, model, n_new: int = 32, prof: bool = False):
     tokens must be equal.  Every replayed decode step of the dense run is
     held against the eager step on a copy of the arena taken before it
     (``eager_step_check``): logits and arena bitwise equal, so both runs'
-    tokens are the eager path's.  The check's own seconds are left out of
-    the dense run's wall time and step times.  The chunked-prefill share
-    of wall time is each chunk's time between two synchronizations.  ``prof``:
-    afterwards, a torch.profiler pass over four chunked-prefill steps of
-    one request (chunks 8-11 of the 4000-token prompt)."""
+    tokens are the eager path's.  So is every chunk of the dense run's
+    first request and of the paged run's first request resumed from a
+    prefix entry, against the eager chunk on a copy of the prefill
+    workspace (``eager_chunk_check``).  The checks' own seconds are left
+    out of the wall time and step times.  Each run captures the chunk
+    program once and replays it for every other chunk.  The
+    chunked-prefill share of wall time is each chunk's time between two
+    synchronizations.  Then one request's chunks in turns, eager and
+    replayed (``chunk_turns``).  ``prof``: afterwards, torch.profiler
+    passes over four chunks (chunks 8-11 of the 4000-token prompt),
+    replayed and eager, and the host's issue time of a chunk."""
     from repro_torch.config import ServeConfig
     from repro_torch.kernels import ops
     from repro_torch.serve import Request, RequestScheduler, ServeEngine
@@ -1387,18 +1580,12 @@ def phase_sched(torch, model, n_new: int = 32, prof: bool = False):
             max_seq_len=4096, max_batch=4, prefill_chunk=64, page_size=ps,
             prefill_token_budget=512, sals=sals), device="cuda")
         checked = None if ps else eager_step_check(torch, eng)
-        chunk_s = []
-        chunk_step = eng.prefill_chunk_step
-
-        def timed_chunk(task, chunk_step=chunk_step, chunk_s=chunk_s):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            done = chunk_step(task)
-            torch.cuda.synchronize()
-            chunk_s.append(time.perf_counter() - t0)
-            return done
-
-        eng.prefill_chunk_step = timed_chunk
+        chunks = chunk_timer(torch, eng)
+        upkeep = upkeep_timer(eng)
+        # dense: the first request; paged: the first resumed from an entry
+        chunk_check = eager_chunk_check(
+            torch, eng, (lambda t: t.start_chunk > 0) if ps
+            else (lambda t: True))
         sched = RequestScheduler(eng)
         reqs = [Request(p, max_new_tokens=n_new) for p in prompts]
         for r in reqs:
@@ -1411,7 +1598,7 @@ def phase_sched(torch, model, n_new: int = 32, prof: bool = False):
         sched.run(on_step=lambda s_, step: ticks.append(
             (step, time.perf_counter())))
         torch.cuda.synchronize()
-        spans = checked["spans"] if checked else []
+        spans = chunk_check["spans"] + (checked["spans"] if checked else [])
 
         def check_s(a=-np.inf, b=np.inf):   # the check's seconds in (a, b]
             return sum(sec for end, sec in spans if a < end <= b)
@@ -1425,14 +1612,19 @@ def phase_sched(torch, model, n_new: int = 32, prof: bool = False):
                 in zip(ticks, ticks[1:]) if k1 - 1 not in chunk_steps]
         toks = [r.result.tokens if r.done else None for r in reqs]
         n_tok = sum(len(t) for t in toks if t is not None)
+        chunk_s = sum(sec for sec, _ in chunks)
         row = dict(phase="sched", run=name, prompts=lens, new_tokens=n_new,
                    wall_s=wall, tok_s=n_tok / wall,
                    decode_ms_per_step=statistics.median(gaps) if gaps
                    else None, decode_only_iterations=len(gaps),
                    decode_steps=sched.steps,
                    prefill_chunks=len(sched.prefill_chunks),
-                   prefill_chunk_s=sum(chunk_s),
-                   prefill_share=sum(chunk_s) / wall,
+                   prefill_chunk_s=chunk_s,
+                   prefill_share=chunk_s / wall,
+                   **chunk_fields(f"sched {name}", eng, chunks),
+                   eager_chunk_check={k: v for k, v in chunk_check.items()
+                                      if k != "spans"},
+                   **upkeep_fields(upkeep),
                    capture_s=eng._decode.capture_s,
                    graph_nodes=eng._decode.nodes,
                    graph_replays=eng._decode.replays,
@@ -1448,13 +1640,16 @@ def phase_sched(torch, model, n_new: int = 32, prof: bool = False):
         else:
             row["eager_step_check"] = {k: v for k, v in checked.items()
                                        if k != "spans"}
-            row["eager_check_s"] = check_s()
+        row["eager_check_s"] = check_s()
         emit(row)
         if checked and not (checked["steps"] == sched.steps
                             == checked["logits_equal"]
                             == checked["cache_equal"]):
             raise AssertionError(f"sched {name}: replayed steps differ from "
                                  f"eager ones: {row['eager_step_check']}")
+        if not 0 < chunk_check["chunks"] == chunk_check["equal"]:
+            raise AssertionError(f"sched {name}: replayed chunks differ from "
+                                 f"eager ones: {row['eager_chunk_check']}")
         if not all(r.done for r in reqs):
             raise AssertionError(f"sched {name}: not every request is DONE")
         sched.audit_serving_state()
@@ -1479,20 +1674,69 @@ def phase_sched(torch, model, n_new: int = 32, prof: bool = False):
     if not same:
         raise AssertionError("sched: paged tokens differ from the dense "
                              "arena's")
+    chunk_turns(torch, model, prompts[6])
+    gc.collect()
+    torch.cuda.empty_cache()
     if prof:
-        eng = ServeEngine(params, proj, cfg, ServeConfig(
-            max_seq_len=4096, max_batch=4, prefill_chunk=64, sals=sals),
-            device="cuda")
-        with torch.inference_mode():
-            task = eng.start_prefill(prompts[0])
+        profile_chunks(torch, model, prompts[0])
+    return runs["paged"]
+
+
+def profile_chunks(torch, model, prompt):
+    """torch.profiler over four chunks (8-11) of ``prompt``, replayed and
+    eager, on a fresh dense engine (tables to chiprun_out/); then the host's
+    issue time of a chunk: the next 8 chunks back to back through
+    ``prefill_chunk_step`` (one scheduler iteration's budget: host inputs
+    staged, each stage waits for the previous call's copy), and one chunk
+    replayed ten times with its inputs already on the card (each run
+    writes the same bytes at the same positions); CUDA-event ms and host
+    ms per call."""
+    from repro_torch.config import ServeConfig
+    from repro_torch.serve import ServeEngine
+
+    eng = ServeEngine(model["params"], model["proj"], model["cfg"],
+                      ServeConfig(max_seq_len=4096, max_batch=4,
+                                  prefill_chunk=64, sals=model["sals"]),
+                      device="cuda")
+    graph, eager = eng._prefill_chunk, eager_chunk_program(torch, eng)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def timed(n, call):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(n):
+            call()
+        end.record()
+        host = time.perf_counter() - t0
+        end.synchronize()
+        return start.elapsed_time(end) / n, 1e3 * host / n
+
+    with torch.inference_mode():
+        for mode in ("graph", "eager"):
+            eng._prefill_chunk = graph if mode == "graph" else eager
+            task = eng.start_prefill(prompt)
             for _ in range(8):
                 eng.prefill_chunk_step(task)
             torch.cuda.synchronize()
             profile_steps(torch, lambda t: eng.prefill_chunk_step(task), 4,
-                          "prefill_chunk")
-        del eng, task
-        torch.cuda.empty_cache()
-    return runs["paged"]
+                          f"prefill_chunk_{mode}")
+        eng._prefill_chunk = graph
+        staged = timed(8, lambda: eng.prefill_chunk_step(task))
+        c, j = eng.scfg.prefill_chunk, task.next_chunk
+        inputs = [torch.as_tensor(np.asarray(a, np.int32), device="cuda")
+                  for a in (task.tokens[:, j * c:(j + 1) * c], j * c,
+                            [task.prompt_len])]
+        on_card = timed(10, lambda: graph(*inputs, task.cache, task.scratch))
+    emit({"phase": "profile", "run": "prefill_chunk_issue",
+          "staged_back_to_back_ms_per_chunk": staged[0],
+          "staged_host_ms_per_chunk": staged[1],
+          "back_to_back_ms_per_replay": on_card[0],
+          "host_ms_per_call": on_card[1], "nodes": graph.nodes})
+    del eng, task
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1666,6 +1910,8 @@ def phase_tier(torch, model, untiered_tokens, untiered_wall: float,
         eng.decode_sel, eng.load_page = spy_decode, spy_load
         eng.read_page_payload = spy_read
         eng.extract_page_payload_dense = spy_extract
+        chunks = chunk_timer(torch, eng)
+        upkeep = upkeep_timer(eng)
         sched = RequestScheduler(eng)
         reqs = [Request(p, max_new_tokens=n_new) for p in prompts]
         for r in reqs:
@@ -1694,6 +1940,10 @@ def phase_tier(torch, model, untiered_tokens, untiered_wall: float,
                    failures=sched.failures,
                    pcie_h2d_bytes=stats["h2d_bytes"],
                    pcie_d2h_bytes=stats["d2h_bytes"],
+                   prefill_chunks=len(chunks),
+                   prefill_chunk_s=sum(sec for sec, _ in chunks),
+                   **chunk_fields(f"tier {hbm_pages}", eng, chunks),
+                   **upkeep_fields(upkeep),
                    max_memory_allocated=torch.cuda.max_memory_allocated(),
                    launches=counts,
                    tokens_equal_untiered=all(
@@ -1921,6 +2171,7 @@ def phase_spec(torch, model, serve_sals, n_new: int = 32,
             audit_every=16), device="cuda")
         if not spec:        # the reference stream: eager, sequential
             eager_entries(torch, eng)
+        chunks = chunk_timer(torch, eng)
         sched = RequestScheduler(eng)
         reqs = [Request(p, max_new_tokens=n_new) for p in prompts]
         for r in reqs:
@@ -1942,6 +2193,8 @@ def phase_spec(torch, model, serve_sals, n_new: int = 32,
                    spec_accepted=sched.spec_accepted,
                    spec_committed=sched.spec_committed,
                    prefill_chunks=len(sched.prefill_chunks),
+                   prefill_chunk_s=sum(sec for sec, _ in chunks),
+                   **chunk_fields(f"spec sched {name}", eng, chunks),
                    prefix_hits=sched.prefix_hits, launches=counts,
                    states=[r.state.value for r in reqs])
         emit(row)

@@ -394,14 +394,16 @@ class LatentKVCache:
         return self
 
     def append_chunk(self, cfg: ModelConfig, sals: SALSConfig,
-                     u: torch.Tensor, off: int, k_pre: torch.Tensor,
+                     u: torch.Tensor, off, k_pre: torch.Tensor,
                      v: torch.Tensor, lengths: torch.Tensor
                      ) -> "LatentKVCache":
         """Append one CHUNK of prompt tokens at positions [off, off+C), in
         place (single-layer dense view; the chunked-prefill write path).
 
-        k_pre/v: (B, C, n_kv, dh) pre-RoPE keys / values; ``lengths`` (B,)
-        each row's true prompt length.  Latent-K + quantized-V writes cover
+        ``off``: a 0-d integer tensor on the cache's device (a Python int
+        from a direct caller), never read on the host.  k_pre/v: (B, C,
+        n_kv, dh) pre-RoPE keys / values; ``lengths`` (B,) each row's true
+        prompt length.  Latent-K + quantized-V writes cover
         every chunk position, pads included (per-slot lengths keep pads
         unselectable); ring/sink inserts are masked to each row's real
         positions, so a pad never evicts a real token from the ring.
@@ -415,24 +417,26 @@ class LatentKVCache:
         kvd = cfg.kv_dim
         len_v = torch.as_tensor(lengths, device=dev).to(torch.int64) \
             .reshape(-1).expand(b)
+        off = torch.as_tensor(off, device=dev)
+        span = off + torch.arange(c, device=dev)
+        end = off + c
         lat = to_latent(u.float(), k_pre.reshape(b, c, kvd))
         vq = qz.quantize(v.reshape(b, c, kvd), sals.v_bits, sals.v_group)
-        span = slice(off, off + c)
         if sals.k_latent_dtype == "int8":
             q8, scale = qz.quantize_latent_int8(lat)
-            self.k_lat[:, span] = q8
-            self.k_scale[:, span] = scale.to(self.k_scale.dtype)
+            self.k_lat.index_copy_(1, span, q8)
+            self.k_scale.index_copy_(1, span, scale.to(self.k_scale.dtype))
         else:
-            self.k_lat[:, span] = lat.to(self.k_lat.dtype)
-        self.v_q[:, span] = vq["q"]
-        self.v_scale[:, span] = vq["scale"]
-        self.v_zero[:, span] = vq["zero"]
+            self.k_lat.index_copy_(1, span, lat.to(self.k_lat.dtype))
+        self.v_q.index_copy_(1, span, vq["q"])
+        self.v_scale.index_copy_(1, span, vq["scale"])
+        self.v_zero.index_copy_(1, span, vq["zero"])
 
         # ragged ring: slot j takes the LAST real chunk position p ≡ j
         # (mod w); p outside [off, min(len, off+C)) leaves the slot alone
         w = sals.n_recent
         bi = torch.arange(b, device=dev)[:, None]
-        last = torch.clamp_max(len_v, off + c)[:, None] - 1
+        last = torch.minimum(len_v, end)[:, None] - 1
         p = last - torch.remainder(last - torch.arange(w, device=dev), w)
         keep = ((p >= off) & (len_v[:, None] > off))[..., None, None]
         pc = (p - off).clamp(0, c - 1)
@@ -441,13 +445,12 @@ class LatentKVCache:
 
         # ragged sink: positions [off, off+C) ∩ [0, n_sink) ∩ [0, len)
         sidx = torch.arange(sals.n_sink, device=dev)[None, :]
-        keep_s = ((sidx >= off) & (sidx < off + c)
+        keep_s = ((sidx >= off) & (sidx < end)
                   & (sidx < len_v[:, None]))[..., None, None]
         spc = (sidx - off).clamp(0, c - 1).expand(b, -1)
         for arr, val in ((self.sink_k, k_pre), (self.sink_v, v)):
             arr.copy_(torch.where(keep_s, val[bi, spc].to(arr.dtype), arr))
-        self.lengths.copy_(torch.clamp_max(len_v, off + c)
-                           .to(self.lengths.dtype))
+        self.lengths.copy_(torch.minimum(len_v, end).to(self.lengths.dtype))
         return self
 
     def write_ring(self, sals: SALSConfig, pos, k_pre: torch.Tensor,

@@ -160,21 +160,23 @@ def _chunk_logits(q_r: torch.Tensor, k: torch.Tensor, cfg: ModelConfig
 
 
 def attend_prefill_chunk(params: Attention, x: torch.Tensor, cfg: ModelConfig,
-                         off: int, k_cache: torch.Tensor,
-                         v_cache: torch.Tensor):
+                         off, k_cache: torch.Tensor, v_cache: torch.Tensor):
     """Chunk-vs-cache attention: one fixed-width chunked-prefill step.
 
     x: (B, C, d) hidden states of prompt positions [off, off+C) (the same
-    offset for every row: a ragged batch is right-padded); k_cache/v_cache:
-    (B, S_max, Hkv, dh) post-RoPE keys / values of every earlier prompt
-    position.  The cache partial (positions < off) and the intra-chunk
-    causal partial are LSE-merged; then the chunk's K/V are written into
-    the caches at [off, off+C), in place.
+    offset for every row: a ragged batch is right-padded); ``off`` a 0-d
+    integer tensor on x's device (a Python int from a direct caller);
+    k_cache/v_cache: (B, S_max, Hkv, dh) post-RoPE keys / values of every
+    earlier prompt position.  The cache partial (positions < off) and the
+    intra-chunk causal partial are LSE-merged; then the chunk's K/V are
+    written into the caches at [off, off+C), in place.  ``off`` stays on
+    the device throughout, so one captured program serves every chunk.
 
     Returns (y (B,C,d), k_pre (B,C,Hkv,dh), v (B,C,Hkv,dh), k_cache,
     v_cache)."""
     b, c, _ = x.shape
     dev = x.device
+    off = torch.as_tensor(off, device=dev)
     positions = (off + torch.arange(c, device=dev))[None, :]
     q, k_pre, v = qkv_proj(params, x, cfg)
     if cfg.use_rope:
@@ -203,8 +205,8 @@ def attend_prefill_chunk(params: Attention, x: torch.Tensor, cfg: ModelConfig,
         / torch.clamp_min(denom, 1e-30)[..., None]            # (B,H,C,dh)
     o = o.transpose(1, 2).to(x.dtype)                          # (B,C,H,dh)
     y = out_proj(params, o, cfg)
-    k_cache[:, off:off + c] = k_r.to(k_cache.dtype)
-    v_cache[:, off:off + c] = v.to(v_cache.dtype)
+    k_cache.index_copy_(1, positions[0], k_r.to(k_cache.dtype))
+    v_cache.index_copy_(1, positions[0], v.to(v_cache.dtype))
     return y, k_pre, v, k_cache, v_cache
 
 

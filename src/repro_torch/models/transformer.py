@@ -239,12 +239,16 @@ def prefill(params: Transformer, projectors: Optional[dict],
 
 def prefill_chunk(params: Transformer, projectors: Optional[dict],
                   cfg: ModelConfig, sals: Optional[SALSConfig], cache: dict,
-                  scratch: dict, batch: Dict[str, torch.Tensor], off: int,
+                  scratch: dict, batch: Dict[str, torch.Tensor], off,
                   lengths: torch.Tensor) -> Tuple[torch.Tensor, dict, dict]:
     """One chunked-prefill step: prompt tokens [off, off+C) against the
     cache so far.
 
     ``batch`` {"tokens": (B, C)} is one chunk of the right-padded prompt;
+    ``off`` the chunk's first position, a 0-d integer tensor on the
+    device (as the reference's traced offset; a Python int from a direct
+    caller), which no step reads on the host, so one captured program
+    (``ServeEngine._prefill_chunk``) serves every chunk;
     ``lengths`` (B,) the true prompt lengths.  ``cache`` (from
     :func:`init_cache`, dense) and ``scratch`` (:func:`init_prefill_scratch`)
     are updated in place: each layer LSE-merges a history partial with the
@@ -261,6 +265,7 @@ def prefill_chunk(params: Transformer, projectors: Optional[dict],
     dev = x.device
     len_v = torch.as_tensor(lengths, device=dev).to(torch.int64) \
         .reshape(-1).expand(b)
+    off = torch.as_tensor(off, device=dev)
     for si, (i0, i1, mode) in enumerate(segment_plan(cfg, sals)):
         seg = cache[f"seg{si}"]
         kv = scratch[f"seg{si}"] if mode == "sals" else seg

@@ -33,21 +33,32 @@ it.  Copies do not overlap compute yet.
 
 The reference's arrays are immutable; the port's caches are updated IN
 PLACE.  Everything that must outlive the next write — a prefix-cache
-entry's resume state, a page-boundary ring snapshot, :meth:`resume_seed`'s
-result — is therefore a ``clone()``, never a view.
+entry's resume state (:meth:`~ServeEngine.prefill_state_copy`), a
+page-boundary ring snapshot — is therefore a copy, never a view.
 
-The reference compiles its four decode steps with ``jax.jit``; here
-``_decode``, ``_decode_sel``, ``_decode_window`` and ``_commit_window``
-are :class:`~repro_torch.serve.step_graph.StepGraph` s: on the card each
-step (every layer, the SALS kernels, the final norm and unembedding) is
-one CUDA graph, captured on a key's first call and replayed after.  Every
-decode path goes through them (:meth:`~ServeEngine.decode`,
-:meth:`~ServeEngine.decode_sel`, :meth:`~ServeEngine.decode_window`,
-:meth:`~ServeEngine.commit_window`, :meth:`~ServeEngine.generate`,
-:meth:`~ServeEngine.generate_speculative`, and so the scheduler).  Their
-outputs (the logits, a window's ``aux``) belong to the graph and are
-overwritten by its next call.  Prefill, chunked prefill and the cache
-upkeep run eagerly.
+The reference compiles its four decode steps and its chunk step with
+``jax.jit``; here ``_decode``, ``_decode_sel``, ``_decode_window``,
+``_commit_window`` and ``_prefill_chunk`` are :class:`~repro_torch.serve.
+step_graph.StepGraph` s: on the card each step (every layer, the SALS
+kernels, the final norm and unembedding) is one CUDA graph, captured on a
+key's first call and replayed after.  Every decode path goes through them
+(:meth:`~ServeEngine.decode`, :meth:`~ServeEngine.decode_sel`,
+:meth:`~ServeEngine.decode_window`, :meth:`~ServeEngine.commit_window`,
+:meth:`~ServeEngine.generate`, :meth:`~ServeEngine.generate_speculative`,
+and so the scheduler), and every chunk of a chunked prefill
+(:meth:`~ServeEngine.prefill_chunk_step`).  Their outputs (the logits, a
+window's ``aux``) belong to the graph and are overwritten by its next
+call.
+
+Chunked prefill runs in ONE prefill workspace per engine, the counterpart
+of the buffers the reference's chunk step donates: a single-slot cache and
+SALS scratch at ``max_seq_len``, allocated on the first
+:meth:`~ServeEngine.start_prefill` and reset in place by every later one,
+so the chunk program keeps one key for the engine's life.  A task's
+``cache``, ``scratch`` and ``logits`` are therefore valid until the next
+``start_prefill`` (logits: the next chunk); what outlives that takes a
+copy.  Monolithic prefill and the cache upkeep (admission, page copies)
+run eagerly.
 
 Not yet ported (later slices): park/resume, temperature sampling
 (``torch.Generator`` numbers differ from ``jax.random``'s).
@@ -67,10 +78,22 @@ from repro_torch.kernels.latent_score import BLOCK_S
 from repro_torch.models import transformer as tf
 from repro_torch.serve.draft import NgramDrafter
 from repro_torch.serve.faults import maybe_fault
-from repro_torch.serve.step_graph import StepGraph
+from repro_torch.serve.step_graph import StepGraph, copy_tree, tree_tensors
 
 _PAGED_FIELDS = ("k_lat", "k_scale", "v_q", "v_scale", "v_zero")
 _WINDOW_FIELDS = ("sink_k", "sink_v", "recent_k", "recent_v")
+
+
+def _clone_state(tree):
+    """Own copy of a cache or scratch tree (dicts of tensors and
+    ``LatentKVCache`` s)."""
+    if isinstance(tree, LatentKVCache):
+        return dataclasses.replace(tree, **{
+            f.name: getattr(tree, f.name).clone()
+            for f in dataclasses.fields(tree)
+            if isinstance(getattr(tree, f.name), torch.Tensor)})
+    return {k: _clone_state(v) if isinstance(v, (dict, LatentKVCache))
+            else v.clone() for k, v in tree.items()}
 
 
 @dataclasses.dataclass
@@ -90,9 +113,11 @@ class PrefillTask:
     Created by :meth:`ServeEngine.start_prefill`; each
     :meth:`ServeEngine.prefill_chunk_step` advances it by one chunk.
     ``cache`` is the single-slot decode cache being built (dense) and
-    ``scratch`` the SALS prompt-K/V buffer; ``logits`` holds the last
-    chunk's last-real-token logits (after the final chunk: the prompt's
-    next-token logits).  ``start_chunk`` > 0: resumed from a prefix-cache
+    ``scratch`` the SALS prompt-K/V buffer, both the engine's prefill
+    workspace (rewritten by the next ``start_prefill``); ``logits`` holds
+    the last chunk's last-real-token logits (after the final chunk: the
+    prompt's next-token logits), the chunk program's output (rewritten by
+    the next chunk).  ``start_chunk`` > 0: resumed from a prefix-cache
     entry at a page boundary; ``boundary_rings`` {n_pages: SALS ring
     snapshot} feeds later prefix-cache entries."""
 
@@ -185,12 +210,18 @@ class ServeEngine:
             raise ValueError(f"params on {p_dev}, engine on {self.device}")
         self.last_timing: Optional[dict] = None
         self._stream: Optional[torch.cuda.Stream] = None   # tier copies
+        # (cache, scratch) of chunked prefill, made by the first
+        # start_prefill (engines that only generate never pay for it)
+        self._workspace: Optional[Tuple[dict, dict]] = None
 
-        # the reference's four compiled decode programs
-        # (repro/serve/engine.py:157-164), keyed on the params and
+        # the reference's compiled chunk step and four decode programs
+        # (repro/serve/engine.py:154-164), keyed on the params and
         # projectors besides their own arguments
         def keyed():
             return self.params, self.projectors
+
+        self._prefill_chunk = StepGraph(self._prefill_chunk_impl,
+                                        self.device, (0, 1, 2), keyed)
 
         self._decode = StepGraph(self._decode_impl, self.device, (0, 2),
                                  keyed)
@@ -260,6 +291,11 @@ class ServeEngine:
 
     # -- the step programs (the reference's jitted bodies) ------------------
 
+    def _prefill_chunk_impl(self, tokens, off, lengths, cache, scratch):
+        return tf.prefill_chunk(self.params, self.projectors, self.cfg,
+                                self.sals, cache, scratch,
+                                {"tokens": tokens}, off, lengths)[0]
+
     def _decode_impl(self, tokens, cache, pos):
         return tf.decode_step(self.params, self.projectors, cache, tokens,
                               pos, self.cfg, self.sals)[0]
@@ -326,7 +362,9 @@ class ServeEngine:
         right-padded to whole ``prefill_chunk`` chunks.  ``resume`` =
         (prefix entry, n_shared_pages) seeds the task from the entry
         (:meth:`resume_seed`) and starts at that page boundary, so only the
-        suffix chunks run."""
+        suffix chunks run.  The task's cache and scratch are the engine's
+        prefill workspace, reset in place here: the previous task's state
+        is gone (:meth:`prefill_state_copy` keeps it)."""
         plen = len(prompt)
         if plen > self.scfg.max_seq_len:
             raise ValueError(f"prompt {plen} exceeds max_seq "
@@ -346,13 +384,41 @@ class ServeEngine:
             return PrefillTask(tokens=toks, prompt_len=plen, cache=cache,
                                scratch=scratch, n_chunks=n,
                                next_chunk=start, start_chunk=start)
-        cache = tf.init_cache(self.cfg, self.sals, 1, self.scfg.max_seq_len,
-                              n_groups=self.n_groups, device=self.device)
-        scratch = tf.init_prefill_scratch(self.cfg, self.sals, 1,
-                                          self.scfg.max_seq_len,
-                                          device=self.device)
+        cache, scratch = self._reset_workspace()
         return PrefillTask(tokens=toks, prompt_len=plen, cache=cache,
                            scratch=scratch, n_chunks=n)
+
+    @torch.inference_mode()
+    def _reset_workspace(self, src: Optional[Tuple[dict, dict]] = None
+                         ) -> Tuple[dict, dict]:
+        """The prefill workspace (cache, scratch), reset in place: zeroed,
+        exactly what ``tf.init_cache`` / ``tf.init_prefill_scratch`` give
+        for one slot, or a copy of ``src``.  Allocated on the first call.
+        A reset waits for the tier copy stream's reads of the previous
+        task's cache (the cold mirrors of a tiered admission)."""
+        if self._workspace is None:
+            s = self.scfg.max_seq_len
+            self._workspace = (
+                tf.init_cache(self.cfg, self.sals, 1, s,
+                              n_groups=self.n_groups, device=self.device),
+                tf.init_prefill_scratch(self.cfg, self.sals, 1, s,
+                                        device=self.device))
+        else:
+            if self._stream is not None:
+                torch.cuda.current_stream(self.device).wait_stream(
+                    self._stream)
+            if src is None:
+                for t in tree_tensors(self._workspace):
+                    t.zero_()
+        if src is not None:
+            copy_tree(self._workspace, src)
+        return self._workspace
+
+    def prefill_state_copy(self, task: PrefillTask) -> Tuple[dict, dict]:
+        """Own copies of a finished task's (cache, scratch), which live in
+        the prefill workspace until the next :meth:`start_prefill`: what a
+        prefix-cache entry keeps."""
+        return _clone_state(task.cache), _clone_state(task.scratch)
 
     def prefill_chunk_step(self, task: PrefillTask) -> bool:
         """Advance ``task`` by one chunk; True when the prompt is done
@@ -361,13 +427,9 @@ class ServeEngine:
         c = self.scfg.prefill_chunk
         j = task.next_chunk
         maybe_fault("prefill_chunk")      # before the task's cache changes
-        chunk = torch.as_tensor(task.tokens[:, j * c:(j + 1) * c],
-                                device=self.device)
-        lengths = torch.tensor([task.prompt_len], dtype=torch.int32,
-                               device=self.device)
-        task.logits, task.cache, task.scratch = tf.prefill_chunk(
-            self.params, self.projectors, self.cfg, self.sals, task.cache,
-            task.scratch, {"tokens": chunk}, j * c, lengths)
+        task.logits = self._prefill_chunk(
+            task.tokens[:, j * c:(j + 1) * c], np.int32(j * c),
+            np.array([task.prompt_len], np.int32), task.cache, task.scratch)
         task.next_chunk += 1
         if self.paged and self.scfg.prefix_cache:
             # page-boundary ring snapshot: the one non-append-only piece of
@@ -386,11 +448,13 @@ class ServeEngine:
 
     def prefill_one(self, prompt: np.ndarray) -> Tuple[torch.Tensor, dict]:
         """Prefill ONE request by draining its chunk loop.  Returns (logits
-        (1, V) at the last real token, single-slot cache)."""
+        (1, V) at the last real token, the caller's own copy; single-slot
+        cache, the prefill workspace, valid until the next
+        :meth:`start_prefill`)."""
         task = self.start_prefill(prompt)
         while not task.done:
             self.prefill_chunk_step(task)
-        return task.logits, task.cache
+        return task.logits.clone(), task.cache
 
     def admit(self, cache: dict, one_cache: dict, slot: int) -> dict:
         """Copy a prefilled single-request cache into batch row ``slot`` of
@@ -617,22 +681,15 @@ class ServeEngine:
         return {k: (seg.recent_k.clone(), seg.recent_v.clone())
                 for k, seg in self._latent_segs(cache).items()}
 
+    @torch.inference_mode()
     def resume_seed(self, entry, n_shared_pages: int) -> Tuple[dict, dict]:
-        """(cache, scratch) that resume a chunked prefill at page boundary
-        ``n_shared_pages`` from a prefix-cache entry: deep copies of the
-        entry's final (append-only) state, with the ring restored from its
-        snapshot at the boundary.  Copies throughout: the resumed task
-        writes its cache in place, and the entry must outlive it."""
-        def clone(tree):
-            if isinstance(tree, LatentKVCache):
-                return dataclasses.replace(tree, **{
-                    f.name: getattr(tree, f.name).clone()
-                    for f in dataclasses.fields(tree)
-                    if isinstance(getattr(tree, f.name), torch.Tensor)})
-            return {k: clone(v) if isinstance(v, (dict, LatentKVCache))
-                    else v.clone() for k, v in tree.items()}
-
-        cache, scratch = clone(entry.cache), clone(entry.scratch)
+        """The prefill workspace (cache, scratch), set to resume a chunked
+        prefill at page boundary ``n_shared_pages`` from a prefix-cache
+        entry: the entry's final (append-only) state copied in, the ring
+        restored from its snapshot at the boundary.  The entry keeps its
+        own tensors: the resumed task writes the workspace in place, and
+        the entry must outlive it."""
+        cache, scratch = self._reset_workspace((entry.cache, entry.scratch))
         for name, (rk, rv) in entry.boundary_rings[n_shared_pages].items():
             cache[name].recent_k.copy_(rk)
             cache[name].recent_v.copy_(rv)

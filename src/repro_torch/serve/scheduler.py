@@ -808,7 +808,10 @@ class RequestScheduler:
 
         def admit_active(active: _Admission) -> None:
             """Splice a finished prefill into its slot and emit its first
-            token (or tear it down on a fault)."""
+            token (or tear it down on a fault).  Runs before the next
+            ``start_prefill``: the task's cache (cold mirrors included)
+            and logits live in the engine's prefill workspace and chunk
+            program, which the next request rewrites."""
             nonlocal dirty
             i = active.slot
             try:
@@ -1107,10 +1110,10 @@ class RequestScheduler:
 
     def _register_prefix(self, adm: _Admission) -> None:
         """Register a finished prefill's whole-page prefix for sharing: the
-        entry keeps the task's final cache/scratch (append-only resume
-        state; nothing writes the task after admission) and its boundary
-        ring snapshots — a resumed registrant inherits the ones it skipped
-        from ITS entry."""
+        entry keeps a copy of the task's final cache/scratch (append-only
+        resume state, which the next task's prefill rewrites in the
+        engine's workspace) and its boundary ring snapshots — a resumed
+        registrant inherits the ones it skipped from ITS entry."""
         if self.prefix_index is None:
             return
         task = adm.task
@@ -1130,3 +1133,6 @@ class RequestScheduler:
         while len(self.prefix_index.entries) > cap:
             self.prefix_index.evict(self.prefix_index.lru_entry(
                 exclude=entry))
+        # the entry's own copy, taken once the entries over the cap are
+        # gone: no more state is alive than when each task owned its own
+        entry.cache, entry.scratch = self.engine.prefill_state_copy(task)

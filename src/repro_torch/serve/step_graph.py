@@ -1,7 +1,7 @@
-"""One decode-step program, captured once and replayed: the port's
-counterpart of the reference's ``jax.jit(fn, donate_argnums=...)`` around
-``ServeEngine._decode_impl`` and its three siblings
-(``repro/serve/engine.py``).
+"""One step program, captured once and replayed: the port's counterpart
+of the reference's ``jax.jit(fn, donate_argnums=...)`` around
+``ServeEngine._decode_impl``, its three siblings and
+``_prefill_chunk_impl`` (``repro/serve/engine.py``).
 
 ``jax.jit`` compiles a step into one program that runs with one launch, and
 ``donate_argnums`` lets that program update the donated cache in place.
@@ -14,15 +14,18 @@ by construction: it writes the arena it was captured on.
 A graph holds addresses, not tensors.  So:
 
 * **inputs** — the small integer arguments (tokens, positions,
-  ``n_accept``) — are copied before each replay into int32 buffers the
-  graph owns: from a pinned host staging buffer (a host array) or from the
-  device tensor the caller passed.
+  ``n_accept``; a prefill chunk's tokens, offset and lengths) — are copied
+  before each replay into int32 buffers the graph owns: from a pinned host
+  staging buffer (a host array) or from the device tensor the caller
+  passed.
 * **state** — every other argument (the cache, a window's ``aux``) and
   what ``state()`` returns (the params and projectors) — keys the graph:
   the address, shape, stride and dtype of each tensor, and each other leaf
   (a page size).  A call whose key differs captures again.  The scheduler
-  updates its arena in place, so one capture serves a whole run;
-  ``generate`` builds a new cache per call, so it captures once per call.
+  updates its arena in place, so one capture serves a whole run, and the
+  chunk program's state is the engine's prefill workspace, so one capture
+  serves every chunk of every request; ``generate`` builds a new cache per
+  call, so it captures once per call.
 * **outputs** are tensors the graph owns, overwritten by its next replay:
   a caller reads (samples) them before it calls again, and a window's
   ``aux`` stays untouched until the commit that reads it (only the window
@@ -96,7 +99,8 @@ def _leaves(tree, out: Optional[List[Any]] = None) -> List[Any]:
     return out
 
 
-def _tensors(tree) -> List[torch.Tensor]:
+def tree_tensors(tree) -> List[torch.Tensor]:
+    """The tensors of a state tree, in :func:`_leaves`' order."""
     return [t for t in _leaves(tree) if isinstance(t, torch.Tensor)]
 
 
@@ -108,11 +112,12 @@ def _signature(tree) -> tuple:
                  for t in _leaves(tree))
 
 
-def _copy(dst, src) -> None:
+def copy_tree(dst, src) -> None:
     """Copy the tensors of ``src`` into those of ``dst`` (same tree)."""
-    d, s = _tensors(dst), _tensors(src)
+    d, s = tree_tensors(dst), tree_tensors(src)
     if len(d) != len(s):
-        raise RuntimeError("the step returned another output tree")
+        raise RuntimeError(f"copy between trees of {len(d)} and {len(s)} "
+                           "tensors")
     for a, b in zip(d, s):
         a.copy_(b)
 
@@ -179,7 +184,7 @@ class StepGraph:
             ops.add_launch_counts(self._counts)
             self.replays += 1
         else:
-            _copy(self._out, self.fn(*args))
+            copy_tree(self._out, self.fn(*args))
         return self._out
 
     def _stage(self, i: int, value) -> torch.Tensor:
@@ -251,7 +256,7 @@ class StepGraph:
         self.nodes = graph_nodes(graph)
         graph.instantiate()
         with torch.cuda.stream(cs):
-            _copy(out, eager)
+            copy_tree(out, eager)
         cur.wait_stream(cs)
         self._graph, self._out, self._key = graph, out, key
         self.captures += 1

@@ -1,7 +1,8 @@
 """Port parity for chunked prefill: ``transformer.prefill_chunk`` of the
 port against the JAX reference's, chunk by chunk, from the same weights
-and projectors on a ragged right-padded batch (per-chunk logits within
-rtol = atol = 1e-4, the engine test's tolerance); and inside the port,
+and projectors on a ragged right-padded batch, the offset a Python int or
+a device tensor against the reference's traced one (per-chunk logits
+within rtol = atol = 1e-4, the engine test's tolerance); and inside the port,
 chunked == monolithic prefill as the reference's own test holds it: the
 last-token logits and cache fields within 1e-4, value codes within one
 step, and identical greedy decode from either cache; the engine's
@@ -33,12 +34,21 @@ SALS_KW = dict(n_critical=10, n_sink=2, n_recent=8, v_group=16,
 MAX_SEQ, CHUNK = 64, 8
 
 
-@pytest.mark.parametrize("arch,over,v_bits,lat_dtype", [
-    ("paper-llama2-7b", {"n_kv_heads": 4}, 8, "bfloat16"),   # MHA
-    ("yi-9b", {}, 4, "int8"),                                 # GQA
-])
+CASES = [("paper-llama2-7b", {"n_kv_heads": 4}, 8, "bfloat16"),   # MHA
+         ("yi-9b", {}, 4, "int8")]                                 # GQA
+
+
+@pytest.mark.parametrize("arch,over,v_bits,lat_dtype,tensor_off", [
+    pytest.param(*case, tensor_off,
+                 id=f"{case[0]}-over{i}-{case[2]}-{case[3]}"
+                 + ("-tensor_off" if tensor_off else ""))
+    for tensor_off in (False, True) for i, case in enumerate(CASES)])
 def test_prefill_chunk_matches_reference_and_monolithic(arch, over, v_bits,
-                                                        lat_dtype):
+                                                        lat_dtype,
+                                                        tensor_off):
+    """``tensor_off``: the chunk offset as a 0-d int32 tensor, as the
+    engine's chunk program passes it, against the JAX step's traced
+    offset; else a Python int."""
     over = dict(dtype="float32", n_layers=4, **over)
     jcfg = jax_get_config(arch).reduced(**over)
     cfg = get_config(arch).reduced(**over)
@@ -69,9 +79,11 @@ def test_prefill_chunk_matches_reference_and_monolithic(arch, over, v_bits,
             chunk = toks[:, j * CHUNK:(j + 1) * CHUNK]
             jl, jc, js = jstep(jc, js, jnp.asarray(chunk),
                                jnp.int32(j * CHUNK))
+            off = torch.tensor(j * CHUNK, dtype=torch.int32) \
+                if tensor_off else j * CHUNK
             tl, tc, ts = ttf.prefill_chunk(
                 tp, tu, cfg, sals, tc, ts,
-                {"tokens": torch.from_numpy(chunk)}, j * CHUNK, len_t)
+                {"tokens": torch.from_numpy(chunk)}, off, len_t)
             np.testing.assert_allclose(np.asarray(jl), tl.numpy(), **TOL,
                                        err_msg=f"chunk {j}")
             # a row's real next-token logits come from the chunk holding
