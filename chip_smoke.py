@@ -98,7 +98,19 @@ Phases, each printing one JSON line:
               per round, ms per round replayed and eager, beside the
               sequential decode; (a) and (b) must
               also give the eager ``generate_speculative``'s tokens;
-9. whole    — a full-width 2-layer model (SALS on layer 1) decoded on the
+9. vlm      — seeded paligemma-3b at full width (18 layers, d 2048, MQA
+              with head_dim 256, vocab 257,216; bf16), SALS-25% (r 64, r*
+              32, 15 SALS layers), U_r calibrated on tokens: (a) prefill of
+              4 rows of 256 patch embeddings + 3840 ... 2304 tokens through
+              the flash kernel's prefix-LM mask at dh 256, then 32 greedy
+              decode steps, SALS on and off, the prefill's logits held
+              against the same prefill with the twin's attention on the
+              card; (b) ``ServeEngine.generate`` on tokens only at the
+              serve phase's prompts, replayed and eager in turns, as the
+              serve phase; (c) ``RequestScheduler``, 4 requests on 64-token
+              pages and on the dense arena (tokens equal); every path's
+              launch counts;
+10. whole   — a full-width 2-layer model (SALS on layer 1) decoded on the
               card (kernels) and on the CPU (twins) from the same weights
               and a 1024-token prompt (so top-k really selects), per-step
               logits compared under teacher forcing.
@@ -132,11 +144,12 @@ BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12
 
 PHASES = ("device", "build", "kernels", "serve", "sched", "tier", "quality",
-          "spec", "whole")
+          "spec", "vlm", "whole")
 # "profile" (not run by default) adds torch.profiler passes over four
 # chunked-prefill steps after the sched phase (replayed and eager, and the
 # host's issue time of a chunk), and over three
-# decode steps of each serve run; tables go to chiprun_out/.  "scan" (not
+# decode steps of each serve run (and of the vlm phase's generate runs,
+# as profile_decode_vlm_*); tables go to chiprun_out/.  "scan" (not
 # run by default) adds recon cases over N_c x r to the kernels phase, to
 # show where the recon body's time goes
 
@@ -494,6 +507,7 @@ def sra_case(torch, name, b, h, n_kv, dh, s, r, n_c, k_dtype, v_bits,
                 *args(logical), **kw), 10, flush)
     else:
         order = eager_graph_ms(torch, kern, 10, flush)
+    device = kernel_device_ms(torch, kern, 10, flush)
     kern_ms = order["ms"]
     plain_ms = time_ms(torch, lambda: twin(*args(cache), **kw, **pg), 5,
                        flush=flush)
@@ -509,7 +523,10 @@ def sra_case(torch, name, b, h, n_kv, dh, s, r, n_c, k_dtype, v_bits,
         k_dtype, u_dtype) else BF16_FLOP_PER_S)
     out = dict(case=name, max_abs_err=err, tol=tol, all_invalid_row_ok=dead_ok,
                ms=kern_ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
-               bound_by=b_by, graph_ms=order["graph_ms"],
+               bound_by=b_by, graph_ms=order["graph_ms"], device_ms=device,
+               splits=sra.query_split(r, dh, h // n_kv, 1,
+                                      k_dtype=k_lat.dtype, u_dtype=u.dtype,
+                                      v_bits=v_bits)[0],
                share_of_bound=b_ms / order["graph_ms"],
                ok=err <= tol and dead_ok and bitwise is not False)
     if ps:
@@ -731,6 +748,8 @@ def window_case(torch, name, b, ql, h, n_kv, dh, s, r, n_c, k_dtype, v_bits,
         order.update(dense_fields(dense_t, turns))
     else:
         order = eager_graph_ms(torch, lambda: win(cache, **pg), 10, flush)
+    order["device_ms"] = kernel_device_ms(torch, lambda: win(cache, **pg),
+                                          10, flush)
     plain_ms = time_ms(torch, lambda: twin(
         q, *cache, u, idx, valid, q_pos, n_recent=n_recent, **kw, **pg), 3,
         warmup=1, flush=flush)
@@ -739,7 +758,9 @@ def window_case(torch, name, b, ql, h, n_kv, dh, s, r, n_c, k_dtype, v_bits,
     b_ms, b_by = window_bound(b, ql, h, n_kv, dh, r, n_c, int(valid.sum()),
                               k_lat.element_size(), k_scale is not None,
                               v_bits, s // ps if ps else 0)
-    out = dict(case=name, q_len=ql, max_abs_err=err, tol=tol,
+    out = dict(case=name, q_len=ql, splits=sra.query_split(
+                   r, dh, h // n_kv, ql, k_dtype=k_lat.dtype,
+                   v_bits=v_bits)[0], max_abs_err=err, tol=tol,
                all_invalid_row_ok=dead_ok, q1_equals_single=q1,
                mask_advance_bitwise=advance, plain_ms=plain_ms,
                single_ms=single_ms, library_ms=None, bound_ms=b_ms,
@@ -783,33 +804,36 @@ def row_rel_err(out, ref) -> float:
 
 
 def flash_case(torch, name, b, sq, sk, h, hkv, dh, softcap, seed, flush,
-               causal=True):
+               causal=True, prefix_len=0):
     """flash_attention against the twin run in f32 on the same bf16 inputs.
     Two planted faults on the longest quarter of the rows (one 64-key tile
-    dropped, the logit scale off by 1%) must fail the same check."""
+    dropped, the logit scale off by 1%) must fail the same check.
+    ``prefix_len`` > 0: prefix-LM (the first ``prefix_len`` keys visible
+    to every query, the rest causal); the library call then takes the
+    boolean mask."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     dev = "cuda"
+    causal = causal or prefix_len > 0
+    mk = dict(causal=causal, softcap=softcap, prefix_len=prefix_len)
     g = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((b, sq, h, dh), generator=g, device=dev).to(torch.bfloat16)
     k = torch.randn((b, sk, hkv, dh), generator=g, device=dev) \
         .to(torch.bfloat16)
     v = torch.randn((b, sk, hkv, dh), generator=g, device=dev) \
         .to(torch.bfloat16)
-    out_k = fa.flash_attention_cuda(q, k, v, causal=causal, softcap=softcap)
+    out_k = fa.flash_attention_cuda(q, k, v, **mk)
     q32, k32, v32 = q.float(), k.float(), v.float()
-    out_t = ref.attention_ref(q32, k32, v32, causal=causal, softcap=softcap)
+    out_t = ref.attention_ref(q32, k32, v32, **mk)
     err = row_rel_err(out_k, out_t)
     long_rows = slice(sq - sq // 4, sq)
     tile = sk // 2 // 64 * 64
     keep = torch.ones((1, sq, sk), dtype=torch.bool, device=dev)
     keep[0, long_rows, tile:tile + 64] = False
     planted = {
-        "skip_kv_tile": ref.attention_ref(q32, k32, v32, causal=causal,
-                                          softcap=softcap, mask=keep),
-        "scale_1pct": ref.attention_ref(q32 * 1.01, k32, v32, causal=causal,
-                                        softcap=softcap),
+        "skip_kv_tile": ref.attention_ref(q32, k32, v32, **mk, mask=keep),
+        "scale_1pct": ref.attention_ref(q32 * 1.01, k32, v32, **mk),
     }
     fault_err = {f: row_rel_err(o.to(torch.bfloat16)[:, long_rows],
                                 out_t[:, long_rows])
@@ -818,27 +842,30 @@ def flash_case(torch, name, b, sq, sk, h, hkv, dh, softcap, seed, flush,
     abs_err = float((out_k.float() - out_t).abs().max())
     del planted, keep, out_t
     torch.cuda.synchronize()
-    kern = lambda: fa.flash_attention_cuda(q, k, v, causal=causal,
-                                           softcap=softcap)
+    kern = lambda: fa.flash_attention_cuda(q, k, v, **mk)
     times = eager_graph_ms(torch, kern, 10, flush)
-    plain_ms = time_ms(torch, lambda: ref.attention_ref(
-        q, k, v, causal=causal, softcap=softcap), 2, warmup=1, flush=flush)
+    device = kernel_device_ms(torch, kern, 10, flush)
+    plain_ms = time_ms(torch, lambda: ref.attention_ref(q, k, v, **mk), 2,
+                       warmup=1, flush=flush)
     library = {"ms": None, "graph_ms": None}
     if not softcap:
         # the library call takes (B, H, S, dh); GQA K/V are expanded first
         qt, kt, vt = (torch.repeat_interleave(x, h // x.shape[2], dim=2)
                       .transpose(1, 2).contiguous() for x in (q, k, v))
         mask = None
-        if causal and sq != sk:    # decode-style alignment: is_causal
-            mask = (torch.arange(sq, device=dev)[:, None] + (sk - sq)
-                    >= torch.arange(sk, device=dev)[None, :])
+        if causal and (sq != sk or prefix_len):
+            # decode-style alignment or a prefix: a boolean mask
+            kp = torch.arange(sk, device=dev)[None, :]
+            mask = torch.arange(sq, device=dev)[:, None] + (sk - sq) >= kp
+            if prefix_len:
+                mask = mask | (kp < prefix_len)
         library = eager_graph_ms(
             torch, lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask,
                 is_causal=causal and mask is None), 10, flush)
     q_off = sk - sq
-    pairs = sum(min(sk, q_off + i + 1) for i in range(sq)) if causal \
-        else sq * sk
+    pairs = sum(max(min(sk, q_off + i + 1), min(sk, prefix_len))
+                for i in range(sq)) if causal else sq * sk
     flops = 4.0 * b * h * dh * pairs
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
@@ -846,7 +873,8 @@ def flash_case(torch, name, b, sq, sk, h, hkv, dh, softcap, seed, flush,
     return dict(case=name, max_abs_err=abs_err, max_row_rel_err=err,
                 long_rows_rel_err=long_err, tol=FLASH_TOL,
                 planted_fault_rel_err=fault_err, faults_caught=faults_caught,
-                ms=times["ms"], graph_ms=times["graph_ms"],
+                prefix_len=prefix_len, ms=times["ms"],
+                graph_ms=times["graph_ms"], device_ms=device,
                 plain_ms=plain_ms, library_ms=library["ms"],
                 library_graph_ms=library["graph_ms"], bound_ms=b_ms,
                 bound_by=b_by,
@@ -890,6 +918,8 @@ def phase_kernels(torch, scan: bool = False):
                       1024, 512, 1000, "bf16", 50, flush, timed=False),
             topk_case(torch, "N_c 20 (one run)", 3, 4160, 1024, 512, 20,
                       "bf16", 51, flush, timed=False),
+            topk_case(torch, "paligemma-3b B4 S4160 r64 r*32 (kv_dim 256)",
+                      4, 4160, 64, 32, 432, "bf16", 52, flush),
         ],
         "sparse_recon_attention": [
             sra_case(torch, "llama2-7b B4 H32 S4160 r1024 int8-V", 4, 32, 32,
@@ -905,6 +935,12 @@ def phase_kernels(torch, scan: bool = False):
             sra_case(torch, "f32 u int8-lat (CUDA-core body)", 4, 32, 8, 128,
                      4160, 256, 432, "int8", 8, 0.0, 31, flush,
                      u_dtype="f32"),
+            sra_case(torch, "paligemma-3b dh256 MQA group 8 r64 int8-V", 4,
+                     8, 1, 256, 4160, 64, 432, "bf16", 8, 0.0, 53, flush),
+            sra_case(torch, "paligemma-3b dh256 int4-V", 4, 8, 1, 256, 4160,
+                     64, 432, "bf16", 4, 0.0, 54, flush),
+            sra_case(torch, "dh256 f32 latents (CUDA-core body)", 4, 8, 1,
+                     256, 4160, 64, 432, "f32", 8, 0.0, 55, flush),
         ] + ([   # where the recon body's time goes: passes x ring stages
             sra_case(torch, f"scan N_c {n_c} r {r}", 4, 32, 32, 128, 4160, r,
                      n_c, "bf16", 8, 0.0, 3, flush)
@@ -936,6 +972,11 @@ def phase_kernels(torch, scan: bool = False):
                      ps=8),
             sra_case(torch, "f32 latents ps16 (CUDA-core body)", 4, 32, 8,
                      128, 4096, 256, 432, "f32", 8, 0.0, 19, flush, ps=16),
+            sra_case(torch, "paligemma-3b dh256 int8-V ps64", 4, 8, 1, 256,
+                     4096, 64, 432, "bf16", 8, 0.0, 56, flush, ps=64),
+            sra_case(torch, "paligemma-3b dh256 int8-lat int4-V ps16", 4, 8,
+                     1, 256, 4096, 64, 432, "int8", 4, 0.0, 57, flush,
+                     ps=16),
         ],
         "sparse_recon_attention_window": [
             window_case(torch, "llama2-7b B4 Q4 H32 S4160 r1024 int8-V", 4, 4,
@@ -954,6 +995,21 @@ def phase_kernels(torch, scan: bool = False):
                         128, 4160, 1024, 432, "bf16", 4, 30.0, 26, flush),
             window_case(torch, "f32 latents Q4 GQA (CUDA-core body)", 4, 4,
                         32, 8, 128, 4160, 256, 432, "f32", 8, 0.0, 30, flush),
+            window_case(torch, "paligemma-3b dh256 Q1 int8-V", 4, 1, 8, 1,
+                        256, 4160, 64, 432, "bf16", 8, 0.0, 58, flush),
+            window_case(torch, "paligemma-3b dh256 Q4 int8-V (2 blocks)", 4,
+                        4, 8, 1, 256, 4160, 64, 432, "bf16", 8, 0.0, 59,
+                        flush),
+            window_case(torch, "paligemma-3b dh256 Q8 int8-V (3 blocks)", 4,
+                        8, 8, 1, 256, 4160, 64, 432, "bf16", 8, 0.0, 60,
+                        flush),
+            window_case(torch, "paligemma-3b dh256 Q4 int4-V", 4, 4, 8, 1,
+                        256, 4160, 64, 432, "bf16", 4, 0.0, 61, flush),
+            window_case(torch, "paligemma-3b dh256 Q8 int4-V", 4, 8, 8, 1,
+                        256, 4160, 64, 432, "bf16", 4, 0.0, 68, flush),
+            window_case(torch, "dh256 f32 latents Q8 (CUDA-core body, 3 "
+                        "blocks)", 4, 8, 8, 1, 256, 4160, 64, 432, "f32", 8,
+                        0.0, 62, flush),
         ],
         "sparse_recon_attention_window_paged": [
             window_case(torch, "llama2-7b B4 Q4 S4096 r1024 int8-V ps64", 4,
@@ -964,6 +1020,18 @@ def phase_kernels(torch, scan: bool = False):
                         ps=16),
             window_case(torch, "llama2-7b Q4 int8-V ps8", 4, 4, 32, 32, 128,
                         4096, 1024, 432, "bf16", 8, 0.0, 29, flush, ps=8),
+            window_case(torch, "paligemma-3b dh256 Q4 int8-V ps64", 4, 4, 8,
+                        1, 256, 4096, 64, 432, "bf16", 8, 0.0, 63, flush,
+                        ps=64),
+            window_case(torch, "paligemma-3b dh256 Q8 int8-lat int4-V ps64",
+                        4, 8, 8, 1, 256, 4096, 64, 432, "int8", 4, 0.0, 64,
+                        flush, ps=64),
+            window_case(torch, "paligemma-3b dh256 Q8 int8-V ps16", 4, 8, 8,
+                        1, 256, 4096, 64, 432, "bf16", 8, 0.0, 69, flush,
+                        ps=16),
+            window_case(torch, "paligemma-3b dh256 Q4 int4-V ps64", 4, 4, 8,
+                        1, 256, 4096, 64, 432, "bf16", 4, 0.0, 70, flush,
+                        ps=64),
         ],
         "latent_score": [
             score_case(torch, "overlap_score path: f32 B2 S4096 r1024 r*512",
@@ -992,6 +1060,13 @@ def phase_kernels(torch, scan: bool = False):
                        0.0, 9, flush),
             flash_case(torch, "dh64 MQA Sq1000 non-causal Sk1500", 2, 1000,
                        1500, 16, 1, 64, 0.0, 10, flush, causal=False),
+            flash_case(torch, "paligemma-3b B4 S4096 H8 Hkv1 dh256 prefix "
+                       "256", 4, 4096, 4096, 8, 1, 256, 0.0, 65, flush,
+                       prefix_len=256),
+            flash_case(torch, "dh256 MQA B4 S4096 causal", 4, 4096, 4096, 8,
+                       1, 256, 0.0, 66, flush),
+            flash_case(torch, "llama2-7b B4 S4096 H32 prefix 256", 4, 4096,
+                       4096, 32, 32, 128, 0.0, 67, flush, prefix_len=256),
         ],
     }
     for name, cases in res.items():
@@ -1415,16 +1490,17 @@ def profile_steps(torch, step, steps: int, name: str) -> None:
                e.count / steps] for e in top[:25]]})
 
 
-def build_model(torch):
-    """Seeded full-width paper-llama2-7b (bf16) and U_r calibrated on the
-    synthetic corpus, shared by the serve and sched phases."""
+def build_model(torch, arch: str = "paper-llama2-7b"):
+    """Seeded full-width ``arch`` (bf16) and U_r calibrated on the
+    synthetic corpus (tokens only), shared by the serve and sched phases
+    (paper-llama2-7b) or used by the vlm phase (paligemma-3b)."""
     from repro_torch.config import SALSConfig
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticCorpus
     from repro_torch.launch.serve import calibrate
     from repro_torch.models.transformer import init_params, segment_plan
 
-    cfg = get_config("paper-llama2-7b")
+    cfg = get_config(arch)
     sals = SALSConfig()                    # SALS-25% at the paper defaults
     t0 = time.perf_counter()
     params = init_params(cfg, device="cuda", seed=0)
@@ -1434,18 +1510,24 @@ def build_model(torch):
     proj = calibrate(params, cfg, sals, corpus, n_sequences=16, seq_len=512)
     n_sals = sum(i1 - i0 for i0, i1, m in segment_plan(cfg, sals)
                  if m == "sals")
-    emit({"phase": "model", "init_params_s": init_s,
-          "calibration_s": proj["seconds"], "sals_layers": n_sals})
+    emit({"phase": "model", "arch": arch, "init_params_s": init_s,
+          "calibration_s": proj["seconds"], "sals_layers": n_sals,
+          "memory_allocated": torch.cuda.memory_allocated(),
+          "rank": sals.rank(cfg.kv_dim),
+          "score_rank": sals.score_rank(cfg.kv_dim)})
     return dict(cfg=cfg, sals=sals, params=params, proj=proj,
                 corpus=corpus, n_sals=n_sals)
 
 
-def phase_serve(torch, model, n_new: int = 32, prof: bool = False):
+def phase_serve(torch, model, n_new: int = 32, prof: bool = False,
+                phase: str = "serve"):
     """``ServeEngine.generate`` (its decode steps replay the step program)
     with SALS-25% and with SALS off; then decode steps taken in turns —
     eager, graph, graph, eager — from the same prompts: the replayed
     tokens and every step's logits must equal the eager ones bit for bit,
-    and so must ``generate``'s tokens and each turn's launch counts."""
+    and so must ``generate``'s tokens and each turn's launch counts.
+    ``phase`` labels the lines (the vlm phase runs it on paligemma-3b,
+    tokens only)."""
     from repro_torch.config import SALSConfig, ServeConfig
     from repro_torch.kernels import ops
     from repro_torch.serve import ServeEngine
@@ -1482,7 +1564,7 @@ def phase_serve(torch, model, n_new: int = 32, prof: bool = False):
         def med(t):     # a turn's ms per step, the capture step left out
             return statistics.median(t["ms"][1:])
 
-        row = dict(phase="serve", run=name, prompts=lens, new_tokens=n_new,
+        row = dict(phase=phase, run=name, prompts=lens, new_tokens=n_new,
                    prefill_s=timing["prefill_s"],
                    decode_tok_s=len(lens) * steps / timing["decode_s"],
                    decode_ms_per_step=1e3 * timing["decode_s"] / steps,
@@ -1522,7 +1604,8 @@ def phase_serve(torch, model, n_new: int = 32, prof: bool = False):
                                  f"{[t['launches'] for t in turns]}")
         runs[name] = (row, toks)
         if prof:
-            profile_decode(torch, eng, prompts, name)
+            profile_decode(torch, eng, prompts, name if phase == "serve"
+                           else f"{phase}_{name}")
         del eng, out, turns, eager, graph
         gc.collect()
         torch.cuda.empty_cache()
@@ -1533,8 +1616,8 @@ def phase_serve(torch, model, n_new: int = 32, prof: bool = False):
     for name, (row, _) in runs.items():
         if not (all(row["logits_bitwise_equal_eager"])
                 and all(row["tokens_equal_eager"])):
-            raise AssertionError(f"serve {name}: the replayed step differs "
-                                 "from the eager one")
+            raise AssertionError(f"{phase} {name}: the replayed step "
+                                 "differs from the eager one")
     return runs["sals"]
 
 
@@ -2327,6 +2410,206 @@ def phase_spec(torch, model, serve_sals, n_new: int = 32,
 # phase 7: whole path, card vs CPU
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase: the vlm family (paligemma-3b at full width)
+# ---------------------------------------------------------------------------
+
+VLM_TEXT = [3840, 3328, 2816, 2304]     # text tokens after the 256 patches
+VLM_SCHED_TEXT = (1024, 896, 768, 640)  # the scheduler run's prompts
+
+
+def twin_prefill(torch, fn):
+    """``fn()`` with prefill attention through the plain twin
+    (``ref.attention_ref``, prefix-LM mask included) on the card, in place
+    of the flash kernel: a yardstick of the kernel's effect on the logits,
+    not a path of the port."""
+    from repro_torch.kernels import ops, ref
+    kernel = ops.flash_attention
+
+    def twin(q, k, v, *, causal=True, softcap=0.0, prefix_len=0):
+        return ref.attention_ref(q, k, v, causal=causal or prefix_len > 0,
+                                 softcap=softcap, prefix_len=prefix_len)
+
+    ops.flash_attention = twin
+    try:
+        return fn()
+    finally:
+        ops.flash_attention = kernel
+
+
+def vlm_prefill_decode(torch, model, n_new: int) -> dict:
+    """(a) ``tf.prefill`` of 4 rows of 256 patch embeddings (N(0, 1) x 0.1
+    from seed 0) + 3840 ... 2304 text tokens, then ``n_new`` greedy
+    ``tf.decode_step``s (called directly), SALS-25% and SALS off; the
+    SALS-off prefill's last logits against the same prefill with the
+    twin's attention on the card (max |diff| over the logit scale, the
+    whole phase's bound)."""
+    from repro_torch.config import SALSConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+    cfg, params, proj, corpus = (model[k] for k in ("cfg", "params", "proj",
+                                                    "corpus"))
+    p, d = cfg.vision_patches, cfg.d_model
+    dev = params.embed.embedding.device
+    text = VLM_TEXT
+    g = torch.Generator(device=dev).manual_seed(0)
+    patches = torch.randn((4, p, d), generator=g, device=dev) * 0.1
+    toks = np.zeros((4, max(text)), np.int32)
+    for i, n in enumerate(text):
+        toks[i, :n] = corpus.batch(200 + i, 1, n)["tokens"][0]
+    batch = {"patches": patches, "tokens": torch.as_tensor(toks, device=dev)}
+    lens = torch.as_tensor(text, dtype=torch.int32, device=dev)
+    max_seq = p + max(text) + n_new
+    rows, last = {}, {}
+    for name, sals in (("sals", model["sals"]),
+                       ("full", SALSConfig(enabled=False))):
+        u = proj if sals.enabled else None
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            logits, cache = tf.prefill(params, u, cfg, sals, batch, max_seq,
+                                       lengths=lens)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            prefill_counts = ops.launch_counts()
+            last[name] = logits.float()
+            tok = logits.argmax(-1).to(torch.int32)
+            out, ms = [tok.cpu().numpy()], []
+            ops.reset_launch_counts()
+            for t in range(n_new):
+                t0 = time.perf_counter()
+                logits, cache = tf.decode_step(params, u, cache, tok,
+                                               p + lens + t, cfg, sals)
+                tok = logits.argmax(-1).to(torch.int32)
+                out.append(tok.cpu().numpy())
+                ms.append(1e3 * (time.perf_counter() - t0))
+            counts = ops.launch_counts()
+            del cache
+        toks_out = np.stack(out, 1)
+        finite = bool(torch.isfinite(logits).all())
+        rows[name] = dict(
+            phase="vlm", part="prefill_decode", run=name, patches=p,
+            text_tokens=text, max_seq=max_seq, prefill_s=prefill_s,
+            prefill_launches=prefill_counts, decode_steps=n_new,
+            eager_ms_per_step=statistics.median(ms[1:]),
+            first_step_ms=ms[0], decode_launches=counts,
+            tokens_in_range=bool((toks_out >= 0).all()
+                                 and (toks_out < cfg.vocab_size).all()),
+            finite=finite,
+            max_memory_allocated=torch.cuda.max_memory_allocated())
+        want = model["n_sals"] * n_new if sals.enabled else 0
+        if prefill_counts["flash_attention"] != cfg.n_layers:
+            raise AssertionError(f"vlm {name}: prefill launched flash "
+                                 f"{prefill_counts['flash_attention']} times")
+        if counts["latent_topk"] != want or \
+                counts["sparse_recon_attention"] != want:
+            raise AssertionError(f"vlm {name}: SALS launches {counts}, "
+                                 f"expected {want} each")
+        if not (finite and rows[name]["tokens_in_range"]):
+            raise AssertionError(f"vlm {name}: logits or tokens out of range")
+    with torch.inference_mode():
+        twin = twin_prefill(torch, lambda: tf.prefill(
+            params, None, cfg, SALSConfig(enabled=False), batch, max_seq,
+            lengths=lens)[0].float())
+    tol = 0.05   # as the whole phase: bf16 through the stack, two orders
+    rel = float((last["full"] - twin).abs().max() / twin.abs().max())
+    for name, row in rows.items():
+        row.update(prefill_logits_rel_err_vs_twin=rel, tol=tol,
+                   greedy_first_token_equal_twin=bool(torch.equal(
+                       last["full"].argmax(-1), twin.argmax(-1))))
+        emit(row)
+    if rel > tol:
+        raise AssertionError(f"vlm: prefix-LM prefill logits {rel} from the "
+                             "twin's")
+    return {"flash_attention": rows["sals"]["prefill_launches"][
+                "flash_attention"],
+            "latent_topk": rows["sals"]["decode_launches"]["latent_topk"],
+            "sparse_recon_attention": rows["sals"]["decode_launches"][
+                "sparse_recon_attention"]}
+
+
+def vlm_sched(torch, model, n_new: int = 16) -> dict:
+    """(c) ``RequestScheduler`` on tokens only: 4 requests (1024 ... 640
+    tokens) x ``n_new``, 64-token chunks, on 64-token pages and on the
+    dense arena: tokens equal, and each run launches only its layout's
+    SALS kernels, once per SALS layer and step."""
+    from repro_torch.config import ServeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serve import Request, RequestScheduler, ServeEngine
+    cfg, sals, params, proj = (model[k] for k in ("cfg", "sals", "params",
+                                                  "proj"))
+    prompts = [model["corpus"].batch(400 + i, 1, n)["tokens"][0]
+               for i, n in enumerate(VLM_SCHED_TEXT)]
+    runs = {}
+    for name, ps in (("paged", 64), ("dense", 0)):
+        eng = ServeEngine(params, proj, cfg, ServeConfig(
+            max_seq_len=1152, max_batch=4, prefill_chunk=64, page_size=ps,
+            prefill_token_budget=256, sals=sals),
+            device=params.embed.embedding.device)
+        sched = RequestScheduler(eng)
+        reqs = [Request(p_, max_new_tokens=n_new) for p_ in prompts]
+        for r in reqs:
+            sched.submit(r)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        sched.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        toks = [r.result.tokens if r.done else None for r in reqs]
+        emit(dict(phase="vlm", part="sched", run=name,
+                  prompts=[len(p_) for p_ in prompts], new_tokens=n_new,
+                  wall_s=wall, decode_steps=sched.steps,
+                  prefill_chunks=len(sched.prefill_chunks),
+                  chunk_captures=eng._prefill_chunk.captures,
+                  launches=counts))
+        if not all(r.done for r in reqs):
+            raise AssertionError(f"vlm sched {name}: not every request DONE")
+        sched.audit_serving_state()
+        want = model["n_sals"] * sched.steps
+        mine = ("latent_topk_paged", "sparse_recon_attention_paged") if ps \
+            else ("latent_topk", "sparse_recon_attention")
+        if any(counts[k] != want for k in mine):
+            raise AssertionError(f"vlm sched {name}: SALS launches {counts}, "
+                                 f"expected {want} of {mine}")
+        runs[name] = (counts, toks)
+        del eng, sched
+        gc.collect()
+        torch.cuda.empty_cache()
+    same = all(np.array_equal(a, b) for a, b in
+               zip(runs["paged"][1], runs["dense"][1]))
+    emit({"phase": "vlm", "part": "sched", "paged_tokens_equal_dense": same})
+    if not same:
+        raise AssertionError("vlm sched: paged tokens differ from dense")
+    return {k: runs["paged"][0][k] for k in ("latent_topk_paged",
+                                             "sparse_recon_attention_paged")}
+
+
+def phase_vlm(torch, n_new: int = 32, prof: bool = False) -> dict:
+    """paligemma-3b at full width (18 layers, d 2048, 8 heads over one kv
+    head of dh 256, GeGLU, vocab 257,216), random bf16 weights from seed
+    0, SALS-25% at the defaults (r 64, r* 32, N_c 432, 15 SALS layers), U_r
+    calibrated on tokens: (a) prefix-LM prefill + greedy decode; (b)
+    ``ServeEngine.generate`` on tokens only, the serve phase's prompts, in
+    turns eager / replayed; (c) the paged scheduler.  Returns the launch
+    counts of rows 1-5 on these paths."""
+    model = build_model(torch, "paligemma-3b")
+    counts = vlm_prefill_decode(torch, model, n_new)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_row, _ = phase_serve(torch, model, n_new, prof, phase="vlm")
+    counts["generate"] = {k: serve_row["launches"][k] for k in (
+        "flash_attention", "latent_topk", "sparse_recon_attention")}
+    counts.update(vlm_sched(torch, model))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def phase_whole(torch, n_new: int = 12, prompt_len: int = 1024):
     """The prompt is longer than n_sink + n_recent + N_c, so latent_topk
     picks N_c of ~945 selectable tokens at every step and a ranking that
@@ -2472,8 +2755,13 @@ def main() -> int:
             counts["sparse_recon_attention_window_paged"] = \
                 spec["paged"]["sparse_recon_attention_window_paged"]
             lap("spec")
-        del model
+        del model, serve_sals
+        gc.collect()      # engines and step graphs hold reference cycles
         torch.cuda.empty_cache()
+    vlm = {}
+    if "vlm" in phases:
+        vlm = phase_vlm(torch, prof="profile" in phases)
+        lap("vlm")
     if "whole" in phases:
         phase_whole(torch)
         lap("whole")
@@ -2512,9 +2800,12 @@ def main() -> int:
                      "plain_ms": main_case.get("plain_ms"),
                      "bound_ms": main_case.get("bound_ms"),
                      "bound_by": main_case.get("bound_by"),
-                     "library_ms": main_case.get("library_ms")})
+                     "library_ms": main_case.get("library_ms"),
+                     # paligemma-3b's paths (the vlm phase), dh 256
+                     "vlm_launches": vlm.get(name)})
     emit({"kernels": rows})
-    idle = [r["name"] for r in rows if r["launches"] == 0]
+    idle = [r["name"] for r in rows if r["launches"] == 0
+            or r["vlm_launches"] == 0]
     if idle:    # None: its path did not run; 0: it ran without the kernel
         raise AssertionError(f"kernels never launched on their path: {idle}")
     print(smi, flush=True)

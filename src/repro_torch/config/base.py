@@ -17,7 +17,8 @@ FAMILIES = ("dense", "moe", "hybrid", "ssm", "encoder", "vlm")
 @dataclass(frozen=True)
 class ModelConfig:
     """Architecture description for one model (see the reference for the
-    meaning of each family; the port serves ``dense`` only so far)."""
+    meaning of each family; the port serves ``dense`` and ``vlm`` so
+    far)."""
 
     name: str
     family: str
@@ -86,7 +87,8 @@ class ModelConfig:
         return emb + head + self.n_layers * (attn + 3 * d * self.d_ff)
 
     def reduced(self, **overrides) -> "ModelConfig":
-        """A tiny same-family config for CPU tests (the reference's sizes)."""
+        """A tiny same-family config for CPU tests (the reference's sizes;
+        of its family branches the port keeps the vlm one so far)."""
         small = dict(
             n_layers=min(self.n_layers, 3),
             d_model=128,
@@ -97,6 +99,8 @@ class ModelConfig:
             vocab_size=512,
             name=self.name + "-smoke",
         )
+        if self.family == "vlm":
+            small.update(vision_patches=16)
         small.update(overrides)
         return replace(self, **small)
 

@@ -10,12 +10,16 @@
 // shapes) whatever the window length, plus ql times the scoring; the bytes
 // (the gathered rows once, U_r once) are below that.
 //
-// Grid (B, n_kv): one block per (batch row, kv head), so no reduction
-// crosses blocks.  The block walks the N_c selected slots in the order it
-// is given (ascending positions, invalid slots last), 128 at a time (a
-// pass), and outputs the unnormalized partials m, l (B, ql, H) and o (B,
-// ql, H, dh), f32.  Each selected key is reconstructed once for the whole
-// window.
+// Grid (B, n_kv, splits): one block per (batch row, kv head), so no
+// reduction crosses blocks.  The block walks the N_c selected slots in the
+// order it is given (ascending positions, invalid slots last), 128 at a
+// time (a pass), and outputs the unnormalized partials m, l (B, ql, H) and
+// o (B, ql, H, dh), f32.  Each selected key is reconstructed once for the
+// whole window.  Where the ql * group (window query, head) rows of a block
+// do not fit in shared memory (dh 256: the queries, logits and output
+// cells take 4.5 KB a row), they are split over the fewest blocks whose
+// shares fit (blockIdx.z; each block reconstructs the same keys): every
+// row's arithmetic is the same in any split, so a split changes no bit.
 //
 // bf16 and int8 latents with a bf16 u (sra_kernel): the reconstruction
 // runs on the tensor cores.  384 threads: a producer warpgroup and two consumer
@@ -31,7 +35,8 @@
 //     index; paged: through the page table) once, and gathers the head's
 //     value codes of the pass by cp.async, double-buffered.
 //   * Each consumer computes its 64 x dh key tile K = lat . U_h^T with
-//     wgmma m64n{dh}k16 (f32 accumulate; bf16 products are exact in f32),
+//     wgmma m64n{dh}k16 (two m64n128k16 halves at dh 256; f32 accumulate,
+//     bf16 products are exact in f32),
 //     multiplies the int8 per-token scale into the accumulator rows, and
 //     applies RoPE at pos_base + idx in registers (the pairs (d, d + dh/2)
 //     sit in one thread).  It scores the ql * group window queries (query t
@@ -71,8 +76,20 @@
 
 #include <math.h>
 
-constexpr int SRA_MAX_QL = 8;  // longest verify window
+constexpr int SRA_MAX_QL = 8;     // longest verify window
 constexpr int SRA_SMEM_LIMIT = 232448;
+constexpr int SRA_MAX_SPLIT = 8;  // most blocks a (row, kv head) splits over
+
+// Query rows a block takes: all nq, or the share of the fewest blocks (at
+// most SRA_MAX_SPLIT) for which fits(share) holds; 0 when none does.
+template <typename Fits>
+static int sra_rows_per_block(int nq, Fits fits) {
+  for (int n = 1; n <= SRA_MAX_SPLIT && n <= nq; ++n) {
+    const int share = (nq + n - 1) / n;
+    if (fits(share)) return share;
+  }
+  return 0;
+}
 
 // Where row b's logical cache position p lives (pages: see the header).
 struct SraLayout {
@@ -164,16 +181,19 @@ __global__ void __launch_bounds__(SRA_THREADS, 1) sra_kernel(
     float* __restrict__ m_out, float* __restrict__ l_out,
     float* __restrict__ o_out, int ql, int H, int n_kv, int S, int r,
     int code_w, int G, int v_group, int n_c, int n_recent, float softcap,
-    int use_rope, SraLayout lay) {
+    int use_rope, int nqb, SraLayout lay) {
   static_assert(sizeof(TK) <= 2, "f32 latents take sra_f32_kernel");
   constexpr int HALF = DH / 2;
   constexpr int VROW = VBITS == 8 ? DH : DH / 2;  // code bytes a slot
   constexpr int NCON = 256;                       // consumer threads
   const int group = H / n_kv;
-  const int nq = ql * group;  // (window query, head) pairs of this block
+  // (window query, head) rows qg0 .. qg0 + nq - 1 of the ql * group are
+  // this block's (row qg0 + i is window query (qg0 + i) / group)
+  const int qg0 = blockIdx.z * nqb;
+  const int nq = min(nqb, ql * group - qg0);
   const int b = blockIdx.x, h = blockIdx.y;
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
-  const SraTcLayout L = sra_tc_layout(DH, nq, VBITS, v_group);
+  const SraTcLayout L = sra_tc_layout(DH, nqb, VBITS, v_group);
   const int ngh = sra_head_groups(DH, v_group);  // staged pairs a slot
   const int g_lo = h * DH / v_group;             // first group of the head
   const int n_k = (r + SRA_KC - 1) / SRA_KC;
@@ -187,11 +207,11 @@ __global__ void __launch_bounds__(SRA_THREADS, 1) sra_kernel(
   __nv_bfloat162* vsz =
       reinterpret_cast<__nv_bfloat162*>(vcodes + L.vcodes);
   float* q_s = reinterpret_cast<float*>(vcodes + L.vcodes + L.vsz);
-  float* p_s = q_s + (size_t)nq * DH;                        // nq x PASS
-  float* o_s = p_s + (size_t)nq * SRA_PASS;                  // nq x DH
-  float* m_s = o_s + (size_t)nq * DH;
-  float* l_s = m_s + nq;
-  float* a_s = l_s + nq;
+  float* p_s = q_s + (size_t)nqb * DH;                       // nq x PASS
+  float* o_s = p_s + (size_t)nqb * SRA_PASS;                 // nq x DH
+  float* m_s = o_s + (size_t)nqb * DH;
+  float* l_s = m_s + nqb;
+  float* a_s = l_s + nqb;
   SraMeta* meta = reinterpret_cast<SraMeta*>(
       reinterpret_cast<unsigned char*>(m_s) + L.stats);
   uint64_t* full = reinterpret_cast<uint64_t*>(
@@ -303,10 +323,10 @@ __global__ void __launch_bounds__(SRA_THREADS, 1) sra_kernel(
   const float scale = (float)(1.0 / sqrt((double)DH));
 
   // RoPE'd query heads of this kv group for every window query t (row
-  // qg = t * group + gi), once (rounded to q's dtype as the reference's
-  // oracle does)
+  // qg0 + qg = t * group + gi), once (rounded to q's dtype as the
+  // reference's oracle does)
   for (int e = ctid; e < nq * DH; e += NCON) {
-    const int qg = e / DH, d = e % DH;
+    const int qg = qg0 + e / DH, d = e % DH;
     const int t = qg / group, gi = qg % group;
     q_s[e] = sals_load(q, q_dtype,
                        (((size_t)b * ql + t) * H + h * group + gi) * DH + d);
@@ -320,7 +340,7 @@ __global__ void __launch_bounds__(SRA_THREADS, 1) sra_kernel(
   if (use_rope) {
     for (int e = ctid; e < nq * HALF; e += NCON) {
       const int qg = e / HALF, d = e % HALF;
-      const float qp = (float)(q_pos[b] + qg / group);
+      const float qp = (float)(q_pos[b] + (qg0 + qg) / group);
       const float ang = qp * freqs[d];
       const float c = cosf(ang), s = sinf(ang);
       const float x1 = q_s[qg * DH + d], x2 = q_s[qg * DH + d + HALF];
@@ -357,9 +377,19 @@ __global__ void __launch_bounds__(SRA_THREADS, 1) sra_kernel(
       wgmma_hold<DH / 2>(acc);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < SRA_KC / 16; ++kk)
-        wgmma_ss<DH>(acc, gmma_desc(lat_a + kk * 32, 16, 1024),
-                     gmma_desc(u_a + kk * 32, 16, 1024), 1);
+      for (int kk = 0; kk < SRA_KC / 16; ++kk) {
+        const uint64_t da = gmma_desc(lat_a + kk * 32, 16, 1024);
+        if constexpr (DH <= 128) {
+          wgmma_ss<DH>(acc, da, gmma_desc(u_a + kk * 32, 16, 1024), 1);
+        } else {
+          // U_h rows (channels) 128 and up start 128 rows further on
+#pragma unroll
+          for (int n = 0; n < DH / 128; ++n)
+            wgmma_ss<128>(acc + 64 * n, da,
+                          gmma_desc(u_a + n * 128 * 128 + kk * 32, 16, 1024),
+                          1);
+        }
+      }
       wgmma_commit();
       wgmma_wait<0>();
       wgmma_hold<DH / 2>(acc);
@@ -425,8 +455,9 @@ __global__ void __launch_bounds__(SRA_THREADS, 1) sra_kernel(
         for (int i = 0; i < 2; ++i) {
           float x = (i ? a1 : a0) * scale;
           if (softcap != 0.f) x = softcap * tanhf(x / softcap);
-          const bool seen =
-              n_recent == 0 || base + mt[i].row <= qpos + qg / group - n_recent;
+          const bool seen = n_recent == 0 ||
+                            base + mt[i].row <= qpos + (qg0 + qg) / group -
+                                                    n_recent;
           p_s[qg * SRA_PASS + sl[i]] = mt[i].ok && seen ? x : SALS_NEG_INF;
         }
       }
@@ -515,7 +546,7 @@ __global__ void __launch_bounds__(SRA_THREADS, 1) sra_kernel(
 
   for (int cell = ctid; cell < nq * DH; cell += NCON) {
     const int qg = cell / DH, d = cell % DH;
-    const int t = qg / group, gi = qg % group;
+    const int t = (qg0 + qg) / group, gi = (qg0 + qg) % group;
     const size_t hq = ((size_t)b * ql + t) * H + h * group + gi;
     o_out[hq * DH + d] = o_s[cell];
     if (d == 0) {
@@ -546,7 +577,7 @@ __global__ void __launch_bounds__(SRF_THREADS) sra_f32_kernel(
     float* __restrict__ m_out, float* __restrict__ l_out,
     float* __restrict__ o_out, int ql, int H, int n_kv, int S, int r,
     int code_w, int G, int v_group, int n_c, int n_recent, float softcap,
-    int use_rope, int lat_vec, int u_vec, SraLayout lay) {
+    int use_rope, int lat_vec, int u_vec, int nqb, SraLayout lay) {
   constexpr int N_SG = SRF_THREADS / DH;  // slot groups
   constexpr int SPT = SRF_T / N_SG;       // slots per thread
   constexpr int HALF = DH / 2;
@@ -554,7 +585,9 @@ __global__ void __launch_bounds__(SRF_THREADS) sra_f32_kernel(
                 "tile shape");
   static_assert(SRF_T == 32, "the gather maps one slot to each lane");
   const int group = H / n_kv;
-  const int nq = ql * group;  // (window query, head) pairs of this block
+  // (window query, head) rows qg0 .. qg0 + nq - 1 are this block's
+  const int qg0 = blockIdx.z * nqb;
+  const int nq = min(nqb, ql * group - qg0);
   const int b = blockIdx.x, h = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = SRF_THREADS / 32;
@@ -566,20 +599,20 @@ __global__ void __launch_bounds__(SRF_THREADS) sra_f32_kernel(
   float* k_s = u_s + DH * (SRF_JT + 1);              // T x DH
   float* v_s = k_s + SRF_T * DH;                     // T x DH
   float* q_s = v_s + SRF_T * DH;                     // nq x DH
-  float* lg_s = q_s + nq * DH;                       // T x nq
-  float* m_s = lg_s + SRF_T * nq;                    // nq*DH softmax cells
-  float* l_s = m_s + nq * DH;
-  float* o_s = l_s + nq * DH;
-  int* row_s = reinterpret_cast<int*>(o_s + nq * DH);  // T
+  float* lg_s = q_s + nqb * DH;                      // T x nq
+  float* m_s = lg_s + SRF_T * nqb;                   // nq*DH softmax cells
+  float* l_s = m_s + nqb * DH;
+  float* o_s = l_s + nqb * DH;
+  int* row_s = reinterpret_cast<int*>(o_s + nqb * DH);  // T
   int* ok_s = row_s + SRF_T;                                    // T
   float* sc_s = reinterpret_cast<float*>(ok_s + SRF_T);         // T
   int* prow_s = reinterpret_cast<int*>(sc_s + SRF_T);  // T physical rows
 
   // RoPE'd query heads of this kv group for every window query t (row
-  // qg = t * group + gi), once (rounded to q's dtype as the reference's
-  // oracle does)
+  // qg0 + qg = t * group + gi), once (rounded to q's dtype as the
+  // reference's oracle does)
   for (int e = tid; e < nq * DH; e += SRF_THREADS) {
-    const int qg = e / DH, d = e % DH;
+    const int qg = qg0 + e / DH, d = e % DH;
     const int t = qg / group, gi = qg % group;
     q_s[e] = sals_load(q, q_dtype,
                        (((size_t)b * ql + t) * H + h * group + gi) * DH + d);
@@ -588,7 +621,7 @@ __global__ void __launch_bounds__(SRF_THREADS) sra_f32_kernel(
   if (use_rope) {
     for (int e = tid; e < nq * HALF; e += SRF_THREADS) {
       const int qg = e / HALF, d = e % HALF;
-      const float qp = (float)(q_pos[b] + qg / group);
+      const float qp = (float)(q_pos[b] + (qg0 + qg) / group);
       const float ang = qp * freqs[d];
       const float c = cosf(ang), s = sinf(ang);
       const float x1 = q_s[qg * DH + d], x2 = q_s[qg * DH + d + HALF];
@@ -769,7 +802,8 @@ __global__ void __launch_bounds__(SRF_THREADS) sra_f32_kernel(
         float x = a * scale;
         if (softcap != 0.f) x = softcap * tanhf(x / softcap);
         const bool seen = n_recent == 0 ||
-                          base + row_s[t] <= qpos + qg / group - n_recent;
+                          base + row_s[t] <= qpos + (qg0 + qg) / group -
+                                                 n_recent;
         lg_s[t * nq + qg] = ok_s[t] && seen ? x : SALS_NEG_INF;
       }
     }
@@ -796,7 +830,7 @@ __global__ void __launch_bounds__(SRF_THREADS) sra_f32_kernel(
 
   for (int cell = tid; cell < n_cells; cell += SRF_THREADS) {
     const int qg = cell / DH, d = cell % DH;
-    const int t = qg / group, gi = qg % group;
+    const int t = (qg0 + qg) / group, gi = (qg0 + qg) % group;
     const size_t hq = ((size_t)b * ql + t) * H + h * group + gi;
     o_out[hq * DH + d] = o_s[cell];
     if (d == 0) {
@@ -806,8 +840,8 @@ __global__ void __launch_bounds__(SRF_THREADS) sra_f32_kernel(
   }
 }
 
-size_t sra_f32_smem_bytes(int r, int dh, int group, int ql) {
-  const size_t nq = (size_t)ql * group;
+// Shared memory of the CUDA-core body for nq query rows a block.
+size_t sra_f32_smem_bytes(int r, int dh, int nq) {
   return sizeof(float) * ((size_t)r * SRF_LAT_LD + dh * (SRF_JT + 1) +
                           2 * SRF_T * dh + nq * dh + SRF_T * nq +
                           3 * nq * dh + SRF_T) +
@@ -827,8 +861,12 @@ struct SraCall {
 
 template <typename TK, int VBITS, int DH, bool PAGED>
 static int launch_sra_f32(const SraCall& c, cudaStream_t stream) {
-  const size_t smem = sra_f32_smem_bytes(c.r, DH, c.H / c.n_kv, c.ql);
-  if (smem > (size_t)SRA_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  const int nq = c.ql * (c.H / c.n_kv);
+  const int nqb = sra_rows_per_block(nq, [&](int share) {
+    return sra_f32_smem_bytes(c.r, DH, share) <= (size_t)SRA_SMEM_LIMIT;
+  });
+  if (nqb == 0) return (int)cudaErrorInvalidValue;
+  const size_t smem = sra_f32_smem_bytes(c.r, DH, nqb);
   // 16-byte vector paths need aligned rows (and whole U chunks)
   const int lat_vec = (reinterpret_cast<uintptr_t>(c.k_lat) % 16 == 0) &&
                       ((size_t)c.r * sizeof(TK)) % 16 == 0;
@@ -838,7 +876,7 @@ static int launch_sra_f32(const SraCall& c, cudaStream_t stream) {
   cudaFuncSetAttribute(sra_f32_kernel<TK, VBITS, DH, PAGED>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
-  dim3 grid(c.B, c.n_kv);
+  dim3 grid(c.B, c.n_kv, (nq + nqb - 1) / nqb);
   sra_f32_kernel<TK, VBITS, DH, PAGED><<<grid, SRF_THREADS, smem, stream>>>(
       c.q, c.q_dtype, static_cast<const TK*>(c.k_lat),
       static_cast<const __nv_bfloat16*>(c.k_scale),
@@ -850,7 +888,7 @@ static int launch_sra_f32(const SraCall& c, cudaStream_t stream) {
       static_cast<const float*>(c.freqs), static_cast<float*>(c.m),
       static_cast<float*>(c.l), static_cast<float*>(c.o), c.ql, c.H, c.n_kv,
       c.S, c.r, c.code_w, c.G, c.v_group, c.n_c, c.n_recent, c.softcap,
-      c.use_rope, lat_vec, u_vec, c.lay);
+      c.use_rope, lat_vec, u_vec, nqb, c.lay);
   return (int)cudaGetLastError();
 }
 
@@ -860,10 +898,14 @@ static bool sra_aligned(const void* p) {
 
 template <typename TK, int VBITS, int DH, bool PAGED>
 static int launch_sra_tc(const SraCall& c, cudaStream_t stream) {
-  const SraTcLayout L =
-      sra_tc_layout(DH, c.ql * (c.H / c.n_kv), VBITS, c.v_group);
+  const int nq = c.ql * (c.H / c.n_kv);
+  // the kernel needs two ring stages
+  const int nqb = sra_rows_per_block(nq, [&](int share) {
+    return sra_tc_layout(DH, share, VBITS, c.v_group).stages >= 2;
+  });
+  const SraTcLayout L = sra_tc_layout(DH, nqb, VBITS, c.v_group);
   // bf16 U_h for TMA and wgmma; 16-byte rows for the gathers
-  if (L.stages < 2 || c.u_dtype != SALS_BF16 || c.r % 8 != 0 ||
+  if (nqb == 0 || c.u_dtype != SALS_BF16 || c.r % 8 != 0 ||
       c.code_w % 16 != 0 || !sra_aligned(c.k_lat) || !sra_aligned(c.v_q) ||
       !sra_aligned(c.u))
     return (int)cudaErrorInvalidValue;
@@ -876,7 +918,7 @@ static int launch_sra_tc(const SraCall& c, cudaStream_t stream) {
   cudaFuncSetAttribute(sra_kernel<TK, VBITS, DH, PAGED>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)L.total);
-  dim3 grid(c.B, c.n_kv);
+  dim3 grid(c.B, c.n_kv, (nq + nqb - 1) / nqb);
   sra_kernel<TK, VBITS, DH, PAGED><<<grid, SRA_THREADS, L.total, stream>>>(
       tu, c.q, c.q_dtype, static_cast<const TK*>(c.k_lat),
       static_cast<const __nv_bfloat16*>(c.k_scale),
@@ -888,7 +930,7 @@ static int launch_sra_tc(const SraCall& c, cudaStream_t stream) {
       static_cast<const float*>(c.freqs), static_cast<float*>(c.m),
       static_cast<float*>(c.l), static_cast<float*>(c.o), c.ql, c.H, c.n_kv,
       c.S, c.r, c.code_w, c.G, c.v_group, c.n_c, c.n_recent, c.softcap,
-      c.use_rope, c.lay);
+      c.use_rope, nqb, c.lay);
   return (int)cudaGetLastError();
 }
 
@@ -918,6 +960,9 @@ static int dispatch_sra(const SraCall& c, int k_dtype, int v_bits, int dh,
   if (c.ql < 1 || c.ql > SRA_MAX_QL || c.n_recent < 0)
     return (int)cudaErrorInvalidValue;
   const bool v4 = v_bits == 4;
+  if (dh == 256)
+    return v4 ? dispatch_k<4, 256, PAGED>(k_dtype, c, st)
+              : dispatch_k<8, 256, PAGED>(k_dtype, c, st);
   if (dh == 128)
     return v4 ? dispatch_k<4, 128, PAGED>(k_dtype, c, st)
               : dispatch_k<8, 128, PAGED>(k_dtype, c, st);

@@ -78,7 +78,7 @@ SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I,
         _P],
     "sals_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                             _F, _P],
+                             _I, _F, _P],
 }
 
 _lock = threading.Lock()

@@ -5,7 +5,7 @@ tensor runs the plain PyTorch twin in ``kernels/ref.py``.  There is no
 backend switch and no fallback: on CUDA the kernel runs or the call raises.
 The signatures are the reference's (``repro/kernels/ops.py``): a
 ``page_table`` makes the cache operands page pools and selects the paged
-kernel (or twin); prefix-LM masking belongs to a later slice and raises.
+kernel (or twin); ``prefix_len`` gives prefix-LM masking.
 
 Models call these; nothing below imports from ``repro_torch.models``.
 """
@@ -58,15 +58,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, softcap: float = 0.0,
                     prefix_len: int = 0) -> torch.Tensor:
     """q: (B,Sq,H,dh); k/v: (B,Sk,Hkv,dh) with Hkv dividing H (the reference
-    takes them GQA-expanded, Hkv == H; both are accepted).  The CUDA kernel
-    runs at every length."""
-    if prefix_len:
-        raise NotImplementedError("prefix-LM masking (vlm family) is ported "
-                                  "with the vlm family's slice")
+    takes them GQA-expanded, Hkv == H; both are accepted).  ``prefix_len``
+    > 0 gives prefix-LM masking (paligemma): the first ``prefix_len`` keys
+    are visible to every query, the rest causally, whatever ``causal``
+    says — the reference's Pallas kernel turns its causal mask on for a
+    prefix.  The CUDA kernel runs at every length."""
+    causal = causal or prefix_len > 0
     if _on_cuda(q):
         return _fa.flash_attention_cuda(q, k, v, causal=causal,
-                                        softcap=softcap)
-    return _ref.attention_ref(q, k, v, causal=causal, softcap=softcap)
+                                        softcap=softcap,
+                                        prefix_len=prefix_len)
+    return _ref.attention_ref(q, k, v, causal=causal, softcap=softcap,
+                              prefix_len=prefix_len)
 
 
 def latent_score(q_lat: torch.Tensor, k_lat: torch.Tensor,

@@ -32,10 +32,15 @@ def _rope(x: torch.Tensor, positions: torch.Tensor,
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, softcap: float = 0.0,
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  mask: Optional[torch.Tensor] = None,
+                  prefix_len: int = 0) -> torch.Tensor:
     """Materialized attention.  q: (B,Sq,H,dh); k/v: (B,Sk,Hk,dh) with
     Hk == H, or Hk dividing H (kv head ``h // (H // Hk)`` serves query head
     h — the same function as attending ``repeat_kv``'s expanded copy).
+    ``prefix_len`` > 0 is prefix-LM masking, as the reference's
+    ``ops._mask_logits`` and Pallas kernel: the first ``prefix_len`` keys
+    are visible to every query and the rest causally, ``(kp <
+    prefix_len) | (qp >= kp)``, whatever ``causal`` says.
     ``mask`` (1 or B, Sq, Sk) bool, if given, also drops logits where it
     is false.  Returns (B,Sq,H,dh) in v's dtype.  Rows are processed one
     batch row at a time to bound the (H, Sq, Sk) logits buffer."""
@@ -51,9 +56,11 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                               k[i].float()) * scale
         if softcap:
             logits = softcap * torch.tanh(logits / softcap)
-        if causal:
-            cm = (torch.arange(sq, device=q.device)[:, None] + (sk - sq)
-                  >= torch.arange(sk, device=q.device)[None, :])
+        if causal or prefix_len:
+            kp = torch.arange(sk, device=q.device)[None, :]
+            cm = torch.arange(sq, device=q.device)[:, None] + (sk - sq) >= kp
+            if prefix_len:
+                cm = cm | (kp < prefix_len)
             logits = torch.where(cm[None], logits, NEG_INF)
         if mask is not None:
             mi = mask[i] if mask.shape[0] == b else mask[0]

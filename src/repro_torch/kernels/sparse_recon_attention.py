@@ -20,7 +20,11 @@ while the gathered rows plus the resident U_r are about 20 MB (≈ 6 µs).
 Design: grid (B, n_kv), one block per row and kv head, so no reduction
 crosses blocks and the slot order is fixed (the ascending order
 ``selection.sort_selected`` gives, invalid slots last — ragged rows stay
-deterministic).  For bf16 and int8 latents the reconstruction runs on the
+deterministic).  Where a block's Q · group (window query, head) rows do
+not fit in shared memory (dh 256 with a wide window), they are split over
+the fewest blocks whose shares fit (:func:`query_split`, at most
+``MAX_SPLIT``), each reconstructing the same keys; a row's arithmetic does
+not depend on the split, so neither do the results.  For bf16 and int8 latents the reconstruction runs on the
 tensor cores: a producer warpgroup gathers 128 selected latent rows at a
 time into 128-byte-swizzled shared memory (cp.async; int8 converted to
 bf16 exactly) in 64-column stages of a ring, beside the matching chunk of
@@ -56,6 +60,8 @@ _FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _K_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _SMEM_LIMIT = 232_448
 MAX_WINDOW = 8
+HEAD_DIMS = (64, 128, 256)
+MAX_SPLIT = 8     # most blocks one (row, kv head) splits its query rows over
 # the tensor-core body (bf16 / int8 latents): slots per pass, latent columns
 # per ring stage, deepest ring
 _PASS, _KC, _MAX_STAGES = 128, 64, 6
@@ -77,15 +83,23 @@ def _tc_fixed_bytes(dh: int, nq: int, v_bits: int, v_group: int) -> int:
         + 4 * nq * dh + stats + 2 * _PASS * 16 + 8 * (2 * _MAX_STAGES + 4)
 
 
-def ring_stages(dh: int, group: int, ql: int = 1, v_bits: int = 8,
-                v_group: int = 64) -> int:
-    """Ring depth of the tensor-core body: as many 64-column stages (a
-    128-slot latent tile + a dh x 64 U_h chunk) as fit beside the fixed
-    part, at most six.  The kernel needs two."""
+def _stages(dh: int, nq: int, v_bits: int, v_group: int) -> int:
+    """Ring depth of the tensor-core body for nq query rows a block: as
+    many 64-column stages (a 128-slot latent tile + a dh x 64 U_h chunk) as
+    fit beside the fixed part, at most six (mirrors ``sra_tc_layout``)."""
     stage = _PASS * 128 + dh * 128
-    room = _SMEM_LIMIT - 1024 - _tc_fixed_bytes(dh, ql * group, v_bits,
-                                                v_group)
+    room = _SMEM_LIMIT - 1024 - _tc_fixed_bytes(dh, nq, v_bits, v_group)
     return max(0, min(_MAX_STAGES, room // stage))
+
+
+def _f32_smem(r: int, dh: int, nq: int) -> int:
+    """Shared memory of the CUDA-core body for nq query rows a block
+    (mirrors ``sra_f32_smem_bytes``): the f32 latent tile, a U chunk, the
+    reconstructed keys and values, the RoPE'd queries, their logits per
+    slot and their dh online-softmax cells (m, l, o) each."""
+    floats = r * (_F32_T + 4) + dh * (_F32_JT + 1) + 2 * _F32_T * dh \
+        + nq * dh + _F32_T * nq + 3 * nq * dh + _F32_T
+    return 4 * floats + 12 * _F32_T
 
 
 def tensor_cores(k_dtype: torch.dtype, u_dtype: torch.dtype) -> bool:
@@ -94,24 +108,57 @@ def tensor_cores(k_dtype: torch.dtype, u_dtype: torch.dtype) -> bool:
     return k_dtype != torch.float32 and u_dtype == torch.bfloat16
 
 
+def _split(nq: int, fits) -> Tuple[int, int]:
+    """(blocks, rows a block) for nq query rows (mirrors
+    ``sra_rows_per_block``): all in one block where ``fits(nq)``, else the
+    share of the fewest blocks, at most ``MAX_SPLIT``, that fits; (0, nq)
+    where none does."""
+    for n in range(1, min(MAX_SPLIT, nq) + 1):
+        share = -(-nq // n)
+        if fits(share):
+            return -(-nq // share), share
+    return 0, nq
+
+
+def query_split(r: int, dh: int, group: int, ql: int = 1, *,
+                k_dtype: torch.dtype = torch.bfloat16,
+                u_dtype: torch.dtype = torch.bfloat16, v_bits: int = 8,
+                v_group: int = 64) -> Tuple[int, int]:
+    """(blocks, rows a block) over which one (row, kv head)'s ql · group
+    query rows are split: a share fits the tensor-core body where it
+    leaves two ring stages, the CUDA-core body where its shared memory is
+    within the limit."""
+    if tensor_cores(k_dtype, u_dtype):
+        return _split(ql * group,
+                      lambda n: _stages(dh, n, v_bits, v_group) >= 2)
+    return _split(ql * group, lambda n: _f32_smem(r, dh, n) <= _SMEM_LIMIT)
+
+
+def ring_stages(dh: int, group: int, ql: int = 1, v_bits: int = 8,
+                v_group: int = 64) -> int:
+    """Ring depth of the tensor-core body at its query split: as many
+    64-column stages as fit beside a block's fixed part, at most six.  The
+    kernel needs two."""
+    _, share = _split(ql * group,
+                      lambda n: _stages(dh, n, v_bits, v_group) >= 2)
+    return _stages(dh, share, v_bits, v_group)
+
+
 def smem_bytes(r: int, dh: int, group: int, ql: int = 1, *,
                k_dtype: torch.dtype = torch.bfloat16,
                u_dtype: torch.dtype = torch.bfloat16, v_bits: int = 8,
                v_group: int = 64) -> int:
-    """Dynamic shared memory one block uses (mirrors the kernel's layout).
-    Tensor-core body: the 1024-byte alignment slack, the ring and the fixed
-    part — independent of r.  CUDA-core body: the f32 latent tile, a U
-    chunk, the reconstructed keys and values, the ql · group RoPE'd
-    queries, their logits per slot and their ql · group · dh online-softmax
-    cells (m, l, o)."""
-    nq = ql * group
+    """Dynamic shared memory one block uses at its query split (mirrors
+    the kernel's layout).  Tensor-core body: the 1024-byte alignment slack,
+    the ring and the fixed part — independent of r.  CUDA-core body:
+    :func:`_f32_smem`."""
+    _, share = query_split(r, dh, group, ql, k_dtype=k_dtype,
+                           u_dtype=u_dtype, v_bits=v_bits, v_group=v_group)
     if not tensor_cores(k_dtype, u_dtype):
-        floats = r * (_F32_T + 4) + dh * (_F32_JT + 1) + 2 * _F32_T * dh \
-            + nq * dh + _F32_T * nq + 3 * nq * dh + _F32_T
-        return 4 * floats + 12 * _F32_T
+        return _f32_smem(r, dh, share)
     stage = _PASS * 128 + dh * 128
-    return 1024 + ring_stages(dh, group, ql, v_bits, v_group) * stage \
-        + _tc_fixed_bytes(dh, nq, v_bits, v_group)
+    return 1024 + _stages(dh, share, v_bits, v_group) * stage \
+        + _tc_fixed_bytes(dh, share, v_bits, v_group)
 
 
 _FREQS: Dict[tuple, torch.Tensor] = {}
@@ -197,7 +244,7 @@ def _launch(q, k_lat, k_scale, v_q, v_scale, v_zero, u, idx, valid, q_pos,
             "all operands must be contiguous")
     require(q.dtype in _FLOAT_CODES, "q must be bf16/f32")
     b, ql, h, dh = q.shape
-    require(dh in (64, 128), f"head_dim {dh} not in (64, 128)")
+    require(dh in HEAD_DIMS, f"head_dim {dh} not in {HEAD_DIMS}")
     require(h % n_kv == 0, "n_heads must be a multiple of n_kv")
     group = h // n_kv
     kvd = n_kv * dh
@@ -238,16 +285,16 @@ def _launch(q, k_lat, k_scale, v_q, v_scale, v_zero, u, idx, valid, q_pos,
     require(idx.dim() == 2 and idx.shape[0] == b and idx.dtype == torch.int32
             and valid.shape == idx.shape and valid.dtype == torch.bool,
             "idx (B, N_c) int32 and valid (B, N_c) bool")
+    splits, _ = query_split(r, dh, group, ql, k_dtype=k_lat.dtype,
+                            u_dtype=u.dtype, v_bits=v_bits, v_group=v_group)
     if not tensor_cores(k_lat.dtype, u.dtype):
-        smem = smem_bytes(r, dh, group, ql, k_dtype=k_lat.dtype,
-                          u_dtype=u.dtype)
-        require(smem <= _SMEM_LIMIT, f"rank {r}, window {ql}, group {group} "
-                f"need {smem} B of shared memory (limit {_SMEM_LIMIT})")
+        require(splits > 0, f"rank {r}, window {ql}, group {group} need "
+                f"more than {_SMEM_LIMIT} B of shared memory a block over "
+                f"{MAX_SPLIT} blocks")
     else:
-        require(ring_stages(dh, group, ql, v_bits, v_group) >= 2,
-                f"window {ql}, group {group}, value group {v_group} leave "
-                f"no room for two ring stages in {_SMEM_LIMIT} B of shared "
-                "memory")
+        require(splits > 0, f"window {ql}, group {group}, value group "
+                f"{v_group} leave no room for two ring stages in "
+                f"{_SMEM_LIMIT} B of shared memory over {MAX_SPLIT} blocks")
         require(r % 8 == 0, f"rank {r} must be a multiple of 8 (16-byte "
                 "latent rows)")
         require(all(t.data_ptr() % 16 == 0 for t in (k_lat, v_q, u)),

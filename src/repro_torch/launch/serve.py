@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import SALSConfig, ServeConfig
-from repro_torch.configs import get_config
+from repro_torch.configs import _ARCH_MODULES, get_config
 from repro_torch.core import calibration as cal
 from repro_torch.data import CalibrationSampler, SyntheticCorpus
 from repro_torch.models import transformer as tf
@@ -66,8 +66,9 @@ def calibrate(params, cfg, sals, corpus, n_sequences: int = 16,
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True,
-                    choices=("paper-llama2-7b", "paper-mistral-7b", "yi-9b"))
+    ap.add_argument("--arch", required=True, choices=sorted(_ARCH_MODULES),
+                    help="a vlm arch (paligemma-3b) serves tokens only, as "
+                         "the reference's launcher does")
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full", dest="reduced", action="store_false")
     ap.add_argument("--sals", default="0.25",

@@ -1,5 +1,5 @@
-"""Model assembly for the dense family: init / prefill / decode (port of
-``repro/models/transformer.py``).
+"""Model assembly for the dense and vlm families: init / prefill / decode
+(port of ``repro/models/transformer.py``).
 
 Parameters are an ``nn.Module`` tree (:class:`Transformer`) whose tensors
 keep the reference's per-layer layouts; ``convert.params_from_numpy``
@@ -10,7 +10,11 @@ Segments.  The SALS layer mask is front/back-contiguous, so the stack
 splits into up to three segments ``full | sals | full``, each with its own
 cache: ``{"k", "v"}`` tensors of shape (ls, B, S, Hkv, dh) for the full
 segments and a layer-stacked :class:`LatentKVCache` for the SALS segment
-(the dense slot arena, or page pools when ``page_size`` > 0).  Prefill is
+(the dense slot arena, or page pools when ``page_size`` > 0).  A vlm
+prompt is {"patches": (B, P, d), "tokens": (B, S)}: the patch embeddings
+come first, attend each other bidirectionally (prefix-LM) and hold cache
+positions 0 .. P-1, so decode continues at P + S; chunked prefill and the
+serving engine take tokens only, as the reference's do.  Prefill is
 monolithic (:func:`prefill`) or chunked (:func:`prefill_chunk`, which
 serving uses); decode and chunked prefill update the caches in place.
 Speculative decode runs Q tokens through :func:`decode_window` and commits
@@ -40,8 +44,8 @@ def torch_dtype(name) -> torch.dtype:
     return name if isinstance(name, torch.dtype) else DTYPES[name]
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in ("dense", "vlm"):
         raise NotImplementedError(f"the {cfg.family} family is ported in "
                                   "the families slice")
 
@@ -83,11 +87,11 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """Dense decoder parameters: embed, blocks[L], final_norm."""
+    """Decoder parameters (dense or vlm): embed, blocks[L], final_norm."""
 
     def __init__(self, cfg: ModelConfig, dtype=None, device="cuda"):
         super().__init__()
-        _dense_only(cfg)
+        _check_family(cfg)
         dtype = torch_dtype(dtype or cfg.dtype)
         self.embed = Embedding(cfg, dtype, device)
         self.blocks = nn.ModuleList(Block(cfg, dtype, device)
@@ -129,9 +133,16 @@ def _block_fwd(bp: Block, x: torch.Tensor, cfg: ModelConfig,
 
 def embed_inputs(params: Transformer, cfg: ModelConfig,
                  batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, int]:
-    """Returns (x (B,S,d), prefix_len) from {"tokens": (B, S)}."""
-    _dense_only(cfg)
-    return embed_apply(params.embed, batch["tokens"], cfg), 0
+    """Returns (x (B,S,d), prefix_len) from {"tokens": (B, S)}, or for the
+    vlm family {"patches": (B, P, d), "tokens": (B, S)}: the patch
+    embeddings, cast to the token embedding's dtype and not scaled, then
+    the tokens' (P + S positions, prefix_len P)."""
+    _check_family(cfg)
+    tok_emb = embed_apply(params.embed, batch["tokens"], cfg)
+    if cfg.family == "vlm" and "patches" in batch:
+        patches = batch["patches"].to(tok_emb.dtype)
+        return torch.cat([patches, tok_emb], dim=1), patches.shape[1]
+    return tok_emb, 0
 
 
 def _finish_block(bp: Block, x, a, cfg: ModelConfig):
@@ -201,9 +212,12 @@ def prefill(params: Transformer, projectors: Optional[dict],
             ) -> Tuple[torch.Tensor, dict]:
     """Process the prompt monolithically and build the decode cache.
 
-    ``lengths`` (B,): per-row true lengths of a right-padded ragged batch
-    (windows hold each row's real positions; logits are taken at each row's
-    last real token).  Returns (last-position logits (B, V) f32, cache)."""
+    ``lengths`` (B,): per-row true token lengths of a right-padded ragged
+    batch (windows hold each row's real positions; logits are taken at
+    each row's last real token).  A vlm batch's patches come first: a
+    row's cache span is prefix_len + its token length, and ``max_seq``
+    must hold P + S and the tokens to decode.  Returns (last-position
+    logits (B, V) f32, cache)."""
     dtype = torch_dtype(cfg.dtype)
     x, prefix_len = embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
@@ -211,6 +225,8 @@ def prefill(params: Transformer, projectors: Optional[dict],
     positions = torch.arange(s, device=dev)[None, :]
     len_v = None if lengths is None else \
         torch.as_tensor(lengths, device=dev).to(torch.int32)
+    # cache positions include any vision prefix
+    cache_len = None if len_v is None else prefix_len + len_v
     cache = init_cache(cfg, sals, b, max_seq, dtype, n_groups, device=dev)
     for si, (i0, i1, mode) in enumerate(segment_plan(cfg, sals)):
         seg = cache[f"seg{si}"]
@@ -220,7 +236,7 @@ def prefill(params: Transformer, projectors: Optional[dict],
             if mode == "sals":
                 layer = LatentKVCache.prefill_layer(
                     cfg, sals, projectors["u"][li], ex["k_pre"], ex["v"],
-                    max_seq, dtype, n_groups=n_groups, lengths=len_v)
+                    max_seq, dtype, n_groups=n_groups, lengths=cache_len)
                 seg.set_layer(li - i0, layer)
             else:
                 k_r = attn.apply_rope(ex["k_pre"], positions,
@@ -232,7 +248,7 @@ def prefill(params: Transformer, projectors: Optional[dict],
     if len_v is None:
         last = x[:, -1:, :]
     else:
-        last_idx = (prefix_len + len_v - 1).long()
+        last_idx = (cache_len - 1).long()
         last = x[torch.arange(b, device=dev), last_idx][:, None]
     return unembed_apply(params.embed, last, cfg)[:, 0], cache
 
@@ -258,8 +274,9 @@ def prefill_chunk(params: Transformer, projectors: Optional[dict],
     ``LatentKVCache.append_chunk``.  Returns (logits (B, V) f32 at each
     row's last real token covered so far (index clip(lengths-1-off, 0,
     C-1) in the chunk: the chunk holding position lengths-1 returns the
-    prompt's next-token logits), cache, scratch)."""
-    _dense_only(cfg)
+    prompt's next-token logits), cache, scratch).  Tokens only: a vlm
+    model's chunks carry no patches, as the reference's."""
+    _check_family(cfg)
     x = embed_apply(params.embed, batch["tokens"], cfg)
     b, c, _ = x.shape
     dev = x.device

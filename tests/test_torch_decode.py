@@ -202,8 +202,10 @@ def test_fit_projector_same_keys():
                                rtol=1e-5)
 
 
-def test_calibrate_projector():
-    jcfg, cfg, jsals, sals, jp, ju, tp, tu = _model("yi-9b", seed=8)
+def _check_calibrate(arch):
+    """``launch/serve.py::calibrate`` on tokens against the reference's:
+    the pre-RoPE keys, the projectors' spans and the eigenvalues."""
+    jcfg, cfg, jsals, sals, jp, ju, tp, tu = _model(arch, seed=8)
     jcorpus, corpus = JCorpus(cfg.vocab_size, seed=0), \
         SyntheticCorpus(cfg.vocab_size, seed=0)
     jout = jserve.calibrate(jp, jcfg, jsals, jcorpus, n_sequences=8,
@@ -240,3 +242,13 @@ def test_calibrate_projector():
                                atol=1e-4)
     for a, b in zip(fit["u"].double(), tout["u"].double()):
         torch.testing.assert_close(a @ a.T, b @ b.T, rtol=0, atol=1e-2)
+
+
+def test_calibrate_projector():
+    _check_calibrate("yi-9b")
+
+
+def test_calibrate_projector_vlm_mqa():
+    """paligemma-3b (one kv head, tokens only, as the reference's
+    calibration of a vlm)."""
+    _check_calibrate("paligemma-3b")

@@ -41,6 +41,25 @@ def test_flash_wrapper_refuses_before_launch(case, kw, match):
         fa.flash_attention_cuda(q, k, v)
 
 
+@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+def test_flash_plan_fits_every_head_dim(dh):
+    """Two stages of K/V tiles beside the 128-row Q tile fit in shared
+    memory at every head dim the kernel takes: 128-key tiles at dh 64 and
+    128, 64-key tiles at dh 256 (128-key ones would need 321 KB)."""
+    assert fa.smem_bytes(dh) <= LIMIT
+    assert fa.block_keys(dh) == (64 if dh == 256 else 128)
+    assert 1024 + 128 * 256 * 2 + 2 * 2 * 128 * 256 * 2 > LIMIT
+    q, k, v = _flash_args(dh=dh)
+    with pytest.raises(ValueError, match="CUDA device"):
+        fa.flash_attention_cuda(q, k, v, prefix_len=3)
+
+
+def test_flash_prefix_needs_causal():
+    q, k, v = _flash_args()
+    with pytest.raises(ValueError, match="needs causal"):
+        fa.flash_attention_cuda(q, k, v, causal=False, prefix_len=2)
+
+
 # ---------------------------------------------------------------------------
 # sparse recon attention
 # ---------------------------------------------------------------------------
@@ -61,6 +80,45 @@ def test_sra_smem_budget_every_config(arch, k_dtype):
             if k_dtype != torch.float32:
                 assert sra.ring_stages(cfg.head_dim, group, ql,
                                        sals.v_bits) >= 2
+
+
+@pytest.mark.parametrize("v_bits", [8, 4])
+@pytest.mark.parametrize("k_dtype", [torch.bfloat16, torch.int8,
+                                     torch.float32])
+def test_sra_plan_fits_dh256_every_window_and_group(k_dtype, v_bits):
+    """At dh 256 every window of 1..8 queries and every group of 1..8
+    query heads a kv head has a plan: one block where its rows fit, else
+    the fewest blocks (at most ``MAX_SPLIT``) whose share does; the
+    tensor-core body keeps two ring stages, and no block exceeds the
+    shared-memory limit."""
+    for group in range(1, 9):
+        for ql in range(1, sra.MAX_WINDOW + 1):
+            for r in (32, 64, 128, 512):
+                n, share = sra.query_split(r, 256, group, ql,
+                                           k_dtype=k_dtype, v_bits=v_bits)
+                assert 1 <= n <= sra.MAX_SPLIT and n * share >= ql * group
+                assert (n - 1) * share < ql * group
+                assert sra.smem_bytes(r, 256, group, ql, k_dtype=k_dtype,
+                                      v_bits=v_bits) <= LIMIT
+                if k_dtype != torch.float32:
+                    assert sra.ring_stages(256, group, ql, v_bits) >= 2
+
+
+def test_sra_query_split_where_needed_only():
+    """The split starts where one block's rows stop fitting: never at dh 64
+    or 128 for the served windows; at paligemma's dh 256, group 8, int8
+    values from Q 4 on (Q 1: one block, 194,784 B with two ring stages);
+    Q 8 takes three blocks of 22, 22 and 20 rows."""
+    for dh in (64, 128):
+        for group in (1, 4, 8):
+            for ql in range(1, 9):
+                assert sra.query_split(1024, dh, group, ql)[0] == 1
+    assert sra.query_split(64, 256, 8, 1) == (1, 8)
+    assert sra.smem_bytes(64, 256, 8, 1) == 194_784
+    assert sra.query_split(64, 256, 8, 2) == (1, 16)
+    assert sra.query_split(64, 256, 8, 4) == (2, 16)
+    assert sra.query_split(64, 256, 8, 8) == (3, 22)
+    assert sra.query_split(64, 256, 8, 8, k_dtype=torch.float32) == (3, 22)
 
 
 def test_sra_ring_depth_and_rank_independence():

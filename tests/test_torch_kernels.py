@@ -163,6 +163,12 @@ _TOPK_KERNEL_CASES = {
                           [0, 64, 128], False, 16),
     "paged 64": (2, 2048, 64, 32, 100, "bf16", [2047, 1100], None, False,
                  64),
+    # paligemma-3b: kv_dim 256 (one kv head), SALS-25% r 64, r* 32
+    "paligemma r64 r*32 N_c 432": (4, 4160, 64, 32, 432, "bf16",
+                                   [4159, 3647, 3135, 2623], None, False, 0),
+    "paligemma r64 r*32 paged 64": (4, 4096, 64, 32, 432, "bf16",
+                                    [4095, 3583, 3071, 2559], None, False,
+                                    64),
 }
 
 
@@ -394,9 +400,48 @@ def _flash_both(backend, sq, sk, h, hkv, softcap, *, causal, dh):
 
 
 def test_flash_attention_prefix_lm_not_ported():
-    x = torch.zeros((1, 4, 2, 16))
-    with pytest.raises(NotImplementedError):
-        ops.flash_attention(x, x, x, prefix_len=2)
+    """Ported since the vlm slice (the name is the older check's): a
+    prefix no longer raises, and, as in the reference's Pallas kernel, it
+    turns the causal mask on — causal=False with a prefix equals
+    causal=True with it, and differs from plain non-causal attention."""
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((1, 6, 2, 16))
+                         .astype(np.float32))
+    a = ops.flash_attention(x, x, x, causal=False, prefix_len=2)
+    b = ops.flash_attention(x, x, x, causal=True, prefix_len=2)
+    c = ops.flash_attention(x, x, x, causal=False)
+    assert torch.equal(a, b) and not torch.allclose(a, c)
+
+
+@pytest.mark.parametrize("backend", ["xla", "pallas"])
+@pytest.mark.parametrize("sq,sk,h,hkv,dh,prefix", [
+    (40, 40, 4, 1, 64, 16),      # MQA, prefix inside the sequence
+    (24, 56, 4, 2, 64, 20),      # Sq < Sk (decode-style alignment), GQA
+    (64, 64, 2, 1, 256, 48),     # dh 256 MQA: paligemma's head shape
+    (33, 33, 4, 1, 256, 40),     # prefix past the end: all bidirectional
+])
+def test_flash_attention_prefix_lm(backend, sq, sk, h, hkv, dh, prefix):
+    """The prefix-LM twin (keys below ``prefix_len`` visible to every
+    query, the rest causal) against ``flash_attention_pallas(...,
+    prefix_len=P, causal=False)`` in interpret mode and against the
+    reference's ``ops.flash_attention`` (its materialized mask), within
+    the reference's own 2e-5."""
+    rng = np.random.default_rng(dh + prefix)
+    q = rng.standard_normal((2, sq, h, dh)).astype(np.float32)
+    k = rng.standard_normal((2, sk, hkv, dh)).astype(np.float32)
+    v = rng.standard_normal((2, sk, hkv, dh)).astype(np.float32)
+    kk, vv = np.repeat(k, h // hkv, 2), np.repeat(v, h // hkv, 2)
+    if backend == "pallas":
+        from repro.kernels.flash_attention import flash_attention_pallas
+        jo = flash_attention_pallas(_j(q), _j(kk), _j(vv), causal=False,
+                                    prefix_len=prefix)
+    else:
+        jo = jops.flash_attention(_j(q), _j(kk), _j(vv), causal=False,
+                                  prefix_len=prefix, backend=backend)
+    to = ops.flash_attention(_t(q), _t(k), _t(v), causal=False,
+                             prefix_len=prefix)
+    np.testing.assert_allclose(np.asarray(jo), to.numpy(), rtol=2e-5,
+                               atol=2e-5)
 
 
 @pytest.mark.requires_cuda
@@ -444,6 +489,107 @@ def test_flash_attention_kernel_cases(cuda, dh, b, sq, sk, h, hkv, softcap,
                              causal=causal, softcap=softcap)
     diff = (co.cpu().float() - to).abs().amax(-1)
     assert float((diff / to.abs().amax(-1)).max()) <= 2.0 ** -7
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dh,b,sq,sk,h,hkv,causal,prefix", [
+    (256, 2, 300, 300, 8, 1, True, 0),       # dh 256 MQA, 64-key tiles
+    (256, 1, 100, 333, 4, 2, False, 0),      # dh 256 non-causal, ragged Sk
+    (256, 2, 300, 300, 8, 1, True, 100),     # paligemma: MQA with a prefix
+    (128, 1, 200, 200, 4, 2, True, 64),      # prefix of half a tile
+    (64, 1, 130, 330, 4, 2, True, 250),      # Sq < Sk, prefix past q_off
+])
+def test_flash_attention_kernel_prefix_and_dh256(cuda, dh, b, sq, sk, h, hkv,
+                                                 causal, prefix):
+    """The dh-256 plan (64-key tiles) and the prefix-LM mask against the
+    f32 twin: per-row error within 2 bf16 ulps of the row's largest
+    output."""
+    rng = np.random.default_rng(dh + sq + prefix)
+    q, k, v = (_t(rng.standard_normal(shape).astype(np.float32),
+                  torch.bfloat16)
+               for shape in ((b, sq, h, dh), (b, sk, hkv, dh),
+                             (b, sk, hkv, dh)))
+    to = ops.flash_attention(q.float(), k.float(), v.float(), causal=causal,
+                             prefix_len=prefix)
+    co = ops.flash_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                             causal=causal, prefix_len=prefix)
+    diff = (co.cpu().float() - to).abs().amax(-1)
+    assert float((diff / to.abs().amax(-1)).max()) <= 2.0 ** -7
+
+
+def _pool_of(dense, table, ps):
+    """Scatter a dense (B, S, ...) operand into a page pool (n_pages, ps,
+    ...) with page table ``table`` (B, S / ps): the paged kernel reads the
+    same logical contents as the dense one."""
+    if dense is None:
+        return None
+    b, s = dense.shape[:2]
+    pool = torch.zeros((int(table.max()) + 1, ps, *dense.shape[2:]),
+                       dtype=dense.dtype)
+    pool[table.reshape(-1).long()] = dense.reshape(b * s // ps, ps,
+                                                   *dense.shape[2:])
+    return pool
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("v_bits", [8, 4])
+@pytest.mark.parametrize("ql", [1, 4, 8])
+def test_sparse_recon_attention_kernel_dh256_mqa(cuda, ql, v_bits, paged):
+    """The recon body at paligemma's head shape (dh 256, one kv head,
+    group 8, r 64), a window of 1, 4 or 8 queries (the 8 · ql query rows
+    split over blocks where they do not fit in one): against the twin,
+    a one-query window equal to the single-token kernel bit for bit, and
+    (paged) equal to the dense kernel on the same logical contents."""
+    from repro_torch.core import quantization as qz
+    b, h, dh, s, r, n_c = 3, 8, 256, 640, 64, 300
+    g = torch.Generator().manual_seed(40 + ql + v_bits)
+    q = torch.randn((b, ql, h, dh), generator=g).to(torch.bfloat16)
+    k_lat = torch.randn((b, s, r), generator=g).to(torch.bfloat16)
+    vq = qz.quantize(torch.randn((b, s, dh), generator=g), v_bits, 64)
+    u = (torch.randn((dh, r), generator=g) * r ** -0.5).to(torch.bfloat16)
+    q_pos = torch.tensor([s - ql, s - 100, s - 300], dtype=torch.int32)
+    idx = torch.zeros((b, n_c), dtype=torch.int32)
+    valid = torch.zeros((b, n_c), dtype=torch.bool)
+    for i, n in enumerate((n_c, n_c // 2, 0)):
+        hi = int(q_pos[i]) + ql - 1 - 8
+        idx[i, :n] = torch.sort(torch.randperm(hi - 15, generator=g)[:n]
+                                + 16).values.int()
+        valid[i, :n] = True
+    cache = [k_lat, None, vq["q"], vq["scale"], vq["zero"]]
+    kw = dict(n_kv=1, n_recent=8, v_bits=v_bits, v_group=64)
+    pg, dpg = {}, {}
+    if paged:
+        ps = 64
+        table = (torch.randperm(b * s // ps, generator=g) + 2).int()             .reshape(b, s // ps)
+        cache = [_pool_of(a, table, ps) for a in cache]
+        pg = dict(page_table=table, page_size=ps)
+        dpg = dict(page_table=table.to(cuda), page_size=ps)
+    dev_args = [None if a is None else a.to(cuda)
+                for a in (q, *cache, u, idx, valid, q_pos)]
+    tw = ops.sparse_recon_attention_window(q, *cache, u, idx, valid, q_pos,
+                                           **kw, **pg)
+    kern = ops.sparse_recon_attention_window(*dev_args, **kw, **dpg)
+    for a, b_ in zip(kern, tw):
+        torch.testing.assert_close(a.cpu(), b_, rtol=1e-4, atol=1e-4)
+    qd, rest, idd, vd, pd = (dev_args[0], dev_args[1:7], dev_args[7],
+                             dev_args[8], dev_args[9])
+    kw1 = {k_: v_ for k_, v_ in kw.items() if k_ != "n_recent"}
+    one = ops.sparse_recon_attention_window(qd[:, :1].contiguous(), *rest,
+                                            idd, vd, pd, **dict(kw, n_recent=0),
+                                            **dpg)
+    single = ops.sparse_recon_attention(qd[:, 0].contiguous(), *rest, idd,
+                                        vd, pd, **kw1, **dpg)
+    for a, b_ in zip(one, single):
+        assert torch.equal(a[:, 0], b_)
+    if paged:
+        dense = [None if a is None else
+                 ref.paged_logical_view(a, dpg["page_table"], 64).contiguous()
+                 for a in rest[:5]]
+        kd = ops.sparse_recon_attention_window(qd, *dense, rest[5], idd, vd,
+                                               pd, **kw)
+        for a, b_ in zip(kern, kd):
+            assert torch.equal(a, b_)
 
 
 @pytest.mark.requires_cuda

@@ -35,7 +35,9 @@ MAX_SEQ, CHUNK = 64, 8
 
 
 CASES = [("paper-llama2-7b", {"n_kv_heads": 4}, 8, "bfloat16"),   # MHA
-         ("yi-9b", {}, 4, "int8")]                                 # GQA
+         ("yi-9b", {}, 4, "int8"),                                 # GQA
+         ("paligemma-3b", {}, 8, "bfloat16"),    # MQA, tokens only
+         ("qwen2-1.5b", {}, 8, "int8")]          # GQA, QKV bias
 
 
 @pytest.mark.parametrize("arch,over,v_bits,lat_dtype,tensor_off", [

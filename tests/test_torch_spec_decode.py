@@ -259,7 +259,11 @@ def test_window_wrapper_limits():
         - sra.smem_bytes(1024, 128, 1, **f32) == 4 * 7 * (4 * 128 + 32)
     for r, group in ((1024, 1), (256, 4), (128, 8)):
         assert sra.smem_bytes(r, 128, group, 8, **f32) <= sra._SMEM_LIMIT
-    assert sra.smem_bytes(1024, 128, 8, 8, **f32) > sra._SMEM_LIMIT
+    # where one block cannot hold a (row, kv head)'s Q·group query rows,
+    # they are split over blocks whose shares fit
+    assert sra._f32_smem(1024, 128, 8 * 8) > sra._SMEM_LIMIT
+    assert sra.query_split(1024, 128, 8, 8, **f32)[0] > 1
+    assert sra.smem_bytes(1024, 128, 8, 8, **f32) <= sra._SMEM_LIMIT
     # ... and the tensor-core one (bf16 / int8 latents), whose fixed part
     # grows by the queries, logits, cells and stats of each window query
     # (a ring stage of 32 KB gives way where they no longer fit)
@@ -270,7 +274,13 @@ def test_window_wrapper_limits():
     for r, group in ((1024, 1), (256, 4), (128, 8)):
         assert sra.smem_bytes(r, 128, group, 8) <= sra._SMEM_LIMIT
         assert sra.ring_stages(128, group, 8) >= 2
-    assert sra.ring_stages(128, 64, 8) < 2
+    # group 64 at Q = 8 leaves no two stages in one block: split; at dh
+    # 256 not even MAX_SPLIT blocks' shares leave them, and the plan fails
+    assert sra._stages(128, 64 * 8, 8, 64) < 2
+    assert sra.query_split(1024, 128, 64, 8)[0] > 1
+    assert sra.ring_stages(128, 64, 8) >= 2
+    assert sra.query_split(1024, 256, 64, 8) == (0, 64 * 8)
+    assert sra.ring_stages(256, 64, 8) < 2
 
 
 # ---------------------------------------------------------------------------

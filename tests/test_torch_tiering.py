@@ -193,7 +193,8 @@ SALS_KW = dict(rank_ratio=0.5, score_ratio=0.5, n_critical=16, n_sink=2,
 SKW = dict(max_seq_len=128, max_new_tokens=8, max_batch=3, prefill_chunk=8,
            page_size=16, audit_every=1)
 ARCHS = {"llama2-mha": ("paper-llama2-7b", {"n_kv_heads": 4}),
-         "yi-gqa": ("yi-9b", {})}
+         "yi-gqa": ("yi-9b", {}),
+         "paligemma-mqa": ("paligemma-3b", {})}     # a vlm, tokens only
 
 
 def _build(arch_key, n_layers=4, **sals_over):
