@@ -98,7 +98,22 @@ Phases, each printing one JSON line:
               per round, ms per round replayed and eager, beside the
               sequential decode; (a) and (b) must
               also give the eager ``generate_speculative``'s tokens;
-9. vlm      — seeded paligemma-3b at full width (18 layers, d 2048, MQA
+9. slo      — the scheduler's SLO half on the same weights and U_r (4
+              slots, 64-token chunks, budget 512, audited every step): four
+              priority-0 requests of 1,536 tokens, then, once all four
+              decode, two priority-1 requests of 512 (32 new tokens each),
+              through (a) one class on 64-token pages (the gold tokens),
+              (b) park, (c) evict, (d) park on a two-tier pool below the
+              peak of live pages, (e) evict on the dense arena: tokens
+              equal (a)'s, park resumes every victim with no re-prefill
+              (24 chunks each), evict re-prefills, (d) spills parked pages
+              cold and pins none, one decode and one chunk capture a run,
+              only the layout's SALS kernels; the interactive requests'
+              wait, park / resume ms and bytes, evict's re-prefill s.  Then
+              temperature sampling: ``generate`` at T 0.7 reproducible per
+              seed, ``_sample`` over 65,536 rows against softmax(l / T) by
+              a chi-square test, T 0 equal to the plain argmax;
+10. vlm     — seeded paligemma-3b at full width (18 layers, d 2048, MQA
               with head_dim 256, vocab 257,216; bf16), SALS-25% (r 64, r*
               32, 15 SALS layers), U_r calibrated on tokens: (a) prefill of
               4 rows of 256 patch embeddings + 3840 ... 2304 tokens through
@@ -110,7 +125,7 @@ Phases, each printing one JSON line:
               serve phase; (c) ``RequestScheduler``, 4 requests on 64-token
               pages and on the dense arena (tokens equal); every path's
               launch counts;
-10. whole   — a full-width 2-layer model (SALS on layer 1) decoded on the
+11. whole   — a full-width 2-layer model (SALS on layer 1) decoded on the
               card (kernels) and on the CPU (twins) from the same weights
               and a 1024-token prompt (so top-k really selects), per-step
               logits compared under teacher forcing.
@@ -144,7 +159,7 @@ BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12
 
 PHASES = ("device", "build", "kernels", "serve", "sched", "tier", "quality",
-          "spec", "vlm", "whole")
+          "spec", "slo", "vlm", "whole")
 # "profile" (not run by default) adds torch.profiler passes over four
 # chunked-prefill steps after the sched phase (replayed and eager, and the
 # host's issue time of a chunk), and over three
@@ -2407,6 +2422,305 @@ def phase_spec(torch, model, serve_sals, n_new: int = 32,
 
 
 # ---------------------------------------------------------------------------
+# phase: SLO scheduling (priority preemption, park / resume, evict) and
+# temperature sampling
+# ---------------------------------------------------------------------------
+
+SLO_LOW, SLO_HIGH, SLO_NEW, SLO_PS = 1536, 512, 32, 64
+
+
+def slo_traffic(model):
+    """Four batch requests of 1,536 tokens, then two interactive ones of
+    512 (a chat front end whose interactive requests must cut ahead)."""
+    corpus = model["corpus"]
+    return ([corpus.batch(400 + i, 1, SLO_LOW)["tokens"][0]
+             for i in range(4)],
+            [corpus.batch(410 + i, 1, SLO_HIGH)["tokens"][0]
+             for i in range(2)])
+
+
+def slo_run(torch, model, name, classes, policy, page_size=SLO_PS,
+            hbm_pages=0) -> dict:
+    """One scheduler run of the slo traffic: the four low-priority
+    requests submitted first, the two priority-1 ones through ``on_step``
+    once all four are decoding (priority 0 when ``classes`` is 1).  Every
+    park and resume is timed between two synchronizations, with its
+    snapshot's bytes; each request's chunks (``chunk_timer``, in the order
+    of ``prefill_chunks``) give an evicted victim's re-prefill seconds;
+    the high-priority requests' wait runs from their submission to their
+    first token.  Tiered: each step, every parked record's exclusively
+    parked pages that are cold and its pages that are pinned."""
+    from repro_torch.config import ServeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serve import Request, RequestScheduler, ServeEngine
+
+    cfg, sals, params, proj = (model[k] for k in ("cfg", "sals", "params",
+                                                  "proj"))
+    low_p, high_p = slo_traffic(model)
+    eng = ServeEngine(params, proj, cfg, ServeConfig(
+        max_seq_len=4096, max_batch=4, prefill_chunk=64,
+        prefill_token_budget=512, page_size=page_size, hbm_pages=hbm_pages,
+        audit_every=1, priority_classes=classes, preempt_policy=policy,
+        sals=sals), device="cuda")
+    chunks = chunk_timer(torch, eng)
+    moves = {"park": [], "resume": []}
+    decode_runs = [0]
+
+    def timed(kind, fn):
+        def call(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            snap = out if kind == "park" else args[2]
+            moves[kind].append((time.perf_counter() - t0, sum(
+                t.numel() * t.element_size()
+                for fl in snap.values() for t in fl.values())))
+            return out
+        return call
+
+    eng.detach_slot = timed("park", eng.detach_slot)
+    eng.attach_slot = timed("resume", eng.attach_slot)
+    for entry in ("decode", "decode_sel"):
+        def counted(*args, _fn=getattr(eng, entry)):
+            decode_runs[0] += 1
+            return _fn(*args)
+        setattr(eng, entry, counted)
+    sched = RequestScheduler(eng)
+    low = [Request(p, max_new_tokens=SLO_NEW) for p in low_p]
+    first_tok = {}
+    high = [Request(p, max_new_tokens=SLO_NEW, priority=min(1, classes - 1),
+                    on_token=lambda t, i, k=k: first_tok.setdefault(
+                        k, time.perf_counter()))
+            for k, p in enumerate(high_p)]
+    submitted = {}
+    parked_log = []
+
+    def on_step(sch, step):
+        if not submitted and sum(r.state.value == "decoding"
+                                 for r in low) == 4:
+            for r in high:
+                sch.submit(r)
+            submitted.update(step=step, t=time.perf_counter())
+        if sch.tiered:
+            pool = sch.pool
+            for rec in sch.parked:
+                excl = [p for p in rec.ptab.pages if pool.refcount(p)
+                        == rec.ptab.pages.count(p)]
+                parked_log.append((sum(p in pool.cold for p in excl),
+                                   sum(bool(pool.pins.get(p))
+                                       for p in rec.ptab.pages)))
+
+    for r in low:
+        sched.submit(r)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    sched.run(on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    reqs = low + high
+    if not submitted or not all(r.done for r in reqs):
+        raise AssertionError(f"slo {name}: {[r.state.value for r in reqs]}")
+    per_req = {}
+    for (_s, rid, _c, _n), (sec, _rep) in zip(sched.prefill_chunks, chunks):
+        per_req.setdefault(rid, []).append(sec)
+    n_first = -(-SLO_LOW // 64)
+    admitted = {}
+    for step, _slot, rid in sched.admissions:
+        admitted.setdefault(rid, step)
+    graph = eng._decode_sel if hbm_pages else eng._decode
+    row = dict(
+        phase="slo", run=name, priority_classes=classes, policy=policy,
+        page_size=page_size, hbm_pages=hbm_pages, wall_s=wall,
+        decode_steps=sched.steps, decode_runs=decode_runs[0],
+        parks=sched.parks, resumes=sched.resumes,
+        preemptions=sched.preemptions, evictions=sched.evictions,
+        low_chunks=[len(per_req[r.req_id]) for r in low],
+        high_wait_steps=[admitted[r.req_id] - submitted["step"]
+                         for r in high],
+        high_wait_ms=[1e3 * (first_tok[k] - submitted["t"])
+                      for k in range(len(high))],
+        park_ms=[1e3 * s for s, _ in moves["park"]],
+        resume_ms=[1e3 * s for s, _ in moves["resume"]],
+        park_bytes=[b for _, b in moves["park"]],
+        resume_bytes=[b for _, b in moves["resume"]],
+        reprefill_s=[sum(per_req[r.req_id][n_first:]) for r in low
+                     if len(per_req[r.req_id]) > n_first],
+        decode_graph=dict(captures=graph.captures, replays=graph.replays,
+                          nodes=graph.nodes),
+        **chunk_fields(f"slo {name}", eng, chunks),
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        launches=counts)
+    if page_size:
+        row["pool_high_water_pages"] = max(
+            g["pages_in_use"] for g in sched.pool_gauges)
+        row["pool_pages"] = eng.scfg.pool_pages
+    if hbm_pages:
+        row.update(spills=sched.pool.spills, fetches=sched.pool.fetches,
+                   cold_misses=sched.cold_misses,
+                   parked_pages_cold_max=max((c for c, _ in parked_log),
+                                             default=0),
+                   parked_pages_pinned_max=max((p for _, p in parked_log),
+                                               default=0))
+    sched.audit_serving_state()
+    emit(row)
+    # the layout's SALS kernels once per SALS layer and decode run (the
+    # tiered reruns too), nothing else
+    mine = ("latent_topk_paged", "sparse_recon_attention_paged") \
+        if page_size else ("latent_topk", "sparse_recon_attention")
+    want = model["n_sals"] * decode_runs[0]
+    if any(counts[k] != want for k in mine) or any(
+            v for k, v in counts.items() if k not in mine):
+        raise AssertionError(f"slo {name}: launches {counts}, expected "
+                             f"{want} of {mine} and nothing else")
+    if graph.captures != 1:
+        raise AssertionError(f"slo {name}: {graph.captures} decode "
+                             "captures")
+    toks = [r.result.tokens for r in reqs]
+    del eng, sched, reqs, low, high
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, toks
+
+
+def slo_sampling(torch, model, n_draws: int = 65536, vocab: int = 256,
+                 temperature: float = 0.7) -> dict:
+    """Temperature sampling on the card: ``generate`` at ``temperature``
+    on four 1,024-token prompts (32 new tokens) twice with one seed and
+    once with another (the first call's seconds beside a greedy engine's
+    first call); ``_sample`` over ``n_draws`` rows of fixed
+    (·, ``vocab``) logits against ``softmax(logits / T)`` by a chi-square
+    test (ids expected fewer than 5 times share a bin); and temperature 0
+    against the plain argmax."""
+    from repro_torch.config import ServeConfig
+    from repro_torch.serve import ServeEngine
+
+    cfg, sals, params, proj = (model[k] for k in ("cfg", "sals", "params",
+                                                  "proj"))
+    prompts = [model["corpus"].batch(420 + i, 1, 1024)["tokens"][0]
+               for i in range(4)]
+
+    def engine(t, seed=0):
+        return ServeEngine(params, proj, cfg, ServeConfig(
+            max_seq_len=1088, max_batch=4, sals=sals, temperature=t,
+            seed=seed), device="cuda")
+
+    def gen(eng):
+        return np.stack([r.tokens for r in eng.generate(
+            prompts, max_new_tokens=SLO_NEW)])
+
+    eng = engine(temperature)
+    t0 = time.perf_counter()
+    a = gen(eng)
+    gen_s = time.perf_counter() - t0
+    b = gen(eng)
+    c = gen(engine(temperature, seed=1))
+    # the sampler alone: draws of fixed logits on the card
+    g = torch.Generator(device=eng.device)
+    g.manual_seed(5)
+    rows = 4
+    logits = 2.0 * torch.randn(rows, vocab, generator=g, device=eng.device)
+    tiled = logits.repeat_interleave(n_draws // rows, dim=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    draws = eng._sample(tiled)
+    torch.cuda.synchronize()
+    sample_ms = 1e3 * (time.perf_counter() - t0)
+    draws = draws.view(rows, -1)
+    probs = torch.softmax(logits.double() / temperature, dim=-1)
+    pvals = []
+    for i in range(rows):
+        obs = torch.bincount(draws[i].long(), minlength=vocab).double()
+        exp = probs[i] * draws.shape[1]
+        small = exp < 5
+        obs = torch.cat([obs[~small], obs[small].sum()[None]])
+        exp = torch.cat([exp[~small], exp[small].sum()[None]])
+        stat = ((obs - exp) ** 2 / exp).sum()
+        dof = len(exp) - 1
+        pvals.append(float(torch.special.gammaincc(
+            torch.tensor(dof / 2.0, dtype=torch.float64),
+            stat.cpu() / 2.0)))
+    greedy = engine(0.0)
+    t0 = time.perf_counter()
+    z = gen(greedy)
+    greedy_s = time.perf_counter() - t0
+    greedy._sample = lambda l: torch.argmax(l, dim=-1).to(torch.int32)
+    plain = gen(greedy)
+    row = dict(phase="slo", run="sampling", temperature=temperature,
+               prompts=[1024] * 4, new_tokens=SLO_NEW,
+               generate_s=gen_s, greedy_generate_s=greedy_s,
+               same_seed_equal=bool(np.array_equal(a, b)),
+               other_seed_differs=not np.array_equal(a, c),
+               other_seed_agreement=float((a == c).mean()),
+               draws=n_draws, vocab=vocab, chi2_p=pvals,
+               sample_ms=sample_ms,
+               greedy_equal_argmax=bool(np.array_equal(z, plain)),
+               sampled_agreement_with_greedy=float((a == z).mean()))
+    emit(row)
+    del eng, greedy
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (row["same_seed_equal"] and row["other_seed_differs"]
+            and min(pvals) > 1e-3 and row["greedy_equal_argmax"]):
+        raise AssertionError(f"slo sampling: {row}")
+    return row
+
+
+def phase_slo(torch, model) -> dict:
+    """The scheduler's SLO half at full width: (a) the six requests in one
+    class on the paged pool (the gold tokens); (b) two classes, park; (c)
+    two classes, evict; (d) two classes, park, on a two-tier pool whose
+    hot tier holds every resident's pages, its pins and a fetch slot but
+    not the peak of live pages; (e) the dense arena, evict.  Every run's
+    tokens must equal (a)'s; park parks and resumes each victim with no
+    re-prefill, evict re-prefills; (d) spills parked pages cold and pins
+    none.  Then temperature sampling (``slo_sampling``)."""
+    gold_row, gold = slo_run(torch, model, "a_one_class", 1, "none")
+    rows = {"a_one_class": gold_row}
+    pages_low = -(-(SLO_LOW + SLO_NEW) // SLO_PS)
+    hot = 4 * pages_low + 4 + 1 + 2
+    for name, classes, policy, ps, hbm in (
+            ("b_park", 2, "park", SLO_PS, 0),
+            ("c_evict", 2, "evict", SLO_PS, 0),
+            ("d_tiered_park", 2, "park", SLO_PS, hot),
+            ("e_dense_evict", 2, "evict", 0, 0)):
+        row, toks = slo_run(torch, model, name, classes, policy, ps, hbm)
+        row["tokens_equal_a"] = all(np.array_equal(x, y)
+                                    for x, y in zip(toks, gold))
+        rows[name] = row
+        emit({"phase": "slo", "run": name,
+              "tokens_equal_a": row["tokens_equal_a"]})
+    n_first = -(-SLO_LOW // 64)
+    for name, row in rows.items():
+        if name == "a_one_class":
+            continue
+        if not row["tokens_equal_a"]:
+            raise AssertionError(f"slo {name}: tokens differ from (a)'s")
+        if row["policy"] == "park":
+            if not (row["parks"] >= 1 and row["resumes"] == row["parks"]
+                    and row["preemptions"] >= 1 and row["evictions"] == 0
+                    and row["low_chunks"] == [n_first] * 4):
+                raise AssertionError(f"slo {name}: parks / resumes / "
+                                     f"chunks {row}")
+        elif not (row["preemptions"] >= 1 and row["parks"] == 0
+                  and sum(row["low_chunks"]) > 4 * n_first):
+            raise AssertionError(f"slo {name}: evict did not re-prefill "
+                                 f"{row}")
+    d = rows["d_tiered_park"]
+    if not (d["parked_pages_cold_max"] > 0
+            and d["parked_pages_pinned_max"] == 0
+            and hot < d["pool_high_water_pages"]):
+        raise AssertionError(f"slo d_tiered_park: parked pages not spilled "
+                             f"cold, pinned, or hot tier not below the "
+                             f"live peak: {d}")
+    rows["sampling"] = slo_sampling(torch, model)
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 7: whole path, card vs CPU
 # ---------------------------------------------------------------------------
 
@@ -2721,7 +3035,8 @@ def main() -> int:
     if "tier" in phases and "sched" not in phases:
         raise SystemExit("the tier phase compares with the sched phase's "
                          "untiered paged run: add sched")
-    if any(p in phases for p in ("serve", "sched", "quality", "spec")):
+    if any(p in phases for p in ("serve", "sched", "quality", "spec",
+                                 "slo")):
         model = build_model(torch)
         lap("model")
         serve_sals = None
@@ -2755,6 +3070,9 @@ def main() -> int:
             counts["sparse_recon_attention_window_paged"] = \
                 spec["paged"]["sparse_recon_attention_window_paged"]
             lap("spec")
+        if "slo" in phases:
+            phase_slo(torch, model)
+            lap("slo")
         del model, serve_sals
         gc.collect()      # engines and step graphs hold reference cycles
         torch.cuda.empty_cache()

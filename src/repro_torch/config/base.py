@@ -158,11 +158,10 @@ SALS_125 = SALSConfig(rank_ratio=0.125, v_bits=4, n_critical=432)
 class ServeConfig:
     """Serving settings, field for field the reference's ``ServeConfig``.
 
-    The port's engine serves the dense slot arena with monolithic prefill
-    and greedy sampling; the paging, speculative and scheduling fields are
-    kept (and validated as in the reference) so one config describes the
-    same deployment in both packages, and the engine refuses the ones it
-    does not implement yet.
+    Validated as in the reference, so one config describes the same
+    deployment in both packages; the port refuses what it does not
+    implement yet (static batching, the grouped layout, the families of
+    later slices).
     """
 
     max_seq_len: int = 4096

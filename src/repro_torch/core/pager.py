@@ -394,15 +394,23 @@ class PrefixIndex:
 # Cross-structure invariant auditor
 # ---------------------------------------------------------------------------
 
-def audit_pager(pool: PagePool, tables, entries, gauges=None) -> None:
+def audit_pager(pool: PagePool, tables, entries, gauges=None,
+                parked=None) -> None:
     """Prove page conservation across every structure that holds pages.
 
     ``tables``   iterable of live :class:`PageTable` (one per resident or
-                 in-flight admission);
+                 in-flight admission, INCLUDING the detached tables of
+                 parked requests — a park holds pages, it does not hide
+                 them from conservation);
     ``entries``  iterable of live :class:`PrefixEntry` (each pins its
                  ``page_ids`` with its own refcounts);
     ``gauges``   optional dict with ``pages_in_use`` / ``pages_free`` as
-                 exported by the scheduler's ``pool_gauges`` rows.
+                 exported by the scheduler's ``pool_gauges`` rows;
+    ``parked``   optional iterable of page ids (with multiplicity) held by
+                 PARKED requests' tables.  Each must be a live,
+                 non-reserved page; under tiering the parked multiset is
+                 forwarded to ``audit_tiers`` for the park residency rules
+                 (parked pages are never pinned and never fresh).
 
     Invariants (each failure raises :class:`PagerInvariantError`):
       1. pool-internal: free stack vs refcounts (:meth:`PagePool.check`);
@@ -458,8 +466,16 @@ def audit_pager(pool: PagePool, tables, entries, gauges=None) -> None:
             if key in gauges and gauges[key] != want:
                 raise PagerInvariantError(
                     f"gauge {key}={gauges[key]} drifted from pool {want}")
+    if parked:
+        for pid in parked:
+            if not (pool.n_reserved <= pid < pool.n_pages):
+                raise PagerInvariantError(
+                    f"parked request holds bogus/reserved page {pid}")
+            if pid in free or pool.refcount(pid) == 0:
+                raise PagerInvariantError(
+                    f"parked request holds freed page {pid}")
     # duck-typed so this module never imports core.tiering (which imports
     # the fault hook from here — the same acyclicity rule as serve.faults)
     audit_tiers = getattr(pool, "audit_tiers", None)
     if audit_tiers is not None:
-        audit_tiers(gauges)
+        audit_tiers(gauges, parked=parked)

@@ -1,7 +1,6 @@
 """Two-tier page pool: device hot tier + host-memory cold tier (a copy of
 ``repro/core/tiering.py``, which imports no JAX: the port keeps its own,
-without the telemetry hook and the park rules, which come with their
-slices).
+without the telemetry hook, which comes with its slice).
 
 SALS's structure makes offload cheap:
 
@@ -246,7 +245,7 @@ class TieredPagePool(PagePool):
 
     # -- audit ---------------------------------------------------------------
 
-    def audit_tiers(self, gauges=None) -> None:
+    def audit_tiers(self, gauges=None, parked=None) -> None:
         """Tier conservation, called by :func:`~repro_torch.core.pager.
         audit_pager` after the refcount census:
 
@@ -256,6 +255,15 @@ class TieredPagePool(PagePool):
              used + free + in-flight-spill slots == hbm_slots;
           3. pins only on hot pages, with positive counts;
           4. the ``host_pages`` gauge matches the cold tier.
+
+        ``parked``: page ids (with multiplicity) held by PARKED requests.
+        A parked request owns no batch slot, so its pages must never carry
+        a write pin, and must not be fresh (a fresh page has never been
+        written — a parked page holds committed tokens).  The scheduler
+        also spills exclusively-parked pages cold so the preemption frees
+        hot slots, but that is a LIVENESS property (a spill fault can leave
+        a page hot until the next sweep retries it): the auditor checks
+        only the safety rules.
         """
         tiers = (set(self.hot), set(self.cold), self.fresh,
                  set(self.in_flight))
@@ -291,6 +299,16 @@ class TieredPagePool(PagePool):
                 raise PagerInvariantError(f"page {pid} has pin count {n}")
             if pid not in self.hot:
                 raise PagerInvariantError(f"non-hot page {pid} is pinned")
+        if parked:
+            for pid in set(parked):
+                if self.pins.get(pid):
+                    raise PagerInvariantError(
+                        f"parked page {pid} is write-pinned (pins follow "
+                        f"batch slots; a parked request owns none)")
+                if pid in self.fresh:
+                    raise PagerInvariantError(
+                        f"parked page {pid} is fresh (never written) — a "
+                        f"parked request holds only committed tokens")
         if gauges is not None and "host_pages" in gauges:
             if gauges["host_pages"] != len(self.cold):
                 raise PagerInvariantError(

@@ -3,12 +3,15 @@ card (port of ``repro/launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \
         --requests 8 --max-new-tokens 32 [--sals 0.25|0.125|off] \
-        [--page-size 16] [--spec-window 4] [--full] [--device cpu]
+        [--page-size 16] [--spec-window 4] [--full] [--device cpu] \
+        [--temperature 0.7] [--priority-classes 2 --preempt-policy park]
 
 Weights are random, from ``--seed``.  Calibrates the SALS projectors on the
 synthetic corpus (paper §5.1), builds the engine, runs the requests through
 ``RequestScheduler`` and reports tokens/s.  ``--reduced`` (the default) is
 the tiny same-family configuration; ``--full`` the published widths.
+Requests round-robin the priority classes and two demo tenants, so the SLO
+machinery runs when its flags enable it.
 """
 from __future__ import annotations
 
@@ -104,6 +107,7 @@ def main(argv=None) -> None:
     ap.add_argument("--no-prefix-cache", dest="prefix_cache",
                     action="store_false", default=True,
                     help="disable copy-on-write prefix sharing (paged)")
+    ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--max-queue", type=int, default=0,
                     help="bounded pending queue (0 = unbounded)")
     ap.add_argument("--queue-policy", default="reject",
@@ -116,6 +120,38 @@ def main(argv=None) -> None:
                          "[2, 8] (0/1 = off); each decode step drafts Q-1 "
                          "tokens per row by n-gram prompt lookup and "
                          "verifies them in one windowed forward (greedy)")
+    ap.add_argument("--priority-classes", type=int, default=1,
+                    help="SLO scheduling: number of priority classes; "
+                         "requests carry priority in [0, N) and admission "
+                         "always serves the highest eligible class first.  "
+                         ">1 with --preempt-policy park needs --page-size "
+                         "(parked victims keep pages)")
+    ap.add_argument("--preempt-policy", default="park",
+                    choices=("park", "evict", "none"),
+                    help="what a strictly higher waiting class does to the "
+                         "lowest resident when no slot is free: park = "
+                         "host-snapshot the victim's rows and HOLD its "
+                         "pages (resume is token-exact, no re-prefill); "
+                         "evict = requeue and re-prefill later; none = "
+                         "priority orders admission only")
+    ap.add_argument("--tenant-quantum", type=int, default=256,
+                    help="deficit-round-robin quantum (tokens) for "
+                         "admission across tenant_ids within one priority "
+                         "class — one burst-happy tenant cannot monopolize "
+                         "slots")
+    ap.add_argument("--tenant-rate", type=float, default=0.0,
+                    help="per-tenant admission rate limit: tokens of "
+                         "credit accrued per scheduler iteration (0 = "
+                         "unlimited); admission debits prompt + decode "
+                         "budget, pacing bursts instead of rejecting them")
+    ap.add_argument("--tenant-max-inflight", type=int, default=0,
+                    help="per-tenant cap on requests holding serving "
+                         "resources (resident + parked + admitting); "
+                         "0 = uncapped")
+    ap.add_argument("--gauge-history", type=int, default=0,
+                    help="ring-buffer cap on the observability ledgers "
+                         "(admissions / prefill chunks / pool gauges) and "
+                         "the tenant gauges; 0 = unbounded")
     ap.add_argument("--audit-every", type=int, default=0,
                     help="run the pager invariant audit every N steps")
     ap.add_argument("--seed", type=int, default=0)
@@ -158,6 +194,13 @@ def main(argv=None) -> None:
                        max_request_retries=args.max_request_retries,
                        audit_every=args.audit_every,
                        spec_window=args.spec_window,
+                       temperature=args.temperature,
+                       priority_classes=args.priority_classes,
+                       preempt_policy=args.preempt_policy,
+                       tenant_quantum=args.tenant_quantum,
+                       tenant_rate=args.tenant_rate,
+                       tenant_max_inflight=args.tenant_max_inflight,
+                       gauge_history=args.gauge_history,
                        sals=sals or SALSConfig(enabled=False))
     engine = ServeEngine(params, projectors, cfg, scfg, device=dev)
     sched = RequestScheduler(engine)
@@ -165,7 +208,10 @@ def main(argv=None) -> None:
     for i in range(args.requests):
         plen = max(4, args.prompt_len + int(rng.integers(-8, 8)))
         prompt = corpus.batch(50_000 + i, 1, plen)["tokens"][0]
-        sched.submit(Request(prompt, max_new_tokens=args.max_new_tokens))
+        # round-robin the priority classes and two demo tenants
+        sched.submit(Request(prompt, max_new_tokens=args.max_new_tokens,
+                             priority=i % args.priority_classes,
+                             tenant_id=f"tenant{i % 2}"))
     t0 = time.perf_counter()
     done = sched.run()
     if dev.type == "cuda":
@@ -192,6 +238,18 @@ def main(argv=None) -> None:
               f"{sched.spec_committed} tokens committed "
               f"({sched.spec_committed / sched.spec_rounds:.2f}/round), "
               f"draft acceptance {acc:.1%}")
+    if args.priority_classes > 1:
+        print(f"[serve] slo: {args.priority_classes} classes "
+              f"(policy={args.preempt_policy}), parks={sched.parks} "
+              f"resumes={sched.resumes} preemptions={sched.preemptions}")
+    if args.tenant_rate or args.tenant_max_inflight or \
+            len(sched.tenant_gauges) > 1:
+        for tenant, g in sorted(sched.tenant_gauges.items()):
+            print(f"[serve] tenant {tenant}: {g['admitted']}/"
+                  f"{g['submitted']} admitted "
+                  f"({g['admitted_tokens']} tokens), deferrals "
+                  f"rate={g['rate_deferrals']} cap={g['cap_deferrals']}, "
+                  f"max wait {g['max_wait_steps']} steps")
     bad = [r for r in done if not r.done]
     if bad:
         print("[serve] terminal non-success: "

@@ -4,7 +4,12 @@
 Batching is ragged: prompts are right-padded with ``scfg.pad_id`` and carry
 their true lengths (per-slot ``lengths`` on the latent cache, per-row decode
 positions through every kernel), so pad tokens are never selectable nor
-attended.  Decoding is greedy.
+attended.  Decoding is greedy at ``temperature`` 0, else a draw from
+``softmax(logits / temperature)`` by Gumbel-max with the engine's own
+``torch.Generator``, seeded from ``scfg.seed`` at the start of every
+:meth:`~ServeEngine.generate` and every scheduler run (the streams differ
+from ``jax.random``'s; the distribution is the same).  Sampling runs on the
+step program's logits, outside the captured graph.
 
 Three ways in.  :meth:`ServeEngine.generate` prefills a batch
 monolithically and decodes it to the end; :meth:`~ServeEngine.
@@ -60,8 +65,13 @@ so the chunk program keeps one key for the engine's life.  A task's
 copy.  Monolithic prefill and the cache upkeep (admission, page copies)
 run eagerly.
 
-Not yet ported (later slices): park/resume, temperature sampling
-(``torch.Generator`` numbers differ from ``jax.random``'s).
+PARK / RESUME (the scheduler's preemption): :meth:`~ServeEngine.
+detach_slot` copies a slot's per-slot state — the latent segments' windows
+and length, whole slot rows of the full-precision segments — to host
+memory, and :meth:`~ServeEngine.attach_slot` writes it back into a batch
+row IN PLACE (the arena's storages, and so the step programs' keys, never
+change).  The paged per-token payload stays in the pool: the parked
+request keeps its pages.
 """
 from __future__ import annotations
 
@@ -82,6 +92,10 @@ from repro_torch.serve.step_graph import StepGraph, copy_tree, tree_tensors
 
 _PAGED_FIELDS = ("k_lat", "k_scale", "v_q", "v_scale", "v_zero")
 _WINDOW_FIELDS = ("sink_k", "sink_v", "recent_k", "recent_v")
+# Per-slot state a PARK carries across the slot release: the attention
+# windows + the slot length (the paged payload stays in the pool; the
+# page-table row is host state, reinstalled through with_page_tables)
+_PARK_FIELDS = _WINDOW_FIELDS + ("lengths",)
 
 
 def _clone_state(tree):
@@ -149,8 +163,9 @@ def resolve_device(device) -> torch.device:
 
 
 class ServeEngine:
-    """Holds params + projectors and runs batched greedy generation on
-    ``device`` (the card unless the caller asks for the CPU).
+    """Holds params + projectors and runs batched generation (greedy, or
+    sampled at ``scfg.temperature``) on ``device`` (the card unless the
+    caller asks for the CPU).
 
     After :meth:`generate` (and :meth:`generate_speculative`),
     ``last_timing`` holds host wall times: prefill up to the first token on
@@ -210,6 +225,9 @@ class ServeEngine:
             raise ValueError(f"params on {p_dev}, engine on {self.device}")
         self.last_timing: Optional[dict] = None
         self._stream: Optional[torch.cuda.Stream] = None   # tier copies
+        # temperature sampling's stream, reseeded by reset_sampler
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(scfg.seed)
         # (cache, scratch) of chunked prefill, made by the first
         # start_prefill (engines that only generate never pay for it)
         self._workspace: Optional[Tuple[dict, dict]] = None
@@ -247,16 +265,29 @@ class ServeEngine:
 
     # -- sampling ------------------------------------------------------------
 
+    def reset_sampler(self) -> None:
+        """Reseed the sampling generator from ``scfg.seed`` (where the
+        reference makes its ``PRNGKey``)."""
+        self._gen.manual_seed(self.scfg.seed)
+
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
-        if self.scfg.temperature > 0.0:
-            raise NotImplementedError("temperature sampling is not ported "
-                                      "yet (greedy only)")
-        return torch.argmax(logits, dim=-1).to(torch.int32)
+        """Argmax at temperature 0; else one categorical draw per row from
+        ``softmax(logits / T)`` by Gumbel-max (``jax.random.categorical``'s
+        method), uniforms from the engine's generator.  A NaN row samples
+        some in-vocab id; ``sample_checked`` flags it."""
+        t = self.scfg.temperature
+        if t <= 0.0:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        u = torch.rand(logits.shape, generator=self._gen,
+                       device=logits.device)
+        gumbel = -torch.log(-torch.log(u))
+        return torch.argmax(logits.float() / t + gumbel,
+                            dim=-1).to(torch.int32)
 
     def sample_checked(self, logits: torch.Tensor
                        ) -> Tuple[torch.Tensor, np.ndarray]:
-        """Greedy sample plus a per-row verdict: ``ok[i]`` is False when
-        row i's logits hold NaN/inf or the id falls outside the vocab — the
+        """Sample plus a per-row verdict: ``ok[i]`` is False when row i's
+        logits hold NaN/inf or the id falls outside the vocab — the
         scheduler fails only the flagged rows."""
         tok = self._sample(logits)
         finite = torch.isfinite(logits).all(dim=-1)
@@ -583,19 +614,40 @@ class ServeEngine:
                     out[k][f] = h
         return out
 
-    def read_page_payload(self, cache: dict, slot: int) -> dict:
-        """Spill, device half: payload slot ``slot`` of every SALS segment
-        as a host mirror {seg: {field: (ls, ps, ·)}}.  On the card the
-        compute stream waits for the copy, so nothing queued after it can
-        overwrite the slot first."""
-        mirror = self._to_host({
-            k: {f: getattr(seg, f)[:, slot] for f in _PAGED_FIELDS
-                if getattr(seg, f) is not None}
-            for k, seg in self._latent_segs(cache).items()})
+    def _snapshot(self, views: dict) -> dict:
+        """:meth:`_to_host` of device views that later compute-stream
+        work may overwrite: on the card the compute stream waits for the
+        copy, so nothing queued after it can write the source first."""
+        mirror = self._to_host(views)
         st = self._copy_stream()
         if st is not None:
             torch.cuda.current_stream(self.device).wait_stream(st)
         return mirror
+
+    def _from_host(self, pairs) -> None:
+        """Copy each (device view, host tensor) pair in place.  On the
+        card the copies wait for the work already queued (earlier readers
+        of the destinations) and the compute stream waits for the copies
+        (the step that reads them)."""
+        st = self._copy_stream()
+        if st is None:
+            for dst, src in pairs:
+                dst.copy_(src)
+            return
+        cur = torch.cuda.current_stream(self.device)
+        st.wait_stream(cur)
+        with torch.cuda.stream(st):
+            for dst, src in pairs:
+                dst.copy_(src, non_blocking=True)
+        cur.wait_stream(st)
+
+    def read_page_payload(self, cache: dict, slot: int) -> dict:
+        """Spill, device half: payload slot ``slot`` of every SALS segment
+        as a host mirror {seg: {field: (ls, ps, ·)}}."""
+        return self._snapshot({
+            k: {f: getattr(seg, f)[:, slot] for f in _PAGED_FIELDS
+                if getattr(seg, f) is not None}
+            for k, seg in self._latent_segs(cache).items()})
 
     def extract_page_payload_dense(self, one_cache: dict, page: int) -> dict:
         """Host mirror of logical page ``page`` of a finished prefill task's
@@ -611,22 +663,10 @@ class ServeEngine:
     def load_page(self, cache: dict, slot: int, payload: dict) -> dict:
         """Fetch, device half: install a host mirror into payload slot
         ``slot`` of every SALS segment (the pool fires the ``host_fetch``
-        fault point before this, in ``begin_fetch``).  On the card the copy
-        waits for the work already queued (earlier readers of the slot) and
-        the compute stream waits for the copy (the step that reads it)."""
-        st = self._copy_stream()
-        if st is None:
-            for k, fl in payload.items():
-                for f, v in fl.items():
-                    getattr(cache[k], f)[:, slot] = v
-            return cache
-        cur = torch.cuda.current_stream(self.device)
-        st.wait_stream(cur)
-        with torch.cuda.stream(st):
-            for k, fl in payload.items():
-                for f, v in fl.items():
-                    getattr(cache[k], f)[:, slot].copy_(v, non_blocking=True)
-        cur.wait_stream(st)
+        fault point before this, in ``begin_fetch``), through
+        :meth:`_from_host`."""
+        self._from_host([(getattr(cache[k], f)[:, slot], v)
+                         for k, fl in payload.items() for f, v in fl.items()])
         return cache
 
     def clone_payload(self, mirror: dict) -> dict:
@@ -657,6 +697,40 @@ class ServeEngine:
         reset; no payload is zeroed."""
         for seg in self._latent_segs(cache).values():
             seg.free_slot(slot)
+        return cache
+
+    def _slot_rows(self, cache: dict, slot: int) -> dict:
+        """{seg: {field: view of batch row ``slot``}} of what a park
+        carries: the latent segments' :data:`_PARK_FIELDS`, every tensor of
+        a full-precision segment."""
+        return {k: {f: getattr(seg, f)[:, slot] for f in _PARK_FIELDS}
+                if isinstance(seg, LatentKVCache)
+                else {f: arr[:, slot] for f, arr in seg.items()}
+                for k, seg in cache.items()}
+
+    def detach_slot(self, cache: dict, slot: int) -> dict:
+        """Park: copy batch row ``slot``'s per-slot state to HOST memory
+        (windows + lengths of the latent segments, whole slot rows of the
+        full-precision ones) as {seg: {field: tensor}}.  Pure reads: the
+        arena stays valid, and the copy survives any later write to it (on
+        the card, pinned buffers filled on the copy stream, which the
+        compute stream waits for).  Fires the ``park`` fault point BEFORE
+        touching anything: an injected park fault leaves the victim fully
+        resident."""
+        maybe_fault("park")         # before any read: victim stays resident
+        return self._snapshot(self._slot_rows(cache, slot))
+
+    def attach_slot(self, cache: dict, slot: int, snap: dict) -> dict:
+        """Resume: write a :meth:`detach_slot` snapshot back into batch
+        row ``slot``, in place (no tensor of the arena is reallocated, so
+        the step programs keep their keys).  Fires the ``resume`` fault
+        point BEFORE the splice, so on an injected fault the snapshot and
+        the arena are both still whole (the scheduler then releases the
+        parked pages and retries the request from scratch)."""
+        maybe_fault("resume")       # before the splice: snapshot stays whole
+        rows = self._slot_rows(cache, slot)
+        self._from_host([(rows[k][f], v) for k, fl in snap.items()
+                         for f, v in fl.items()])
         return cache
 
     def with_page_tables(self, cache: dict, table: np.ndarray,
@@ -717,6 +791,7 @@ class ServeEngine:
         for i, p in enumerate(prompts):
             toks[i, :lens[i]] = p
         dev = self.device
+        self.reset_sampler()
         t0 = time.perf_counter()
         pos0 = np.asarray(lens, np.int32)
         logits, cache = tf.prefill(

@@ -16,10 +16,19 @@ the port's scheduler/engine/pager path visits:
                        copy (the page stays cold)
     ``spill``          TieredPagePool.begin_spill, before the device -> host
                        copy (the page stays hot)
+    ``park``           ServeEngine.detach_slot, before the snapshot read
+    ``resume``         ServeEngine.attach_slot, before the splice
     ``draft_verify``   RequestScheduler speculative loop, before the verify
                        window's forward — the cache is still whole and
                        drafting is pure host work, so the whole round
                        retries like a ``decode_step`` fault
+
+The two preemption points follow the same placement rule: a ``park``
+fault fires before any state is touched, so the victim simply stays
+resident (the preemption is retried on a later step); a ``resume`` fault
+fires before the parked snapshot is spliced back, so the parked record is
+still whole — the scheduler releases its held pages and routes the request
+through the standard retry/FAIL policy (restart from scratch).
 
 Placement rule that makes injected faults *retryable*: every point fires
 BEFORE the call that changes the cache, so the arena, the page tables and

@@ -84,11 +84,37 @@ always runs on true data:
     ``cold_misses``; ``host_pages`` rides on ``pool_gauges``; the audit
     checks tier conservation.
 
+SLO SCHEDULING.  The front door is not plain FIFO:
+
+  * PRIORITY CLASSES — ``Request.priority`` in [0, priority_classes);
+    admission serves the highest eligible class first, and with
+    ``preempt_policy != "none"`` a strictly higher waiting class preempts
+    the lowest-priority (most recently admitted) resident when no slot is
+    free.  Under ``"park"`` the victim keeps its PAGES: its per-slot state
+    goes to host memory (``engine.detach_slot``), its page table moves
+    into a parked record (refcounts held), and resume writes the snapshot
+    back into any free slot (``engine.attach_slot``, in place) and goes on
+    DECODING token-exact with no re-prefill.  Under tiering a park drops
+    the write pin and spills exclusively-parked pages cold, so the
+    preemption frees hot slots.  ``"evict"`` requeues the victim, which
+    re-prefills.  A page-stalled admission may reclaim a
+    strictly-lower-priority parked victim's pages (a destructive requeue).
+  * TENANT FAIRNESS — ``Request.tenant_id`` keys deficit-round-robin
+    admission WITHIN a priority class (``tenant_quantum`` tokens per
+    rotation turn; a request costs prompt + budget tokens), plus optional
+    per-tenant token-rate credits (``tenant_rate`` per iteration, debited
+    at admission) and in-flight caps (``tenant_max_inflight``).
+    ``tenant_gauges`` holds per-tenant starvation counters, LRU-capped by
+    ``gauge_history``.
+  * SAMPLING — at ``temperature`` > 0 the admission and decode sample
+    points draw from the engine's generator, reseeded at the start of
+    every run; an evict-to-requeue then warns, because the re-run
+    resamples.
+
 Counters are plain int attributes with the reference's names.  Not ported
-here: static batching (the families slice), priority classes, preemption,
-park/resume and tenant fairness (the SLO half of slice 4), and the
-metrics registry, tracer and traffic accounting (slice 5); the scheduler
-raises ``NotImplementedError`` for them.
+here: static batching (the families slice) and the metrics registry,
+tracer and traffic accounting (slice 5); the scheduler raises
+``NotImplementedError`` for static batching.
 """
 from __future__ import annotations
 
@@ -96,6 +122,7 @@ import collections
 import dataclasses
 import itertools
 import time
+import warnings
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -129,15 +156,16 @@ class Request:
     deadline_time: Optional[float] = None  # wall-clock deadline
     not_before_step: int = 0              # retry backoff gate
     cancel_requested: bool = False
-    priority: int = 0                     # one class until slice 4
-    tenant_id: str = "default"            # one tenant until slice 4
+    priority: int = 0                     # class index; higher = urgent
+    tenant_id: str = "default"            # fairness / rate-limit key
     # called as on_token(token_id, index) the step each token commits
     # (index 0 = the first token, emitted at admission); re-emitted from 0
-    # after an evict-to-requeue or a retry.  A raising callback fails THIS
-    # request.
+    # after an evict-to-requeue or a retry, never after a park/resume.  A
+    # raising callback fails THIS request.
     on_token: Optional[Callable[[int, int], None]] = None
     submit_step: Optional[int] = None
     attempts: int = 0                     # times prefill started
+    parks: int = 0                        # times preempt-parked
 
     def cancel(self) -> None:
         """Client cancellation, honored at the next step boundary."""
@@ -157,6 +185,7 @@ class _Slot:
     """One resident sequence of the continuous batch."""
     req: Request
     out: List[int]                 # generated token ids so far
+    seq: int = 0                   # admission order (preemption tie-break)
     # speculative decoding: prompt-lookup draft state, built from prompt +
     # out at every admission (evictions and retries need no bookkeeping)
     drafter: Optional[NgramDrafter] = None
@@ -173,6 +202,20 @@ class _Admission:
     ptab: Optional[PageTable] = None
     shared_pages: int = 0
     entry: object = None
+
+
+@dataclasses.dataclass
+class _Parked:
+    """A preempt-parked resident: everything needed to resume DECODING
+    token-exact in any free slot.  The record OWNS the request's page
+    table — refcounts stay held across the park, so resume is a window
+    splice, not a re-prefill."""
+    req: Request
+    out: List[int]                 # tokens committed before the park
+    position: int                  # next decode position
+    ptab: PageTable                # held pages (ownership moved from slot)
+    snapshot: dict                 # engine.detach_slot host snapshot
+    parked_step: int               # FIFO resume order within a class
 
 
 class RequestScheduler:
@@ -192,9 +235,6 @@ class RequestScheduler:
                                       "families slice")
         if mode != "continuous":
             raise ValueError(f"unknown scheduler mode {mode!r}")
-        if scfg.priority_classes > 1:
-            raise NotImplementedError("priority classes and preemption are "
-                                      "ported in slice 4's SLO half")
         self.engine = engine
         self.mode = mode
         # source of request_timeout_ms deadlines; tests inject a fake one
@@ -226,6 +266,17 @@ class RequestScheduler:
         self.fetch_hits = 0         # touched pages already hot
         self.prefetch_hits = 0      # ... warmed by the prefetcher
         self.cold_misses = 0        # demand host -> device fetches
+        self.parks = 0              # preempt-park events
+        self.resumes = 0            # successful park resumes
+        self.preemptions = 0        # park + evict preemptions
+        self.parked: List[_Parked] = []          # live parked records
+        # per-tenant starvation / fairness gauges (see _tenant_gauge),
+        # insertion-ordered for the gauge_history LRU cap
+        self.tenant_gauges: "collections.OrderedDict[str, dict]" = \
+            collections.OrderedDict()
+        self._drr_rot: Dict[int, List[str]] = {}      # DRR rotation / class
+        self._drr_deficit: Dict[int, Dict[str, float]] = {}
+        self._rate_credit: Dict[str, float] = {}      # tenant token credit
         self.paged = engine.paged
         self.tiered = engine.tiered
         self.pool: Optional[PagePool] = None
@@ -247,9 +298,6 @@ class RequestScheduler:
 
     def submit(self, req: Request) -> int:
         scfg = self.engine.scfg
-        if req.priority != 0 or req.tenant_id != "default":
-            raise NotImplementedError("request priorities and tenants are "
-                                      "ported in slice 4's SLO half")
         if req.max_new_tokens < 1:
             raise ValueError(f"req {req.req_id}: max_new_tokens must be >= 1 "
                              "(prefill always emits the first token)")
@@ -264,6 +312,10 @@ class RequestScheduler:
                 raise ValueError(
                     f"req {req.req_id}: needs {need} pages at its longest; "
                     f"the pool has {scfg.pool_pages}")
+        if not 0 <= req.priority < scfg.priority_classes:
+            raise ValueError(
+                f"req {req.req_id}: priority {req.priority} outside "
+                f"[0, {scfg.priority_classes})")
         if scfg.max_queue and len(self.pending) >= scfg.max_queue:
             if scfg.queue_policy == "reject":
                 raise QueueFull(
@@ -283,6 +335,7 @@ class RequestScheduler:
         if timeout_ms:
             req.deadline_time = self._clock() + timeout_ms / 1000.0
         req.submit_step = self.steps
+        self._tenant_gauge(req.tenant_id)["submitted"] += 1
         self.submitted += 1
         self.pending.append(req)
         return req.req_id
@@ -380,6 +433,115 @@ class RequestScheduler:
         return RequestTimeout(
             f"req {req.req_id} missed wall-clock deadline ({ms:g} ms)")
 
+    # ------------------------------------------------------ tenant fairness
+
+    @staticmethod
+    def _cost(req: Request) -> int:
+        """A request's admission cost in tokens: prompt + decode budget."""
+        return len(req.prompt) + req.max_new_tokens
+
+    def _tenant_gauge(self, tenant: str) -> dict:
+        """Per-tenant starvation / fairness counters (created on first
+        touch): submissions, admissions (+tokens), deferrals by cause, and
+        the worst admission wait seen, in steps.  LRU-capped by
+        ``gauge_history`` (0 = unbounded): every touch refreshes recency;
+        past the cap the least recently touched tenant's gauges go."""
+        g = self.tenant_gauges.get(tenant)
+        if g is None:
+            g = {"submitted": 0, "admitted": 0, "admitted_tokens": 0,
+                 "rate_deferrals": 0, "cap_deferrals": 0,
+                 "max_wait_steps": 0}
+            self.tenant_gauges[tenant] = g
+        else:
+            self.tenant_gauges.move_to_end(tenant)
+        cap = self.engine.scfg.gauge_history
+        while cap and len(self.tenant_gauges) > cap:
+            self.tenant_gauges.popitem(last=False)
+        return g
+
+    def _tenant_inflight(self, tenant: str) -> int:
+        """Requests of ``tenant`` holding serving resources: residents +
+        parked + the in-flight admission."""
+        n = sum(1 for s in self._slots
+                if s is not None and s.req.tenant_id == tenant)
+        n += sum(1 for rec in self.parked if rec.req.tenant_id == tenant)
+        if self._active is not None \
+                and self._active.req.tenant_id == tenant:
+            n += 1
+        return n
+
+    def _refill_rate_credits(self) -> None:
+        """Accrue ``tenant_rate`` tokens of admission credit per iteration
+        for each tenant with pending work, capped at 32 iterations' worth.
+        Admission debits the request's cost; credit may go negative, which
+        paces a burst instead of rejecting it."""
+        rate = self.engine.scfg.tenant_rate
+        if not rate:
+            return
+        for t in {r.tenant_id for r in self.pending}:
+            self._rate_credit[t] = min(
+                self._rate_credit.get(t, 0.0) + rate, rate * 32)
+
+    def _eligible(self, r: Request, count: bool = False) -> bool:
+        """Admission gates of one pending request: retry backoff elapsed,
+        tenant in-flight cap, tenant rate credit.  ``count=True`` records
+        deferrals in the tenant gauges (admission-sweep probes only)."""
+        if r.not_before_step > self.steps:
+            return False
+        scfg = self.engine.scfg
+        if scfg.tenant_max_inflight and self._tenant_inflight(r.tenant_id) \
+                >= scfg.tenant_max_inflight:
+            if count:
+                self._tenant_gauge(r.tenant_id)["cap_deferrals"] += 1
+            return False
+        if scfg.tenant_rate \
+                and self._rate_credit.get(r.tenant_id, 0.0) <= 0.0:
+            if count:
+                self._tenant_gauge(r.tenant_id)["rate_deferrals"] += 1
+            return False
+        return True
+
+    def _note_admission(self, req: Request) -> None:
+        """Fairness bookkeeping of a popped request: rate-credit debit and
+        tenant gauges."""
+        g = self._tenant_gauge(req.tenant_id)
+        g["admitted"] += 1
+        g["admitted_tokens"] += self._cost(req)
+        if req.submit_step is not None:
+            g["max_wait_steps"] = max(g["max_wait_steps"],
+                                      self.steps - req.submit_step)
+        if self.engine.scfg.tenant_rate:
+            self._rate_credit[req.tenant_id] = \
+                self._rate_credit.get(req.tenant_id, 0.0) - self._cost(req)
+
+    def _drr_pick(self, prio: int, heads: Dict[str, int]) -> int:
+        """Deficit round robin within priority class ``prio``: ``heads``
+        maps tenant -> pending index of its FIFO head.  Each rotation turn
+        banks ``tenant_quantum`` tokens for the tenant at the rotation
+        head; the first whose head request costs <= its deficit is served
+        and debited.  Tenants rotate in first-seen order; a tenant with no
+        eligible work loses its bank.  Returns the chosen pending index."""
+        rot = self._drr_rot.setdefault(prio, [])
+        for t in heads:
+            if t not in rot:
+                rot.append(t)
+        defc = self._drr_deficit.setdefault(prio, {})
+        q = self.engine.scfg.tenant_quantum
+        costs = {t: self._cost(self.pending[i]) for t, i in heads.items()}
+        # enough turns that the costliest head MUST accumulate its cost
+        turns = len(rot) * (max(costs.values()) // q + 2)
+        for _ in range(turns):
+            t = rot.pop(0)
+            rot.append(t)
+            if t not in heads:
+                defc[t] = 0.0
+                continue
+            defc[t] = defc.get(t, 0.0) + q
+            if costs[t] <= defc[t]:
+                defc[t] -= costs[t]
+                return heads[t]
+        return min(heads.values())    # unreachable bound: FIFO head
+
     # ------------------------------------------------------------------ run
 
     @torch.inference_mode()
@@ -397,6 +559,10 @@ class RequestScheduler:
                                // scfg.prefill_chunk)
         audit_on = bool(scfg.audit_every)
         cache = eng.init_slot_cache()
+        eng.reset_sampler()        # the reference's PRNGKey(seed) per run
+        admit_seq = itertools.count()   # admission order (preempt tie-break)
+        prio_on = (scfg.priority_classes > 1
+                   and scfg.preempt_policy != "none")
         slots: List[Optional[_Slot]] = [None] * b
         self._slots = slots
         self._active = None
@@ -486,6 +652,14 @@ class RequestScheduler:
             evict the row ITSELF to the queue head.  Survivors keep every
             page they own, so at least one resident always completes
             between evictions (no livelock)."""
+            if scfg.temperature > 0.0:
+                # sampled decoding: the restart draws from later numbers of
+                # the stream, so the regenerated completion will differ
+                warnings.warn(
+                    "paged pool exhausted: evicting a resident under "
+                    "temperature > 0 — its re-run resamples and may "
+                    "produce different tokens", RuntimeWarning,
+                    stacklevel=2)
             req = slots[i].req
             clear_slot(i)
             transition(req, RequestState.QUEUED)
@@ -494,13 +668,27 @@ class RequestScheduler:
             self.evictions += 1
 
         def pop_eligible() -> Optional[Request]:
-            """The first pending request whose retry backoff has elapsed
-            (FIFO: one priority class, one tenant)."""
+            """Pop the next request to admit: the highest eligible
+            PRIORITY class first; within it, deficit round robin across
+            tenants (FIFO within one tenant, so one class and one tenant
+            is plain FIFO).  Eligibility: ``_eligible``."""
+            heads: Dict[str, int] = {}
+            prio: Optional[int] = None
             for idx, r in enumerate(self.pending):
-                if r.not_before_step <= self.steps:
-                    del self.pending[idx]
-                    return r
-            return None
+                if not self._eligible(r, count=True):
+                    continue
+                if prio is None or r.priority > prio:
+                    prio, heads = r.priority, {}
+                if r.priority == prio and r.tenant_id not in heads:
+                    heads[r.tenant_id] = idx
+            if prio is None:
+                return None
+            idx = next(iter(heads.values())) if len(heads) == 1 \
+                else self._drr_pick(prio, heads)
+            req = self.pending[idx]
+            del self.pending[idx]
+            self._note_admission(req)
+            return req
 
         def try_reserve(req: Request) -> Optional[_Admission]:
             """Paged admission = page reservation: shared prefix pages +
@@ -775,6 +963,197 @@ class RequestScheduler:
                     return False
             return True
 
+        # ---- preemption: park / resume / evict ---------------------------
+
+        def spill_parked_cold():
+            """The hot-tier half of a park: spill every page whose ONLY
+            owners are parked tables (hot, unpinned, refcount == parked
+            multiplicity) to a host mirror, so the preemption frees device
+            slots.  Pages shared with a resident, an admission or a prefix
+            entry keep their residency.  Runs after each park and once per
+            iteration: an injected ``spill`` fault leaves the page hot
+            until the next sweep retries it."""
+            nonlocal hot_dirty
+            if not (self.tiered and self.parked):
+                return
+            counts = collections.Counter()
+            for rec in self.parked:
+                counts.update(rec.ptab.pages)
+            for pid, n in sorted(counts.items()):
+                if pid in pool.hot and not pool.pins.get(pid) \
+                        and pool.refcount(pid) == n:
+                    try:
+                        vslot = pool.begin_spill(pid)  # fires "spill" first
+                    except faults.InjectedFault:
+                        return         # retried next iteration
+                    pool.finish_spill(pid, eng.read_page_payload(cache,
+                                                                 vslot))
+                    hot_dirty = True
+
+        def park_resident(i: int):
+            """Preempt-PARK row ``i``: its per-slot state to host memory
+            (``engine.detach_slot``, which fires the ``park`` fault point
+            before any read, so an injected fault leaves the victim
+            resident), its page table into a parked record WITHOUT
+            releasing a page, its batch slot freed.  Tiered: the write pin
+            drops and exclusively-parked pages spill cold."""
+            nonlocal dirty, hot_dirty
+            req = slots[i].req
+            snap = eng.detach_slot(cache, i)
+            rec = _Parked(req=req, out=slots[i].out,
+                          position=int(positions[i]), ptab=tables[i],
+                          snapshot=snap, parked_step=self.steps)
+            slots[i] = None
+            tokens[i] = 0
+            positions[i] = 0
+            tables[i] = None        # ownership moved to rec: NOT released
+            host_table[i] = 0
+            dirty = True
+            if self.tiered:
+                if write_pin[i] is not None:
+                    pool.unpin(write_pin[i])
+                    write_pin[i] = None
+                prev_selected[i] = set()
+                host_hot[i] = 0
+                hot_dirty = True
+            eng.release_slot(cache, i)             # metadata only
+            transition(req, RequestState.PARKED)
+            self.parked.append(rec)
+            req.parks += 1
+            self.parks += 1
+            spill_parked_cold()
+            if audit_on:
+                self.audit_serving_state()
+
+        def resume_parked(rec: _Parked, i: int) -> bool:
+            """Resume a parked record into free slot ``i``: the snapshot
+            goes back in place (``engine.attach_slot``, which fires the
+            ``resume`` fault point first), the table row is reinstalled,
+            and the request goes on DECODING token-exact.  On a resume
+            fault the park is abandoned: the held pages release and the
+            request restarts from scratch through the retry policy."""
+            nonlocal dirty, hot_dirty
+            try:
+                eng.attach_slot(cache, i, rec.snapshot)
+            except Exception as exc:
+                rec.ptab.release_all()
+                self._fail_or_retry(rec.req, exc, issued,
+                                    partial=(rec.out, len(rec.req.prompt)))
+                if audit_on:
+                    self.audit_serving_state()
+                return False
+            tables[i] = rec.ptab
+            host_table[i] = 0
+            host_table[i, :rec.ptab.n_pages] = rec.ptab.pages
+            dirty = True
+            if self.tiered:
+                hot_dirty = True   # hot rows rebuild from pool residency
+            slots[i] = _Slot(rec.req, out=rec.out, seq=next(admit_seq),
+                             drafter=NgramDrafter(
+                                 list(rec.req.prompt) + rec.out)
+                             if spec_q else None)
+            tokens[i] = rec.out[-1]
+            positions[i] = rec.position
+            transition(rec.req, RequestState.DECODING)
+            self.resumes += 1
+            if audit_on:
+                self.audit_serving_state()
+            return True
+
+        def best_incoming_priority() -> Optional[int]:
+            """Highest priority among eligible pending and parked
+            requests: what a resident must be strictly below to be
+            preempted."""
+            best = None
+            for r in self.pending:
+                if self._eligible(r) and (best is None or r.priority > best):
+                    best = r.priority
+            for rec in self.parked:
+                if best is None or rec.req.priority > best:
+                    best = rec.req.priority
+            return best
+
+        def preempt_for_priority():
+            """Park (or evict, per ``preempt_policy``) the lowest-priority,
+            most recently admitted resident while a strictly higher
+            eligible class waits and no slot is free.  Never below the
+            incoming class, and never while an admission is in flight (it
+            owns the next free slot)."""
+            if self._active is not None:
+                return
+            while True:
+                if any(s is None for s in slots):
+                    return
+                best = best_incoming_priority()
+                if best is None:
+                    return
+                vict = None
+                for i in range(b):
+                    s_ = slots[i]
+                    if s_ is None or s_.req.priority >= best:
+                        continue
+                    if vict is None or (s_.req.priority, -s_.seq) < \
+                            (slots[vict].req.priority, -slots[vict].seq):
+                        vict = i
+                if vict is None:
+                    return
+                if scfg.preempt_policy == "evict":
+                    evict_to_requeue(vict)
+                else:
+                    try:
+                        park_resident(vict)
+                    except faults.InjectedFault:
+                        return   # victim stays resident; retried next time
+                self.preemptions += 1
+
+        def resume_ready_parked():
+            """Fill free slots with parked records, highest priority first
+            (earliest parked within a class), unless a STRICTLY higher
+            pending class is eligible: parked work outranks new admissions
+            of its own class.  The slot an in-flight admission reserved is
+            not up for grabs."""
+            while self.parked:
+                reserved = self._active.slot \
+                    if self._active is not None else -1
+                free = next((i for i in range(b)
+                             if slots[i] is None and i != reserved), None)
+                if free is None:
+                    return
+                best_pend = None
+                for r in self.pending:
+                    if self._eligible(r) and (best_pend is None
+                                              or r.priority > best_pend):
+                        best_pend = r.priority
+                rec = min(self.parked,
+                          key=lambda rc: (-rc.req.priority, rc.parked_step))
+                if best_pend is not None and best_pend > rec.req.priority:
+                    return
+                self.parked.remove(rec)
+                resume_parked(rec, free)
+
+        def reclaim_parked_pages(req: Request) -> bool:
+            """A page-stalled admission may reclaim the pages of a PARKED
+            victim of strictly lower priority, or of ANY parked record
+            when nothing is resident (held pages with an empty arena would
+            deadlock the queue).  Destructive: the victim's pages release
+            and it requeues from scratch, as an evict-to-requeue."""
+            none_resident = not any(s is not None for s in slots)
+            cands = [rec for rec in self.parked
+                     if rec.req.priority < req.priority or none_resident]
+            if not cands:
+                return False
+            rec = min(cands, key=lambda rc: (rc.req.priority,
+                                             -rc.parked_step))
+            self.parked.remove(rec)
+            rec.ptab.release_all()
+            transition(rec.req, RequestState.QUEUED)
+            rec.req.not_before_step = 0
+            self.pending.append(rec.req)
+            self.evictions += 1
+            if audit_on:
+                self.audit_serving_state()
+            return True
+
         def sweep_deadlines_and_cancels():
             """Honor cancel() and expired deadlines in every phase through
             the one teardown path, at each iteration boundary."""
@@ -794,6 +1173,20 @@ class RequestScheduler:
                     self._terminate(adm.req, state,
                                     self._overdue_error(adm.req, state),
                                     issued)
+            # a parked request's teardown is releasing its held pages (no
+            # slot, no pins) and flushing the partial stream
+            for idx in range(len(self.parked) - 1, -1, -1):
+                rec = self.parked[idx]
+                state = self._overdue(rec.req)
+                if state is not None:
+                    del self.parked[idx]
+                    rec.ptab.release_all()
+                    self._terminate(rec.req, state,
+                                    self._overdue_error(rec.req, state),
+                                    issued,
+                                    partial=(rec.out, len(rec.req.prompt)))
+                    if audit_on:
+                        self.audit_serving_state()
             for i in range(b):
                 if slots[i] is None:
                     continue
@@ -846,13 +1239,15 @@ class RequestScheduler:
             transition(active.req, RequestState.DECODING)
             tok_arr, ok = eng.sample_checked(active.task.logits)
             if not ok[0]:
-                slots[i] = _Slot(active.req, out=[])
+                slots[i] = _Slot(active.req, out=[], seq=next(admit_seq))
                 fail_resident(i, NanLogitsError(
                     f"req {active.req.req_id}: non-finite prefill logits"))
                 return
             tok0 = int(tok_arr[0])
-            slots[i] = _Slot(active.req, out=[tok0], drafter=NgramDrafter(
-                list(active.req.prompt) + [tok0]) if spec_q else None)
+            slots[i] = _Slot(active.req, out=[tok0], seq=next(admit_seq),
+                             drafter=NgramDrafter(
+                                 list(active.req.prompt) + [tok0])
+                             if spec_q else None)
             tokens[i] = tok0
             positions[i] = len(active.req.prompt)
             self.admissions.append((self.steps, i, active.req.req_id))
@@ -947,11 +1342,17 @@ class RequestScheduler:
                 if len(slots[i].out) >= slots[i].req.max_new_tokens:
                     finish(i)
 
-        while self.pending or self._active \
+        while self.pending or self._active or self.parked \
                 or any(s is not None for s in slots):
             sweep_deadlines_and_cancels()
+            self._refill_rate_credits()
+            if prio_on:
+                preempt_for_priority()
+            resume_ready_parked()
+            spill_parked_cold()
 
-            # ---- prefill sweep: <= budget tokens of chunk work ------------
+            # ---- prefill sweep: <= budget tokens of chunk work; priority
+            # classes first, DRR across tenants within a class -------------
             spent = 0
             while spent < chunks_per_sweep:
                 if self._active is None:
@@ -968,8 +1369,12 @@ class RequestScheduler:
                         except Exception as exc:   # torn reservation
                             self._fail_or_retry(req, exc, issued)
                             continue
-                        if self._active is None:  # stalled on pages
+                        if self._active is None:  # stalled on pages: back
+                            # to the head, after trying to reclaim a
+                            # lower-priority parked victim's pages
                             self.pending.appendleft(req)
+                            if reclaim_parked_pages(req):
+                                continue   # pages freed: retry right away
                             break
                     else:
                         self._active = _Admission(
@@ -994,7 +1399,7 @@ class RequestScheduler:
                     admit_active(active)
 
             if not any(s is not None for s in slots):
-                if not (self.pending or self._active):
+                if not (self.pending or self._active or self.parked):
                     break
                 if self._active is None and self.pending:
                     # empty arena and every pending request backing off:
@@ -1064,6 +1469,10 @@ class RequestScheduler:
                     "cow_copies": self.cow_copies,
                     "admission_stalls": self.admission_stalls,
                     "evictions": self.evictions,
+                    "parked": len(self.parked),
+                    "parks": self.parks,
+                    "resumes": self.resumes,
+                    "preemptions": self.preemptions,
                     "prefix_entries": len(self.prefix_index.entries)
                     if self.prefix_index else 0,
                 }
@@ -1085,10 +1494,11 @@ class RequestScheduler:
 
     def audit_serving_state(self, gauges: Optional[dict] = None) -> None:
         """Cross-structure invariant audit: the pool, every live page
-        table (residents + in-flight admission), the prefix index's pins
-        and the exported gauges agree (page conservation, no
-        use-after-free, no leak; tiered: tier conservation), and every
-        resident is DECODING.  Raises
+        table (residents, parked records, in-flight admission), the prefix
+        index's pins and the exported gauges agree (page conservation, no
+        use-after-free, no leak; tiered: tier conservation, parked pages
+        never pinned nor fresh), every resident is DECODING and every
+        parked record PARKED with pages.  Raises
         :class:`PagerInvariantError`.  Host-side only."""
         for i, s in enumerate(self._slots):
             if s is not None and s.req.state is not RequestState.DECODING:
@@ -1099,14 +1509,29 @@ class RequestScheduler:
                     and self._tables[i] is not None:
                 raise PagerInvariantError(
                     f"slot {i} is empty but still owns a page table")
+        for rec in self.parked:
+            if rec.req.state is not RequestState.PARKED:
+                raise PagerInvariantError(
+                    f"parked req {rec.req.req_id} in state "
+                    f"{rec.req.state.value}, expected parked")
+            if rec.ptab is None or rec.ptab.n_pages == 0:
+                raise PagerInvariantError(
+                    f"parked req {rec.req.req_id} holds no pages — a park "
+                    "is only legal for a paged resident")
         if not self.paged:
             return
+        # parked tables join the census: a park HOLDS pages
         tables = [t for t in self._tables if t is not None]
+        parked_pids: List[int] = []
+        for rec in self.parked:
+            tables.append(rec.ptab)
+            parked_pids.extend(rec.ptab.pages)
         adm = self._active
         if adm is not None and adm.ptab is not None:
             tables.append(adm.ptab)
         entries = self.prefix_index.entries if self.prefix_index else []
-        audit_pager(self.pool, tables, entries, gauges=gauges)
+        audit_pager(self.pool, tables, entries, gauges=gauges,
+                    parked=parked_pids)
 
     def _register_prefix(self, adm: _Admission) -> None:
         """Register a finished prefill's whole-page prefix for sharing: the

@@ -132,8 +132,10 @@ def test_unported_options_raise():
                                                max_batch=2,
                                                prefill_chunk=16),
                     device="cpu")
+    # temperature sampling is ported: generate runs and samples in vocab
     eng = ServeEngine(tp, None, cfg, ServeConfig(max_seq_len=32, sals=off,
                                                  temperature=0.7),
                       device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.generate([np.arange(1, 5, dtype=np.int32)], max_new_tokens=2)
+    out = eng.generate([np.arange(1, 5, dtype=np.int32)], max_new_tokens=2)
+    assert out[0].tokens.shape == (2,)
+    assert ((out[0].tokens >= 0) & (out[0].tokens < cfg.vocab_size)).all()

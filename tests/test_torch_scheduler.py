@@ -337,12 +337,3 @@ def test_unported_options_raise(model):
     eng = _engine(model, max_seq_len=64, max_batch=2, prefill_chunk=8)
     with pytest.raises(NotImplementedError):
         RequestScheduler(eng, mode="static")
-    with pytest.raises(NotImplementedError):
-        RequestScheduler(eng).submit(Request(np.arange(1, 5), priority=1))
-    with pytest.raises(NotImplementedError):
-        RequestScheduler(_engine(model, max_seq_len=64, max_batch=2,
-                                 prefill_chunk=8, priority_classes=2,
-                                 preempt_policy="evict"))
-    with pytest.raises(NotImplementedError):
-        RequestScheduler(eng).submit(Request(np.arange(1, 5),
-                                             tenant_id="other"))
