@@ -113,7 +113,27 @@ Phases, each printing one JSON line:
               temperature sampling: ``generate`` at T 0.7 reproducible per
               seed, ``_sample`` over 65,536 rows against softmax(l / T) by
               a chi-square test, T 0 equal to the plain argmax;
-10. vlm     — seeded paligemma-3b at full width (18 layers, d 2048, MQA
+10. obs     — telemetry (``repro_torch.obs``) on the same weights and U_r:
+              (a) the sched traffic on 64-token pages (audited every
+              step) in turns with telemetry off / on / on / off, the "on"
+              runs with the registry, the tracer and the byte accountant:
+              tokens equal across the four runs (and the sched phase's),
+              zero drift with every decode step reconciled, spans
+              balanced with no open track (the Chrome trace validates and
+              goes to ``chiprun_out/``), both metric exports valid,
+              submitted == done + failures + timeouts + cancellations, one
+              decode and one chunk capture a run, each run's paged SALS
+              launches once per SALS layer and step, and equal counts of
+              synchronizing CUDA calls (``torch.cuda.set_sync_debug_mode``
+              "warn") with telemetry off and on; each run's wall time, and
+              the median span times; (b) the slo phase's run (d), park on
+              a two-tier pool below the peak of live pages, with the
+              accountant on: measured fetch, spill and park-spill bytes
+              equal to the ledger's, tokens equal (a)'s of the slo phase;
+              (c) ``ServeEngine.decode_throughput`` at batch 4, context
+              4096, 32 steps, beside the serve phase's replayed ms per
+              step;
+11. vlm     — seeded paligemma-3b at full width (18 layers, d 2048, MQA
               with head_dim 256, vocab 257,216; bf16), SALS-25% (r 64, r*
               32, 15 SALS layers), U_r calibrated on tokens: (a) prefill of
               4 rows of 256 patch embeddings + 3840 ... 2304 tokens through
@@ -125,7 +145,7 @@ Phases, each printing one JSON line:
               serve phase; (c) ``RequestScheduler``, 4 requests on 64-token
               pages and on the dense arena (tokens equal); every path's
               launch counts;
-11. whole   — a full-width 2-layer model (SALS on layer 1) decoded on the
+12. whole   — a full-width 2-layer model (SALS on layer 1) decoded on the
               card (kernels) and on the CPU (twins) from the same weights
               and a 1024-token prompt (so top-k really selects), per-step
               logits compared under teacher forcing.
@@ -146,6 +166,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -159,7 +180,7 @@ BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12
 
 PHASES = ("device", "build", "kernels", "serve", "sched", "tier", "quality",
-          "spec", "slo", "vlm", "whole")
+          "spec", "slo", "obs", "vlm", "whole")
 # "profile" (not run by default) adds torch.profiler passes over four
 # chunked-prefill steps after the sched phase (replayed and eager, and the
 # host's issue time of a chunk), and over three
@@ -2717,7 +2738,229 @@ def phase_slo(torch, model) -> dict:
                              f"cold, pinned, or hot tier not below the "
                              f"live peak: {d}")
     rows["sampling"] = slo_sampling(torch, model)
-    return rows
+    return rows, gold
+
+
+# ---------------------------------------------------------------------------
+# phase: telemetry (the metrics registry, the span tracer, the byte
+# accountant) on the serving path
+# ---------------------------------------------------------------------------
+
+SYNC_WARNING = "synchronizing"      # torch's sync-debug warning text
+
+
+def obs_sched_run(torch, model, prompts, on: bool, n_new: int = 32,
+                  name: str = "") -> dict:
+    """One paged scheduler run of ``prompts``, telemetry ``on`` or off
+    (installed before the scheduler is built), audited every step.
+    Counts the synchronizing CUDA calls of ``run`` under
+    ``torch.cuda.set_sync_debug_mode("warn")`` and the launches; the wall
+    time runs from ``run`` to the synchronization after it."""
+    from repro_torch import obs
+    from repro_torch.config import ServeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serve import Request, RequestScheduler, ServeEngine
+
+    cfg, sals, params, proj = (model[k] for k in ("cfg", "sals", "params",
+                                                  "proj"))
+    eng = ServeEngine(params, proj, cfg, ServeConfig(
+        max_seq_len=4096, max_batch=4, prefill_chunk=64, page_size=64,
+        prefill_token_budget=512, audit_every=1, sals=sals), device="cuda")
+    handles = obs.enable(cfg=cfg, sals=sals, with_traffic=True) if on \
+        else None
+    try:
+        sched = RequestScheduler(eng)
+        reqs = [Request(p, max_new_tokens=n_new) for p in prompts]
+        for r in reqs:
+            sched.submit(r)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                sched.run()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        syncs = sum(SYNC_WARNING in str(w.message) for w in caught)
+        row = dict(phase="obs", run=name or ("on" if on else "off"),
+                   wall_s=wall,
+                   decode_steps=sched.steps,
+                   prefill_chunks=len(sched.prefill_chunks),
+                   sync_calls=syncs,
+                   decode_captures=eng._decode.captures,
+                   chunk_captures=eng._prefill_chunk.captures,
+                   launches={k: v for k, v in counts.items() if v},
+                   states=[r.state.value for r in reqs])
+        if not all(r.done for r in reqs):
+            raise AssertionError(f"obs {row['run']}: {row['states']}")
+        if not (row["decode_captures"] == row["chunk_captures"] == 1):
+            raise AssertionError(f"obs {row['run']}: captures {row}")
+        want = model["n_sals"] * sched.steps
+        if any(counts[k] != want for k in ("latent_topk_paged",
+                                           "sparse_recon_attention_paged")):
+            raise AssertionError(f"obs {row['run']}: launches {counts}, "
+                                 f"expected {want} of each paged kernel")
+        if handles is not None:
+            row.update(obs_checks(sched, handles))
+        toks = [r.result.tokens for r in reqs]
+    finally:
+        if handles is not None:
+            obs.disable()
+    del eng, sched, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, toks
+
+
+def obs_checks(sched, handles) -> dict:
+    """The telemetry of a finished run: the byte ledger reconciled on
+    every decode step with zero drift, spans balanced with no open track
+    and a valid Chrome trace, both metric exports valid, requests
+    conserved.  Returns the figures (median span ms by name, bytes by
+    term); writes the trace and the exports to ``chiprun_out/``."""
+    from repro_torch.obs.metrics import (snapshot_to_json,
+                                         validate_prometheus,
+                                         validate_snapshot)
+    from repro_torch.obs.trace import validate_chrome_trace
+    reg, tr, acct = (handles[k] for k in ("registry", "tracer", "traffic"))
+    rep = acct.report()
+    trace = tr.chrome_trace()
+    snap = reg.snapshot()
+    prom = reg.to_prometheus()
+    errs = dict(trace=validate_chrome_trace(trace),
+                snapshot=validate_snapshot(snap),
+                prometheus=validate_prometheus(prom))
+    spans = {}
+    for ev in tr.events:
+        spans.setdefault(ev["name"], []).append(1e3 * (ev["t1"] - ev["t0"]))
+    conserved = sched.submitted == (sched.done + sched.failures
+                                    + sched.timeouts + sched.cancellations)
+    out = dict(drifts=rep["drifts"], reconciled=rep["reconciled"],
+               spans_balanced=tr.balanced(), open_tracks=tr.open_tracks(),
+               spans=tr.ended, conserved=conserved,
+               export_errors={k: v[:3] for k, v in errs.items() if v},
+               span_ms_median={k: statistics.median(v)
+                               for k, v in sorted(spans.items())},
+               span_counts={k: len(v) for k, v in sorted(spans.items())},
+               measured_bytes=rep["measured"], modeled_bytes=rep["modeled"])
+    (OUT_DIR / "obs_trace.json").write_text(json.dumps(trace))
+    (OUT_DIR / "obs_metrics.json").write_text(snapshot_to_json(reg))
+    (OUT_DIR / "obs_metrics.prom").write_text(prom)
+    if not (rep["drifts"] == 0 and rep["reconciled"] == sched.steps > 0
+            and out["spans_balanced"] and not out["open_tracks"]
+            and not out["export_errors"] and conserved):
+        raise AssertionError(f"obs: telemetry checks failed {out}")
+    return out
+
+
+def phase_obs(torch, model, sched_toks=None, slo_gold=None,
+              serve_row=None) -> dict:
+    """Telemetry on the serving path: (a) the sched traffic off / on / on /
+    off (``obs_sched_run``); (b) the slo phase's run (d) with the byte
+    accountant on: fetch, spill and park-spill bytes equal to the ledger;
+    (c) ``ServeEngine.decode_throughput`` at batch 4, context 4096, 32
+    steps on the installed tracer."""
+    from repro_torch import obs
+    from repro_torch.config import ServeConfig
+    from repro_torch.obs import ledger
+    from repro_torch.serve import ServeEngine
+
+    cfg, sals, params, proj = (model[k] for k in ("cfg", "sals", "params",
+                                                  "proj"))
+    prompts = sched_prompts(model)
+    # a process's first scheduler run makes synchronizing calls that no
+    # later run makes (two, on an H100): a short warm-up first, so that
+    # the turns compare telemetry and nothing else
+    warm, _ = obs_sched_run(torch, model, prompts[-1:], False, n_new=4,
+                            name="warmup")
+    emit(warm)
+    runs = [obs_sched_run(torch, model, prompts, on)
+            for on in (False, True, True, False)]
+    for row, _ in runs:
+        emit(row)
+    toks = [t for _, t in runs]
+    same = all(np.array_equal(a, b) for t in toks[1:]
+               for a, b in zip(toks[0], t))
+    same_sched = None if sched_toks is None else all(
+        np.array_equal(a, b) for a, b in zip(toks[0], sched_toks))
+    off = [r["wall_s"] for r, _ in runs if r["run"] == "off"]
+    on = [r["wall_s"] for r, _ in runs if r["run"] == "on"]
+    syncs = {r["sync_calls"] for r, _ in runs}
+    summary = dict(phase="obs", run="a_summary", tokens_equal=same,
+                   tokens_equal_sched=same_sched, wall_off_s=off,
+                   wall_on_s=on, cost=statistics.median(on)
+                   / statistics.median(off) - 1.0,
+                   sync_calls=sorted(syncs))
+    emit(summary)
+    if not same or same_sched is False:
+        raise AssertionError(f"obs: tokens differ across runs {summary}")
+    if len(syncs) != 1 or 0 in syncs:
+        raise AssertionError(f"obs: synchronizing calls differ with "
+                             f"telemetry on and off (or none was seen): "
+                             f"{summary}")
+
+    # (b) park on a two-tier pool below the peak of live pages
+    pages_low = -(-(SLO_LOW + SLO_NEW) // SLO_PS)
+    hot = 4 * pages_low + 4 + 1 + 2
+    with obs.enabled(cfg=cfg, sals=sals, with_traffic=True) as h:
+        row, slo_toks = slo_run(torch, model, "obs_tiered_park", 2, "park",
+                                SLO_PS, hot)
+        acct, tr = h["traffic"], h["tracer"]
+        rep = acct.report()
+        page = ledger.tier_page_bytes(cfg, sals, SLO_PS)
+        park = [e["args"]["bytes"] for e in tr.events
+                if e["name"] == "tier_spill" and e["args"].get("parked")]
+        b = dict(phase="obs", run="b_tiered_park", page_bytes=page,
+                 decode_steps=row["decode_steps"], drifts=rep["drifts"],
+                 reconciled=rep["reconciled"], spills=row["spills"],
+                 fetches=row["fetches"], parks=row["parks"],
+                 fetch_bytes=[rep["measured"]["fetch_bytes"],
+                              rep["modeled"]["fetch_bytes"]],
+                 spill_bytes=[rep["measured"]["spill_bytes"],
+                              rep["modeled"]["spill_bytes"]],
+                 park_spills=len(park), park_spill_bytes=sum(park),
+                 spans_balanced=tr.balanced(),
+                 tokens_equal_slo=None if slo_gold is None else all(
+                     np.array_equal(x, y) for x, y in zip(slo_toks,
+                                                          slo_gold)))
+    emit(b)
+    if not (b["drifts"] == 0 and b["reconciled"] == b["decode_steps"]
+            and b["spill_bytes"][0] == b["spill_bytes"][1]
+            == row["spills"] * page > 0
+            and b["fetch_bytes"][0] == b["fetch_bytes"][1]
+            == row["fetches"] * page
+            and b["park_spills"] > 0
+            and b["park_spill_bytes"] == b["park_spills"] * page
+            and b["spans_balanced"] and b["tokens_equal_slo"] is not False):
+        raise AssertionError(f"obs b_tiered_park: {b}")
+
+    # (c) decode_throughput on the installed tracer
+    eng = ServeEngine(params, proj, cfg, ServeConfig(
+        max_seq_len=4160, max_batch=4, sals=sals), device="cuda")
+    with obs.enabled() as h:
+        tok_s = eng.decode_throughput(4, 4096, n_steps=32)
+        gauge = h["registry"].gauge(
+            "engine_decode_tokens_per_s",
+            labelnames=("batch", "context")).value(batch=4, context=4096)
+        spans = [e for e in h["tracer"].events
+                 if e["name"] == "decode_throughput"]
+    c = dict(phase="obs", run="c_decode_throughput", batch=4, context=4096,
+             steps=32, tok_s=tok_s, ms_per_step=4e3 / tok_s,
+             serve_graph_ms_per_step=None if serve_row is None
+             else serve_row["graph_ms_per_step"],
+             decode_captures=eng._decode.captures)
+    emit(c)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (tok_s > 0 and gauge == tok_s and len(spans) == 1):
+        raise AssertionError(f"obs c_decode_throughput: {c}")
+    return dict(a=summary, b=b, c=c)
 
 
 # ---------------------------------------------------------------------------
@@ -3036,7 +3279,7 @@ def main() -> int:
         raise SystemExit("the tier phase compares with the sched phase's "
                          "untiered paged run: add sched")
     if any(p in phases for p in ("serve", "sched", "quality", "spec",
-                                 "slo")):
+                                 "slo", "obs")):
         model = build_model(torch)
         lap("model")
         serve_sals = None
@@ -3070,9 +3313,15 @@ def main() -> int:
             counts["sparse_recon_attention_window_paged"] = \
                 spec["paged"]["sparse_recon_attention_window_paged"]
             lap("spec")
+        slo_gold = None
         if "slo" in phases:
-            phase_slo(torch, model)
+            slo_gold = phase_slo(torch, model)[1]
             lap("slo")
+        if "obs" in phases:
+            phase_obs(torch, model, paged_toks if "sched" in phases
+                      else None, slo_gold,
+                      serve_sals[0] if serve_sals else None)
+            lap("obs")
         del model, serve_sals
         gc.collect()      # engines and step graphs hold reference cycles
         torch.cuda.empty_cache()

@@ -73,6 +73,12 @@ class PagerInvariantError(RuntimeError):
 # not None`` check and nothing else.
 _fault_hook = None
 
+# Telemetry callback, wired by ``repro_torch.obs.metrics.install`` under the
+# SAME contract as ``_fault_hook``: core never imports obs, and with
+# telemetry off every page/tier event pays one ``is not None`` check.
+# Signature: ``hook(point: str, value: float = 1.0)``.
+_metrics_hook = None
+
 
 class PagePool:
     """Refcounted block-pool allocator (host-side bookkeeping only)."""
@@ -107,6 +113,8 @@ class PagePool:
             raise PagerInvariantError(f"free-stack page {pid} has refcount "
                                       f"{int(self._ref[pid])}")
         self._ref[pid] = 1
+        if _metrics_hook is not None:
+            _metrics_hook("page_alloc")
         return pid
 
     def try_alloc(self) -> Optional[int]:
@@ -117,6 +125,8 @@ class PagePool:
         if self._ref[pid] <= 0:
             raise ValueError(f"share of free page {pid}")
         self._ref[pid] += 1
+        if _metrics_hook is not None:
+            _metrics_hook("page_share")
         return pid
 
     def free(self, pid: int) -> None:
@@ -126,6 +136,8 @@ class PagePool:
         self._ref[pid] -= 1
         if self._ref[pid] == 0:
             self._free.append(pid)
+            if _metrics_hook is not None:
+                _metrics_hook("page_free")
 
     def refcount(self, pid: int) -> int:
         return int(self._ref[pid])

@@ -35,7 +35,10 @@ Tier moves are split into ``begin_*`` / ``finish_*`` pairs so the fault
 hook (``core.pager._fault_hook``, wired by ``serve.faults.install``) fires
 in plain Python BEFORE any state change or device transfer — an injected
 ``host_fetch`` / ``spill`` fault leaves the page in its prior tier, so
-both points are retry-safe.
+both points are retry-safe.  A finished fetch / spill reports
+``tier_fetch`` / ``tier_spill`` through the telemetry hook
+(``core.pager._metrics_hook``, wired by ``obs.metrics.install``), one
+``is None`` check when telemetry is off.
 
 The pool never touches device memory itself: the engine owns the copies
 (``ServeEngine.load_page`` / ``read_page_payload``); this class is the
@@ -213,6 +216,8 @@ class TieredPagePool(PagePool):
             raise PagerInvariantError(f"finish_fetch of {kind} page {pid}")
         self.hot[pid] = slot
         self.fetches += 1
+        if _pager._metrics_hook is not None:
+            _pager._metrics_hook("tier_fetch")
         self.touch([pid])
 
     def abort_fetch(self, pid: int) -> None:
@@ -242,6 +247,8 @@ class TieredPagePool(PagePool):
         self._slots_free.append(slot)
         self.cold[pid] = mirror
         self.spills += 1
+        if _pager._metrics_hook is not None:
+            _pager._metrics_hook("tier_spill")
 
     # -- audit ---------------------------------------------------------------
 

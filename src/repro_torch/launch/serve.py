@@ -4,14 +4,19 @@ card (port of ``repro/launch/serve.py``).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \
         --requests 8 --max-new-tokens 32 [--sals 0.25|0.125|off] \
         [--page-size 16] [--spec-window 4] [--full] [--device cpu] \
-        [--temperature 0.7] [--priority-classes 2 --preempt-policy park]
+        [--temperature 0.7] [--priority-classes 2 --preempt-policy park] \
+        [--metrics-out m.prom|m.json] [--trace-out t.json] [--stream]
 
 Weights are random, from ``--seed``.  Calibrates the SALS projectors on the
 synthetic corpus (paper §5.1), builds the engine, runs the requests through
 ``RequestScheduler`` and reports tokens/s.  ``--reduced`` (the default) is
 the tiny same-family configuration; ``--full`` the published widths.
 Requests round-robin the priority classes and two demo tenants, so the SLO
-machinery runs when its flags enable it.
+machinery runs when its flags enable it.  ``--metrics-out``,
+``--trace-out`` or ``--obs-snapshot-every`` turn telemetry on
+(``repro_torch.obs``: the metrics registry, the span tracer and, with
+SALS, the byte accountant) before the scheduler is built; ``--stream``
+stamps each request's tokens as a streaming client sees them.
 """
 from __future__ import annotations
 
@@ -26,6 +31,9 @@ from repro_torch.configs import _ARCH_MODULES, get_config
 from repro_torch.core import calibration as cal
 from repro_torch.data import CalibrationSampler, SyntheticCorpus
 from repro_torch.models import transformer as tf
+from repro_torch import obs
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs.trace import RequestTimeline
 from repro_torch.serve import Request, RequestScheduler, ServeEngine
 from repro_torch.serve.engine import resolve_device
 
@@ -65,6 +73,14 @@ def calibrate(params, cfg, sals, corpus, n_sequences: int = 16,
         torch.cuda.synchronize(dev)
     out["seconds"] = time.perf_counter() - t0
     return out
+
+
+def write_metrics(registry, path: str) -> None:
+    """Write ``registry`` to ``path``: the JSON snapshot for a ``.json``
+    path, Prometheus text exposition otherwise."""
+    with open(path, "w") as f:
+        f.write(obs_metrics.snapshot_to_json(registry)
+                if path.endswith(".json") else registry.to_prometheus())
 
 
 def main(argv=None) -> None:
@@ -154,6 +170,21 @@ def main(argv=None) -> None:
                          "the tenant gauges; 0 = unbounded")
     ap.add_argument("--audit-every", type=int, default=0,
                     help="run the pager invariant audit every N steps")
+    ap.add_argument("--stream", action="store_true",
+                    help="attach an on_token callback to every request "
+                         "and report per-request TTFT + p99 inter-token "
+                         "gap as a streaming client would observe them")
+    ap.add_argument("--metrics-out", default="",
+                    help="write the metrics registry at drain: a path "
+                         "ending in .json gets the JSON snapshot, anything "
+                         "else Prometheus text exposition")
+    ap.add_argument("--trace-out", default="",
+                    help="write per-request lifecycle spans as Chrome-"
+                         "trace-event JSON (load in Perfetto)")
+    ap.add_argument("--obs-snapshot-every", type=int, default=0,
+                    help="re-export --metrics-out every N scheduler steps "
+                         "while serving (0 = only at drain); implies "
+                         "telemetry on")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="the card unless 'cpu' is asked for")
@@ -203,17 +234,47 @@ def main(argv=None) -> None:
                        gauge_history=args.gauge_history,
                        sals=sals or SALSConfig(enabled=False))
     engine = ServeEngine(params, projectors, cfg, scfg, device=dev)
+    # telemetry goes in BEFORE the scheduler is built: it adopts the
+    # active registry, tracer and accountant in __init__
+    obs_handles = None
+    if args.metrics_out or args.trace_out or args.obs_snapshot_every:
+        obs_handles = obs.enable(gauge_history=args.gauge_history, cfg=cfg,
+                                 sals=sals, with_traffic=sals is not None)
+    try:
+        _serve(args, engine, corpus, obs_handles)
+    finally:
+        if obs_handles is not None:
+            obs.disable()
+
+
+def _serve(args, engine: ServeEngine, corpus, obs_handles) -> None:
+    """Submit the requests, run the scheduler, report; ``obs_handles`` is
+    what ``obs.enable`` returned, or None with telemetry off."""
+    dev = engine.device
     sched = RequestScheduler(engine)
+    timeline = None
+    if args.stream:
+        timeline = RequestTimeline(
+            registry=obs_handles["registry"] if obs_handles else None)
     rng = np.random.default_rng(args.seed)
     for i in range(args.requests):
         plen = max(4, args.prompt_len + int(rng.integers(-8, 8)))
         prompt = corpus.batch(50_000 + i, 1, plen)["tokens"][0]
         # round-robin the priority classes and two demo tenants
-        sched.submit(Request(prompt, max_new_tokens=args.max_new_tokens,
-                             priority=i % args.priority_classes,
-                             tenant_id=f"tenant{i % 2}"))
+        req = Request(prompt, max_new_tokens=args.max_new_tokens,
+                      priority=i % args.priority_classes,
+                      tenant_id=f"tenant{i % 2}")
+        if timeline is not None:
+            timeline.submitted(req.req_id)
+            timeline.attach(req)
+        sched.submit(req)
+    on_step = None
+    if args.obs_snapshot_every and args.metrics_out:
+        def on_step(_sched, step, _every=args.obs_snapshot_every):
+            if step % _every == 0:
+                write_metrics(obs_handles["registry"], args.metrics_out)
     t0 = time.perf_counter()
-    done = sched.run()
+    done = sched.run(on_step=on_step)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
@@ -254,6 +315,29 @@ def main(argv=None) -> None:
     if bad:
         print("[serve] terminal non-success: "
               + ", ".join(f"req {r.req_id}={r.state.value}" for r in bad))
+    if timeline is not None:
+        s = timeline.summary()
+        if s["ttft_p50_ms"] is not None:
+            print(f"[serve] streaming: p50 ttft {s['ttft_p50_ms']:.1f}ms, "
+                  f"p99 inter-token {s['inter_token_p99_ms'] or 0:.1f}ms "
+                  f"(client-observed, includes queueing)")
+    if obs_handles is None:
+        return
+    if args.metrics_out:
+        write_metrics(obs_handles["registry"], args.metrics_out)
+        print(f"[serve] metrics -> {args.metrics_out}")
+    if args.trace_out:
+        tracer = obs_handles["tracer"]
+        tracer.dump(args.trace_out)
+        print(f"[serve] trace -> {args.trace_out} ({tracer.ended} spans, "
+              f"{'balanced' if tracer.balanced() else 'UNBALANCED'})")
+    traffic = obs_handles["traffic"]
+    if traffic is not None and traffic.reconciled:
+        rep = traffic.report()
+        meas = sum(rep["measured"].values())
+        print(f"[serve] traffic: {rep['reconciled']} steps reconciled vs "
+              f"repro_torch/obs/ledger.py, {meas / 1e6:.1f} MB measured, "
+              f"drifts={rep['drifts']}")
 
 
 if __name__ == "__main__":

@@ -86,6 +86,8 @@ from repro_torch.config import ModelConfig, SALSConfig, ServeConfig
 from repro_torch.core.latent_cache import LatentKVCache
 from repro_torch.kernels.latent_score import BLOCK_S
 from repro_torch.models import transformer as tf
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serve.draft import NgramDrafter
 from repro_torch.serve.faults import maybe_fault
 from repro_torch.serve.step_graph import StepGraph, copy_tree, tree_tensors
@@ -932,3 +934,48 @@ class ServeEngine:
                             "capture_s": capture_s}
         return [GenerationResult(out[i, :n_out[i]], lens[i], int(n_out[i]))
                 for i in range(b)]
+
+    @torch.inference_mode()
+    def decode_throughput(self, batch_size: int, context_len: int,
+                          n_steps: int = 32) -> float:
+        """Tokens/s of the steady-state decode loop (a benchmark helper):
+        ``batch_size`` rows of ``context_len`` tokens, prefilled at once,
+        then ``n_steps`` decode steps through the captured decode program.
+
+        Timed by the installed :class:`~repro_torch.obs.trace.SpanTracer`
+        when telemetry is on, a private one otherwise, so this figure and
+        live serving share one clock and one span code path.  The span
+        opens after a first (capturing) step and a synchronization, and
+        closes after a synchronization, so it holds the device time of the
+        ``n_steps`` replays.  With a registry installed the result is also
+        the ``engine_decode_tokens_per_s`` gauge."""
+        tracer = obs_trace.active() or obs_trace.SpanTracer()
+        dev = self.device
+        toks = torch.ones((batch_size, context_len), dtype=torch.int32,
+                          device=dev)
+        lengths = torch.full((batch_size,), context_len, dtype=torch.int32,
+                             device=dev)
+        logits, cache = tf.prefill(self.params, self.projectors, self.cfg,
+                                   self.sals, {"tokens": toks},
+                                   self.scfg.max_seq_len,
+                                   n_groups=self.n_groups, lengths=lengths)
+        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        pos0 = np.full((batch_size,), context_len, np.int32)
+        self.decode(next_tok, cache, pos0)     # the capture (on the card)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        sid = tracer.begin("decode_throughput", "engine", batch=batch_size,
+                           context=context_len, steps=n_steps)
+        for t in range(n_steps):
+            self.decode(next_tok, cache, pos0 + 1 + t)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        dt = tracer.end(sid)
+        tok_s = batch_size * n_steps / dt
+        reg = obs_metrics.active()
+        if reg is not None:
+            reg.gauge("engine_decode_tokens_per_s",
+                      "steady-state decode throughput (last probe)",
+                      labelnames=("batch", "context")).set(
+                tok_s, batch=batch_size, context=context_len)
+        return tok_s

@@ -111,10 +111,22 @@ SLO SCHEDULING.  The front door is not plain FIFO:
     every run; an evict-to-requeue then warns, because the re-run
     resamples.
 
-Counters are plain int attributes with the reference's names.  Not ported
-here: static batching (the families slice) and the metrics registry,
-tracer and traffic accounting (slice 5); the scheduler raises
-``NotImplementedError`` for static batching.
+TELEMETRY (``repro_torch.obs``).  The public counters (``prefix_hits``,
+``failures``, ``parks``, ...) are views over a metrics registry
+(``_CounterView``): the one installed by ``obs.enable`` when there is one
+at construction, else a private registry.  With a tracer installed each
+request's track carries its lifecycle phases (``queue_wait``, ``prefill``,
+``decode``, ``parked``, then ``teardown``), and the ``scheduler`` track
+its work (``prefill_chunk``, ``decode_step`` / ``verify_window``,
+``tier_fetch`` / ``tier_spill`` with their bytes).  With a traffic
+accountant installed every committed decode step and verify round is
+reconciled against the byte ledger at the rows' host-side positions, and
+every page transfer at its mirror's bytes.  Every hook is host code
+around the engine's step programs, so each one fires on every replay of a
+captured step; disabled, each costs one ``is None`` check.
+
+Not ported here: static batching (the families slice); the scheduler
+raises ``NotImplementedError`` for it.
 """
 from __future__ import annotations
 
@@ -131,6 +143,10 @@ import torch
 from repro_torch.core.pager import (PagePool, PageTable, PrefixIndex,
                                     audit_pager, PagerInvariantError)
 from repro_torch.core.tiering import HotTierThrash, TieredPagePool
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs import traffic as obs_traffic
+from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.serve import faults
 from repro_torch.serve.draft import NgramDrafter
 from repro_torch.serve.engine import GenerationResult, PrefillTask, ServeEngine
@@ -218,6 +234,27 @@ class _Parked:
     parked_step: int               # FIFO resume order within a class
 
 
+class _CounterView:
+    """A public int counter (``sched.prefix_hits`` et al.) that is a thin
+    view over the scheduler's :class:`~repro_torch.obs.metrics.
+    MetricsRegistry`: reads and ``+= 1`` writes behave as plain ints did,
+    and the registry is the single store, so the exporters can never
+    disagree with the public fields."""
+
+    __slots__ = ("metric",)
+
+    def __init__(self, metric: str):
+        self.metric = metric
+
+    def __get__(self, obj, objtype=None):
+        if obj is None:
+            return self
+        return int(obj.metrics.counter(self.metric).value())
+
+    def __set__(self, obj, value):
+        obj.metrics.counter(self.metric).set_to(float(value))
+
+
 class RequestScheduler:
     """Continuous-batching scheduler over ``engine``'s slot arena.
 
@@ -225,6 +262,30 @@ class RequestScheduler:
     per admission; ``prefill_chunks`` — (decode step, req_id, chunk index,
     n_resident) per chunk run; ``pool_gauges`` — one row per decode step
     (paged)."""
+
+    # the public counters, each a view over the metrics registry
+    prefix_hits = _CounterView("serve_prefix_hits_total")
+    cow_copies = _CounterView("serve_cow_copies_total")
+    admission_stalls = _CounterView("serve_admission_stalls_total")
+    evictions = _CounterView("serve_evictions_total")
+    failures = _CounterView("serve_requests_failed_total")
+    timeouts = _CounterView("serve_requests_timed_out_total")
+    cancellations = _CounterView("serve_requests_cancelled_total")
+    retries = _CounterView("serve_retries_total")
+    step_faults = _CounterView("serve_step_faults_total")
+    shed = _CounterView("serve_shed_total")
+    fetch_hits = _CounterView("serve_fetch_hits_total")
+    prefetch_hits = _CounterView("serve_prefetch_hits_total")
+    cold_misses = _CounterView("serve_cold_misses_total")
+    spec_rounds = _CounterView("serve_spec_rounds_total")
+    spec_proposed = _CounterView("serve_spec_proposed_total")
+    spec_accepted = _CounterView("serve_spec_accepted_total")
+    spec_committed = _CounterView("serve_spec_committed_total")
+    parks = _CounterView("serve_parks_total")
+    resumes = _CounterView("serve_resumes_total")
+    preemptions = _CounterView("serve_preemptions_total")
+    submitted = _CounterView("serve_requests_submitted_total")
+    done = _CounterView("serve_requests_done_total")
 
     def __init__(self, engine: ServeEngine, mode: Optional[str] = None,
                  clock: Optional[Callable[[], float]] = None):
@@ -247,28 +308,40 @@ class RequestScheduler:
             maxlen=hist)
         self.pool_gauges: collections.deque = collections.deque(maxlen=hist)
         self.steps = 0
-        self.prefix_hits = 0        # admissions reusing prefix pages
-        self.cow_copies = 0         # copy-on-write page duplicates
-        self.admission_stalls = 0   # sweeps blocked on pages
-        self.evictions = 0          # evict-to-requeue events
-        self.failures = 0           # requests ending FAILED
-        self.timeouts = 0           # requests ending TIMED_OUT
-        self.cancellations = 0      # requests ending CANCELLED
-        self.retries = 0            # transient requeues granted
-        self.step_faults = 0        # batch-wide decode retries
-        self.shed = 0               # queue-policy sheds
-        self.submitted = 0          # == done + failures + timeouts +
-        self.done = 0               #    cancellations once drained
-        self.spec_rounds = 0        # verify windows executed
-        self.spec_proposed = 0      # draft tokens proposed
-        self.spec_accepted = 0      # draft tokens accepted
-        self.spec_committed = 0     # tokens committed through windows
-        self.fetch_hits = 0         # touched pages already hot
-        self.prefetch_hits = 0      # ... warmed by the prefetcher
-        self.cold_misses = 0        # demand host -> device fetches
-        self.parks = 0              # preempt-park events
-        self.resumes = 0            # successful park resumes
-        self.preemptions = 0        # park + evict preemptions
+        # the registry behind every public counter: the installed one
+        # (``obs.enable``), so exporters see this scheduler, else a private
+        # one; label sets share the gauge_history cap.  Gauges are
+        # published only to an installed registry (someone is scraping).
+        self.metrics: MetricsRegistry = (
+            obs_metrics.active() or MetricsRegistry(max_series=hist or 0))
+        self._metrics_installed = obs_metrics.active() is not None
+        self.tracer = obs_trace.active()        # None = spans disabled
+        self.traffic = obs_traffic.active()     # None = no byte accounting
+        for view in (
+                "prefix_hits",       # admissions reusing prefix pages
+                "cow_copies",        # copy-on-write page duplicates
+                "admission_stalls",  # sweeps blocked on pages
+                "evictions",         # evict-to-requeue events
+                "failures",          # requests ending FAILED
+                "timeouts",          # requests ending TIMED_OUT
+                "cancellations",     # requests ending CANCELLED
+                "retries",           # transient requeues granted
+                "step_faults",       # batch-wide decode retries
+                "shed",              # queue-policy sheds
+                "fetch_hits",        # touched pages already hot
+                "prefetch_hits",     # ... warmed by the prefetcher
+                "cold_misses",       # demand host -> device fetches
+                "spec_rounds",       # verify windows executed
+                "spec_proposed",     # draft tokens proposed
+                "spec_accepted",     # draft tokens accepted
+                "spec_committed",    # tokens committed through windows
+                "parks",             # preempt-park events
+                "resumes",           # successful park resumes
+                "preemptions",       # park + evict preemptions
+                # submitted == done + failures + timeouts + cancellations
+                # once drained
+                "submitted", "done"):
+            setattr(self, view, 0)
         self.parked: List[_Parked] = []          # live parked records
         # per-tenant starvation / fairness gauges (see _tenant_gauge),
         # insertion-ordered for the gauge_history LRU cap
@@ -291,6 +364,8 @@ class RequestScheduler:
                                  n_reserved=1)
         if self.paged and scfg.prefix_cache:
             self.prefix_index = PrefixIndex(self.pool)
+        if self.paged and self.traffic is not None:
+            self.traffic.bind_page_size(scfg.page_size)
         # live loop state, mirrored so audit_serving_state sees it mid-run
         self._slots: List[Optional[_Slot]] = []
         self._tables: List[Optional[PageTable]] = []
@@ -337,6 +412,9 @@ class RequestScheduler:
         req.submit_step = self.steps
         self._tenant_gauge(req.tenant_id)["submitted"] += 1
         self.submitted += 1
+        if self.tracer is not None:
+            self.tracer.begin("queue_wait", f"req{req.req_id}",
+                              tenant=req.tenant_id, priority=req.priority)
         self.pending.append(req)
         return req.req_id
 
@@ -352,6 +430,17 @@ class RequestScheduler:
         return 0
 
     # ----------------------------------------------------------- lifecycle
+
+    def _trace_phase(self, req: Request, name: str, **args) -> None:
+        """Move ``req`` to lifecycle phase ``name`` on its trace track.  A
+        request has AT MOST ONE open span, its current phase, so closing
+        the previous one first keeps begin/end balanced through every
+        teardown, retry, eviction and park.  No-op when tracing is off."""
+        tr = self.tracer
+        if tr is not None:
+            track = f"req{req.req_id}"
+            tr.end_track(track)
+            tr.begin(name, track, **args)
 
     def _terminate(self, req: Request, state: RequestState,
                    error: Optional[BaseException] = None,
@@ -369,6 +458,13 @@ class RequestScheduler:
             self.cancellations += 1
         elif state is RequestState.DONE:
             self.done += 1
+        if self.tracer is not None:
+            # close whatever phase was open (teardown may come from any),
+            # then record the teardown itself
+            track = f"req{req.req_id}"
+            self.tracer.end_track(track)
+            self.tracer.end(self.tracer.begin("teardown", track,
+                                              state=state.name))
         if partial is not None and state is not RequestState.DONE \
                 and req.on_token is not None \
                 and req.result is None and partial[0]:
@@ -407,6 +503,7 @@ class RequestScheduler:
             req.not_before_step = gate
             transition(req, RequestState.QUEUED)
             self.retries += 1
+            self._trace_phase(req, "queue_wait", retry=req.retries)
             self.pending.append(req)
         else:
             self._terminate(req, RequestState.FAILED, exc, issued,
@@ -664,6 +761,7 @@ class RequestScheduler:
             clear_slot(i)
             transition(req, RequestState.QUEUED)
             req.not_before_step = 0
+            self._trace_phase(req, "queue_wait", evicted=True)
             self.pending.appendleft(req)
             self.evictions += 1
 
@@ -762,7 +860,11 @@ class RequestScheduler:
                         f"no spillable hot page among {len(pool.hot)} "
                         f"({len(pool.pins)} pinned)")
                 vslot = pool.begin_spill(victim)   # fires "spill" first
-                pool.finish_spill(victim, eng.read_page_payload(cache, vslot))
+                sid = None if self.tracer is None else self.tracer.begin(
+                    "tier_spill", "scheduler", page=victim)
+                mirror = eng.read_page_payload(cache, vslot)
+                pool.finish_spill(victim, mirror)
+                self._note_transfer("spill", mirror, sid)
                 hot_dirty = True
                 slot = pool.take_slot()
             return slot
@@ -778,13 +880,18 @@ class RequestScheduler:
             except BaseException:
                 pool.give_slot(slot)
                 raise
+            sid = None if self.tracer is None else self.tracer.begin(
+                "tier_fetch", "scheduler", page=pid)
             try:
                 eng.load_page(cache, slot, payload)
             except BaseException:
+                if sid is not None:
+                    self.tracer.end(sid, aborted=True)
                 pool.abort_fetch(pid)
                 pool.give_slot(slot)
                 raise
             pool.finish_fetch(pid, slot)
+            self._note_transfer("fetch", payload, sid)
             hot_dirty = True
 
         def ensure_write_pin(i: int):
@@ -932,7 +1039,11 @@ class RequestScheduler:
                         eng.copy_score_page(cache, old, new)
                         if old in pool.hot:
                             slot = claim_slot({old, new})
-                            eng.copy_page(cache, pool.hot[old], slot)
+                            try:       # fires "cow_copy" before the copy
+                                eng.copy_page(cache, pool.hot[old], slot)
+                            except BaseException:
+                                pool.give_slot(slot)
+                                raise
                             pool.set_hot(new, slot)
                         else:
                             faults.maybe_fault("cow_copy")
@@ -986,8 +1097,11 @@ class RequestScheduler:
                         vslot = pool.begin_spill(pid)  # fires "spill" first
                     except faults.InjectedFault:
                         return         # retried next iteration
-                    pool.finish_spill(pid, eng.read_page_payload(cache,
-                                                                 vslot))
+                    sid = None if self.tracer is None else self.tracer.begin(
+                        "tier_spill", "scheduler", page=pid, parked=True)
+                    mirror = eng.read_page_payload(cache, vslot)
+                    pool.finish_spill(pid, mirror)
+                    self._note_transfer("spill", mirror, sid)
                     hot_dirty = True
 
         def park_resident(i: int):
@@ -1018,6 +1132,7 @@ class RequestScheduler:
                 hot_dirty = True
             eng.release_slot(cache, i)             # metadata only
             transition(req, RequestState.PARKED)
+            self._trace_phase(req, "parked")
             self.parked.append(rec)
             req.parks += 1
             self.parks += 1
@@ -1055,6 +1170,7 @@ class RequestScheduler:
             tokens[i] = rec.out[-1]
             positions[i] = rec.position
             transition(rec.req, RequestState.DECODING)
+            self._trace_phase(rec.req, "decode", resumed=True)
             self.resumes += 1
             if audit_on:
                 self.audit_serving_state()
@@ -1237,6 +1353,7 @@ class RequestScheduler:
             # so an audit cannot count the same table twice
             self._active = None
             transition(active.req, RequestState.DECODING)
+            self._trace_phase(active.req, "decode")
             tok_arr, ok = eng.sample_checked(active.task.logits)
             if not ok[0]:
                 slots[i] = _Slot(active.req, out=[], seq=next(admit_seq))
@@ -1255,11 +1372,13 @@ class RequestScheduler:
                     len(slots[i].out) >= active.req.max_new_tokens:
                 finish(i)
 
-        def decode_step(prefetched: set) -> bool:
+        def decode_step(prefetched: set, live_pos) -> bool:
             """One ragged decode step of the whole arena, one token per
             live row (empty slots idle at position 0; paged: the trash
             page).  Tiered: through fetch-and-rerun; False when its fetch
-            faults tore every resident down (no step was taken)."""
+            faults tore every resident down (no step was taken).
+            ``live_pos``: the live rows' positions before the step, for the
+            traffic accountant (None when it is off)."""
             if self.tiered:
                 logits = tiered_decode(prefetched)
                 if logits is None:
@@ -1273,6 +1392,10 @@ class RequestScheduler:
             tok_arr, ok = eng.sample_checked(logits)
             new_toks = tok_arr.cpu().numpy()
             self.steps += 1
+            if self.traffic is not None:
+                # per COMMITTED step: tiered reruns re-stream the same
+                # terms, and the transfers are accounted where they happen
+                self.traffic.observe_decode(eng, cache, live_pos)
             for i in range(b):
                 if slots[i] is None:
                     continue
@@ -1290,7 +1413,7 @@ class RequestScheduler:
                     finish(i)
             return True
 
-        def verify_round() -> None:
+        def verify_round(live_pos) -> None:
             """One speculative verify window of the whole arena: greedy
             verify keeps each live row's longest matching draft prefix plus
             the model's next token; the masked commit writes exactly those
@@ -1323,6 +1446,9 @@ class RequestScheduler:
             eng.commit_window(cache, aux, positions, n_commit)
             self.steps += 1
             self.spec_rounds += 1
+            if self.traffic is not None:
+                self.traffic.observe_decode(eng, cache, live_pos,
+                                            q_len=spec_q)
             for i in live:
                 if not finite[i]:
                     fail_resident(i, NanLogitsError(
@@ -1381,19 +1507,27 @@ class RequestScheduler:
                             req, free, eng.start_prefill(req.prompt))
                     req.attempts += 1
                     transition(req, RequestState.PREFILLING)
+                    self._trace_phase(req, "prefill", attempt=req.attempts)
                 active = self._active
                 self.prefill_chunks.append(
                     (self.steps, active.req.req_id, active.task.next_chunk,
                      sum(s is not None for s in slots)))
+                csid = None if self.tracer is None else self.tracer.begin(
+                    "prefill_chunk", "scheduler", req=active.req.req_id,
+                    chunk=active.task.next_chunk)
                 try:
                     eng.prefill_chunk_step(active.task)
                 except Exception as exc:
                     # the task is lost but the arena is untouched
+                    if csid is not None:
+                        self.tracer.end(csid, faulted=True)
                     teardown_admission(active)
                     self._active = None
                     self._fail_or_retry(active.req, exc, issued)
                     spent += 1
                     continue
+                if csid is not None:
+                    self.tracer.end(csid)
                 spent += 1
                 if active.task.done:
                     admit_active(active)
@@ -1456,10 +1590,23 @@ class RequestScheduler:
                     raise
                 continue
             fault_streak = 0
+            # the step's span, and the live rows' positions read from the
+            # host arrays BEFORE the step commits (the accountant reconciles
+            # at the positions the selection ran at)
+            tr = self.tracer
+            dsid = None if tr is None else tr.begin(
+                "verify_window" if spec_q else "decode_step", "scheduler",
+                step=self.steps, n_live=sum(s is not None for s in slots))
+            live_pos = None if self.traffic is None else [
+                int(positions[i]) for i in range(b) if slots[i] is not None]
             if spec_q:
-                verify_round()
-            elif not decode_step(prefetched):
+                verify_round(live_pos)
+            elif not decode_step(prefetched, live_pos):
+                if dsid is not None:
+                    tr.end(dsid, aborted=True)
                 continue
+            if dsid is not None:
+                tr.end(dsid)
             if self.paged:
                 row = {
                     "step": self.steps,
@@ -1483,12 +1630,76 @@ class RequestScheduler:
                                 "cold_misses": self.cold_misses,
                                 "spills": pool.spills})
                 self.pool_gauges.append(row)
+            # gauges are point-in-time samples: published every 4 steps,
+            # and once at drain below, so end-state reads are exact
+            if self._metrics_installed and self.steps % 4 == 0:
+                self._publish_gauges()
             if audit_on and self.steps % scfg.audit_every == 0:
                 self.audit_serving_state(
                     self.pool_gauges[-1] if self.pool_gauges else None)
             if on_step:
                 on_step(self, self.steps)
+        self._publish_gauges()
         return issued
+
+    # ------------------------------------------------------------ telemetry
+
+    @staticmethod
+    def _mirror_nbytes(mirror: dict) -> int:
+        """Bytes of a host page mirror ({seg: {field: tensor}}): the
+        ``numel() * element_size()`` of exactly the tensors the copy
+        moves, the measured side of the tier transfer term."""
+        return sum(t.numel() * t.element_size()
+                   for seg in mirror.values() for t in seg.values())
+
+    def _note_transfer(self, kind: str, mirror: dict,
+                       sid: Optional[int]) -> None:
+        """Account one host <-> device page transfer: close its span with
+        the measured byte count and feed the traffic accountant."""
+        if self.tracer is None and self.traffic is None:
+            return
+        nbytes = self._mirror_nbytes(mirror)
+        if sid is not None:
+            self.tracer.end(sid, bytes=nbytes)
+        if self.traffic is not None:
+            self.traffic.observe_transfer(kind, 1, nbytes)
+
+    def _publish_gauges(self) -> None:
+        """Refresh the registry's point-in-time gauges (occupancy, queue
+        depths, tenant fairness) from host state.  Cumulative counts live
+        in the counters behind the ``_CounterView`` fields."""
+        g = self.metrics
+        g.gauge("serve_steps", "decode steps executed").set(self.steps)
+        g.gauge("serve_pending", "requests waiting in queue").set(
+            len(self.pending))
+        g.gauge("serve_residents", "slots running decode").set(
+            sum(s is not None for s in self._slots))
+        g.gauge("serve_parked_requests", "preempt-parked residents").set(
+            len(self.parked))
+        if self.pool is not None:
+            g.gauge("serve_pages_in_use", "refcounted pool pages").set(
+                self.pool.pages_in_use)
+            g.gauge("serve_pages_free", "allocatable pool pages").set(
+                self.pool.pages_free)
+            if self.tiered:
+                g.gauge("serve_host_pages", "cold (host-mirror) pages").set(
+                    self.pool.host_pages)
+                g.counter("serve_tier_spills_total",
+                          "device -> host page spills").set_to(
+                    self.pool.spills)
+                g.counter("serve_tier_fetches_total",
+                          "host -> device page fetches").set_to(
+                    self.pool.fetches)
+        if self.prefix_index is not None:
+            g.gauge("serve_prefix_entries", "live prefix-cache entries").set(
+                len(self.prefix_index.entries))
+        if self.tenant_gauges:
+            tg = g.gauge("serve_tenant_stat",
+                         "per-tenant fairness/starvation gauges",
+                         labelnames=("tenant", "stat"))
+            for t, gd in self.tenant_gauges.items():
+                for k, v in gd.items():
+                    tg.set(v, tenant=t, stat=k)
 
     # ---------------------------------------------------------------- audit
 

@@ -1,6 +1,7 @@
 """The port's import boundary: ``repro_torch`` and ``chip_smoke.py`` never
-import JAX or the reference package ``repro``, and importing the port
-loads no JAX."""
+import JAX, the reference package ``repro`` or the reference's
+``benchmarks`` (which import both), and importing the port loads no
+JAX."""
 import ast
 import os
 import subprocess
@@ -27,7 +28,7 @@ def _imported_modules(path: Path):
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imported_modules(path)
-           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+           if m.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks")]
     assert not bad, f"{path} imports {bad}"
 
 
@@ -39,7 +40,7 @@ def test_import_leaves_jax_unloaded():
             "import repro_torch\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro')]\n"
+            "('jax', 'jaxlib', 'repro', 'benchmarks')]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env,
