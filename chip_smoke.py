@@ -33,7 +33,14 @@ Phases, each printing one JSON line:
               kernels (Q = 1, 2, 4, 8; dense and paged) must also equal the
               single-token kernel bit for bit at Q = 1 and, query by query,
               on each query's gated set; ``latent_score``'s scores, masked
-              and stable-sorted, must give ``latent_topk``'s indices;
+              and stable-sorted, must give ``latent_topk``'s indices.  The
+              recon and window kernels also run one slab of the grouped
+              fold (``pos_base`` != 0), and the grouped fold itself runs
+              rows 1 and 2 at G 4 (B 4 -> 16 rows of S/4, k_loc 108) at
+              llama2-7b's and paligemma-3b's shapes: exact indices, the
+              recon within tolerance, empty slabs exact no-ops, the merge
+              against the twins', and at 64-token pages the paged fold
+              equal to the dense fold bit for bit (timed in turns);
 4. serve    — seeded paper-llama2-7b at full width and depth (bf16):
               calibrate U_r on the synthetic corpus, then
               ``ServeEngine.generate`` for 4 ragged prompts (4096, 3584,
@@ -133,7 +140,22 @@ Phases, each printing one JSON line:
               (c) ``ServeEngine.decode_throughput`` at batch 4, context
               4096, 32 steps, beside the serve phase's replayed ms per
               step;
-11. vlm     — seeded paligemma-3b at full width (18 layers, d 2048, MQA
+11. grouped — the grouped selection layout (``n_groups``) on the serve
+              phase's model: (1) ``generate`` at G 1, 2, 4, 8 on the serve
+              prompts (16 new tokens), replayed and eager in turns (logits
+              bitwise equal), rows 1 and 2 once per SALS layer and step,
+              ms per step, ten replays back to back, the kernels' device
+              ms; (2) ``RequestScheduler`` at G 4 (4 requests sharing a
+              512-token system prompt, 1536 ... 768 tokens, max_seq_len
+              4096) paged (64-token pages), dense and two-tier, with the
+              byte accountant on (0 drifts, every step reconciled): tokens
+              paged == dense and two-tier == untiered, one decode capture,
+              only the layout's SALS kernels, audit clean; (3) the Q 4
+              verify window through the scheduler, paged == dense tokens,
+              one window kernel and top-k per SALS layer and round; (4)
+              ``mode="static"``, 8 requests in batches of 4: tokens equal
+              ``generate`` on the same batches;
+12. vlm     — seeded paligemma-3b at full width (18 layers, d 2048, MQA
               with head_dim 256, vocab 257,216; bf16), SALS-25% (r 64, r*
               32, 15 SALS layers), U_r calibrated on tokens: (a) prefill of
               4 rows of 256 patch embeddings + 3840 ... 2304 tokens through
@@ -142,10 +164,10 @@ Phases, each printing one JSON line:
               against the same prefill with the twin's attention on the
               card; (b) ``ServeEngine.generate`` on tokens only at the
               serve phase's prompts, replayed and eager in turns, as the
-              serve phase; (c) ``RequestScheduler``, 4 requests on 64-token
-              pages and on the dense arena (tokens equal); every path's
-              launch counts;
-12. whole   — a full-width 2-layer model (SALS on layer 1) decoded on the
+              serve phase, and at G 4 as the grouped phase's (1); (c)
+              ``RequestScheduler``, 4 requests on 64-token pages and on the
+              dense arena (tokens equal); every path's launch counts;
+13. whole   — a full-width 2-layer model (SALS on layer 1) decoded on the
               card (kernels) and on the CPU (twins) from the same weights
               and a 1024-token prompt (so top-k really selects), per-step
               logits compared under teacher forcing.
@@ -180,7 +202,7 @@ BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12
 
 PHASES = ("device", "build", "kernels", "serve", "sched", "tier", "quality",
-          "spec", "slo", "obs", "vlm", "whole")
+          "spec", "slo", "obs", "grouped", "vlm", "whole")
 # "profile" (not run by default) adds torch.profiler passes over four
 # chunked-prefill steps after the sched phase (replayed and eager, and the
 # host's issue time of a chunk), and over three
@@ -467,14 +489,17 @@ def topk_case(torch, name, b, s, r, r_star, n_c, k_dtype, seed, flush,
 
 
 def sra_case(torch, name, b, h, n_kv, dh, s, r, n_c, k_dtype, v_bits,
-             softcap, seed, flush, ps=0, u_dtype="bf16"):
+             softcap, seed, flush, ps=0, u_dtype="bf16", pos_base=None):
     """sparse_recon_attention on selected sets shaped like the main path's
     (ascending valid indices, invalid slots last; one all-invalid row).
     f32 latents or an f32 ``u`` take the CUDA-core body, whose bound is
     set at the float32 peak.
     ``ps`` > 0: every cache operand is a page pool behind a shuffled table
     whose last page per row is unmapped, and the paged kernel must also
-    equal the dense kernel bit for bit on the same logical contents."""
+    equal the dense kernel bit for bit on the same logical contents.
+    ``pos_base`` (B,): row b's cache row j sits at position pos_base[b] +
+    j, as a slab of the grouped fold (RoPE at that position), and the
+    query at pos_base[b] + S - 1."""
     from repro_torch.core import quantization as qz
     from repro_torch.kernels import ref
     from repro_torch.kernels import sparse_recon_attention as sra
@@ -506,14 +531,18 @@ def sra_case(torch, name, b, h, n_kv, dh, s, r, n_c, k_dtype, v_bits,
         idx[i, n_valid[i]:] = torch.randint(0, s, (n_c - n_valid[i],),
                                             generator=g, device=dev).int()
         valid[i, :n_valid[i]] = True
+    base = None if pos_base is None else torch.tensor(
+        pos_base, dtype=torch.int32, device=dev)
     q_pos = torch.full((b,), s - 1, dtype=torch.int32, device=dev)
+    if base is not None:
+        q_pos = q_pos + base
     cache = (k_lat, k_scale, vq["q"], vq["scale"], vq["zero"])
 
     def args(c):
         return (q, *c, u, idx, valid, q_pos)
 
     kw = dict(n_kv=n_kv, v_bits=v_bits, v_group=64, theta=10_000.0,
-              softcap=softcap)
+              softcap=softcap, pos_base=base)
     twin = ref.sparse_recon_attention_paged_ref if ps \
         else ref.sparse_recon_attention_fused_ref
     m_k, l_k, o_k = sra.sparse_recon_attention_cuda(*args(cache), **kw, **pg)
@@ -691,7 +720,7 @@ def dense_fields(dense, turns) -> dict:
 
 
 def window_case(torch, name, b, ql, h, n_kv, dh, s, r, n_c, k_dtype, v_bits,
-                softcap, seed, flush, ps=0, n_recent=64):
+                softcap, seed, flush, ps=0, n_recent=64, pos_base=None):
     """sparse_recon_attention_window on selected sets shaped like a verify
     window's (ascending valid indices at positions <= q_pos + Q - 1 -
     n_recent, invalid slots last, one all-invalid row), ragged window bases
@@ -700,7 +729,8 @@ def window_case(torch, name, b, ql, h, n_kv, dh, s, r, n_c, k_dtype, v_bits,
     the single-token kernel at q_pos + t on valid ∧ idx <= q_pos + t -
     n_recent, and (``ps`` > 0) the paged window equals the dense window on
     the same logical contents.  Also times the single-token kernel at the
-    same shape (``single_ms``)."""
+    same shape (``single_ms``).  ``pos_base`` (B,) shifts row b's cache
+    rows and window base by pos_base[b], as a slab of the grouped fold."""
     from repro_torch.core import quantization as qz
     from repro_torch.kernels import ref
     from repro_torch.kernels import sparse_recon_attention as sra
@@ -739,8 +769,11 @@ def window_case(torch, name, b, ql, h, n_kv, dh, s, r, n_c, k_dtype, v_bits,
                                             generator=g, device=dev).int()
         valid[i, :n_valid[i]] = True
     cache = (k_lat, k_scale, vq["q"], vq["scale"], vq["zero"])
+    base = torch.tensor([0] * b if pos_base is None else pos_base,
+                        dtype=torch.int32, device=dev)
+    q_pos = q_pos + base              # row indices stay, positions shift
     kw = dict(n_kv=n_kv, v_bits=v_bits, v_group=64, theta=10_000.0,
-              softcap=softcap)
+              softcap=softcap, pos_base=None if pos_base is None else base)
 
     def win(c, qq=q, nr=n_recent, **p):
         return sra.sparse_recon_attention_window_cuda(
@@ -759,7 +792,8 @@ def window_case(torch, name, b, ql, h, n_kv, dh, s, r, n_c, k_dtype, v_bits,
     q1 = same([a[:, 0] for a in win(cache, q[:, :1].contiguous(), 0, **pg)],
               single(cache, 0, valid, **pg))
     advance = all(same([a[:, t] for a in (m_k, l_k, o_k)], single(
-        cache, t, valid & (idx <= (q_pos + t)[:, None] - n_recent), **pg))
+        cache, t, valid & (idx + base[:, None]
+                           <= (q_pos + t)[:, None] - n_recent), **pg))
         for t in range(ql))
     bitwise = None
     logical = cache
@@ -826,6 +860,154 @@ def window_bound(b, ql, h, n_kv, dh, r, n_c, nv, lat_bytes, scaled, v_bits,
     flops = 2.0 * nv * kvd * r + 4.0 * nv * ql * h * dh
     return bound(nbytes, flops,
                  F32_FLOP_PER_S if lat_bytes == 4 else BF16_FLOP_PER_S)
+
+
+def grouped_case(torch, name, b, h, n_kv, dh, s, r, r_star, n_c, g, seed,
+                 flush, ps=0):
+    """The grouped fold of the decode path (``core/sparse_attention.py``:
+    ``_per_slab``, ``_slab_base``, ``_fold``) through rows 1 and 2 (paged:
+    4 and 5): B·G rows of S/G positions, k_loc = ceil(N_c/G) slots, slab g
+    at pos_base g·S/G, bf16 latents and int8 V; decode positions as the
+    serve phase's ragged rows, so later slabs of the shorter rows hold
+    nothing selectable.  The top-k against its twin exactly (integer
+    latents: exact scores), the recon against its twin (the single case's
+    tolerance), each empty slab an exact no-op, and the slabs' LSE merge
+    against the twins'.  ``ps`` > 0: the same logical rows in a page pool
+    behind a shuffled table viewed as (B·G, mp/G) must give the dense
+    fold's indices and partials bit for bit, timed in turns with it.
+    Returns the top-k line and the recon line."""
+    from repro_torch.core import quantization as qz
+    from repro_torch.core import selection as sel
+    from repro_torch.core import sparse_attention as sa
+    from repro_torch.kernels import latent_score as ls
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sparse_recon_attention as sra
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    kvd = n_kv * dh
+    k_loc, s_loc = -(-n_c // g), s // g
+    pos = torch.tensor([s - 1 - 512 * i for i in range(b)],
+                       dtype=torch.int32, device=dev)
+    k_lat = torch.randint(-3, 4, (b, s, r), generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    vq = qz.quantize(torch.randn((b, s, kvd), generator=gen, device=dev),
+                     8, 64)
+    u = (torch.randn((kvd, r), generator=gen, device=dev)
+         * r ** -0.5).to(torch.bfloat16)
+    q = torch.randn((b, h, dh), generator=gen, device=dev).to(torch.bfloat16)
+    q_lat = torch.randint(-3, 4, (b, r_star), generator=gen,
+                          device=dev).float()
+    base = sa._slab_base(b, g, s_loc, dev)
+    qg, qlg, pos_g = (sa._per_slab(x, g) for x in (q, q_lat, pos))
+    arena = (k_lat, None, vq["q"], vq["scale"], vq["zero"])
+    kv = tuple(sa._fold(a, g) for a in arena)
+    shared = all(a is None or a.data_ptr() == f.data_ptr()
+                 for a, f in zip(arena, kv))
+    tkw = dict(n_critical=k_loc, n_sink=16, n_recent=64, pos_base=base)
+    rkw = dict(n_kv=n_kv, v_bits=8, v_group=64, theta=10_000.0,
+               softcap=0.0, pos_base=base)
+
+    def topk(c=kv, **pg):
+        return ls.latent_topk_cuda(qlg, c[0], None, pos_g, **tkw, **pg)
+
+    idx_k, val_k = topk()
+    idx_t, val_t = ref.latent_topk_ref(qlg, kv[0], None, pos_g, **tkw)
+    idx_s, val_s = sel.sort_selected(idx_k, val_k)
+
+    def recon(c=kv, **pg):
+        return sra.sparse_recon_attention_cuda(qg, *c, u, idx_s, val_s,
+                                               pos_g, **rkw, **pg)
+
+    m_k, l_k, o_k = recon()
+    m_t, l_t, o_t = ref.sparse_recon_attention_fused_ref(
+        qg, *kv, u, idx_s, val_s, pos_g, **rkw)
+    bitwise = None
+    if ps:
+        # the same logical rows in a shuffled pool, the table folded
+        pt, n_pages = paged_pool(torch, gen, b, s, ps, [s] * b)
+        mp = s // ps
+        pools = tuple(None if a is None else torch.zeros(
+            (n_pages, ps, *a.shape[2:]), dtype=a.dtype, device=dev)
+            for a in arena)
+        for pool, a in zip(pools, arena):
+            if pool is not None:
+                pool[pt.long().view(-1)] = a.reshape(b * mp, ps,
+                                                     *a.shape[2:])
+        pg = dict(page_table=sa._fold(pt, g), page_size=ps)
+        ip, vp = topk(pools, **pg)
+        mp_, lp, op = recon(pools, **pg)
+        bitwise = all(bool(torch.equal(x, y)) for x, y in zip(
+            (idx_k, val_k, m_k, l_k, o_k), (ip, vp, mp_, lp, op)))
+    torch.cuda.synchronize()
+    exact = bool(torch.equal(idx_k, idx_t) and torch.equal(val_k, val_t))
+    live = l_t > 0
+    err = max(float((m_k - m_t)[live].abs().max()),
+              float(((l_k - l_t) / l_t.clamp_min(1.0))[live].abs().max()),
+              float((o_k / l_k.clamp_min(1e-30)[..., None]
+                     - o_t / l_t.clamp_min(1e-30)[..., None])[live]
+                    .abs().max()))
+    dead = ~live
+    dead_ok = bool((m_k[dead] == ref.NEG_INF).all()
+                   and (l_k[dead] == 0).all() and (o_k[dead] == 0).all())
+
+    def merged(m, l, o):
+        m, l, o = (x.view(b, g, *x.shape[1:]) for x in (m, l, o))
+        w = torch.exp(m - m.max(dim=1, keepdim=True).values)
+        return (w[..., None] * o).sum(1) / (w * l).sum(1).clamp_min(
+            1e-30)[..., None]
+
+    merge_err = float((merged(m_k, l_k, o_k)
+                       - merged(m_t, l_t, o_t)).abs().max())
+    tol = 2e-3
+    lines = []
+    for kind, kern, twin in (
+            ("topk", topk, lambda: ref.latent_topk_ref(
+                qlg, kv[0], None, pos_g, **tkw)),
+            ("recon", recon, lambda: ref.sparse_recon_attention_fused_ref(
+                qg, *kv, u, idx_s, val_s, pos_g, **rkw))):
+        row = dict(case=name, groups=g, rows=b * g, slab=s_loc, k_loc=k_loc,
+                   views_share_arena=shared)
+        if ps:
+            paged = (lambda: topk(pools, **pg)) if kind == "topk" \
+                else (lambda: recon(pools, **pg))
+            order, dense_t, turns = paired_times(torch, paged, kern, 10,
+                                                 flush)
+            row.update(bitwise_vs_dense_fold=bitwise,
+                       **dense_fields(dense_t, turns))
+            timed = paged
+        else:
+            order = eager_graph_ms(torch, kern, 10, flush)
+            timed = kern
+        row.update(ms=order["ms"], graph_ms=order["graph_ms"],
+                   device_ms=kernel_device_ms(torch, timed, 10, flush),
+                   plain_ms=time_ms(torch, twin, 3, warmup=1, flush=flush),
+                   library_ms=None)
+        lines.append(row)
+    # bounds from this run's inputs: the selectable rows' r* columns and
+    # the valid selected rows, as topk_case and sra_case count them
+    j = torch.arange(s_loc, device=dev)[None, :] + base[:, None]
+    n_sel = int(((j >= 16) & (j <= pos_g[:, None] - 64)).sum())
+    pages = b * (s // ps) * 4 if ps else 0
+    nbytes = b * g * r_star * 4 + n_sel * r_star * 2 + 2 * b * g * 4 \
+        + b * g * k_loc * 5 + pages
+    t_ms, t_by = bound(nbytes, 2.0 * n_sel * r_star, F32_FLOP_PER_S)
+    nv = int(val_s.sum())
+    row_bytes = r * 2 + kvd + 2 * 2 * (kvd // 64)
+    nbytes = qg.numel() * 2 + nv * row_bytes + u.numel() * 2 \
+        + b * g * k_loc * 5 + b * g * 4 + b * g * h * (2 + dh) * 4 + pages
+    r_ms, r_by = bound(nbytes, 2.0 * nv * kvd * r + 4.0 * nv * h * dh,
+                       BF16_FLOP_PER_S)
+    ok = exact and err <= tol and dead_ok and merge_err <= tol and shared \
+        and bitwise is not False
+    lines[0].update(exact_idx=exact, valid=int(val_t.sum()),
+                    selectable_rows=n_sel, max_abs_err=0.0, tol=0.0,
+                    bound_ms=t_ms, bound_by=t_by,
+                    share_of_bound=t_ms / lines[0]["graph_ms"], ok=ok)
+    lines[1].update(max_abs_err=err, merged_max_abs_err=merge_err, tol=tol,
+                    empty_slabs=int(dead.all(dim=-1).sum()),
+                    empty_slabs_noop=dead_ok, bound_ms=r_ms, bound_by=r_by,
+                    share_of_bound=r_ms / lines[1]["graph_ms"], ok=ok)
+    return lines
 
 
 # Flash output check: per (b, q, h) row, the largest |kernel - f32 twin|
@@ -922,6 +1104,17 @@ def flash_case(torch, name, b, sq, sk, h, hkv, dh, softcap, seed, flush,
 
 def phase_kernels(torch, scan: bool = False):
     flush = torch.empty(96 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    # the grouped fold (G 4, k_loc 108): llama2-7b and paligemma-3b (MQA,
+    # dh 256), dense at S 4160 and paged (64-token pages) at S 4096
+    grouped = [grouped_case(torch, *args, flush, ps=ps) for *args, ps in (
+        ("llama2-7b G4 B4 S4160 r1024 r*512 int8-V", 4, 32, 32, 128, 4160,
+         1024, 512, 432, 4, 71, 0),
+        ("paligemma-3b G4 MQA dh256 r64 r*32 int8-V", 4, 8, 1, 256, 4160,
+         64, 32, 432, 4, 72, 0),
+        ("llama2-7b G4 S4096 ps64 (paged fold == dense fold)", 4, 32, 32,
+         128, 4096, 1024, 512, 432, 4, 73, 64),
+        ("paligemma-3b G4 S4096 ps64 (paged fold == dense fold)", 4, 8, 1,
+         256, 4096, 64, 32, 432, 4, 74, 64))]
     res = {
         "latent_topk": [
             topk_case(torch, "llama2-7b B4 S4160 r1024 r*512 bf16", 4, 4160,
@@ -956,7 +1149,7 @@ def phase_kernels(torch, scan: bool = False):
                       "bf16", 51, flush, timed=False),
             topk_case(torch, "paligemma-3b B4 S4160 r64 r*32 (kv_dim 256)",
                       4, 4160, 64, 32, 432, "bf16", 52, flush),
-        ],
+        ] + [c[0] for c in grouped[:2]],
         "sparse_recon_attention": [
             sra_case(torch, "llama2-7b B4 H32 S4160 r1024 int8-V", 4, 32, 32,
                      128, 4160, 1024, 432, "bf16", 8, 0.0, 3, flush),
@@ -977,7 +1170,11 @@ def phase_kernels(torch, scan: bool = False):
                      64, 432, "bf16", 4, 0.0, 54, flush),
             sra_case(torch, "dh256 f32 latents (CUDA-core body)", 4, 8, 1,
                      256, 4160, 64, 432, "f32", 8, 0.0, 55, flush),
-        ] + ([   # where the recon body's time goes: passes x ring stages
+            sra_case(torch, "llama2-7b S1040 pos_base (a grouped slab)", 4,
+                     32, 32, 128, 1040, 1024, 108, "bf16", 8, 0.0, 75, flush,
+                     pos_base=[0, 1040, 2080, 3120]),
+        ] + [c[1] for c in grouped[:2]] + ([
+            # where the recon body's time goes: passes x ring stages
             sra_case(torch, f"scan N_c {n_c} r {r}", 4, 32, 32, 128, 4160, r,
                      n_c, "bf16", 8, 0.0, 3, flush)
             for n_c in (128, 432) for r in (256, 1024)] if scan else []),
@@ -992,7 +1189,7 @@ def phase_kernels(torch, scan: bool = False):
             topk_case(torch, "tiered score pool r = r* 512 ps16, pos_base",
                       4, 4096, 512, 512, 432, "bf16", 49, flush, ps=16,
                       pos_base=[0, 64, 128, 192], timed=False),
-        ],
+        ] + [c[0] for c in grouped[2:]],
         "sparse_recon_attention_paged": [
             sra_case(torch, "llama2-7b B4 H32 S4096 r1024 int8-V ps64", 4,
                      32, 32, 128, 4096, 1024, 432, "bf16", 8, 0.0, 13, flush,
@@ -1013,7 +1210,10 @@ def phase_kernels(torch, scan: bool = False):
             sra_case(torch, "paligemma-3b dh256 int8-lat int4-V ps16", 4, 8,
                      1, 256, 4096, 64, 432, "int8", 4, 0.0, 57, flush,
                      ps=16),
-        ],
+            sra_case(torch, "llama2-7b S1024 ps64 pos_base (a grouped slab)",
+                     4, 32, 32, 128, 1024, 1024, 108, "bf16", 8, 0.0, 76,
+                     flush, ps=64, pos_base=[0, 1024, 2048, 3072]),
+        ] + [c[1] for c in grouped[2:]],
         "sparse_recon_attention_window": [
             window_case(torch, "llama2-7b B4 Q4 H32 S4160 r1024 int8-V", 4, 4,
                         32, 32, 128, 4160, 1024, 432, "bf16", 8, 0.0, 21,
@@ -1046,6 +1246,9 @@ def phase_kernels(torch, scan: bool = False):
             window_case(torch, "dh256 f32 latents Q8 (CUDA-core body, 3 "
                         "blocks)", 4, 8, 8, 1, 256, 4160, 64, 432, "f32", 8,
                         0.0, 62, flush),
+            window_case(torch, "llama2-7b Q4 S1040 pos_base (a grouped slab)",
+                        4, 4, 32, 32, 128, 1040, 1024, 108, "bf16", 8, 0.0,
+                        77, flush, pos_base=[0, 1040, 2080, 3120]),
         ],
         "sparse_recon_attention_window_paged": [
             window_case(torch, "llama2-7b B4 Q4 S4096 r1024 int8-V ps64", 4,
@@ -1068,6 +1271,10 @@ def phase_kernels(torch, scan: bool = False):
             window_case(torch, "paligemma-3b dh256 Q4 int4-V ps64", 4, 4, 8,
                         1, 256, 4096, 64, 432, "bf16", 4, 0.0, 70, flush,
                         ps=64),
+            window_case(torch, "llama2-7b Q4 S1024 ps64 pos_base (a grouped "
+                        "slab)", 4, 4, 32, 32, 128, 1024, 1024, 108, "bf16",
+                        8, 0.0, 78, flush, ps=64,
+                        pos_base=[0, 1024, 2048, 3072]),
         ],
         "latent_score": [
             score_case(torch, "overlap_score path: f32 B2 S4096 r1024 r*512",
@@ -1400,7 +1607,7 @@ def prefill_batch(torch, eng, prompts):
     logits, cache = tf.prefill(
         eng.params, eng.projectors, eng.cfg, eng.sals,
         {"tokens": torch.as_tensor(toks, device="cuda")},
-        eng.scfg.max_seq_len,
+        eng.scfg.max_seq_len, n_groups=eng.n_groups,
         lengths=torch.as_tensor(lens, device="cuda"))
     return logits, cache, lens
 
@@ -2964,6 +3171,362 @@ def phase_obs(torch, model, sched_toks=None, slo_gold=None,
 
 
 # ---------------------------------------------------------------------------
+# phase: the grouped selection layout and static batching
+# ---------------------------------------------------------------------------
+
+SALS_KERNELS = ("latent_score_pass", "topk_select", "sra_")
+
+
+def grouped_generate(torch, model, g: int, prompts, n_new: int, flush,
+                     phase: str = "grouped") -> dict:
+    """``ServeEngine.generate`` at ``n_groups`` g (its steps replay the
+    step program), then the same prompts decoded eager and replayed: every
+    replayed step's logits and the tokens must equal the eager ones bit
+    for bit, and each SALS layer must launch rows 1 and 2 once a step.
+    Then ten replays of one step back to back (CUDA events) and the
+    kernels' device time a step (CUPTI, L2 as the last step left it)."""
+    from repro_torch.config import ServeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeEngine
+    cfg, sals, params, proj = (model[k] for k in ("cfg", "sals", "params",
+                                                  "proj"))
+    eng = ServeEngine(params, proj, cfg, ServeConfig(
+        max_seq_len=4160, max_batch=4, sals=sals), n_groups=g,
+        device="cuda")
+    ops.reset_launch_counts()
+    out = eng.generate(prompts, max_new_tokens=n_new)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    timing = eng.last_timing
+    steps = timing["decode_steps"]
+    toks = np.stack([r.tokens for r in out])
+    eager = decode_turn(torch, eng, prompts, n_new, graph=False)
+    graph = decode_turn(torch, eng, prompts, n_new, graph=True)
+    same = all(torch.equal(a, b) for a, b in zip(eager["logits"],
+                                                 graph["logits"]))
+    with torch.inference_mode():
+        logits, cache, lens = prefill_batch(torch, eng, prompts)
+        tok = logits.argmax(-1).to(torch.int32)
+        pos = torch.as_tensor(lens, device="cuda")
+        eng.decode(tok, cache, pos)              # this cache's capture
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            eng.decode(tok, cache, pos)
+        end.record()
+        end.synchronize()
+        device = kernel_device_ms(torch, lambda: eng.decode(tok, cache, pos),
+                                  5, flush, mode="none")
+        del cache
+    row = dict(phase=phase, run=f"generate_G{g}", groups=g,
+               k_loc=-(-sals.n_critical // g), slab=4160 // g,
+               prompts=[len(p) for p in prompts], new_tokens=n_new,
+               decode_ms_per_step=1e3 * timing["decode_s"] / steps,
+               prefill_s=timing["prefill_s"], decode_steps=steps,
+               sals_launches_per_step={
+                   k: counts[k] / steps for k in ("latent_topk",
+                                                  "sparse_recon_attention")},
+               graph_ms_per_step=statistics.median(graph["ms"][1:]),
+               eager_ms_per_step=statistics.median(eager["ms"][1:]),
+               back_to_back_ms_per_replay=start.elapsed_time(end) / 10,
+               device_ms_per_step=sum(device.values()),
+               sals_device_ms_per_step={
+                   k: v for k, v in device.items()
+                   if any(n in k for n in SALS_KERNELS)},
+               launches=counts, decode_captures=eng._decode.captures,
+               logits_bitwise_equal_eager=same,
+               tokens_equal_eager=bool(np.array_equal(graph["tokens"],
+                                                      eager["tokens"])),
+               generate_tokens_equal_eager=bool(np.array_equal(
+                   toks, eager["tokens"])))
+    emit(row)
+    want = model["n_sals"] * steps
+    if counts["latent_topk"] != want or \
+            counts["sparse_recon_attention"] != want:
+        raise AssertionError(f"{phase} G{g}: SALS launches {counts}, "
+                             f"expected {want} each")
+    if not (same and row["tokens_equal_eager"]
+            and row["generate_tokens_equal_eager"]):
+        raise AssertionError(f"{phase} G{g}: the replayed step differs from "
+                             "the eager one")
+    # at most one capture per arena (generate's, the graph turn's, the
+    # timing's); an arena at a freed one's addresses replays its graph
+    if not 1 <= eng._decode.captures <= 3:
+        raise AssertionError(f"{phase} G{g}: {eng._decode.captures} decode "
+                             "captures for 3 arenas")
+    del eng, out, eager, graph
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def grouped_sched_prompts(model):
+    """Four requests sharing a 512-token system prompt, 1536 ... 768
+    tokens (the sched phase's traffic, shortened)."""
+    corpus = model["corpus"]
+    system = corpus.batch(600, 1, 512)["tokens"][0]
+    return [np.concatenate([system, corpus.batch(610 + i, 1, n - 512)
+                            ["tokens"][0]]).astype(np.int32)
+            for i, n in enumerate((1536, 1280, 1024, 768))]
+
+
+def grouped_tier_prompts(model):
+    """Eight requests on the grouped traffic's 512-token system prompt:
+    its four, three more (1408 ... 896 tokens), and last the first prompt
+    extended by 256 tokens, whose prefix hit lands on pages that went
+    cold while the others ran."""
+    corpus = model["corpus"]
+    first = grouped_sched_prompts(model)
+    more = [np.concatenate([first[0][:512], corpus.batch(620 + i, 1, n - 512)
+                            ["tokens"][0]]).astype(np.int32)
+            for i, n in enumerate((1408, 1152, 896))]
+    ext = np.concatenate([first[0], corpus.batch(630, 1, 256)["tokens"][0]])
+    return first + more + [ext.astype(np.int32)]
+
+
+def grouped_sched_run(torch, model, name, g, n_new=16, prompts=None,
+                      **skw) -> tuple:
+    """One ``RequestScheduler`` run at ``n_groups`` g (64-token chunks, 4
+    slots, max_seq_len 4096, audited every step; ``prompts`` default
+    :func:`grouped_sched_prompts`) with the byte accountant on: every
+    request DONE, 0 drifts and every decode step reconciled, one decode
+    capture, and only the layout's SALS kernels (a verify window's: one
+    window and one top-k per SALS layer and round).  Two-tier: the most
+    pages one step's selection touched, and the peak of live pages."""
+    from repro_torch import obs
+    from repro_torch.config import ServeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serve import Request, RequestScheduler, ServeEngine
+    cfg, sals, params, proj = (model[k] for k in ("cfg", "sals", "params",
+                                                  "proj"))
+    eng = ServeEngine(params, proj, cfg, ServeConfig(
+        max_seq_len=4096, max_batch=4, prefill_chunk=64,
+        prefill_token_budget=256, audit_every=1, sals=sals, **skw),
+        n_groups=g, device="cuda")
+    decode_runs, max_touched = [0], [0]
+    for entry in ("decode", "decode_sel", "decode_window"):
+        def counted(*args, _fn=getattr(eng, entry), _sel=entry ==
+                    "decode_sel"):
+            decode_runs[0] += 1
+            out = _fn(*args)
+            if _sel:              # (logits, cache, touched (B, mp))
+                table = next(iter(eng._latent_segs(out[1]).values())) \
+                    .page_table[0]
+                pids = torch.unique(table[out[2]])
+                max_touched[0] = max(max_touched[0], int((pids > 0).sum()))
+            return out
+        setattr(eng, entry, counted)
+    with obs.enabled(cfg=cfg, sals=sals, with_traffic=True) as h:
+        sched = RequestScheduler(eng)
+        reqs = [Request(p, max_new_tokens=n_new)
+                for p in (prompts or grouped_sched_prompts(model))]
+        for r in reqs:
+            sched.submit(r)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        sched.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        traffic = h["traffic"].report()
+    counts = ops.launch_counts()
+    spec = skw.get("spec_window", 0) > 1
+    entry = eng._decode_window if spec else (
+        eng._decode_sel if eng.tiered else eng._decode)
+    row = dict(phase="grouped", run=name, groups=g, wall_s=wall,
+               decode_steps=sched.steps, decode_runs=decode_runs[0],
+               launches=counts, decode_captures=entry.captures,
+               traffic_reconciled=traffic["reconciled"],
+               traffic_drifts=traffic["drifts"],
+               prefix_hits=sched.prefix_hits)
+    if spec:
+        row.update(spec_rounds=sched.spec_rounds,
+                   spec_committed=sched.spec_committed)
+    if eng.tiered:
+        row.update(hbm_pages=eng.scfg.hbm_pages, spills=sched.pool.spills,
+                   fetches=sched.pool.fetches, cold_misses=sched.cold_misses,
+                   reruns=decode_runs[0] - sched.steps,
+                   evictions=sched.evictions,
+                   max_touched_pages=max_touched[0],
+                   peak_live_pages=max(x["pages_in_use"]
+                                       for x in sched.pool_gauges))
+    emit(row)
+    if not all(r.done for r in reqs):
+        raise AssertionError(f"grouped {name}: not every request DONE")
+    sched.audit_serving_state()
+    if traffic["drifts"] or traffic["reconciled"] != sched.steps:
+        raise AssertionError(f"grouped {name}: byte ledger {traffic}")
+    if entry.captures != 1:
+        raise AssertionError(f"grouped {name}: {entry.captures} captures")
+    paged = eng.paged
+    if spec:
+        check_spec_launches(f"grouped {name}", counts, sched.spec_rounds,
+                            model["n_sals"], paged)
+    else:
+        mine = ("latent_topk_paged", "sparse_recon_attention_paged") \
+            if paged else ("latent_topk", "sparse_recon_attention")
+        want = model["n_sals"] * decode_runs[0]
+        if any(counts[k] != want for k in mine) or any(
+                v for k, v in counts.items()
+                if k not in mine and k != "flash_attention"):
+            raise AssertionError(f"grouped {name}: launches {counts}, "
+                                 f"expected {want} of {mine}")
+    toks = [r.result.tokens for r in reqs]
+    del eng, sched, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, toks
+
+
+def grouped_static(torch, model, g: int, n_new: int = 16) -> dict:
+    """``RequestScheduler(mode="static")`` at ``n_groups`` g: 8 requests
+    (1408 ... 512 tokens) in batches of 4, shortest first; each request's
+    tokens must equal ``generate`` on the same batch."""
+    from repro_torch.config import ServeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serve import Request, RequestScheduler, ServeEngine
+    cfg, sals, params, proj = (model[k] for k in ("cfg", "sals", "params",
+                                                  "proj"))
+    lens = [1408 - 128 * i for i in range(8)]
+    prompts = [model["corpus"].batch(700 + i, 1, n)["tokens"][0]
+               for i, n in enumerate(lens)]
+    eng = ServeEngine(params, proj, cfg, ServeConfig(
+        max_seq_len=4096, max_batch=4, sals=sals), n_groups=g,
+        device="cuda")
+    sched = RequestScheduler(eng, mode="static")
+    reqs = [Request(p, max_new_tokens=n_new) for p in prompts]
+    for r in reqs:
+        sched.submit(r)
+    batches = []
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    sched.run(on_batch=lambda b: batches.append([len(r.prompt) for r in b]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    ordered, want = sorted(prompts, key=len), {}
+    for b in batches:
+        batch, ordered = ordered[:len(b)], ordered[len(b):]
+        for p, res in zip(batch, eng.generate(batch, max_new_tokens=n_new)):
+            want[len(p)] = res.tokens
+    same = all(r.done and np.array_equal(r.result.tokens,
+                                         want[len(r.prompt)]) for r in reqs)
+    row = dict(phase="grouped", run="static", groups=g, prompts=lens,
+               new_tokens=n_new, batches=batches, wall_s=wall,
+               launches=counts, tokens_equal_generate=same,
+               decode_steps=sched.steps)
+    emit(row)
+    if not same or [len(b) for b in batches] != [4, 4]:
+        raise AssertionError(f"grouped static: tokens {same}, batches "
+                             f"{batches}")
+    del eng, sched
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def grouped_tiered(torch, model) -> dict:
+    """The two-tier pool at G 4 on :func:`grouped_tier_prompts` (every
+    prompt's prefix entry kept, so the pool holds more live pages than a
+    step touches): untiered; a pool-sized hot tier, which measures the
+    touched sets; then the touched set plus a write page per slot, a
+    fetch slot and 2 more (the smallest safe size if that never spills).
+    Both two-tier runs give the untiered tokens with 0 evictions; the last
+    sits below the live peak, spills, and fetches cold pages back."""
+    prompts = grouped_tier_prompts(model)
+    kw = dict(prompts=prompts, page_size=64,
+              prefix_cache_entries=len(prompts))
+    runs = {"tier_untiered": grouped_sched_run(torch, model,
+                                               "tier_untiered", 4, **kw)}
+    pool = 4 * 4096 // 64
+    big = runs["tiered_pool"] = grouped_sched_run(
+        torch, model, "tiered_pool", 4, hbm_pages=pool, **kw)
+    need = big[0]["max_touched_pages"] + 4 + 1
+    for hot in (need + 2, need):
+        runs["tiered"] = grouped_sched_run(torch, model, "tiered", 4,
+                                           hbm_pages=hot, **kw)
+        if runs["tiered"][0]["spills"] > 0:
+            break
+    want = runs["tier_untiered"][1]
+    for name in ("tiered_pool", "tiered"):
+        row, toks = runs[name]
+        row["tokens_equal_untiered"] = all(
+            np.array_equal(a, b) for a, b in zip(toks, want))
+        if not (row["tokens_equal_untiered"] and row["evictions"] == 0):
+            raise AssertionError(f"grouped {name}: tokens / evictions "
+                                 f"{row}")
+    tight = runs["tiered"][0]
+    if not (tight["hbm_pages"] < big[0]["peak_live_pages"]
+            and tight["spills"] > 0 and tight["fetches"] > 0):
+        raise AssertionError(f"grouped tiered: hot tier not below the "
+                             f"live peak, or no spill / fetch: {tight}")
+    emit(dict(phase="grouped", run="tier_summary",
+              hbm_pages=tight["hbm_pages"],
+              peak_live_pages=big[0]["peak_live_pages"],
+              max_touched_pages=big[0]["max_touched_pages"],
+              spills=tight["spills"], fetches=tight["fetches"],
+              cold_misses=tight["cold_misses"], reruns=tight["reruns"],
+              tokens_equal_untiered=True))
+    return tight
+
+
+def phase_grouped(torch, model, n_new: int = 16) -> dict:
+    """The grouped layout on the serve phase's model: (1) ``generate`` at
+    G 1, 2, 4, 8 on the serve prompts; (2) the scheduler at G 4, paged
+    (64-token pages) == dense tokens, then two-tier == untiered tokens on
+    a pool that spills (:func:`grouped_tiered`); (3) the
+    Q 4 verify window at G 4 through the scheduler, paged == dense tokens;
+    (4) static batching at G 4, tokens == ``generate``'s.  Returns the
+    launch counts of rows 1, 2, 4-7 on these paths."""
+    flush = torch.empty(96 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    lens = [4096, 3584, 3072, 2560]
+    prompts = [model["corpus"].batch(100 + i, 1, n)["tokens"][0]
+               for i, n in enumerate(lens)]
+    gen = {g: grouped_generate(torch, model, g, prompts, n_new, flush)
+           for g in (1, 2, 4, 8)}
+    runs = {name: grouped_sched_run(torch, model, name, 4, **skw)
+            for name, skw in (
+                ("paged", dict(page_size=64)), ("dense", {}),
+                ("spec_paged", dict(page_size=64, spec_window=4)),
+                ("spec_dense", dict(spec_window=4)))}
+    toks = {k: v[1] for k, v in runs.items()}
+    eq = lambda a, b: all(np.array_equal(x, y)       # noqa: E731
+                          for x, y in zip(toks[a], toks[b]))
+    summary = dict(phase="grouped", run="summary",
+                   paged_tokens_equal_dense=eq("paged", "dense"),
+                   spec_paged_tokens_equal_dense=eq("spec_paged",
+                                                    "spec_dense"),
+                   decode_ms_per_step={g: r["decode_ms_per_step"]
+                                       for g, r in gen.items()},
+                   back_to_back_ms_per_replay={
+                       g: r["back_to_back_ms_per_replay"]
+                       for g, r in gen.items()},
+                   sals_device_ms_per_step={
+                       g: sum(r["sals_device_ms_per_step"].values())
+                       for g, r in gen.items()})
+    tiered = grouped_tiered(torch, model)
+    summary.update(tiered_spills=tiered["spills"],
+                   tiered_fetches=tiered["fetches"])
+    static = grouped_static(torch, model, 4)
+    summary["static_tokens_equal_generate"] = static["tokens_equal_generate"]
+    emit(summary)
+    bad = [k for k, v in summary.items() if v is False]
+    if bad:
+        raise AssertionError(f"grouped: {bad}")
+    counts = {k: gen[4]["launches"][k] for k in ("latent_topk",
+                                                 "sparse_recon_attention")}
+    for name, keys in (("paged", ("latent_topk_paged",
+                                  "sparse_recon_attention_paged")),
+                       ("spec_dense", ("sparse_recon_attention_window",)),
+                       ("spec_paged",
+                        ("sparse_recon_attention_window_paged",))):
+        counts.update({k: runs[name][0]["launches"][k] for k in keys})
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phase 7: whole path, card vs CPU
 # ---------------------------------------------------------------------------
 
@@ -3160,6 +3723,14 @@ def phase_vlm(torch, n_new: int = 32, prof: bool = False) -> dict:
     serve_row, _ = phase_serve(torch, model, n_new, prof, phase="vlm")
     counts["generate"] = {k: serve_row["launches"][k] for k in (
         "flash_attention", "latent_topk", "sparse_recon_attention")}
+    # (b) at G 4: 16 recon blocks (4 rows x 4 slabs) in place of 4
+    prompts = [model["corpus"].batch(100 + i, 1, n)["tokens"][0]
+               for i, n in enumerate([4096, 3584, 3072, 2560])]
+    flush = torch.empty(96 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    g4 = grouped_generate(torch, model, 4, prompts, 16, flush, phase="vlm")
+    counts["generate_G4"] = {k: g4["launches"][k] for k in (
+        "latent_topk", "sparse_recon_attention")}
+    del flush
     counts.update(vlm_sched(torch, model))
     del model
     gc.collect()
@@ -3274,12 +3845,12 @@ def main() -> int:
     kern = phase_kernels(torch, scan="scan" in phases) \
         if "kernels" in phases else {}
     lap("kernels")
-    counts = {}
+    counts, grouped = {}, {}
     if "tier" in phases and "sched" not in phases:
         raise SystemExit("the tier phase compares with the sched phase's "
                          "untiered paged run: add sched")
     if any(p in phases for p in ("serve", "sched", "quality", "spec",
-                                 "slo", "obs")):
+                                 "slo", "obs", "grouped")):
         model = build_model(torch)
         lap("model")
         serve_sals = None
@@ -3322,6 +3893,9 @@ def main() -> int:
                       else None, slo_gold,
                       serve_sals[0] if serve_sals else None)
             lap("obs")
+        if "grouped" in phases:
+            grouped = phase_grouped(torch, model)
+            lap("grouped")
         del model, serve_sals
         gc.collect()      # engines and step graphs hold reference cycles
         torch.cuda.empty_cache()
@@ -3369,10 +3943,12 @@ def main() -> int:
                      "bound_by": main_case.get("bound_by"),
                      "library_ms": main_case.get("library_ms"),
                      # paligemma-3b's paths (the vlm phase), dh 256
-                     "vlm_launches": vlm.get(name)})
+                     "vlm_launches": vlm.get(name),
+                     # the grouped layout's paths (G 4, the grouped phase)
+                     "grouped_launches": grouped.get(name)})
     emit({"kernels": rows})
     idle = [r["name"] for r in rows if r["launches"] == 0
-            or r["vlm_launches"] == 0]
+            or r["vlm_launches"] == 0 or r["grouped_launches"] == 0]
     if idle:    # None: its path did not run; 0: it ran without the kernel
         raise AssertionError(f"kernels never launched on their path: {idle}")
     print(smi, flush=True)

@@ -31,6 +31,14 @@ it; and ``hot_table`` ``([L,] B, max_pages)``, row b's logical page j ->
 its payload slot (0 = cold or unmapped: the trash slot), which the
 reconstruction kernel takes instead of ``page_table``.
 
+``n_groups`` is the decode selection layout, metadata the decode step
+reads back (``core/sparse_attention.py::plan_decode``): 1 = the paper's
+global top-N_c; G > 1 = a top-⌈N_c/G⌉ in each of G sequence slabs of
+``max_seq / G`` positions (paged: ``max_pages / G`` pages of the table),
+so ``max_seq`` (paged: the pages per sequence) must divide by G.  The
+arrays are the same in both layouts; :meth:`LatentKVCache.group_view` is
+the slab view the tests hold the fold to.
+
 Unlike the reference, whose arrays are immutable and whose methods return
 new caches, the port's arrays are preallocated arena tensors that
 :meth:`LatentKVCache.write` (and the layer views of :meth:`layer_view`)
@@ -52,6 +60,27 @@ _PER_TOKEN_FIELDS = ("k_lat", "k_scale", "v_q", "v_scale", "v_zero")
 _ALL_FIELDS = ("k_lat", "v_q", "v_scale", "v_zero", "sink_k", "sink_v",
                "recent_k", "recent_v", "k_scale", "lengths", "page_table",
                "k_score", "k_scale_score", "hot_table")
+
+
+def check_slabs(max_seq: int, n_groups: int, page_size: int = 0, *,
+                name: str = "max_seq",
+                table: str = "the page table") -> None:
+    """The grouped layout's geometry, the one rule every constructor and
+    the engine hold: G slabs of ``max_seq / G`` positions; paged
+    (``page_size`` > 0), of ``(max_seq / page_size) / G`` pages each,
+    because the fold splits the page table.  The messages are the
+    reference's (``name`` and ``table`` as its caller words them)."""
+    if n_groups <= 1:
+        return
+    if page_size:
+        mp = max_seq // page_size
+        if mp % n_groups:
+            raise ValueError(f"pages per sequence {mp} must be divisible "
+                             f"by n_groups {n_groups} (the grouped fold "
+                             f"splits {table})")
+    elif max_seq % n_groups:
+        raise ValueError(f"{name} {max_seq} must be divisible by "
+                         f"n_groups {n_groups}")
 
 
 def _row_positions(pos, batch: int, device) -> torch.Tensor:
@@ -91,6 +120,7 @@ class LatentKVCache:
     k_score: Optional[torch.Tensor] = None        # ([L,] n_pages, ps, r*)
     k_scale_score: Optional[torch.Tensor] = None  # ([L,] n_pages, ps)
     hot_table: Optional[torch.Tensor] = None      # ([L,] B, max_pages)
+    n_groups: int = 1                      # decode selection layout
 
     @property
     def paged(self) -> bool:
@@ -108,9 +138,7 @@ class LatentKVCache:
              batch: int, max_seq: int, dtype=torch.bfloat16,
              n_groups: int = 1, device="cuda") -> "LatentKVCache":
         """Zero-initialized arena with a leading layer axis."""
-        if n_groups > 1:
-            raise NotImplementedError("the grouped layout (n_groups > 1) is "
-                                      "ported in the layouts slice")
+        check_slabs(max_seq, n_groups)
         kvd = cfg.kv_dim
         r = sals.rank(kvd)
         groups = kvd // sals.v_group
@@ -133,7 +161,8 @@ class LatentKVCache:
                    v_zero=z((*tok, groups), qz.SCALE_DTYPE),
                    sink_k=z(win, dtype), sink_v=z(win, dtype),
                    recent_k=z(ring, dtype), recent_v=z(ring, dtype),
-                   lengths=z((n_layers, batch), torch.int32))
+                   lengths=z((n_layers, batch), torch.int32),
+                   n_groups=n_groups)
 
     @classmethod
     def init_paged(cls, cfg: ModelConfig, sals: SALSConfig, n_layers: int,
@@ -152,11 +181,12 @@ class LatentKVCache:
         if n_pages * page_size < max_seq:
             raise ValueError(f"pool {n_pages}×{page_size} cannot hold one "
                              f"max_seq {max_seq} sequence")
+        check_slabs(max_seq, n_groups, page_size)
         if hbm_pages and hbm_pages + 1 > n_pages:
             raise ValueError(f"hbm_pages {hbm_pages} exceeds the pool "
                              f"({n_pages} incl. trash)")
         # (L, 1, ps, ·) template -> (L, n_pages, ps, ·) pools
-        one = cls.init(cfg, sals, n_layers, 1, page_size, dtype, n_groups,
+        one = cls.init(cfg, sals, n_layers, 1, page_size, dtype,
                        device="meta")
         payload_pages = hbm_pages + 1 if hbm_pages else n_pages
         pools = {f: None if getattr(one, f) is None else torch.zeros(
@@ -182,7 +212,7 @@ class LatentKVCache:
                    recent_k=z(ring, dtype), recent_v=z(ring, dtype),
                    lengths=z((n_layers, batch), torch.int32),
                    page_table=z((n_layers, batch, mp), torch.int32),
-                   page_size=page_size)
+                   page_size=page_size, n_groups=n_groups)
 
     @classmethod
     def prefill_layer(cls, cfg: ModelConfig, sals: SALSConfig,
@@ -196,9 +226,7 @@ class LatentKVCache:
         ``lengths`` (B,): per-row true prompt lengths of a right-padded
         ragged batch — the sink/recent windows hold each row's own real
         positions.  None means every row is exactly S tokens."""
-        if n_groups > 1:
-            raise NotImplementedError("the grouped layout (n_groups > 1) is "
-                                      "ported in the layouts slice")
+        check_slabs(max_seq, n_groups)
         b, s = k_pre.shape[:2]
         dev = k_pre.device
         kvd = cfg.kv_dim
@@ -256,7 +284,7 @@ class LatentKVCache:
         return cls(k_lat=k_lat, k_scale=k_scale, v_q=pad(vq["q"]),
                    v_scale=pad(vq["scale"]), v_zero=pad(vq["zero"]),
                    sink_k=sk, sink_v=sv, recent_k=rk, recent_v=rv,
-                   lengths=len_v)
+                   lengths=len_v, n_groups=n_groups)
 
     # ----------------------------------------------------------------- views
 
@@ -273,6 +301,28 @@ class LatentKVCache:
             dst = getattr(self, f)
             if dst is not None:
                 dst[l].copy_(getattr(layer, f))
+
+    def group_view(self) -> "LatentKVCache":
+        """The per-token fields as (B, G, S/G, ·) slab views at the
+        cache's ``n_groups``: a dense-layout oracle for tests, which the
+        decode path never builds (it folds the slabs into the kernel
+        batch).  One layer only (take :meth:`layer_view` first)."""
+        if self.paged:
+            raise ValueError("group_view is a dense-layout oracle; the "
+                             "paged grouped fold reshapes the page TABLE, "
+                             "not the pools (see sparse_attention)")
+        if self.k_lat.dim() != 3:
+            raise ValueError("group_view needs a single-layer cache "
+                             f"(B, S, r); got k_lat {tuple(self.k_lat.shape)}"
+                             " — take layer_view(l) first")
+        g = self.n_groups
+        out = {}
+        for f in _PER_TOKEN_FIELDS:
+            a = getattr(self, f)
+            if a is not None:
+                b, s = a.shape[:2]
+                out[f] = a.view(b, g, s // g, *a.shape[2:])
+        return dataclasses.replace(self, **out)
 
     def latent_views(self) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Raw quantized latent arrays (k_lat (B, S, r), k_scale (B, S) or

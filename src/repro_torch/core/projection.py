@@ -5,6 +5,10 @@
 covariance, ordered by descending eigenvalue, so the leading r* latent dims
 carry the most energy.  K̃ = K·U_r; K ≈ K̃·U_rᵀ.  The eigendecomposition
 runs in float64 on whatever device holds the covariance.
+
+Two groupings, as the reference's: one projector over all kv heads
+(:func:`fit_projector`, the paper's default) and a block-diagonal one with
+an independent PCA per kv-head group (:func:`fit_projector_grouped`).
 """
 from __future__ import annotations
 
@@ -12,20 +16,52 @@ import numpy as np
 import torch
 
 
+def _eigh_desc(cov: torch.Tensor):
+    """(eigvals, eigvecs) of a symmetric matrix in f64, by descending
+    eigenvalue."""
+    eigvals, eigvecs = torch.linalg.eigh(cov.double())       # ascending
+    order = torch.argsort(eigvals, descending=True)
+    return eigvals[order], eigvecs[:, order]
+
+
 def fit_projector_from_cov(cov: torch.Tensor, rank: int) -> dict:
     """cov: (kv_dim, kv_dim) f64.  Returns {"u": (kv_dim, rank) f32,
     "eigvals": (kv_dim,) f32 descending}."""
-    eigvals, eigvecs = torch.linalg.eigh(cov.double())       # ascending
-    order = torch.argsort(eigvals, descending=True)
-    return {"u": eigvecs[:, order[:rank]].float(),
-            "eigvals": eigvals[order].float()}
+    eigvals, eigvecs = _eigh_desc(cov)
+    return {"u": eigvecs[:, :rank].float(), "eigvals": eigvals.float()}
+
+
+def _keys_f64(keys) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(keys) if not torch.is_tensor(keys)
+                           else keys).double()
 
 
 def fit_projector(keys, rank: int) -> dict:
     """PCA fit from calibration keys (n_samples, kv_dim) — numpy or torch."""
-    k = torch.as_tensor(np.asarray(keys) if not torch.is_tensor(keys)
-                        else keys).double()
+    k = _keys_f64(keys)
     return fit_projector_from_cov(k.T @ k, rank)
+
+
+def fit_projector_grouped(keys, rank: int, n_groups: int) -> dict:
+    """Block-diagonal projector: an independent PCA per kv-head group of
+    kv_dim / G channels, rank / G columns each (Lemma 1's B_r set), the
+    covariance and ``eigh`` in f64 on the keys' device.  Returns {"u":
+    (kv_dim, rank) f32 with disjoint row blocks, "eigvals": (G, kv_dim/G)
+    f32 descending per group}."""
+    k = _keys_f64(keys)
+    kv_dim = k.shape[-1]
+    if kv_dim % n_groups or rank % n_groups:
+        raise ValueError(f"kv_dim {kv_dim} and rank {rank} must be "
+                         f"divisible by n_groups {n_groups}")
+    gd, gr = kv_dim // n_groups, rank // n_groups
+    u = torch.zeros((kv_dim, rank), dtype=torch.float64, device=k.device)
+    eigvals = []
+    for g in range(n_groups):
+        blk = k[:, g * gd:(g + 1) * gd]
+        ev, evec = _eigh_desc(blk.T @ blk)
+        u[g * gd:(g + 1) * gd, g * gr:(g + 1) * gr] = evec[:, :gr]
+        eigvals.append(ev)
+    return {"u": u.float(), "eigvals": torch.stack(eigvals).float()}
 
 
 def to_latent(u: torch.Tensor, k_flat: torch.Tensor) -> torch.Tensor:

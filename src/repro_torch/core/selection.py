@@ -1,12 +1,13 @@
-"""Critical-token selection in latent space (paper §4.3), port of the
-global plan of ``repro/core/selection.py``.
+"""Critical-token selection in latent space (paper §4.3), port of
+``repro/core/selection.py``.
 
 The query is head-group-summed, projected by U_r and truncated to r*; it is
 scored against the leading r* dims of every cached latent (fused with the
 top-N_c in ``kernels.ops.latent_topk`` on the decode path; as plain (B, S)
 scores through ``kernels.ops.latent_score`` + :func:`topk_global` for the
-quality metrics).  The grouped top-k (``topk_grouped``) comes with the
-layouts slice.
+quality metrics).  :func:`topk_grouped` is the per-slab top-⌈N_c/G⌉ of the
+grouped layout stated on plain scores: the oracle of the decode path's
+slab fold (``core/sparse_attention.py``).
 """
 from __future__ import annotations
 
@@ -42,20 +43,6 @@ def latent_query(q_bar: torch.Tensor, u: torch.Tensor,
     return q_bar.float() @ u[:, :r_star].float()
 
 
-def topk_latent(q_bar: torch.Tensor, u: torch.Tensor, k_lat: torch.Tensor,
-                k_scale, pos, sals: SALSConfig, r_star: int, *,
-                n_critical=None, pos_base=None, page_table=None,
-                page_size=0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fused score → top-N_c over the raw latent cache.  Returns
-    (idx (B, N_c) int32, valid (B, N_c) bool)."""
-    q_lat = latent_query(q_bar, u, r_star)
-    return ops.latent_topk(q_lat, k_lat, k_scale, pos,
-                           n_critical=n_critical or sals.n_critical,
-                           n_sink=sals.n_sink, n_recent=sals.n_recent,
-                           pos_base=pos_base, page_table=page_table,
-                           page_size=page_size)
-
-
 def sort_selected(idx: torch.Tensor, valid: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Reorder the selected set ascending by position, invalid slots last
@@ -82,6 +69,22 @@ def topk_global(scores: torch.Tensor, mask: torch.Tensor, n_critical: int
     them (a stable descending sort, never ``torch.topk``)."""
     masked = torch.where(mask, scores, torch.full_like(scores, NEG))
     vals, idx = topk_desc_stable(masked, n_critical)
+    return idx.to(torch.int32), vals > NEG / 2
+
+
+def topk_grouped(scores: torch.Tensor, mask: torch.Tensor, n_critical: int,
+                 n_groups: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-slab top-k: (B, S) -> (idx (B, G, ⌈N_c/G⌉) int32, valid), the
+    indices LOCAL to each of the G slabs of S/G positions (slab g holds
+    positions g·S/G ..).  Ties go to the lower index, as in
+    :func:`topk_global`."""
+    b, s = scores.shape
+    if s % n_groups:
+        raise ValueError(f"S {s} must be divisible by n_groups {n_groups}")
+    k_loc = -(-n_critical // n_groups)
+    sg = torch.where(mask, scores, torch.full_like(scores, NEG)) \
+        .reshape(b, n_groups, s // n_groups)
+    vals, idx = topk_desc_stable(sg, k_loc)
     return idx.to(torch.int32), vals > NEG / 2
 
 

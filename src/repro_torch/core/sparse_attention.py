@@ -1,5 +1,5 @@
-"""SALS decode attention (paper §4.4, Algorithm 1): port of the global plan
-of ``repro/core/sparse_attention.py``.
+"""SALS decode attention (paper §4.4, Algorithm 1): port of
+``repro/core/sparse_attention.py``.
 
 One decode step per SALS layer:
 
@@ -7,14 +7,26 @@ One decode step per SALS layer:
      (in place); quantize + append its value; insert (k_pre, v) into the
      recent ring (and the sink while pos < n_sink);
   2-3. score the cached latents with the truncated latent query and take the
-     global top-N_c (``ops.latent_topk``: the CUDA kernel on the card);
+     top-N_c (``ops.latent_topk``: the CUDA kernel on the card);
   4. gather, dequantize and reconstruct only the selected tokens, RoPE them
      at their own positions and attend (``ops.sparse_recon_attention``);
   5. exact attention over the sink + recent window, LSE-merged with step 4.
 
+A :class:`DecodePlan` read off the cache (:func:`plan_decode`) picks the
+selection layout.  ``n_groups`` 1 is the paper's global top-N_c.
+``n_groups`` G > 1 is the grouped layout: G sequence slabs of S/G
+positions each take their own top-⌈N_c/G⌉ through the SAME two kernels,
+with the group axis folded into the kernel batch (row b·G + g is slab g of
+row b, views of the arena, no copy) and a per-row ``pos_base`` = g·S/G
+that keeps indices slab-local and positions global; the G partials then
+LSE-merge with the sink / recent window.  The reference also runs the
+slabs shard-locally under a sequence-sharded mesh; on one GPU it folds, as
+here.
+
 Both layouts of the cache run through the same code: the dense slot arena,
 and the paged one, whose page table rides to both kernels (which then
-read the page pools).  The two-tier paged layout routes through two
+read the page pools; the grouped fold splits the TABLE into (B·G, mp/G)
+and leaves the pools alone).  The two-tier paged layout routes through two
 tables: scoring reads the always-resident ``k_score`` pool through the
 page table, reconstruction reads the payload pools through ``hot_table``
 (a cold page's entry is 0, the trash slot; the scheduler fetches it and
@@ -22,14 +34,13 @@ reruns the step).  The same two kernels take either table as they are.
 
 :func:`sals_window_attend` is the speculative verify window: Q tokens at
 positions pos..pos+Q−1 through one selection and one windowed recon
-kernel, READ-ONLY on the cache (the caller commits the accepted prefix);
-it needs the untiered cache.  The grouped (``n_groups > 1``) plan of the
-reference is ported in a later slice; the cache constructors and the
-engine raise ``NotImplementedError`` for it.
+kernel per slab, READ-ONLY on the cache (the caller commits the accepted
+prefix); it needs the untiered cache.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Optional, Tuple
 
 import torch
 
@@ -41,6 +52,20 @@ from repro_torch.models.attention import out_proj, qkv_proj
 from repro_torch.models.layers import apply_rope
 
 NEG = sel.NEG
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    """How one decode step selects: ``n_groups`` 1 = the global top-N_c;
+    G > 1 = a top-⌈N_c/G⌉ per sequence slab, the slabs folded into the
+    kernel batch, and one LSE merge across them."""
+
+    n_groups: int = 1
+
+
+def plan_decode(cache: LatentKVCache) -> DecodePlan:
+    """The decode plan of ``cache``'s layout metadata."""
+    return DecodePlan(max(1, cache.n_groups))
 
 
 def _region_logits(q_r: torch.Tensor, k_pre: torch.Tensor,
@@ -106,7 +131,8 @@ def _partial_attend(logits: torch.Tensor, v: torch.Tensor, cfg: ModelConfig
 def _touched_pages(idx: torch.Tensor, valid: torch.Tensor, page_size: int,
                    max_pages: int) -> torch.Tensor:
     """Selected logical indices (B, K) -> (B, max_pages) bool mask of the
-    pages they fall in; invalid slots mark nothing."""
+    pages they fall in; invalid slots mark nothing.  Grouped callers fold
+    ``pos_base`` in first (global logical indices)."""
     b = idx.shape[0]
     page = torch.where(valid, idx.long() // page_size,
                        torch.full_like(idx, max_pages, dtype=torch.long))
@@ -117,47 +143,116 @@ def _touched_pages(idx: torch.Tensor, valid: torch.Tensor, page_size: int,
     return touched.scatter_(1, page, True)[:, :max_pages]
 
 
-def _global_partials(q0, q_bar, u, cache: LatentKVCache, pos,
-                     cfg: ModelConfig, sals: SALSConfig,
-                     collect: bool = False):
-    """Paper-faithful global top-N_c → fused recon attention, over the
-    dense arena or the page pools.  Returns (m, l, o) with a G=1 axis, and
-    the (B, max_pages) touched-page mask when ``collect`` (paged only)."""
-    r_star = sals.score_rank(cfg.kv_dim)
-    k_lat, k_scale = cache.latent_views()
-    pt = cache.page_table if cache.paged else None
-    ps = cache.page_size
-    if cache.tiered:
-        # two tables: scores from the always-resident r* pool at physical
-        # pages, reconstruction from the payload pools at hot slots
-        score_k, score_scale, recon_table = \
-            cache.k_score, cache.k_scale_score, cache.hot_table
-    else:
-        score_k, score_scale, recon_table = k_lat, k_scale, pt
-    idx, valid = sel.topk_latent(q_bar, u, score_k, score_scale, pos, sals,
-                                 r_star, page_table=pt, page_size=ps)
+def _per_slab(x: torch.Tensor, g: int) -> torch.Tensor:
+    """(B, ...) -> (B·G, ...): row b repeated for its G slabs (row b·G+g),
+    contiguous, made on the device."""
+    return x.unsqueeze(1).expand(x.shape[0], g, *x.shape[1:]) \
+        .reshape(-1, *x.shape[1:]).contiguous()
+
+
+def _slab_base(b: int, g: int, s_loc: int, device) -> torch.Tensor:
+    """(B·G,) int32 position of each folded row's first slot: g·s_loc."""
+    return torch.arange(0, g * s_loc, s_loc, dtype=torch.int32,
+                        device=device).repeat(b)
+
+
+def _fold(a: Optional[torch.Tensor], g: int) -> Optional[torch.Tensor]:
+    """(B, S, ...) -> (B·G, S/G, ...) slabs as a VIEW of ``a`` (raises
+    rather than copy: the fold must not move the cache)."""
+    if a is None:
+        return None
+    b, s = a.shape[:2]
+    return a.view(b * g, s // g, *a.shape[2:])
+
+
+def _slab_partials(q0, q_lat, k_lat, k_scale, v_q, v_scale, v_zero, u, pos,
+                   base, cfg: ModelConfig, sals: SALSConfig, k_loc: int,
+                   page_table=None, page_size: int = 0, score_k=None,
+                   score_scale=None, recon_table=None):
+    """Fused top-k + recon attention over rows (the global plan's batch
+    rows, or the grouped plan's slabs).  ``pos`` (N,) decode positions,
+    ``base`` (N,) each row's first position (None: 0).  Scoring reads
+    ``score_k`` / ``score_scale`` through ``page_table`` (default: the
+    latents); reconstruction reads through ``recon_table`` (default: the
+    page table).  Returns (m (N, H), l, o (N, H, dh), idx, valid)."""
+    sk = k_lat if score_k is None else score_k
+    ss = k_scale if score_k is None else score_scale
+    rt = page_table if recon_table is None else recon_table
+    idx, valid = ops.latent_topk(
+        q_lat, sk, ss, pos, n_critical=k_loc, n_sink=sals.n_sink,
+        n_recent=sals.n_recent, pos_base=base, page_table=page_table,
+        page_size=page_size)
     # ascending positions, invalid slots last: the same accumulation order
     # for both layouts, so paged and dense agree bit for bit
     idx, valid = sel.sort_selected(idx, valid)
     m, l, o = ops.sparse_recon_attention(
-        q0.contiguous(), k_lat, k_scale, cache.v_q, cache.v_scale,
-        cache.v_zero, u, idx, valid, pos, n_kv=cfg.n_kv_heads,
-        v_bits=sals.v_bits, v_group=sals.v_group, theta=cfg.rope_theta,
-        softcap=cfg.attn_logit_softcap, use_rope=cfg.use_rope,
-        page_table=recon_table, page_size=ps)
-    out = (m[:, None], l[:, None], o[:, None])
+        q0, k_lat, k_scale, v_q, v_scale, v_zero, u, idx, valid, pos,
+        n_kv=cfg.n_kv_heads, v_bits=sals.v_bits, v_group=sals.v_group,
+        theta=cfg.rope_theta, softcap=cfg.attn_logit_softcap,
+        use_rope=cfg.use_rope, pos_base=base, page_table=rt,
+        page_size=page_size)
+    return m, l, o, idx, valid
+
+
+def _fold_operands(cache: LatentKVCache, g: int):
+    """The cache operands of the kernels under a fold into G slabs, and
+    the slab length S/G: dense, the per-token arrays viewed as (B·G, S/G,
+    ·); paged, the pools as they are and the page table (two-tier: the
+    hot table too) viewed as (B·G, mp/G).  Returns (kv, tables, s_loc)
+    with kv = (k_lat, k_scale, v_q, v_scale, v_zero) and tables the
+    keyword operands of :func:`_slab_partials`."""
+    kv = (*cache.latent_views(), cache.v_q, cache.v_scale, cache.v_zero)
+    if not cache.paged:
+        return tuple(_fold(a, g) for a in kv), {}, kv[0].shape[1] // g
+    if cache.tiered:
+        # scores from the always-resident r* pool at physical pages,
+        # reconstruction from the payload pools at hot slots
+        score_k, score_scale, recon_table = \
+            cache.k_score, cache.k_scale_score, cache.hot_table
+    else:
+        score_k, score_scale, recon_table = kv[0], kv[1], cache.page_table
+    tables = dict(page_table=_fold(cache.page_table, g),
+                  page_size=cache.page_size, score_k=score_k,
+                  score_scale=score_scale, recon_table=_fold(recon_table, g))
+    return kv, tables, cache.page_table.shape[-1] // g * cache.page_size
+
+
+def _grouped_partials(q0, q_bar, u, cache: LatentKVCache, pos,
+                      cfg: ModelConfig, sals: SALSConfig,
+                      collect: bool = False):
+    """Stages 2-4 in the cache's plan (:func:`plan_decode`): a
+    top-⌈N_c/G⌉ per slab through the fused kernels, the group axis folded
+    into the kernel batch (:func:`_fold_operands`); G = 1 is the paper's
+    global top-N_c over the rows as they are.  Returns
+    (m, l, o) with a G axis, (B, G, H[, dh]), and with ``collect`` (paged
+    only) the (B, max_pages) union of the slabs' touched pages."""
+    if collect and not cache.paged:
+        raise ValueError("selection collection requires the paged cache")
+    g = plan_decode(cache).n_groups
+    b, h = q0.shape[:2]
+    q_lat = sel.latent_query(q_bar, u, sals.score_rank(cfg.kv_dim))
+    kv, tables, s_loc = _fold_operands(cache, g)
+    base = _slab_base(b, g, s_loc, q0.device) if g > 1 else None
+    m, l, o, idx, valid = _slab_partials(
+        _per_slab(q0, g), _per_slab(q_lat, g), *kv, u, _per_slab(pos, g),
+        base, cfg, sals, -(-sals.n_critical // g), **tables)
+    out = (m.reshape(b, g, h), l.reshape(b, g, h),
+           o.reshape(b, g, h, cfg.head_dim))
     if collect:
-        if not cache.paged:
-            raise ValueError("selection collection requires the paged cache")
-        out += (_touched_pages(idx, valid, ps, pt.shape[1]),)
+        # slab-local -> global logical indices, then one row-wise union
+        if base is not None:
+            idx = base[:, None] + idx
+        out += (_touched_pages(idx.reshape(b, -1), valid.reshape(b, -1),
+                               cache.page_size,
+                               cache.page_table.shape[-1]),)
     return out
 
 
 def sals_decode_attend(params, u: torch.Tensor, cache: LatentKVCache,
                        x: torch.Tensor, pos, cfg: ModelConfig,
                        sals: SALSConfig, collect: bool = False):
-    """One-token SALS attention for one layer (the global plan; the cache
-    constructors refuse the grouped layout).
+    """One-token SALS attention for one layer, in the selection layout
+    the cache carries (:func:`plan_decode`).
 
     x: (B, 1, d); pos: scalar or (B,) per-row positions; ``cache`` is a
     single-layer view, updated in place.  Returns (y (B, 1, d), cache),
@@ -195,11 +290,11 @@ def sals_decode_attend(params, u: torch.Tensor, cache: LatentKVCache,
     sr_logits = torch.where(sr_valid[:, None, :], sr_logits, NEG)
     m_sr, l_sr, o_sr = _partial_attend(sr_logits, sr_v, cfg)
 
-    # ---- stages 2-4: fused selected-token partials (B, 1, H[, dh]) ------
-    m_c, l_c, o_c, *touched = _global_partials(q[:, 0], q_bar, u, cache,
-                                               pos_v, cfg, sals, collect)
+    # ---- stages 2-4: fused selected-token partials (B, G, H[, dh]) ------
+    m_c, l_c, o_c, *touched = _grouped_partials(q[:, 0], q_bar, u, cache,
+                                                pos_v, cfg, sals, collect)
 
-    # ---- stage 5: LSE merge -----------------------------------------------
+    # ---- stage 5: LSE merge across the slabs and the window ---------------
     m_all = torch.maximum(torch.max(m_c, dim=1).values, m_sr)
     wc = torch.exp(m_c - m_all[:, None, :])
     wsr = torch.exp(m_sr - m_all)
@@ -213,33 +308,52 @@ def sals_decode_attend(params, u: torch.Tensor, cache: LatentKVCache,
 # Speculative verify window: one selection, Q queries
 # ---------------------------------------------------------------------------
 
-def _global_window_partials(q, q_bar, u, cache: LatentKVCache, pos, ql: int,
-                            cfg: ModelConfig, sals: SALSConfig):
-    """Windowed :func:`_global_partials`: ONE global top-N_c, masked at the
-    window's LAST position so it covers every query's selectable range,
-    feeds the windowed recon kernel, which reconstructs each selected token
-    once and gates query t to positions ≤ pos + t − n_recent.  Returns
-    (m, l, o) with a G = 1 axis: (B, 1, Q, H[, dh])."""
-    r_star = sals.score_rank(cfg.kv_dim)
-    k_lat, k_scale = cache.latent_views()
-    pt = cache.page_table if cache.paged else None
-    ps = cache.page_size
-    idx, valid = sel.topk_latent(q_bar, u, k_lat, k_scale, pos + (ql - 1),
-                                 sals, r_star, page_table=pt, page_size=ps)
+def _slab_window_partials(q, q_lat, k_lat, k_scale, v_q, v_scale, v_zero, u,
+                          pos, base, ql: int, cfg: ModelConfig,
+                          sals: SALSConfig, k_loc: int, page_table=None,
+                          page_size: int = 0):
+    """Windowed :func:`_slab_partials`: ``pos`` (N,) is each row's window
+    base and the selection masks at pos + Q − 1, so it covers every
+    query's selectable range; the windowed recon kernel reconstructs each
+    selected token once and gates query t to positions ≤ pos + t −
+    n_recent.  Returns (m (N, Q, H), l, o (N, Q, H, dh))."""
+    idx, valid = ops.latent_topk(
+        q_lat, k_lat, k_scale, pos + (ql - 1), n_critical=k_loc,
+        n_sink=sals.n_sink, n_recent=sals.n_recent, pos_base=base,
+        page_table=page_table, page_size=page_size)
     idx, valid = sel.sort_selected(idx, valid)
-    m, l, o = ops.sparse_recon_attention_window(
-        q.contiguous(), k_lat, k_scale, cache.v_q, cache.v_scale,
-        cache.v_zero, u, idx, valid, pos, n_kv=cfg.n_kv_heads,
-        n_recent=sals.n_recent, v_bits=sals.v_bits, v_group=sals.v_group,
-        theta=cfg.rope_theta, softcap=cfg.attn_logit_softcap,
-        use_rope=cfg.use_rope, page_table=pt, page_size=ps)
-    return m[:, None], l[:, None], o[:, None]
+    return ops.sparse_recon_attention_window(
+        q, k_lat, k_scale, v_q, v_scale, v_zero, u, idx, valid, pos,
+        n_kv=cfg.n_kv_heads, n_recent=sals.n_recent, v_bits=sals.v_bits,
+        v_group=sals.v_group, theta=cfg.rope_theta,
+        softcap=cfg.attn_logit_softcap, use_rope=cfg.use_rope,
+        pos_base=base, page_table=page_table, page_size=page_size)
+
+
+def _grouped_window_partials(q, q_bar, u, cache: LatentKVCache, pos,
+                             ql: int, cfg: ModelConfig, sals: SALSConfig):
+    """Windowed :func:`_grouped_partials` (the untiered cache; G = 1: ONE
+    global top-N_c for the window).  Returns (m, l, o) shaped (B, G, Q,
+    H[, dh])."""
+    g = plan_decode(cache).n_groups
+    b, h = q.shape[0], q.shape[2]
+    q_lat = sel.latent_query(q_bar, u, sals.score_rank(cfg.kv_dim))
+    kv, tables, s_loc = _fold_operands(cache, g)
+    base = _slab_base(b, g, s_loc, q.device) if g > 1 else None
+    m, l, o = _slab_window_partials(
+        _per_slab(q, g), _per_slab(q_lat, g), *kv, u, _per_slab(pos, g),
+        base, ql, cfg, sals, -(-sals.n_critical // g),
+        page_table=tables.get("page_table"),
+        page_size=tables.get("page_size", 0))
+    return (m.reshape(b, g, ql, h), l.reshape(b, g, ql, h),
+            o.reshape(b, g, ql, h, cfg.head_dim))
 
 
 def sals_window_attend(params, u: torch.Tensor, cache: LatentKVCache,
                        x: torch.Tensor, pos, cfg: ModelConfig,
                        sals: SALSConfig):
-    """Verify-window SALS attention for one layer.
+    """Verify-window SALS attention for one layer, in the selection layout
+    the cache carries (:func:`plan_decode`).
 
     x: (B, Q, d) — the pending token plus Q−1 drafts at positions
     pos..pos+Q−1 (``pos`` scalar or (B,) per-row window base; Q ≤ n_recent
@@ -248,9 +362,9 @@ def sals_window_attend(params, u: torch.Tensor, cache: LatentKVCache,
     sink or latent writes; the caller commits the accepted prefix with
     :meth:`LatentKVCache.write_window` from the returned window K/V.
 
-    One latent selection (the first window token's grouped query, masked
-    at the window's last position) serves all Q queries through the
-    windowed recon kernel.  The sink / recent region is simulated per
+    One latent selection per slab (the first window token's grouped
+    query, masked at the window's last position) serves all Q queries
+    through the windowed recon kernel.  The sink / recent region is simulated per
     query: the writes sequential steps pos..pos+t would make (ring slot
     (pos+s) % W, sink while pos+s < n_sink) are replayed into per-query
     views, so query t reads the buffers its sequential step would read.
@@ -308,11 +422,11 @@ def sals_window_attend(params, u: torch.Tensor, cache: LatentKVCache,
     sr_logits = torch.where(sr_valid[:, :, None, :], sr_logits, NEG)
     m_sr, l_sr, o_sr = _partial_attend(sr_logits, sr_v, cfg)
 
-    # ---- selected-token partials, (B, 1, Q, H[, dh]) ----------------------
-    m_c, l_c, o_c = _global_window_partials(q, q_bar, u, cache, pos_v, ql,
-                                            cfg, sals)
+    # ---- selected-token partials, (B, G, Q, H[, dh]) ----------------------
+    m_c, l_c, o_c = _grouped_window_partials(q, q_bar, u, cache, pos_v, ql,
+                                             cfg, sals)
 
-    # ---- LSE merge ----------------------------------------------------------
+    # ---- LSE merge across the slabs and the window ------------------------
     m_all = torch.maximum(torch.max(m_c, dim=1).values, m_sr)   # (B,Q,H)
     wc = torch.exp(m_c - m_all[:, None])
     wsr = torch.exp(m_sr - m_all)

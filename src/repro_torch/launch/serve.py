@@ -97,6 +97,17 @@ def main(argv=None) -> None:
     ap.add_argument("--max-new-tokens", type=int, default=32)
     ap.add_argument("--max-seq", type=int, default=512)
     ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--groups", type=int, default=1,
+                    help="SALS decode selection layout: 1 = the paper's "
+                         "global top-k; G > 1 = a top-(N_c/G) in each of G "
+                         "sequence slabs, LSE-merged (--max-seq, and paged "
+                         "its pages per sequence, must divide by G)")
+    ap.add_argument("--scheduler", default="continuous",
+                    choices=("continuous", "static"),
+                    help="continuous = slot-arena batching (requests join "
+                         "a running batch between decode steps); static = "
+                         "GPT-fast-style fixed batches through generate "
+                         "(dense arena only)")
     ap.add_argument("--prefill-chunk", type=int, default=32,
                     help="chunked-prefill width; --max-seq must be a "
                          "multiple of it")
@@ -232,8 +243,10 @@ def main(argv=None) -> None:
                        tenant_rate=args.tenant_rate,
                        tenant_max_inflight=args.tenant_max_inflight,
                        gauge_history=args.gauge_history,
+                       scheduler=args.scheduler,
                        sals=sals or SALSConfig(enabled=False))
-    engine = ServeEngine(params, projectors, cfg, scfg, device=dev)
+    engine = ServeEngine(params, projectors, cfg, scfg, n_groups=args.groups,
+                         device=dev)
     # telemetry goes in BEFORE the scheduler is built: it adopts the
     # active registry, tracer and accountant in __init__
     obs_handles = None
@@ -282,7 +295,8 @@ def _serve(args, engine: ServeEngine, corpus, obs_handles) -> None:
     total_new = sum(r.result.steps for r in ok)
     print(f"[serve] {len(ok)}/{len(done)} requests ok, {total_new} tokens "
           f"in {dt:.2f}s -> {total_new / dt:.1f} tok/s (sals={args.sals}, "
-          f"arch={args.arch}, page_size={args.page_size}, device={dev}, "
+          f"arch={args.arch}, page_size={args.page_size}, "
+          f"groups={args.groups}, scheduler={sched.mode}, device={dev}, "
           f"{sched.steps} decode steps, {len(sched.prefill_chunks)} prefill "
           f"chunks, prefix hits {sched.prefix_hits})")
     if sched.tiered:

@@ -19,6 +19,11 @@ monolithic (:func:`prefill`) or chunked (:func:`prefill_chunk`, which
 serving uses); decode and chunked prefill update the caches in place.
 Speculative decode runs Q tokens through :func:`decode_window` and commits
 the accepted prefix with :func:`commit_window`.
+
+The SALS segments carry the decode selection layout (``n_groups``, see
+``core/latent_cache.py``) as metadata: :func:`init_cache` and
+:func:`prefill` stamp it, :func:`prefill_chunk` writes into a cache that
+already carries it, and the decode entries read it back from the cache.
 """
 from __future__ import annotations
 
@@ -159,8 +164,8 @@ def init_cache(cfg: ModelConfig, sals: Optional[SALSConfig], batch: int,
                max_seq: int, dtype=None, n_groups: int = 1,
                page_size: int = 0, n_pages: int = 0, hbm_pages: int = 0,
                device="cuda") -> dict:
-    """Zero caches for every segment (see the module docstring).
-    ``page_size`` > 0 backs the SALS segments with ``n_pages`` physical
+    """Zero caches for every segment (see the module docstring), the SALS
+    segments in the selection layout ``n_groups``.  ``page_size`` > 0 backs the SALS segments with ``n_pages`` physical
     pages instead of the dense (B, max_seq, ·) arena; the full segments
     keep their dense per-slot caches.  ``hbm_pages`` > 0 makes the pool
     two-tier: payload pools of that many device slots (+1 trash), while

@@ -16,6 +16,14 @@ length at the step, ``S`` the rows of the score scratch (the dense arena's
 ``kvd`` or ``kvd/2`` bytes at 4 bits, plus a bf16 scale and zero per
 ``v_group`` channels), ``b_win`` the cache dtype's width.
 
+Grouped layout (``n_groups`` G > 1, ``core/sparse_attention.py``): the
+kernels run over B·G slab rows of ``S/G`` positions, each selecting ``k_loc
+= ceil(N_c/G)``.  The stream and the scratch keep their totals (the slabs
+tile the row); the selection writes ``G·k_loc`` slots; slab g holds ``s_g``
+of the row's ``s`` positions (``s − g·S/G`` clipped to [0, S/G], the last
+slab unclipped above) and reconstructs at most ``min(s_g, k_loc)`` rows.
+At G = 1 every term is the one below.
+
 score (rows 1, 4: ``latent_score_pass`` + ``topk_select_kernel``)
     ``s·(r*·b_lat + b_scale)`` — the r* stream, counted over every one of
     the ``s`` positions as the reference counts it (the pass does not read
@@ -24,7 +32,7 @@ score (rows 1, 4: ``latent_score_pass`` + ``topk_select_kernel``)
     ``+ 8·S`` — the (B, S) f32 score scratch, written once by the pass
     (NEG_INF for unselectable rows) and read once by the selection;
     ``+ 5·N_c`` — the selection's outputs, ``idx`` (N_c) int32 and
-    ``valid`` (N_c) bool, written whatever ``s``.
+    ``valid`` (N_c) bool, written whatever ``s`` (grouped: ``5·G·k_loc``).
     The reference's score term has ``+ 2·nb·kb·8`` (f32 + int32 candidate
     pairs of its per-block top-k, ``nb = ceil(s / bs)``, ``kb = min(N_c,
     bs)``, ``bs = min(1024, s)``) in place of the last two.  So the port's
@@ -35,7 +43,7 @@ selected (rows 2, 5: ``sra_kernel`` / ``sra_f32_kernel``)
     each selected row's latents, scale and value record read once by
     index, plus the index list.  The port's kernel reads ``idx`` int32 and
     ``valid`` bool (5 bytes a slot, not 8) and gathers only valid slots,
-    so this too is an upper bound.  The paged kernels resolve a row's page
+    so this too is an upper bound.  Grouped: ``nc = Σ_g min(s_g, k_loc)``.  The paged kernels resolve a row's page
     through the page table, 4 bytes a page (``4/ps`` a token), which both
     packages read and neither ledger counts.
 window
@@ -113,18 +121,32 @@ def n_sals_layers(cfg, sals) -> int:
     return sum(1 for m in sals.sals_layer_mask(cfg.n_layers) if m)
 
 
-def decode_stage_bytes(cfg, sals, s: int, rows: int) -> dict:
+def selected_rows(s: int, rows: int, n_critical: int,
+                  n_groups: int = 1) -> int:
+    """Rows the selection reconstructs at most, for one row at context
+    length ``s``: ``min(s, N_c)``, or under G slabs of ``rows / G``
+    positions ``Σ_g min(s_g, ceil(N_c / G))`` (module docstring)."""
+    k_loc = -(-n_critical // n_groups)
+    slab = rows // n_groups
+    fills = [min(max(0, s - g * slab), slab) for g in range(n_groups - 1)]
+    fills.append(max(0, s - (n_groups - 1) * slab))
+    return sum(min(f, k_loc) for f in fills)
+
+
+def decode_stage_bytes(cfg, sals, s: int, rows: int,
+                       n_groups: int = 1) -> dict:
     """HBM bytes of one decode step, per SALS layer, for one row at context
-    length ``s`` over a score scratch of ``rows`` (:func:`score_rows`).
-    The terms are the module docstring's."""
+    length ``s`` over a score scratch of ``rows`` (:func:`score_rows`),
+    in the selection layout of ``n_groups`` slabs.  The terms are the
+    module docstring's."""
     kvd = cfg.kv_dim
     r = sals.rank(kvd)
     r_star = sals.score_rank(kvd)
     lat_b, scale_b = latent_width(cfg, sals), scale_width(sals)
-    nc = min(s, sals.n_critical)
+    nc = selected_rows(s, rows, sals.n_critical, n_groups)
     stream = s * (r_star * lat_b + scale_b)
     scratch = 2 * SCRATCH_BYTES * rows
-    outputs = IDX_VALID_BYTES * sals.n_critical
+    outputs = IDX_VALID_BYTES * n_groups * -(-sals.n_critical // n_groups)
     score = stream + scratch + outputs
     selected = nc * (r * lat_b + scale_b + value_bytes_per_token(cfg, sals)) \
         + nc * SELECTED_IDX_BYTES

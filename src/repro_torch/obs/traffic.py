@@ -94,7 +94,7 @@ class TrafficAccountant:
         # the hot path pays dict arithmetic.  The MEASURED side is never
         # cached: it re-reads ``widths`` every step, so a layout change (or
         # a test's tamper) surfaces.
-        self._model_rows: Dict[int, dict] = {}
+        self._model_rows: Dict[tuple, dict] = {}
         self._rows_model: Optional[int] = None
         self._page_size: Optional[int] = None
 
@@ -117,10 +117,14 @@ class TrafficAccountant:
         kvd = seg.sink_k.shape[-1] * seg.sink_k.shape[-2]
         r_star = (seg.k_score.shape[-1] if seg.k_score is not None
                   else self.sals.score_rank(kvd))
+        g = seg.n_groups
         if seg.paged:             # the scratch spans the page table
             rows = seg.page_table.shape[-1] * seg.k_lat.shape[-2]
+            # the fold splits the table: mp / G pages a slab
+            slab = seg.page_table.shape[-1] // g * seg.k_lat.shape[-2]
         else:
             rows = seg.k_lat.shape[-2]
+            slab = rows // g
         u = engine.projectors["u"]
         self.widths = {
             "n_layers": n_layers,
@@ -138,7 +142,11 @@ class TrafficAccountant:
             "rows": rows,
             "scratch_b": torch.float32.itemsize,
             "sel_out_b": torch.int32.itemsize + torch.bool.itemsize,
-            "n_c": self.sals.n_critical,
+            # the selection layout the live arena carries: G slabs of
+            # ``slab`` positions, k_loc slots each
+            "n_groups": g,
+            "slab": slab,
+            "k_loc": -(-self.sals.n_critical // g),
         }
         scfg = engine.scfg
         self._rows_model = ledger.score_rows(
@@ -147,14 +155,24 @@ class TrafficAccountant:
 
     # -- measured side -----------------------------------------------------
 
+    def _selected(self, s: int) -> int:
+        """Rows reconstructed at most for one row at context length ``s``:
+        each of the arena's slabs below ``s`` gives min(its rows, k_loc)
+        (the whole slabs, then the partly filled one)."""
+        w = self.widths
+        full, part = divmod(min(s, w["n_groups"] * w["slab"]), w["slab"])
+        return full * min(w["slab"], w["k_loc"]) + min(part, w["k_loc"])
+
     def _measured_row(self, s: int) -> dict:
         """Actual kernel bytes for ONE row at context length ``s``, per
-        SALS layer: every width read off the live arena."""
+        SALS layer: every width and the slab geometry read off the live
+        arena."""
         w = self.widths
-        nc = min(s, w["n_c"])
+        nc = self._selected(s)
         return {
             "score_bytes": s * (w["r_star"] * w["lat_b"] + w["scale_b"])
-            + 2 * w["rows"] * w["scratch_b"] + w["n_c"] * w["sel_out_b"],
+            + 2 * w["rows"] * w["scratch_b"]
+            + w["n_groups"] * w["k_loc"] * w["sel_out_b"],
             "selected_bytes": nc * (w["r"] * w["lat_b"] + w["scale_b"]
                                     + w["v_tok"])
             + nc * ledger.SELECTED_IDX_BYTES,
@@ -198,10 +216,12 @@ class TrafficAccountant:
         for s in positions:
             s = int(s)
             m = self._measured_row(s)
-            ref = self._model_rows.get(s)
+            key = (s, engine.n_groups)
+            ref = self._model_rows.get(key)
             if ref is None:
-                ref = self._model_rows[s] = ledger.decode_stage_bytes(
-                    self.cfg, self.sals, s, self._rows_model)
+                ref = self._model_rows[key] = ledger.decode_stage_bytes(
+                    self.cfg, self.sals, s, self._rows_model,
+                    engine.n_groups)
             for t in _DECODE_TERMS:
                 meas[t] += m[t] * nl
                 model[t] += ref[t] * nl

@@ -65,6 +65,13 @@ so the chunk program keeps one key for the engine's life.  A task's
 copy.  Monolithic prefill and the cache upkeep (admission, page copies)
 run eagerly.
 
+``n_groups`` picks the SALS decode selection layout (``core/
+sparse_attention.py``): 1 is the paper's global top-N_c, G > 1 a top-
+⌈N_c/G⌉ in each of G sequence slabs.  Every cache constructor stamps it
+on the SALS segments and the step programs read it back, so the same
+four decode programs and the chunk program serve either layout;
+``max_seq_len`` (paged: the pages per sequence) must divide by G.
+
 PARK / RESUME (the scheduler's preemption): :meth:`~ServeEngine.
 detach_slot` copies a slot's per-slot state — the latent segments' windows
 and length, whole slot rows of the full-precision segments — to host
@@ -83,7 +90,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import ModelConfig, SALSConfig, ServeConfig
-from repro_torch.core.latent_cache import LatentKVCache
+from repro_torch.core.latent_cache import LatentKVCache, check_slabs
 from repro_torch.kernels.latent_score import BLOCK_S
 from repro_torch.models import transformer as tf
 from repro_torch.obs import metrics as obs_metrics
@@ -186,9 +193,9 @@ class ServeEngine:
         self.scfg = scfg
         self.sals: Optional[SALSConfig] = scfg.sals if (
             scfg.sals and scfg.sals.enabled and cfg.has_attention) else None
-        if n_groups > 1:
-            raise NotImplementedError("the grouped layout (n_groups > 1) is "
-                                      "ported in the layouts slice")
+        # the decode selection layout, stamped on the SALS segments by
+        # every cache constructor; the decode steps read it back
+        check_slabs(scfg.max_seq_len, n_groups, name="max_seq_len")
         self.n_groups = n_groups
         if scfg.prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
@@ -206,6 +213,8 @@ class ServeEngine:
                     f"page_size {scfg.page_size} must divide the score "
                     f"kernel's seq block min(block_s={BLOCK_S}, "
                     f"max_seq_len={scfg.max_seq_len}) = {bs}")
+            check_slabs(scfg.max_seq_len, n_groups, scfg.page_size,
+                        table="the page table per slab")
             if scfg.pool_pages * scfg.page_size < scfg.max_seq_len:
                 raise ValueError(
                     f"pool of {scfg.pool_pages} pages cannot hold one "

@@ -1,5 +1,5 @@
 """Request scheduler: continuous batching with decode-interleaved chunked
-prefill over the engine's slot arena (port of the continuous mode of
+prefill over the engine's slot arena, and static batching (port of
 ``repro/serve/scheduler.py``).
 
 The batch axis is a SLOT ARENA.  Each loop iteration first spends at most
@@ -125,8 +125,14 @@ every page transfer at its mirror's bytes.  Every hook is host code
 around the engine's step programs, so each one fires on every replay of a
 captured step; disabled, each costs one ``is None`` check.
 
-Not ported here: static batching (the families slice); the scheduler
-raises ``NotImplementedError`` for it.
+STATIC mode (``mode="static"``, the GPT-fast-style baseline the paper's
+throughput claim is measured against): the queue is sorted by prompt
+length and drained in fixed batches of ``max_batch`` back to back, each
+through :meth:`~ServeEngine.generate` (:meth:`~ServeEngine.
+generate_speculative` when ``spec_window`` > 1).  Cancellations requested
+before a batch starts are honoured; states move QUEUED → PREFILLING →
+DECODING → DONE around each batch, and ``run(on_batch=...)`` fires after
+each.  It needs the dense arena (paged + static is refused).
 """
 from __future__ import annotations
 
@@ -291,11 +297,12 @@ class RequestScheduler:
                  clock: Optional[Callable[[], float]] = None):
         scfg = engine.scfg
         mode = mode or scfg.scheduler
-        if mode == "static":
-            raise NotImplementedError("static batching is ported with the "
-                                      "families slice")
-        if mode != "continuous":
+        if mode not in ("continuous", "static"):
             raise ValueError(f"unknown scheduler mode {mode!r}")
+        if engine.paged and mode != "continuous":
+            raise ValueError("the paged latent cache requires the "
+                             "continuous scheduler (admission = page "
+                             "reservation)")
         self.engine = engine
         self.mode = mode
         # source of request_timeout_ms deadlines; tests inject a fake one
@@ -639,14 +646,60 @@ class RequestScheduler:
                 return heads[t]
         return min(heads.values())    # unreachable bound: FIFO head
 
+    # --------------------------------------------------------------- static
+
+    def _run_static(self, on_batch) -> List[Request]:
+        """Drain fixed batches back to back (GPT-fast style), shortest
+        prompts first; see the module docstring."""
+        issued: List[Request] = []
+        self.pending = collections.deque(
+            sorted(self.pending, key=lambda r: len(r.prompt)))
+        while self.pending:
+            for idx in range(len(self.pending) - 1, -1, -1):
+                req = self.pending[idx]
+                if req.cancel_requested:
+                    del self.pending[idx]
+                    self._terminate(req, RequestState.CANCELLED,
+                                    RequestCancelled(
+                                        f"req {req.req_id} cancelled"),
+                                    issued)
+            batch: List[Request] = []
+            while self.pending and len(batch) < self.engine.scfg.max_batch:
+                batch.append(self.pending.popleft())
+            if not batch:
+                break
+            for req in batch:
+                req.attempts += 1
+                transition(req, RequestState.PREFILLING)
+                transition(req, RequestState.DECODING)
+            gen = (self.engine.generate_speculative
+                   if self.engine.scfg.spec_window > 1
+                   else self.engine.generate)
+            results = gen([r.prompt for r in batch],
+                          max_new_tokens=max(r.max_new_tokens
+                                             for r in batch))
+            for req, res in zip(batch, results):
+                req.result = GenerationResult(
+                    res.tokens[:req.max_new_tokens], res.prompt_len,
+                    min(res.steps, req.max_new_tokens))
+                self._terminate(req, RequestState.DONE, issued=issued)
+            if on_batch:
+                on_batch(batch)
+        return issued
+
     # ------------------------------------------------------------------ run
 
     @torch.inference_mode()
-    def run(self, on_step: Optional[Callable[["RequestScheduler", int], None]]
+    def run(self, on_batch: Optional[Callable[[List[Request]], None]] = None,
+            on_step: Optional[Callable[["RequestScheduler", int], None]]
             = None) -> List[Request]:
         """Drain the queue; returns the requests that reached a terminal
-        state, in completion order.  ``on_step(scheduler, step)`` fires
-        after every decode step (clients submit mid-generation from it)."""
+        state, in completion order.  ``on_step(scheduler, step)``
+        (continuous mode) fires after every decode step (clients submit
+        mid-generation from it); ``on_batch(batch)`` (static mode) after
+        each drained batch."""
+        if self.mode == "static":
+            return self._run_static(on_batch)
         eng = self.engine
         scfg = eng.scfg
         b = scfg.max_batch

@@ -116,9 +116,13 @@ def test_unported_options_raise():
     cfg = get_config("yi-9b").reduced(dtype="float32")
     tp = ttf.init_params(cfg, device="cpu", seed=0)
     off = SALSConfig(enabled=False)
-    with pytest.raises(NotImplementedError):
+    # the grouped layout is ported: refused only where the reference
+    # refuses it (max_seq_len not divisible by n_groups)
+    with pytest.raises(ValueError, match="n_groups"):
         ServeEngine(tp, None, cfg, ServeConfig(max_seq_len=32, sals=off),
-                    n_groups=2, device="cpu")
+                    n_groups=3, device="cpu")
+    assert ServeEngine(tp, None, cfg, ServeConfig(max_seq_len=32, sals=off),
+                       n_groups=2, device="cpu").n_groups == 2
     # the page pool backs the SALS latents: without SALS it is refused,
     # as in the reference, two-tier or not
     with pytest.raises(ValueError, match="page_size"):

@@ -50,6 +50,7 @@ from repro_torch.config import SALSConfig, ServeConfig
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_numpy, projectors_from_numpy
 from repro_torch.core import latent_cache as lc
+from repro_torch.kernels import ops
 from repro_torch.launch import serve as launch_serve
 from repro_torch.obs import ledger
 from repro_torch.obs.metrics import (MetricsRegistry, validate_prometheus,
@@ -430,6 +431,119 @@ def test_traffic_reconciles_tiered(model):
              if e["name"] in ("tier_fetch", "tier_spill")]
     assert len(spans) == sched.pool.spills + sched.pool.fetches
     assert all(e["args"]["bytes"] == page for e in spans)
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_traffic_reconciles_grouped(model, layout):
+    """A grouped decode step (G 4) reconciles with 0 drifts: the
+    accountant reads the layout off the arena (measured) and the engine
+    (modeled); G·k_loc selection slots, at most min(s_g, k_loc) rows
+    reconstructed per slab."""
+    tp, tu, cfg, sals = model["t"]
+    skw = PAGED if layout == "paged" else BASE
+    eng = ServeEngine(tp, tu, cfg, ServeConfig(sals=sals, **skw),
+                      n_groups=4, device="cpu")
+    rng = np.random.default_rng(46)
+    reqs = [Request(rng.integers(1, 128, size=n).astype(np.int32),
+                    max_new_tokens=6) for n in (70, 40, 12)]
+    sched, rep, h = _reconciled_run(eng, model, reqs)
+    assert h["traffic"].widths["n_groups"] == 4
+    assert rep["reconciled"] == sched.steps > 0
+    # the grouped selection reads less than the global one at these
+    # lengths: slabs past a row's length select nothing
+    flat = ledger.decode_stage_bytes(cfg, sals, 70, 128)
+    grouped = ledger.decode_stage_bytes(cfg, sals, 70, 128, 4)
+    assert grouped["selected_bytes"] < flat["selected_bytes"]
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+def test_ledger_grouped_terms(g):
+    """At G = 1 every term is the global ledger's (min(s, N_c) rows); at
+    G > 1 the stream and scratch keep their totals, the outputs are
+    5·G·k_loc, the selected rows Σ_g min(s_g, k_loc)."""
+    cfg = get_config("paper-llama2-7b")
+    sals = SALSConfig()
+    rows, nc = 4160, sals.n_critical
+    k_loc = -(-nc // g)
+    for s in (1, 100, 520, 1040, 1500, 3000, 4159):
+        one = ledger.decode_stage_bytes(cfg, sals, s, rows)
+        mine = ledger.decode_stage_bytes(cfg, sals, s, rows, g)
+        slab = rows // g
+        fills = [min(max(0, s - i * slab), slab) for i in range(g)]
+        want_rows = sum(min(f, k_loc) for f in fills)
+        assert ledger.selected_rows(s, rows, nc, g) == want_rows
+        assert ledger.selected_rows(s, rows, nc, 1) == min(s, nc)
+        for term in ("score_stream_bytes", "score_scratch_bytes",
+                     "window_bytes", "u_bytes"):
+            assert mine[term] == one[term], (term, s)
+        assert mine["score_output_bytes"] == 5 * g * k_loc
+        per_row = one["selected_bytes"] // max(1, min(s, nc))
+        assert mine["selected_bytes"] == per_row * want_rows
+        if g == 1:
+            assert mine == one
+
+
+def test_grouped_selected_rows_bound_the_folded_selection(model,
+                                                          monkeypatch):
+    """The grouped selected-rows term held to the folded selection itself:
+    a decode step's valid slots over a row's G slabs never exceed
+    ``ledger.selected_rows`` and equal it where every filled slab holds
+    k_loc selectable rows, where the global count (G 1) does not."""
+    tp, tu, cfg, sals = model["t"]
+    g, rows = 4, BASE["max_seq_len"]
+    eng = ServeEngine(tp, tu, cfg, ServeConfig(sals=sals, **BASE),
+                      n_groups=g, device="cpu")
+    seen, topk = [], ops.latent_topk
+
+    def spy(q_lat, k, scale, pos, **kw):
+        idx, valid = topk(q_lat, k, scale, pos, **kw)
+        seen.append((pos.view(-1, g)[:, 0].tolist(),
+                     valid.view(pos.shape[0] // g, -1).sum(1).tolist()))
+        return idx, valid
+
+    monkeypatch.setattr(ops, "latent_topk", spy)
+    rng = np.random.default_rng(47)
+    _drain(eng, [Request(rng.integers(1, 128, size=n).astype(np.int32),
+                         max_new_tokens=6) for n in (50, 20, 100)])
+    slab, k_loc = rows // g, -(-sals.n_critical // g)
+    exact = global_differs = 0
+    for positions, counts in seen:
+        for p, c in zip(positions, counts):
+            want = ledger.selected_rows(p, rows, sals.n_critical, g)
+            assert c <= want, (p, c, want)
+            # every filled slab selects k_loc: the sink (slab 0) and the
+            # recent window (the last slab) leave at least k_loc over
+            if p % slab >= sals.n_sink + sals.n_recent + k_loc + 2:
+                assert c == want, (p, c, want)
+                exact += 1
+                global_differs += c != ledger.selected_rows(
+                    p, rows, sals.n_critical, 1)
+    assert seen and exact >= 10 and global_differs > 0
+
+
+@pytest.mark.parametrize("told", [1, 2])
+def test_traffic_drifts_when_the_layout_is_misreported(model, told):
+    """The measured side reads the slab geometry off the arena, the
+    modeled side the engine's ``n_groups``: an arena at G 4 reported as G
+    ``told`` drifts on the selected rows."""
+    tp, tu, cfg, sals = model["t"]
+    eng = ServeEngine(tp, tu, cfg, ServeConfig(sals=sals, **BASE),
+                      n_groups=4, device="cpu")
+    cache = eng.init_slot_cache()
+
+    class Misreported:                  # the engine, but for its layout
+        n_groups = told
+
+        def __getattr__(self, name):
+            return getattr(eng, name)
+
+    positions = [20, 50, 100]
+    honest = TrafficAccountant(cfg, sals)
+    honest.observe_decode(eng, cache, positions)
+    assert honest.drifts == 0 and honest.widths["n_groups"] == 4
+    with pytest.raises(TrafficDriftError, match="selected_bytes"):
+        TrafficAccountant(cfg, sals).observe_decode(Misreported(), cache,
+                                                    positions)
 
 
 def test_traffic_reconciles_speculative(model):

@@ -333,7 +333,83 @@ def test_wall_clock_deadline(model):
     sched.audit_serving_state()
 
 
+@pytest.mark.parametrize("use_sals", [False, True], ids=["full", "sals"])
+def test_continuous_matches_static_token_exact(model, use_sals):
+    """A request decoded inside the continuous batch (co-residents,
+    recycled slots) gives the tokens of the static batcher (length-sorted
+    fixed batches through ``generate``), which gives the JAX static
+    scheduler's; ``on_batch`` sees each batch."""
+    jp, ju, jcfg, jsals = model["j"]
+    tp, tu, cfg, sals = model["t"]
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, cfg.vocab_size, int(rng.integers(6, 30)))
+               .astype(np.int32) for _ in range(7)]
+    skw = dict(max_seq_len=128, max_batch=3, max_new_tokens=8)
+    if not use_sals:
+        jsals, sals = JSALS(enabled=False), SALSConfig(enabled=False)
+        ju = tu = None
+    runs = {}
+    for name, mode in (("continuous", "continuous"), ("static", "static")):
+        eng = ServeEngine(tp, tu, cfg, ServeConfig(sals=sals, **skw),
+                          device="cpu")
+        sched = RequestScheduler(eng, mode=mode)
+        reqs = [Request(p, max_new_tokens=4 + i % 3)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            sched.submit(r)
+        batches = []
+        done = sched.run(on_batch=lambda b: batches.append(
+            [r.req_id for r in b]))
+        assert all(r.done for r in reqs) and len(done) == 7
+        runs[name] = ([r.result.tokens.tolist() for r in reqs], batches,
+                      sched)
+    jeng = JEngine(jp, ju, jcfg, JServe(sals=jsals, **skw))
+    js = JScheduler(jeng, mode="static")
+    jr = [JRequest(p, max_new_tokens=4 + i % 3)
+          for i, p in enumerate(prompts)]
+    for r in jr:
+        js.submit(r)
+    jbatches = []
+    js.run(on_batch=lambda b: jbatches.append(len(b)))
+    assert runs["continuous"][0] == runs["static"][0] == \
+        [r.result.tokens.tolist() for r in jr]
+    for r, n in zip(jr, (4 + i % 3 for i in range(7))):
+        assert len(r.result.tokens) == n
+    static = runs["static"][2]
+    assert [len(b) for b in runs["static"][1]] == jbatches == [3, 3, 1]
+    assert runs["continuous"][1] == []          # on_batch: static only
+    assert static.done == static.submitted == 7 and static.steps == 0
+
+
+def test_static_honours_cancellation_before_a_batch(model):
+    """A cancellation requested before its batch starts ends the request
+    CANCELLED without running it; the others are served."""
+    eng = _engine(model, max_seq_len=64, max_batch=2)
+    sched = RequestScheduler(eng, mode="static")
+    rng = np.random.default_rng(4)
+    reqs = [Request(rng.integers(1, 100, n).astype(np.int32),
+                    max_new_tokens=3) for n in (9, 12, 15, 18)]
+    for r in reqs:
+        sched.submit(r)
+
+    def cancel_last(batch):
+        reqs[3].cancel()
+
+    done = sched.run(on_batch=cancel_last)
+    assert [r.state for r in reqs[:3]] == [RequestState.DONE] * 3
+    assert reqs[3].state is RequestState.CANCELLED and reqs[3].result is None
+    assert sched.cancellations == 1 and sched.done == 3
+    assert {r.req_id for r in done} == {r.req_id for r in reqs}
+
+
 def test_unported_options_raise(model):
+    # static batching is ported: refused only where the reference refuses
+    # it (the paged cache), and unknown modes are refused
     eng = _engine(model, max_seq_len=64, max_batch=2, prefill_chunk=8)
-    with pytest.raises(NotImplementedError):
-        RequestScheduler(eng, mode="static")
+    assert RequestScheduler(eng, mode="static").mode == "static"
+    with pytest.raises(ValueError, match="mode"):
+        RequestScheduler(eng, mode="fifo")
+    paged = _engine(model, max_seq_len=64, max_batch=2, prefill_chunk=8,
+                    page_size=16)
+    with pytest.raises(ValueError, match="continuous"):
+        RequestScheduler(paged, mode="static")

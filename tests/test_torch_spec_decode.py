@@ -616,6 +616,32 @@ def test_scheduler_speculative_matches_reference(model, paged):
     ts.audit_serving_state()
 
 
+def test_static_mode_uses_speculative_path(model):
+    """The static batcher runs ``generate_speculative`` when
+    ``spec_window`` > 1: tokens equal the port's sequential ``generate``
+    and the JAX static scheduler's sequential tokens (ROADMAP C1: the
+    port held to the reference's sequential stream)."""
+    prompts = _prompts()
+    eng = _engine(model, 4)
+    sched = RequestScheduler(eng, mode="static")
+    reqs = [Request(p, max_new_tokens=9) for p in prompts]
+    for r in reqs:
+        sched.submit(r)
+    sched.run()
+    want = [r.tokens for r in _engine(model, 0).generate(prompts,
+                                                         max_new_tokens=9)]
+    js = JScheduler(_jengine(model, 0), mode="static")
+    jr = [JRequest(p, max_new_tokens=9) for p in prompts]
+    for r in jr:
+        js.submit(r)
+    js.run()
+    for r, w, j in zip(reqs, want, jr):
+        assert r.done and j.state.value == "done"
+        np.testing.assert_array_equal(r.result.tokens, w)
+        np.testing.assert_array_equal(r.result.tokens, j.result.tokens)
+    assert eng.spec_stats["rounds"] > 0
+
+
 def test_scheduler_window_span_maps_next_page(model, monkeypatch):
     """Oracle drafts make every round commit Q tokens, so windows cross
     page boundaries: ensure_writable maps every page of the span, and the

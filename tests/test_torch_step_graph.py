@@ -73,14 +73,15 @@ def model():
     return _model()
 
 
-def _arena(model, layout, device="cpu"):
-    """An engine of ``layout`` with two admitted rows (prompts 37 and 22
-    tokens, more than n_sink + n_recent + N_c: the top-k selects), and
-    the next step's host tokens and positions."""
+def _arena(model, layout, device="cpu", n_groups=1):
+    """An engine of ``layout`` (selection layout ``n_groups``) with two
+    admitted rows (prompts 37 and 22 tokens, more than n_sink + n_recent +
+    N_c: the top-k selects), and the next step's host tokens and
+    positions."""
     params, proj, cfg, sals = model
     eng = ServeEngine(params, proj, cfg, ServeConfig(
         max_seq_len=64, max_batch=2, prefill_chunk=8, sals=sals,
-        **LAYOUTS[layout]), device=device)
+        **LAYOUTS[layout]), n_groups=n_groups, device=device)
     ps = eng.scfg.page_size
     rng = np.random.default_rng(5)
     prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
@@ -231,7 +232,18 @@ def test_guard_flags_host_values():
 
 @pytest.mark.parametrize("layout", sorted(LAYOUTS))
 def test_steps_build_no_host_tensors(model, layout):
-    eng, cache, tokens, positions = _arena(model, layout)
+    _check_no_host_tensors(model, layout, 1)
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_grouped_steps_build_no_host_tensors(model, layout):
+    """The grouped fold (G 4: the per-slab queries and positions, the
+    slab base, the folded tables) is made of device ops too."""
+    _check_no_host_tensors(model, layout, 4)
+
+
+def _check_no_host_tensors(model, layout, n_groups):
+    eng, cache, tokens, positions = _arena(model, layout, n_groups=n_groups)
     guard = HostValueGuard()
     for g in _graphs(eng).values():
         _guarded(g, guard)
@@ -250,6 +262,33 @@ def test_steps_build_no_host_tensors(model, layout):
     assert calls == {"decode": 1, "decode_sel": int(eng.paged),
                      "decode_window": int(not eng.tiered),
                      "commit_window": int(not eng.tiered)}
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_grouped_scheduler_keeps_one_decode_key(model, layout):
+    """A scheduler run at G 2 keys its decode program once: the fold's
+    views and per-slab operands leave the arena's addresses alone."""
+    params, proj, cfg, sals = model
+    eng = ServeEngine(params, proj, cfg, ServeConfig(
+        max_seq_len=64, max_batch=2, prefill_chunk=8, sals=sals,
+        **LAYOUTS[layout]), n_groups=2, device="cpu")
+    entry = eng._decode_sel if eng.tiered else eng._decode
+    keys, first = [], entry._first
+
+    def spy_first(args, key):       # a new capture key (the card captures)
+        keys.append(key)
+        first(args, key)
+
+    entry._first = spy_first
+    rng = np.random.default_rng(11)
+    sched = RequestScheduler(eng)
+    reqs = [Request(rng.integers(1, cfg.vocab_size, n).astype(np.int32),
+                    max_new_tokens=6) for n in (37, 22, 30)]
+    for r in reqs:
+        sched.submit(r)
+    sched.run()
+    assert all(r.done for r in reqs) and sched.steps > 6
+    assert len(keys) == 1
 
 
 def test_launch_counts_add_and_take_back():
@@ -489,9 +528,21 @@ def test_replay_equals_eager_on_card(cuda, layout, entry):
     replays, each a new step) against its step function called directly,
     op by op, on a clone: outputs and cache bitwise equal after each, and
     the launch counters equal too."""
+    _replay_vs_eager(cuda, layout, entry, 1)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("layout,entry", ENTRIES)
+def test_grouped_replay_equals_eager_on_card(cuda, layout, entry):
+    """As above in the grouped layout (G 4)."""
+    _replay_vs_eager(cuda, layout, entry, 4)
+
+
+def _replay_vs_eager(cuda, layout, entry, n_groups):
     model = _model(device=cuda, dtype="bfloat16", d_model=256, n_heads=4,
                    n_kv_heads=2, head_dim=64)
-    eng, cache, tokens, positions = _arena(model, layout, device=cuda)
+    eng, cache, tokens, positions = _arena(model, layout, device=cuda,
+                                           n_groups=n_groups)
     eager = _clone(cache)
     graph, impl = _graphs(eng)[entry], getattr(eng, f"_{entry}_impl")
     n = np.array([2, 1], np.int32)
