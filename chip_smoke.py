@@ -41,6 +41,10 @@ Phases, each printing one JSON line:
               recon within tolerance, empty slabs exact no-ops, the merge
               against the twins', and at 64-token pages the paged fold
               equal to the dense fold bit for bit (timed in turns);
+              rows 1, 2, 4-7 also at the families' shapes (hymba-1.5b:
+              25 heads over 5, dh 64, r 80, r* 40; llama4-scout: 40 over
+              8, r 256; qwen3-moe: 64 over 4, r 128) and flash at 25 / 5
+              heads dh 64 and 64 / 4 heads dh 128;
 4. serve    — seeded paper-llama2-7b at full width and depth (bf16):
               calibrate U_r on the synthetic corpus, then
               ``ServeEngine.generate`` for 4 ragged prompts (4096, 3584,
@@ -141,7 +145,8 @@ Phases, each printing one JSON line:
               4096, 32 steps, beside the serve phase's replayed ms per
               step;
 11. grouped — the grouped selection layout (``n_groups``) on the serve
-              phase's model: (1) ``generate`` at G 1, 2, 4, 8 on the serve
+              phase's model cut to its first 8 layers (5 SALS layers;
+              ``depth_view``, no copy): (1) ``generate`` at G 1, 2, 4, 8 on the serve
               prompts (16 new tokens), replayed and eager in turns (logits
               bitwise equal), rows 1 and 2 once per SALS layer and step,
               ms per step, ten replays back to back, the kernels' device
@@ -167,7 +172,30 @@ Phases, each printing one JSON line:
               serve phase, and at G 4 as the grouped phase's (1); (c)
               ``RequestScheduler``, 4 requests on 64-token pages and on the
               dense arena (tokens equal); every path's launch counts;
-13. whole   — a full-width 2-layer model (SALS on layer 1) decoded on the
+13. families — the moe, hybrid and ssm families at full width, bf16,
+              seeded, SALS-25% at the defaults where the family has
+              attention (U_r calibrated on the synthetic corpus): (a)
+              hymba-1.5b at full depth (32 layers, 29 SALS): ``generate``
+              on a uniform-length batch (1280 ... 2048 tokens, left-
+              filled) x 32, SALS on and off, replayed then eager (tokens
+              and launch counts equal, one decode capture a call), the
+              scheduler falling back to static (tokens == ``generate``'s),
+              a paged cache and a verify window refused; (b) rwkv6-7b at
+              full depth: the same on 4 x 1024 tokens (no attention, no
+              kernel), its prefill profiled on 64-token prompts; (c)
+              llama4-scout-17b-a16e with its depth cut to 13 of 48
+              layers (10 SALS) and (d) qwen3-moe-235b-a22b cut to 12 of
+              94 (9 SALS), so that their weights fit on the card: the
+              serve phase's checks on the serve prompts, then the
+              scheduler (4 requests, 1024 ... 640 tokens x 16, 64-token
+              chunks) paged == dense, and for llama4 the verify window of
+              4 paged == dense.  Each model: parameter bytes, peak memory,
+              prefill s, replayed and eager ms a step, launches of rows
+              1-7 a step, a profiled replayed step by kernel and the share
+              of it that the MoE layers or the recurrences take (one
+              layer's call captured alone at the step's shapes, times the
+              layers);
+14. whole   — a full-width 2-layer model (SALS on layer 1) decoded on the
               card (kernels) and on the CPU (twins) from the same weights
               and a 1024-token prompt (so top-k really selects), per-step
               logits compared under teacher forcing.
@@ -202,7 +230,7 @@ BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12
 
 PHASES = ("device", "build", "kernels", "serve", "sched", "tier", "quality",
-          "spec", "slo", "obs", "grouped", "vlm", "whole")
+          "spec", "slo", "obs", "grouped", "vlm", "families", "whole")
 # "profile" (not run by default) adds torch.profiler passes over four
 # chunked-prefill steps after the sched phase (replayed and eager, and the
 # host's issue time of a chunk), and over three
@@ -1149,6 +1177,13 @@ def phase_kernels(torch, scan: bool = False):
                       "bf16", 51, flush, timed=False),
             topk_case(torch, "paligemma-3b B4 S4160 r64 r*32 (kv_dim 256)",
                       4, 4160, 64, 32, 432, "bf16", 52, flush),
+            # the families' shapes: hymba (kv_dim 320), llama4, qwen3
+            topk_case(torch, "hymba-1.5b B4 S4160 r80 r*40", 4, 4160, 80,
+                      40, 432, "bf16", 80, flush),
+            topk_case(torch, "llama4-scout B4 S4160 r256 r*128", 4, 4160,
+                      256, 128, 432, "bf16", 81, flush),
+            topk_case(torch, "qwen3-moe B4 S4160 r128 r*64", 4, 4160, 128,
+                      64, 432, "bf16", 82, flush),
         ] + [c[0] for c in grouped[:2]],
         "sparse_recon_attention": [
             sra_case(torch, "llama2-7b B4 H32 S4160 r1024 int8-V", 4, 32, 32,
@@ -1173,6 +1208,12 @@ def phase_kernels(torch, scan: bool = False):
             sra_case(torch, "llama2-7b S1040 pos_base (a grouped slab)", 4,
                      32, 32, 128, 1040, 1024, 108, "bf16", 8, 0.0, 75, flush,
                      pos_base=[0, 1040, 2080, 3120]),
+            sra_case(torch, "hymba-1.5b group 5 dh64 r80 int8-V", 4, 25, 5,
+                     64, 4160, 80, 432, "bf16", 8, 0.0, 83, flush),
+            sra_case(torch, "llama4-scout group 5 r256 int8-V", 4, 40, 8,
+                     128, 4160, 256, 432, "bf16", 8, 0.0, 84, flush),
+            sra_case(torch, "qwen3-moe group 16 r128 int8-V", 4, 64, 4, 128,
+                     4160, 128, 432, "bf16", 8, 0.0, 85, flush),
         ] + [c[1] for c in grouped[:2]] + ([
             # where the recon body's time goes: passes x ring stages
             sra_case(torch, f"scan N_c {n_c} r {r}", 4, 32, 32, 128, 4160, r,
@@ -1189,6 +1230,12 @@ def phase_kernels(torch, scan: bool = False):
             topk_case(torch, "tiered score pool r = r* 512 ps16, pos_base",
                       4, 4096, 512, 512, 432, "bf16", 49, flush, ps=16,
                       pos_base=[0, 64, 128, 192], timed=False),
+            topk_case(torch, "hymba-1.5b r80 r*40 ps64", 4, 4096, 80, 40,
+                      432, "bf16", 86, flush, ps=64),
+            topk_case(torch, "llama4-scout r256 r*128 ps64", 4, 4096, 256,
+                      128, 432, "bf16", 87, flush, ps=64),
+            topk_case(torch, "qwen3-moe r128 r*64 ps64", 4, 4096, 128, 64,
+                      432, "bf16", 88, flush, ps=64),
         ] + [c[0] for c in grouped[2:]],
         "sparse_recon_attention_paged": [
             sra_case(torch, "llama2-7b B4 H32 S4096 r1024 int8-V ps64", 4,
@@ -1213,6 +1260,12 @@ def phase_kernels(torch, scan: bool = False):
             sra_case(torch, "llama2-7b S1024 ps64 pos_base (a grouped slab)",
                      4, 32, 32, 128, 1024, 1024, 108, "bf16", 8, 0.0, 76,
                      flush, ps=64, pos_base=[0, 1024, 2048, 3072]),
+            sra_case(torch, "hymba-1.5b group 5 dh64 r80 ps64", 4, 25, 5,
+                     64, 4096, 80, 432, "bf16", 8, 0.0, 89, flush, ps=64),
+            sra_case(torch, "llama4-scout group 5 r256 ps64", 4, 40, 8, 128,
+                     4096, 256, 432, "bf16", 8, 0.0, 90, flush, ps=64),
+            sra_case(torch, "qwen3-moe group 16 r128 ps64", 4, 64, 4, 128,
+                     4096, 128, 432, "bf16", 8, 0.0, 91, flush, ps=64),
         ] + [c[1] for c in grouped[2:]],
         "sparse_recon_attention_window": [
             window_case(torch, "llama2-7b B4 Q4 H32 S4160 r1024 int8-V", 4, 4,
@@ -1249,6 +1302,12 @@ def phase_kernels(torch, scan: bool = False):
             window_case(torch, "llama2-7b Q4 S1040 pos_base (a grouped slab)",
                         4, 4, 32, 32, 128, 1040, 1024, 108, "bf16", 8, 0.0,
                         77, flush, pos_base=[0, 1040, 2080, 3120]),
+            window_case(torch, "hymba-1.5b Q4 group 5 dh64 r80", 4, 4, 25,
+                        5, 64, 4160, 80, 432, "bf16", 8, 0.0, 92, flush),
+            window_case(torch, "llama4-scout Q4 group 5 r256", 4, 4, 40, 8,
+                        128, 4160, 256, 432, "bf16", 8, 0.0, 93, flush),
+            window_case(torch, "qwen3-moe Q4 group 16 r128", 4, 4, 64, 4,
+                        128, 4160, 128, 432, "bf16", 8, 0.0, 94, flush),
         ],
         "sparse_recon_attention_window_paged": [
             window_case(torch, "llama2-7b B4 Q4 S4096 r1024 int8-V ps64", 4,
@@ -1275,6 +1334,15 @@ def phase_kernels(torch, scan: bool = False):
                         "slab)", 4, 4, 32, 32, 128, 1024, 1024, 108, "bf16",
                         8, 0.0, 78, flush, ps=64,
                         pos_base=[0, 1024, 2048, 3072]),
+            window_case(torch, "hymba-1.5b Q4 group 5 dh64 r80 ps64", 4, 4,
+                        25, 5, 64, 4096, 80, 432, "bf16", 8, 0.0, 95, flush,
+                        ps=64),
+            window_case(torch, "llama4-scout Q4 group 5 r256 ps64", 4, 4, 40,
+                        8, 128, 4096, 256, 432, "bf16", 8, 0.0, 96, flush,
+                        ps=64),
+            window_case(torch, "qwen3-moe Q4 group 16 r128 ps64", 4, 4, 64,
+                        4, 128, 4096, 128, 432, "bf16", 8, 0.0, 97, flush,
+                        ps=64),
         ],
         "latent_score": [
             score_case(torch, "overlap_score path: f32 B2 S4096 r1024 r*512",
@@ -1310,6 +1378,10 @@ def phase_kernels(torch, scan: bool = False):
                        1, 256, 0.0, 66, flush),
             flash_case(torch, "llama2-7b B4 S4096 H32 prefix 256", 4, 4096,
                        4096, 32, 32, 128, 0.0, 67, flush, prefix_len=256),
+            flash_case(torch, "hymba-1.5b B4 S2048 H25 Hkv5 dh64", 4, 2048,
+                       2048, 25, 5, 64, 0.0, 98, flush),
+            flash_case(torch, "qwen3-moe B4 S4096 H64 Hkv4", 4, 4096, 4096,
+                       64, 4, 128, 0.0, 99, flush),
         ],
     }
     for name, cases in res.items():
@@ -1733,10 +1805,13 @@ def profile_steps(torch, step, steps: int, name: str) -> None:
                e.count / steps] for e in top[:25]]})
 
 
-def build_model(torch, arch: str = "paper-llama2-7b"):
+def build_model(torch, arch: str = "paper-llama2-7b", n_layers: int = 0,
+                phase: str = "model"):
     """Seeded full-width ``arch`` (bf16) and U_r calibrated on the
     synthetic corpus (tokens only), shared by the serve and sched phases
-    (paper-llama2-7b) or used by the vlm phase (paligemma-3b)."""
+    (paper-llama2-7b) or used by the vlm phase (paligemma-3b) and the
+    families phase.  ``n_layers`` > 0 cuts the depth; an attention-free
+    family is not calibrated (it has no SALS)."""
     from repro_torch.config import SALSConfig
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticCorpus
@@ -1744,22 +1819,46 @@ def build_model(torch, arch: str = "paper-llama2-7b"):
     from repro_torch.models.transformer import init_params, segment_plan
 
     cfg = get_config(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     sals = SALSConfig()                    # SALS-25% at the paper defaults
     t0 = time.perf_counter()
     params = init_params(cfg, device="cuda", seed=0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     corpus = SyntheticCorpus(cfg.vocab_size, seed=0)
-    proj = calibrate(params, cfg, sals, corpus, n_sequences=16, seq_len=512)
+    proj = calibrate(params, cfg, sals, corpus, n_sequences=16,
+                     seq_len=512) if cfg.has_attention else None
     n_sals = sum(i1 - i0 for i0, i1, m in segment_plan(cfg, sals)
                  if m == "sals")
-    emit({"phase": "model", "arch": arch, "init_params_s": init_s,
-          "calibration_s": proj["seconds"], "sals_layers": n_sals,
+    emit({"phase": phase, "arch": arch, "n_layers": cfg.n_layers,
+          "init_params_s": init_s,
+          "calibration_s": proj["seconds"] if proj else None,
+          "sals_layers": n_sals,
+          "param_bytes": sum(p.numel() * p.element_size()
+                             for p in params.parameters()),
           "memory_allocated": torch.cuda.memory_allocated(),
           "rank": sals.rank(cfg.kv_dim),
           "score_rank": sals.score_rank(cfg.kv_dim)})
     return dict(cfg=cfg, sals=sals, params=params, proj=proj,
                 corpus=corpus, n_sals=n_sals)
+
+
+def depth_view(torch, model, n_layers: int) -> dict:
+    """``model`` cut to its first ``n_layers`` layers without a copy: the
+    same embedding, blocks and final norm, U_r's first rows (a path that
+    needs the time of a full-depth run elsewhere runs on this)."""
+    from repro_torch.models.transformer import Transformer, segment_plan
+    cfg = dataclasses.replace(model["cfg"], n_layers=n_layers)
+    full = model["params"]
+    params = Transformer.__new__(Transformer)
+    torch.nn.Module.__init__(params)
+    params.embed, params.final_norm = full.embed, full.final_norm
+    params.blocks = torch.nn.ModuleList(list(full.blocks)[:n_layers])
+    proj = dict(model["proj"], u=model["proj"]["u"][:n_layers])
+    n_sals = sum(i1 - i0 for i0, i1, m in segment_plan(cfg, model["sals"])
+                 if m == "sals")
+    return dict(model, cfg=cfg, params=params, proj=proj, n_sals=n_sals)
 
 
 def phase_serve(torch, model, n_new: int = 32, prof: bool = False,
@@ -1792,6 +1891,7 @@ def phase_serve(torch, model, n_new: int = 32, prof: bool = False,
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         timing = eng.last_timing
+        captures = eng._decode.captures
         toks = np.stack([r.tokens for r in out])
         steps = timing["decode_steps"]
         turns = [decode_turn(torch, eng, prompts, n_new, graph)
@@ -1812,6 +1912,7 @@ def phase_serve(torch, model, n_new: int = 32, prof: bool = False,
                    decode_tok_s=len(lens) * steps / timing["decode_s"],
                    decode_ms_per_step=1e3 * timing["decode_s"] / steps,
                    capture_s=timing["capture_s"],
+                   decode_captures=captures,
                    graph_nodes=eng._decode.nodes,
                    max_memory_allocated=torch.cuda.max_memory_allocated(),
                    launches=counts, decode_steps=steps,
@@ -1834,6 +1935,9 @@ def phase_serve(torch, model, n_new: int = 32, prof: bool = False,
         if not (toks.shape == (4, n_new) and (toks >= 0).all()
                 and (toks < cfg.vocab_size).all()):
             raise AssertionError(f"{name}: generated tokens out of range")
+        if captures != 1:
+            raise AssertionError(f"{phase} {name}: generate captured its "
+                                 f"decode step {captures} times")
         want_sals = n_sals * steps if name == "sals" else 0
         if counts["latent_topk"] != want_sals or \
                 counts["sparse_recon_attention"] != want_sals:
@@ -2104,8 +2208,8 @@ def phase_quality(torch, model, seq: int = 4096):
             for bp in params.blocks:
                 h = rmsnorm_apply(bp.attn_norm, x[:, -1:], cfg.norm_eps)
                 q_l.append(qkv_proj(bp.attn, h, cfg)[0][:, 0])  # (1,H,dh)
-                x, ex = tf._block_fwd(bp, x, cfg, positions, prefix_len,
-                                      True)
+                x, _, ex = tf._block_fwd(bp, x, cfg, positions,
+                                         prefix_len, True)
                 k_l.append(ex["k_pre"])              # (1, S, Hkv, dh)
             qs.append(q_l)
             ks.append(k_l)
@@ -3472,6 +3576,9 @@ def grouped_tiered(torch, model) -> dict:
     return tight
 
 
+GROUPED_LAYERS = 8
+
+
 def phase_grouped(torch, model, n_new: int = 16) -> dict:
     """The grouped layout on the serve phase's model: (1) ``generate`` at
     G 1, 2, 4, 8 on the serve prompts; (2) the scheduler at G 4, paged
@@ -3738,6 +3845,356 @@ def phase_vlm(torch, n_new: int = 32, prof: bool = False) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# families: moe, hybrid and ssm at full width
+# ---------------------------------------------------------------------------
+
+# (arch, depth: 0 = the published depth); llama4-scout and qwen3-moe are
+# cut so that their weights (4.41 / 4.98 GB a layer) fit on one card
+FAMILY_RUNS = (("hymba-1.5b", 0), ("rwkv6-7b", 0),
+               ("llama4-scout-17b-a16e", 13), ("qwen3-moe-235b-a22b", 12))
+FAMILY_SCHED_LENS = (1024, 896, 768, 640)
+ROWS_1_7 = ("latent_topk", "sparse_recon_attention", "latent_topk_paged",
+            "sparse_recon_attention_paged", "sparse_recon_attention_window",
+            "sparse_recon_attention_window_paged", "flash_attention")
+
+
+def _short(arch: str) -> str:
+    return arch.split("-")[0]
+
+
+def family_generate(torch, model, prompts, name, sc, n_new, max_seq,
+                    eager=False):
+    """One ``ServeEngine.generate`` (replayed, or eager through
+    :func:`eager_entries`): (tokens, row) with the launches, the decode
+    captures of the call, prefill seconds and ms a step."""
+    from repro_torch.config import ServeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeEngine
+    eng = ServeEngine(model["params"], model["proj"], model["cfg"],
+                      ServeConfig(max_seq_len=max_seq, max_batch=4, sals=sc),
+                      device="cuda")
+    if eager:
+        eager_entries(torch, eng)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = eng.generate(prompts, max_new_tokens=n_new)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    t = eng.last_timing
+    steps = t["decode_steps"]
+    toks = np.stack([r.tokens for r in out])
+    row = dict(run=name, eager=eager, prompts=[len(p) for p in prompts],
+               new_tokens=n_new, prefill_s=t["prefill_s"],
+               ms_per_step=1e3 * t["decode_s"] / steps, decode_steps=steps,
+               capture_s=t["capture_s"],
+               decode_captures=0 if eager else eng._decode.captures,
+               launches_per_step={k: counts[k] / steps for k in ROWS_1_7
+                                  if k != "flash_attention"},
+               launches=counts,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    if not (toks.shape == (len(prompts), n_new) and (toks >= 0).all()
+            and (toks < model["cfg"].vocab_size).all()):
+        raise AssertionError(f"families {name}: tokens out of range")
+    if not eager and row["decode_captures"] != 1:
+        raise AssertionError(f"families {name}: {row['decode_captures']} "
+                             "decode captures in one generate")
+    del eng, out
+    gc.collect()
+    return toks, row
+
+
+def family_shares(torch, model, prompts, max_seq) -> dict:
+    """Where a replayed decode step's time goes: torch.profiler over one
+    replayed step (by kernel, to chiprun_out/), and the share of the step
+    that the MoE layers or the recurrences take — each timed alone as a
+    CUDA graph of one layer's call at the step's shapes (L2 flushed
+    first), times the layers, over the replayed step's own ms."""
+    from repro_torch.config import ServeConfig
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import ssm as ssm_mod
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import ServeEngine
+    cfg, params = model["cfg"], model["params"]
+    eng = ServeEngine(params, model["proj"], cfg, ServeConfig(
+        max_seq_len=max_seq, max_batch=4, sals=model["sals"]),
+        device="cuda")
+    out = {}
+    with torch.inference_mode():
+        b = len(prompts)
+        n = min(len(p) for p in prompts)
+        toks = torch.as_tensor(np.stack([p[:n] for p in prompts]),
+                               device="cuda")
+        logits, cache = tf.prefill(params, model["proj"], cfg, eng.sals,
+                                   {"tokens": toks}, max_seq)
+        tok = logits.argmax(-1).to(torch.int32)
+        pos = np.full((b,), n, np.int32)
+        eng.decode(tok, cache, pos)               # the capture
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        pos_d = torch.as_tensor(pos + 1, device="cuda")
+        eng.decode(tok, cache, pos_d)
+        start.record()
+        for _ in range(5):
+            eng.decode(tok, cache, pos_d)
+        end.record()
+        end.synchronize()
+        step_ms = start.elapsed_time(end) / 5
+        profile_steps(torch, lambda t: eng.decode(tok, cache, pos_d), 1,
+                      f"families_{_short(cfg.name)}_decode_graph")
+        x = torch.randn((b, 1, cfg.d_model), device="cuda").to(
+            params.embed.embedding.dtype)
+        blk = params.blocks[0]
+        parts = {}
+        if cfg.family == "moe":
+            parts["moe"] = lambda: moe_mod.moe_apply(blk.moe, x, cfg)
+        if cfg.family == "hybrid":
+            st = ssm_mod.mamba_state_init(cfg, b, "cuda")
+            parts["mamba"] = lambda: ssm_mod.mamba_decode(blk.mamba, x, cfg,
+                                                          st)
+        if cfg.family == "ssm":
+            st = ssm_mod.rwkv_state_init(cfg, b, "cuda")
+            parts["rwkv_time_mix"] = lambda: ssm_mod.rwkv_time_mix(
+                blk.rwkv, x, cfg, st)
+            parts["rwkv_channel_mix"] = lambda: ssm_mod.rwkv_channel_mix(
+                blk.rwkv, x, st)
+        # the step reads each layer's weights once, cold: flush L2 first
+        flush = torch.empty(96 * 2 ** 20, dtype=torch.uint8, device="cuda")
+        for name, fn in parts.items():
+            replay = as_graph(torch, fn)
+            ms = time_ms(torch, replay, 10, flush=flush)
+            out[name] = dict(layer_ms=ms, step_ms=ms * cfg.n_layers,
+                             share=ms * cfg.n_layers / step_ms)
+        del cache, logits
+    emit({"phase": "families", "arch": cfg.name, "part": "decode_shares",
+          "replayed_step_ms": step_ms, "components": out})
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_sched(torch, model, name, page_size, spec=0, n_new=16):
+    """``RequestScheduler`` over the moe family: 4 requests (1024 ... 640
+    tokens) x ``n_new``, 64-token chunks (the MoE groups are the chunks),
+    4 slots, on 64-token pages or the dense arena, a verify window of
+    ``spec`` or sequential: every request DONE, one decode capture, and
+    only the layout's SALS kernels."""
+    from repro_torch.config import ServeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serve import Request, RequestScheduler, ServeEngine
+    cfg = model["cfg"]
+    prompts = [model["corpus"].batch(700 + i, 1, n)["tokens"][0]
+               for i, n in enumerate(FAMILY_SCHED_LENS)]
+    eng = ServeEngine(model["params"], model["proj"], cfg, ServeConfig(
+        max_seq_len=1152, max_batch=4, prefill_chunk=64, page_size=page_size,
+        prefill_token_budget=256, spec_window=spec, audit_every=1,
+        sals=model["sals"]), device="cuda")
+    sched = RequestScheduler(eng)
+    reqs = [Request(p, max_new_tokens=n_new) for p in prompts]
+    for r in reqs:
+        sched.submit(r)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    entry = eng._decode_window if spec else eng._decode
+    row = dict(phase="families", arch=cfg.name, part="sched", run=name,
+               mode=sched.mode, wall_s=wall, decode_steps=sched.steps,
+               prefill_chunks=len(sched.prefill_chunks),
+               decode_captures=entry.captures,
+               chunk_captures=eng._prefill_chunk.captures, launches=counts,
+               launches_per_step={k: counts[k] / max(1, sched.steps)
+                                  for k in ROWS_1_7
+                                  if k != "flash_attention"})
+    if spec:
+        row.update(spec_rounds=sched.spec_rounds,
+                   spec_committed=sched.spec_committed)
+    emit(row)
+    if not all(r.done for r in reqs):
+        raise AssertionError(f"families {name}: not every request DONE")
+    sched.audit_serving_state()
+    if entry.captures != 1:
+        raise AssertionError(f"families {name}: {entry.captures} captures")
+    if spec:
+        check_spec_launches(f"families {name}", counts, sched.spec_rounds,
+                            model["n_sals"], bool(page_size))
+    else:
+        mine = ("latent_topk_paged", "sparse_recon_attention_paged") \
+            if page_size else ("latent_topk", "sparse_recon_attention")
+        want = model["n_sals"] * sched.steps
+        if any(counts[k] != want for k in mine):
+            raise AssertionError(f"families {name}: launches {counts}, "
+                                 f"expected {want} of {mine}")
+    toks = [r.result.tokens for r in reqs]
+    del eng, sched, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, toks
+
+
+def family_moe(torch, model, n_new: int) -> dict:
+    """(c) / (d): ``generate`` on the serve prompts, SALS on and off, in
+    turns replayed / eager (:func:`phase_serve`); the scheduler paged ==
+    dense; llama4-scout also a verify window of 4, paged == dense."""
+    label = f"families_{_short(model['cfg'].name)}"
+    serve_row, _ = phase_serve(torch, model, n_new, phase=label)
+    counts = {k: serve_row["launches"][k] for k in (
+        "flash_attention", "latent_topk", "sparse_recon_attention")}
+    steps = serve_row["decode_steps"]
+    emit({"phase": "families", "arch": model["cfg"].name, "part": "summary",
+          "prefill_s": serve_row["prefill_s"],
+          "replayed_ms_per_step": serve_row["graph_ms_per_step"],
+          "eager_ms_per_step": serve_row["eager_ms_per_step"],
+          "peak_memory": serve_row["max_memory_allocated"],
+          "prefill_flash_launches": counts["flash_attention"],
+          "launches_per_step": {k: serve_row["launches"][k] / steps
+                                for k in ROWS_1_7
+                                if k != "flash_attention"}})
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = [("paged", 64, 0), ("dense", 0, 0)]
+    if model["cfg"].name.startswith("llama4"):
+        runs += [("spec_paged", 64, SPEC_Q), ("spec_dense", 0, SPEC_Q)]
+    toks = {}
+    for name, ps, q in runs:
+        c, toks[name] = family_sched(torch, model, f"{label} {name}", ps, q)
+        for k, v in c.items():
+            if v and k != "flash_attention":
+                counts[k] = counts.get(k, 0) + v
+    for a, b in (("paged", "dense"), ("spec_paged", "spec_dense")):
+        if a in toks:
+            same = all(np.array_equal(x, y) for x, y in zip(toks[a],
+                                                            toks[b]))
+            emit({"phase": "families", "arch": model["cfg"].name,
+                  "part": "sched", f"{a}_tokens_equal_{b}": same})
+            if not same:
+                raise AssertionError(f"{label}: {a} tokens differ from {b}")
+    return counts
+
+
+def family_recurrent(torch, model, n_new: int) -> dict:
+    """(a) / (b): ``generate`` on a uniform-length batch (left-filled),
+    SALS on and off where the family has attention, replayed then eager
+    (tokens equal); the scheduler falls back to static batching (tokens
+    equal ``generate``'s); a paged cache and a verify window are refused.
+    rwkv6: its prefill profiled on 64-token prompts."""
+    from repro_torch.config import SALSConfig, ServeConfig
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import Request, RequestScheduler, ServeEngine
+    cfg = model["cfg"]
+    hybrid = cfg.family == "hybrid"
+    # ascending, so the static scheduler's batch is generate's
+    lens = (1280, 1536, 1792, 2048) if hybrid else (1024,) * 4
+    max_seq = max(lens) + 64
+    prompts = [model["corpus"].batch(600 + i, 1, n)["tokens"][0]
+               for i, n in enumerate(lens)]
+    label = f"families_{_short(cfg.name)}"
+    runs = [("sals", model["sals"]), ("full", SALSConfig(enabled=False))] \
+        if hybrid else [("full", model["sals"])]
+    counts, rows, gold = {}, [], None
+    for name, sc in runs:
+        toks, row = family_generate(torch, model, prompts, name, sc, n_new,
+                                    max_seq)
+        rows.append(row)
+        if gold is None:
+            gold = toks
+            counts = {k: v for k, v in row["launches"].items() if v}
+            etoks, erow = family_generate(torch, model, prompts, name, sc,
+                                          n_new, max_seq, eager=True)
+            rows.append(erow)
+            row["tokens_equal_eager"] = bool(np.array_equal(toks, etoks))
+            row["launches_equal_eager"] = erow["launches"] == row["launches"]
+            eng = ServeEngine(model["params"], model["proj"], cfg,
+                              ServeConfig(max_seq_len=max_seq, max_batch=4,
+                                          sals=sc), device="cuda")
+            sched = RequestScheduler(eng)
+            reqs = [Request(p, max_new_tokens=n_new) for p in prompts]
+            for r in reqs:
+                sched.submit(r)
+            t0 = time.perf_counter()
+            sched.run()
+            torch.cuda.synchronize()
+            row["static_wall_s"] = time.perf_counter() - t0
+            row["sched_mode"] = sched.mode
+            row["static_tokens_equal_generate"] = all(
+                r.done and np.array_equal(r.result.tokens, gold[i])
+                for i, r in enumerate(reqs))
+            refused = {}
+            for key, kw in (("page_size", dict(page_size=64)),
+                            ("spec_window", dict(spec_window=4))):
+                try:
+                    ServeEngine(model["params"], model["proj"], cfg,
+                                ServeConfig(max_seq_len=max_seq, sals=sc,
+                                            **kw), device="cuda")
+                except ValueError as e:
+                    refused[key] = str(e)
+            row["refused"] = refused
+            del eng, sched, reqs
+            gc.collect()
+    for r in rows:
+        emit({"phase": "families", "arch": cfg.name, **r})
+    main = rows[0]
+    if not (main["tokens_equal_eager"] and main["launches_equal_eager"]
+            and main["static_tokens_equal_generate"]
+            and main["sched_mode"] == "static"
+            and set(main["refused"]) == {"page_size", "spec_window"}):
+        raise AssertionError(f"{label}: {main}")
+    steps = main["decode_steps"]
+    if hybrid:
+        want = model["n_sals"] * steps
+        if counts.get("latent_topk", 0) != want or \
+                counts.get("sparse_recon_attention", 0) != want or \
+                counts.get("flash_attention", 0) < cfg.n_layers:
+            raise AssertionError(f"{label}: launches {counts}")
+    elif counts:
+        raise AssertionError(f"{label}: attention-free, launched {counts}")
+    else:
+        short = [p[:64] for p in prompts]
+        toks = torch.as_tensor(np.stack(short), device="cuda")
+        with torch.inference_mode():
+            profile_steps(torch, lambda t: tf.prefill(
+                model["params"], None, cfg, None, {"tokens": toks}, 128), 1,
+                f"{label}_prefill_64")
+    # an rwkv step's cost does not depend on the context: prefill 64 tokens
+    family_shares(torch, model, prompts if hybrid
+                  else [p[:64] for p in prompts], max_seq)
+    return counts
+
+
+def phase_families(torch, n_new: int = 32) -> dict:
+    """hymba-1.5b, rwkv6-7b, llama4-scout (13 of 48 layers) and qwen3-moe
+    (12 of 94 layers) at full width, bf16, seeded, SALS-25% at the
+    defaults where the family has attention (U_r calibrated on the
+    synthetic corpus).  Returns the launch counts of rows 1-7 on these
+    paths."""
+    counts = {}
+    for arch, depth in FAMILY_RUNS:
+        t0 = time.perf_counter()
+        model = build_model(torch, arch, n_layers=depth, phase="families")
+        if model["cfg"].family == "moe":
+            c = family_moe(torch, model, n_new)
+            family_shares(torch, model, [p[:2048] for p in (
+                model["corpus"].batch(100 + i, 1, 2048)["tokens"][0]
+                for i in range(4))], 4160)
+        else:
+            c = family_recurrent(torch, model, n_new)
+        for k, v in c.items():
+            counts[k] = counts.get(k, 0) + v
+        emit({"phase": "families", "arch": arch, "n_layers":
+              model["cfg"].n_layers, "depth_cut": bool(depth),
+              "seconds": time.perf_counter() - t0})
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counts
+
+
 def phase_whole(torch, n_new: int = 12, prompt_len: int = 1024):
     """The prompt is longer than n_sink + n_recent + N_c, so latent_topk
     picks N_c of ~945 selectable tokens at every step and a ranking that
@@ -3894,7 +4351,10 @@ def main() -> int:
                       serve_sals[0] if serve_sals else None)
             lap("obs")
         if "grouped" in phases:
-            grouped = phase_grouped(torch, model)
+            # at 8 of 32 layers (5 SALS layers), so that the families
+            # phase fits the run's time
+            grouped = phase_grouped(torch, depth_view(torch, model,
+                                                      GROUPED_LAYERS))
             lap("grouped")
         del model, serve_sals
         gc.collect()      # engines and step graphs hold reference cycles
@@ -3903,6 +4363,10 @@ def main() -> int:
     if "vlm" in phases:
         vlm = phase_vlm(torch, prof="profile" in phases)
         lap("vlm")
+    fam = {}
+    if "families" in phases:
+        fam = phase_families(torch)
+        lap("families")
     if "whole" in phases:
         phase_whole(torch)
         lap("whole")
@@ -3945,10 +4409,15 @@ def main() -> int:
                      # paligemma-3b's paths (the vlm phase), dh 256
                      "vlm_launches": vlm.get(name),
                      # the grouped layout's paths (G 4, the grouped phase)
-                     "grouped_launches": grouped.get(name)})
+                     "grouped_launches": grouped.get(name),
+                     # the moe / hybrid paths (the families phase)
+                     "families_launches": fam.get(name, 0 if fam and name
+                                                  != "latent_score"
+                                                  else None)})
     emit({"kernels": rows})
     idle = [r["name"] for r in rows if r["launches"] == 0
-            or r["vlm_launches"] == 0 or r["grouped_launches"] == 0]
+            or r["vlm_launches"] == 0 or r["grouped_launches"] == 0
+            or r["families_launches"] == 0]
     if idle:    # None: its path did not run; 0: it ran without the kernel
         raise AssertionError(f"kernels never launched on their path: {idle}")
     print(smi, flush=True)

@@ -16,9 +16,17 @@ FAMILIES = ("dense", "moe", "hybrid", "ssm", "encoder", "vlm")
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """Architecture description for one model (see the reference for the
-    meaning of each family; the port serves ``dense`` and ``vlm`` so
-    far)."""
+    """Architecture description for one model.
+
+    ``family`` selects the block structure:
+      dense   — attention + gated MLP          (llama/qwen/granite/gemma/yi)
+      moe     — attention + mixture-of-experts (llama4-scout, qwen3-moe)
+      hybrid  — parallel attention ‖ SSM heads (hymba)
+      ssm     — attention-free RWKV6 blocks    (rwkv6)
+      encoder — bidirectional attention        (hubert; the port builds
+                its config only, see ``models/transformer.py``)
+      vlm     — dense LM + vision-prefix stub  (paligemma)
+    """
 
     name: str
     family: str
@@ -77,18 +85,49 @@ class ModelConfig:
     def is_decoder(self) -> bool:
         return self.family != "encoder"
 
+    @property
+    def expert_d_ff(self) -> int:
+        return self.moe_d_ff or self.d_ff
+
     def param_count(self) -> int:
-        """Analytic parameter count of a dense model (embeddings + blocks +
-        head)."""
+        """Analytic parameter count (embeddings + blocks + head)."""
         d = self.d_model
         emb = self.vocab_size * d
         head = 0 if self.tie_embeddings else self.vocab_size * d
+        if self.family == "ssm":  # rwkv6: time-mix + channel-mix
+            per_layer = 4 * d * d + d * self.d_ff * 2 + 6 * d  # approx
+        else:
+            attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+            if self.family == "moe":
+                ff_in = 3 * self.d_model * self.expert_d_ff
+                mlp = self.n_experts * ff_in \
+                    + self.n_shared_experts * 3 * d * self.d_ff
+                mlp += d * self.n_experts  # router
+            else:
+                mlp = 3 * d * self.d_ff
+            if self.family == "hybrid":
+                ssm_d = self.ssm_heads * self.head_dim
+                mlp += 2 * d * ssm_d + ssm_d * d \
+                    + ssm_d * (2 * self.ssm_state + 2)
+            per_layer = attn + mlp
+        return emb + head + self.n_layers * per_layer
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only routed experts)."""
+        if self.family != "moe":
+            return self.param_count()
+        d = self.d_model
         attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
-        return emb + head + self.n_layers * (attn + 3 * d * self.d_ff)
+        act_mlp = (self.experts_per_token + self.n_shared_experts) * 3 * d \
+            * self.expert_d_ff
+        act_mlp += d * self.n_experts
+        emb = self.vocab_size * d
+        head = 0 if self.tie_embeddings else self.vocab_size * d
+        return emb + head + self.n_layers * (attn + act_mlp)
 
     def reduced(self, **overrides) -> "ModelConfig":
-        """A tiny same-family config for CPU tests (the reference's sizes;
-        of its family branches the port keeps the vlm one so far)."""
+        """A tiny same-family config for CPU tests (the reference's sizes
+        and family branches)."""
         small = dict(
             n_layers=min(self.n_layers, 3),
             d_model=128,
@@ -99,6 +138,15 @@ class ModelConfig:
             vocab_size=512,
             name=self.name + "-smoke",
         )
+        if self.family == "moe":
+            # high capacity factor: drop-free routing at the reduced sizes
+            small.update(n_experts=4,
+                         experts_per_token=min(2, self.experts_per_token),
+                         moe_d_ff=128, moe_capacity_factor=8.0)
+        if self.family == "hybrid":
+            small.update(ssm_heads=2, ssm_state=8)
+        if self.family == "ssm":
+            small.update(rwkv_head_size=16)
         if self.family == "vlm":
             small.update(vision_patches=16)
         small.update(overrides)
@@ -159,9 +207,7 @@ class ServeConfig:
     """Serving settings, field for field the reference's ``ServeConfig``.
 
     Validated as in the reference, so one config describes the same
-    deployment in both packages; the port refuses what it does not
-    implement yet (static batching, the grouped layout, the families of
-    later slices).
+    deployment in both packages.
     """
 
     max_seq_len: int = 4096

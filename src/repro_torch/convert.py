@@ -3,8 +3,14 @@
 The reference's ``tf.init_params`` pytree (converted to numpy arrays, e.g.
 with ``jax.tree.map(np.asarray, params)``) stacks every block leaf on a
 leading layer axis for ``scan``; :func:`params_from_numpy` unstacks it into
-the port's :class:`~repro_torch.models.transformer.Transformer`.  bf16
-arrays (numpy's ``ml_dtypes.bfloat16``) travel through f32 exactly.
+the port's :class:`~repro_torch.models.transformer.Transformer`, leaf by
+leaf under the same names (``attn.wq``, ``moe.router``, ``mamba.a_log``,
+``rwkv.w_lora_a`` ...).  Each leaf takes its port parameter's dtype: the
+model dtype, or f32 for the leaves the reference keeps f32 in any model
+(the MoE router, the Mamba ``w_dt`` / ``dt_bias`` / ``a_log`` /
+``d_skip``, the RWKV ``mu`` / ``w0`` / ``w_lora_*`` / ``bonus_u`` /
+``mu_cm``).  bf16 arrays (numpy's ``ml_dtypes.bfloat16``) travel through
+f32 exactly.
 Nothing here imports JAX.
 """
 from __future__ import annotations
@@ -36,17 +42,23 @@ def tensor_from_numpy(a, device="cuda", dtype=None) -> torch.Tensor:
 def params_from_numpy(params_np: dict, cfg: ModelConfig, device="cuda",
                       dtype=None) -> Transformer:
     """Reference pytree {"embed", "blocks" (layer-stacked), "final_norm"} ->
-    port module.  ``dtype`` defaults to the arrays' own."""
+    port module.  ``dtype`` (the model dtype) defaults to the embedding's
+    own."""
     emb = params_np["embed"]["embedding"]
     dtype = torch_dtype(dtype) if dtype is not None else \
         tensor_from_numpy(np.asarray(emb)[:1], "cpu").dtype
     out = Transformer(cfg, dtype, device)
 
     def put(dst: torch.nn.Parameter, src) -> None:
-        t = tensor_from_numpy(src, device, dtype)
+        t = tensor_from_numpy(src, device, dst.dtype)
         if tuple(t.shape) != tuple(dst.shape):
             raise ValueError(f"shape {tuple(t.shape)} != {tuple(dst.shape)}")
         dst.data.copy_(t)
+
+    def leaf(tree: dict, name: str):
+        for part in name.split("."):
+            tree = tree[part]
+        return tree
 
     put(out.embed.embedding, emb)
     if out.embed.lm_head is not None:
@@ -54,13 +66,8 @@ def params_from_numpy(params_np: dict, cfg: ModelConfig, device="cuda",
     put(out.final_norm.scale, params_np["final_norm"]["scale"])
     blocks = params_np["blocks"]
     for l, blk in enumerate(out.blocks):
-        put(blk.attn_norm.scale, blocks["attn_norm"]["scale"][l])
-        put(blk.mlp_norm.scale, blocks["mlp_norm"]["scale"][l])
-        for name in ("wq", "wk", "wv", "wo", "bq", "bk", "bv"):
-            if getattr(blk.attn, name) is not None:
-                put(getattr(blk.attn, name), blocks["attn"][name][l])
-        for name in ("w_gate", "w_up", "w_down"):
-            put(getattr(blk.mlp, name), blocks["mlp"][name][l])
+        for name, p in blk.named_parameters():
+            put(p, leaf(blocks, name)[l])
     return out
 
 

@@ -39,6 +39,11 @@ so ``max_seq`` (paged: the pages per sequence) must divide by G.  The
 arrays are the same in both layouts; :meth:`LatentKVCache.group_view` is
 the slab view the tests hold the fold to.
 
+``ssm`` optionally carries the hybrid family's recurrent state beside the
+latents, ``{"ssm": ([L,] B, H, P, N), "conv": ([L,] B, K-1, inner)}`` f32
+(with the same leading axes): :meth:`layer_view`, :meth:`set_layer` and
+:meth:`prefill_into_slot` take it along.
+
 Unlike the reference, whose arrays are immutable and whose methods return
 new caches, the port's arrays are preallocated arena tensors that
 :meth:`LatentKVCache.write` (and the layer views of :meth:`layer_view`)
@@ -121,6 +126,7 @@ class LatentKVCache:
     k_scale_score: Optional[torch.Tensor] = None  # ([L,] n_pages, ps)
     hot_table: Optional[torch.Tensor] = None      # ([L,] B, max_pages)
     n_groups: int = 1                      # decode selection layout
+    ssm: Optional[dict] = None             # hybrid-family recurrent state
 
     @property
     def paged(self) -> bool:
@@ -293,7 +299,8 @@ class LatentKVCache:
         in the arena."""
         return dataclasses.replace(self, **{
             f: (None if getattr(self, f) is None else getattr(self, f)[l])
-            for f in _ALL_FIELDS})
+            for f in _ALL_FIELDS}, ssm=None if self.ssm is None else {
+                k: t[l] for k, t in self.ssm.items()})
 
     def set_layer(self, l: int, layer: "LatentKVCache") -> None:
         """Copy a single-layer cache into layer ``l`` of this stack."""
@@ -301,6 +308,8 @@ class LatentKVCache:
             dst = getattr(self, f)
             if dst is not None:
                 dst[l].copy_(getattr(layer, f))
+        for k, t in (self.ssm or {}).items():
+            t[l].copy_(layer.ssm[k])
 
     def group_view(self) -> "LatentKVCache":
         """The per-token fields as (B, G, S/G, ·) slab views at the
@@ -543,6 +552,8 @@ class LatentKVCache:
             dst = getattr(self, f)
             if dst is not None:
                 dst.select(ax, slot).copy_(getattr(other, f).select(ax, 0))
+        for k, t in (self.ssm or {}).items():
+            t.select(ax, slot).copy_(other.ssm[k].select(ax, 0))
         return self
 
     def free_slot(self, slot: int) -> "LatentKVCache":

@@ -8,8 +8,10 @@ card (port of ``repro/launch/serve.py``).
         [--metrics-out m.prom|m.json] [--trace-out t.json] [--stream]
 
 Weights are random, from ``--seed``.  Calibrates the SALS projectors on the
-synthetic corpus (paper §5.1), builds the engine, runs the requests through
-``RequestScheduler`` and reports tokens/s.  ``--reduced`` (the default) is
+synthetic corpus (paper §5.1; not for an attention-free family, which has
+no SALS), builds the engine, runs the requests through
+``RequestScheduler`` (static batches for the recurrent families) and
+reports tokens/s.  ``--reduced`` (the default) is
 the tiny same-family configuration; ``--full`` the published widths.
 Requests round-robin the priority classes and two demo tenants, so the SLO
 machinery runs when its flags enable it.  ``--metrics-out``,
@@ -46,7 +48,7 @@ def collect_pre_rope_keys(params, cfg, batch) -> torch.Tensor:
     positions = torch.arange(s, device=x.device)[None, :]
     keys = []
     for bp in params.blocks:
-        x, ex = tf._block_fwd(bp, x, cfg, positions, prefix_len, True)
+        x, _, ex = tf._block_fwd(bp, x, cfg, positions, prefix_len, True)
         b, s_, hkv, dh = ex["k_pre"].shape
         keys.append(ex["k_pre"].reshape(b, s_, hkv * dh))
     return torch.stack(keys)
@@ -87,7 +89,9 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=sorted(_ARCH_MODULES),
                     help="a vlm arch (paligemma-3b) serves tokens only, as "
-                         "the reference's launcher does")
+                         "the reference's launcher does; the recurrent "
+                         "families (hymba-1.5b, rwkv6-7b) run static "
+                         "batches; rwkv6-7b has no attention, so no SALS")
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full", dest="reduced", action="store_false")
     ap.add_argument("--sals", default="0.25",
@@ -205,10 +209,12 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if not cfg.is_decoder:
+        raise SystemExit(f"{args.arch} is encoder-only — no serving path")
     params = tf.init_params(cfg, device=dev, seed=args.seed)
     corpus = SyntheticCorpus(cfg.vocab_size, seed=args.seed)
     sals, projectors = None, None
-    if args.sals != "off":
+    if args.sals != "off" and cfg.has_attention:
         sals = SALSConfig(
             rank_ratio=float(args.sals),
             v_bits=8 if args.sals == "0.25" else 4,
@@ -220,7 +226,7 @@ def main(argv=None) -> None:
               f"(rank {sals.rank(cfg.kv_dim)}/{cfg.kv_dim})")
     if args.page_size and sals is None:
         raise SystemExit("--page-size needs SALS latent segments "
-                         "(--sals 0.25|0.125)")
+                         "(--sals 0.25|0.125 on an attention family)")
     scfg = ServeConfig(max_seq_len=args.max_seq, max_batch=args.max_batch,
                        max_new_tokens=args.max_new_tokens,
                        prefill_chunk=args.prefill_chunk,

@@ -84,9 +84,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 class MLP(nn.Module):
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    def __init__(self, cfg: ModelConfig, dtype, device, d_ff: int = 0):
         super().__init__()
-        d, f = cfg.d_model, cfg.d_ff
+        d, f = cfg.d_model, d_ff or cfg.d_ff
         self.w_gate = frozen_param(torch.empty(d, f, dtype=dtype, device=device))
         self.w_up = frozen_param(torch.empty(d, f, dtype=dtype, device=device))
         self.w_down = frozen_param(torch.empty(f, d, dtype=dtype, device=device))

@@ -1,24 +1,39 @@
-"""Model assembly for the dense and vlm families: init / prefill / decode
-(port of ``repro/models/transformer.py``).
+"""Model assembly for the decoder families — dense, vlm, moe, hybrid and
+ssm: init / prefill / decode (port of ``repro/models/transformer.py``).
 
 Parameters are an ``nn.Module`` tree (:class:`Transformer`) whose tensors
 keep the reference's per-layer layouts; ``convert.params_from_numpy``
 carries the reference's layer-stacked pytree over.  The reference scans
 over layers; here a Python loop walks them.
 
+Blocks.  dense / vlm: attention + gated MLP; moe: attention + the
+mixture-of-experts layer (``models/moe.py``); hybrid: attention ∥ Mamba
+heads on the same normed input, merged as (a + s) / 2, + gated MLP; ssm:
+RWKV6 time-mix + channel-mix (``models/ssm.py``), no attention.  The
+encoder family (hubert) has no decode phase; its forward belongs to the
+training slice, and building it here raises ``NotImplementedError``.
+
 Segments.  The SALS layer mask is front/back-contiguous, so the stack
 splits into up to three segments ``full | sals | full``, each with its own
 cache: ``{"k", "v"}`` tensors of shape (ls, B, S, Hkv, dh) for the full
 segments and a layer-stacked :class:`LatentKVCache` for the SALS segment
-(the dense slot arena, or page pools when ``page_size`` > 0).  A vlm
-prompt is {"patches": (B, P, d), "tokens": (B, S)}: the patch embeddings
-come first, attend each other bidirectionally (prefix-LM) and hold cache
-positions 0 .. P-1, so decode continues at P + S; chunked prefill and the
-serving engine take tokens only, as the reference's do.  Prefill is
-monolithic (:func:`prefill`) or chunked (:func:`prefill_chunk`, which
-serving uses); decode and chunked prefill update the caches in place.
-Speculative decode runs Q tokens through :func:`decode_window` and commits
-the accepted prefix with :func:`commit_window`.
+(the dense slot arena, or page pools when ``page_size`` > 0).  The ssm
+family has one segment of RWKV state ``{"wkv": (ls, B, H, hs, hs), "tm_x":
+(ls, B, d), "cm_x": (ls, B, d)}`` (f32); the hybrid family's segments
+carry the Mamba state ``{"ssm": (ls, B, H, P, N), "conv": (ls, B, K-1,
+inner)}`` (f32) beside their K/V, as ``seg["ssm"]`` or
+``LatentKVCache.ssm``.  Decode writes every state in place, so a captured
+decode step keeps its key.  A vlm prompt is {"patches": (B, P, d),
+"tokens": (B, S)}: the patch embeddings come first, attend each other
+bidirectionally (prefix-LM) and hold cache positions 0 .. P-1, so decode
+continues at P + S; chunked prefill and the serving engine take tokens
+only, as the reference's do.  Prefill is monolithic (:func:`prefill`, the
+recurrent families' only prefill) or chunked (:func:`prefill_chunk`, which
+serving uses for the attention families); decode and chunked prefill
+update the caches in place.  Speculative decode runs Q tokens through
+:func:`decode_window` and commits the accepted prefix with
+:func:`commit_window` (attention families only: a rejected draft would
+need the recurrent state rolled back).
 
 The SALS segments carry the decode selection layout (``n_groups``, see
 ``core/latent_cache.py``) as metadata: :func:`init_cache` and
@@ -37,6 +52,8 @@ from repro_torch.core.latent_cache import LatentKVCache
 from repro_torch.core.sparse_attention import (sals_decode_attend,
                                                sals_window_attend)
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (MLP, Embedding, RMSNorm, embed_apply,
                                        mlp_apply, rmsnorm_apply,
                                        unembed_apply)
@@ -49,10 +66,14 @@ def torch_dtype(name) -> torch.dtype:
     return name if isinstance(name, torch.dtype) else DTYPES[name]
 
 
+RECURRENT = ("ssm", "hybrid")
+
+
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "vlm"):
-        raise NotImplementedError(f"the {cfg.family} family is ported in "
-                                  "the families slice")
+    if not cfg.is_decoder:
+        raise NotImplementedError(
+            f"the {cfg.family} family has no decode phase; its forward is "
+            "ported with the training slice")
 
 
 # ---------------------------------------------------------------------------
@@ -83,16 +104,36 @@ def segment_plan(cfg: ModelConfig, sals: Optional[SALSConfig]
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
+    """One block: ``norm1`` / ``norm2`` / ``rwkv`` (ssm), else
+    ``attn_norm`` / ``attn`` / ``mlp_norm`` and ``moe`` (moe) or ``mlp``,
+    plus ``mamba`` (hybrid)."""
+
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
+        if cfg.family == "ssm":
+            self.norm1 = RMSNorm(cfg.d_model, dtype, device)
+            self.norm2 = RMSNorm(cfg.d_model, dtype, device)
+            self.rwkv = ssm_mod.RWKV(cfg, dtype, device)
+            return
         self.attn_norm = RMSNorm(cfg.d_model, dtype, device)
         self.attn = attn.Attention(cfg, dtype, device)
         self.mlp_norm = RMSNorm(cfg.d_model, dtype, device)
-        self.mlp = MLP(cfg, dtype, device)
+        if cfg.family == "moe":
+            self.moe = moe_mod.MoE(cfg, dtype, device)
+        else:
+            self.mlp = MLP(cfg, dtype, device)
+        if cfg.family == "hybrid":
+            self.mamba = ssm_mod.Mamba(cfg, dtype, device)
+
+    def init_(self, generator: torch.Generator) -> None:
+        for name in ("rwkv", "attn", "moe", "mlp", "mamba"):
+            sub = getattr(self, name, None)
+            if sub is not None:
+                sub.init_(generator)
 
 
 class Transformer(nn.Module):
-    """Decoder parameters (dense or vlm): embed, blocks[L], final_norm."""
+    """Decoder parameters: embed, blocks[L], final_norm."""
 
     def __init__(self, cfg: ModelConfig, dtype=None, device="cuda"):
         super().__init__()
@@ -115,8 +156,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         generator.manual_seed(seed)
     params.embed.init_(generator)
     for blk in params.blocks:
-        blk.attn.init_(generator)
-        blk.mlp.init_(generator)
+        blk.init_(generator)
     return params
 
 
@@ -126,14 +166,39 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
 def _block_fwd(bp: Block, x: torch.Tensor, cfg: ModelConfig,
                positions: torch.Tensor, prefix_len: int, collect_kv: bool):
-    """One block over a full sequence.  Returns (x, extras) with extras =
-    {"k_pre", "v"} when ``collect_kv``."""
+    """One block over a full sequence.  Returns (x, aux_loss, extras):
+    with ``collect_kv``, extras = {"k_pre", "v"[, "ssm"]} (the hybrid's
+    Mamba state), or the ssm family's {"wkv", "tm_x", "cm_x"}; aux_loss is
+    the MoE router's load-balance loss (0 elsewhere)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    extras = None
+    if cfg.family == "ssm":
+        h = rmsnorm_apply(bp.norm1, x, cfg.norm_eps)
+        tm, wkv, tm_x = ssm_mod.rwkv_time_mix(bp.rwkv, h, cfg, None)
+        x = x + tm
+        h2 = rmsnorm_apply(bp.norm2, x, cfg.norm_eps)
+        cm, cm_x = ssm_mod.rwkv_channel_mix(bp.rwkv, h2, None)
+        x = x + cm
+        if collect_kv:
+            extras = {"wkv": wkv, "tm_x": tm_x, "cm_x": cm_x}
+        return x, aux, extras
     h = rmsnorm_apply(bp.attn_norm, x, cfg.norm_eps)
     a, k_pre, v = attn.attend_prefill(bp.attn, h, cfg, positions, prefix_len)
-    extras = {"k_pre": k_pre, "v": v} if collect_kv else None
+    if collect_kv:
+        extras = {"k_pre": k_pre, "v": v}
+    if cfg.family == "hybrid":
+        s_out, s_state = ssm_mod.mamba_apply(bp.mamba, h, cfg,
+                                             return_state=True)
+        if collect_kv:
+            extras["ssm"] = s_state
+        a = (a + s_out) * 0.5
     x = x + a
     h2 = rmsnorm_apply(bp.mlp_norm, x, cfg.norm_eps)
-    return x + mlp_apply(bp.mlp, h2, cfg.mlp_act), extras
+    if cfg.family == "moe":
+        m, aux = moe_mod.moe_apply(bp.moe, h2, cfg)
+    else:
+        m = mlp_apply(bp.mlp, h2, cfg.mlp_act)
+    return x + m, aux, extras
 
 
 def embed_inputs(params: Transformer, cfg: ModelConfig,
@@ -150,10 +215,28 @@ def embed_inputs(params: Transformer, cfg: ModelConfig,
     return tok_emb, 0
 
 
-def _finish_block(bp: Block, x, a, cfg: ModelConfig):
+def _finish_block(bp: Block, x, h, a, cfg: ModelConfig,
+                  ssm: Optional[dict] = None):
+    """Shared tail of a decode / chunk block: the hybrid's Mamba merge (its
+    state ``ssm``, one layer's views, updated in place) and the MLP or MoE
+    residual."""
+    if cfg.family == "hybrid":
+        s_out, new = ssm_mod.mamba_decode(bp.mamba, h, cfg, ssm)
+        a = (a + s_out) * 0.5
+        for name, t in new.items():
+            ssm[name].copy_(t)
     x = x + a
     h2 = rmsnorm_apply(bp.mlp_norm, x, cfg.norm_eps)
-    return x + mlp_apply(bp.mlp, h2, cfg.mlp_act)
+    if cfg.family == "moe":
+        m, _ = moe_mod.moe_apply(bp.moe, h2, cfg)
+    else:
+        m = mlp_apply(bp.mlp, h2, cfg.mlp_act)
+    return x + m
+
+
+def _layer_state(tree: dict, l: int) -> dict:
+    """Layer ``l`` of a layer-stacked state dict, as views."""
+    return {name: t[l] for name, t in tree.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -169,24 +252,44 @@ def init_cache(cfg: ModelConfig, sals: Optional[SALSConfig], batch: int,
     pages instead of the dense (B, max_seq, ·) arena; the full segments
     keep their dense per-slot caches.  ``hbm_pages`` > 0 makes the pool
     two-tier: payload pools of that many device slots (+1 trash), while
-    the r* score pool and the page table keep all ``n_pages``."""
+    the r* score pool and the page table keep all ``n_pages``.  The
+    recurrent families' state (see the module docstring) is zeroed too;
+    their caches cannot be paged."""
     dtype = torch_dtype(dtype or cfg.dtype)
+    if not cfg.is_decoder:
+        raise ValueError("encoder family has no decode cache")
+    if page_size and cfg.family in RECURRENT:
+        raise ValueError(f"{cfg.family} state is recurrent — the paged "
+                         "latent cache needs an attention family")
+
+    def stacked(state: dict, ls: int) -> dict:
+        return {k: torch.zeros((ls, *t.shape), dtype=t.dtype, device=device)
+                for k, t in state.items()}
+
     cache: Dict[str, Any] = {}
     for si, (i0, i1, mode) in enumerate(segment_plan(cfg, sals)):
         ls = i1 - i0
-        if mode == "full":
+        if cfg.family == "ssm":
+            seg = stacked(ssm_mod.rwkv_state_init(cfg, batch, "meta"), ls)
+        elif mode == "full":
             shape = (ls, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
-            cache[f"seg{si}"] = {
-                "k": torch.zeros(shape, dtype=dtype, device=device),
-                "v": torch.zeros(shape, dtype=dtype, device=device)}
+            seg = {"k": torch.zeros(shape, dtype=dtype, device=device),
+                   "v": torch.zeros(shape, dtype=dtype, device=device)}
         elif page_size:
-            cache[f"seg{si}"] = LatentKVCache.init_paged(
+            seg = LatentKVCache.init_paged(
                 cfg, sals, ls, batch, max_seq, n_pages, page_size, dtype,
                 n_groups=n_groups, hbm_pages=hbm_pages, device=device)
         else:
-            cache[f"seg{si}"] = LatentKVCache.init(
+            seg = LatentKVCache.init(
                 cfg, sals, ls, batch, max_seq, dtype, n_groups=n_groups,
                 device=device)
+        if cfg.family == "hybrid":
+            st = stacked(ssm_mod.mamba_state_init(cfg, batch, "meta"), ls)
+            if mode == "sals":
+                seg.ssm = st
+            else:
+                seg["ssm"] = st
+        cache[f"seg{si}"] = seg
     return cache
 
 
@@ -221,7 +324,9 @@ def prefill(params: Transformer, projectors: Optional[dict],
     batch (windows hold each row's real positions; logits are taken at
     each row's last real token).  A vlm batch's patches come first: a
     row's cache span is prefix_len + its token length, and ``max_seq``
-    must hold P + S and the tokens to decode.  Returns (last-position
+    must hold P + S and the tokens to decode.  The recurrent families'
+    state absorbs every position, pads included: their serving layout is
+    uniform-length (``ServeEngine.generate``).  Returns (last-position
     logits (B, V) f32, cache)."""
     dtype = torch_dtype(cfg.dtype)
     x, prefix_len = embed_inputs(params, cfg, batch)
@@ -236,12 +341,17 @@ def prefill(params: Transformer, projectors: Optional[dict],
     for si, (i0, i1, mode) in enumerate(segment_plan(cfg, sals)):
         seg = cache[f"seg{si}"]
         for li in range(i0, i1):
-            x, ex = _block_fwd(params.blocks[li], x, cfg, positions,
-                               prefix_len, True)
+            x, _, ex = _block_fwd(params.blocks[li], x, cfg, positions,
+                                  prefix_len, True)
+            if cfg.family == "ssm":
+                for name, t in _layer_state(seg, li - i0).items():
+                    t.copy_(ex[name])
+                continue
             if mode == "sals":
                 layer = LatentKVCache.prefill_layer(
                     cfg, sals, projectors["u"][li], ex["k_pre"], ex["v"],
                     max_seq, dtype, n_groups=n_groups, lengths=cache_len)
+                layer.ssm = ex.get("ssm")
                 seg.set_layer(li - i0, layer)
             else:
                 k_r = attn.apply_rope(ex["k_pre"], positions,
@@ -249,6 +359,10 @@ def prefill(params: Transformer, projectors: Optional[dict],
                     if cfg.use_rope else ex["k_pre"]
                 seg["k"][li - i0, :, :s] = k_r.to(dtype)
                 seg["v"][li - i0, :, :s] = ex["v"].to(dtype)
+                if "ssm" in ex:
+                    for name, t in _layer_state(seg["ssm"],
+                                                li - i0).items():
+                        t.copy_(ex["ssm"][name])
     x = rmsnorm_apply(params.final_norm, x, cfg.norm_eps)
     if len_v is None:
         last = x[:, -1:, :]
@@ -280,8 +394,14 @@ def prefill_chunk(params: Transformer, projectors: Optional[dict],
     row's last real token covered so far (index clip(lengths-1-off, 0,
     C-1) in the chunk: the chunk holding position lengths-1 returns the
     prompt's next-token logits), cache, scratch).  Tokens only: a vlm
-    model's chunks carry no patches, as the reference's."""
-    _check_family(cfg)
+    model's chunks carry no patches, as the reference's.  The recurrent
+    families have no chunked prefill (their state spans chunk
+    boundaries)."""
+    if cfg.family in RECURRENT:
+        raise ValueError(f"{cfg.family} prefill is recurrent — chunked "
+                         "prefill supports attention-only families")
+    if not cfg.is_decoder:
+        raise ValueError("encoder family has no decode cache to prefill")
     x = embed_apply(params.embed, batch["tokens"], cfg)
     b, c, _ = x.shape
     dev = x.device
@@ -299,7 +419,7 @@ def prefill_chunk(params: Transformer, projectors: Optional[dict],
             if mode == "sals":
                 seg.layer_view(li - i0).append_chunk(
                     cfg, sals, projectors["u"][li], off, k_pre, v, len_v)
-            x = _finish_block(bp, x, a, cfg)
+            x = _finish_block(bp, x, h, a, cfg)
     x = rmsnorm_apply(params.final_norm, x, cfg.norm_eps)
     last = (len_v - 1 - off).clamp(0, c - 1)
     x_last = x[torch.arange(b, device=dev), last][:, None]
@@ -314,7 +434,8 @@ def decode_step(params: Transformer, projectors: Optional[dict], cache: dict,
                 tokens: torch.Tensor, pos, cfg: ModelConfig,
                 sals: Optional[SALSConfig], collect_selection: bool = False):
     """One decode step.  tokens: (B,) int; pos: scalar or (B,) per-row
-    positions.  Updates ``cache`` in place; returns (logits (B, V) f32,
+    positions (the recurrent state is position-free).  Updates ``cache``
+    in place, recurrent state included; returns (logits (B, V) f32,
     cache).  With ``collect_selection`` (paged SALS caches only) it also
     returns {seg_name: (ls, B, max_pages) bool}: which LOGICAL pages each
     SALS layer's selection reconstructed from, the tiered scheduler's
@@ -328,17 +449,33 @@ def decode_step(params: Transformer, projectors: Optional[dict], cache: dict,
         seg_touch = []
         for li in range(i0, i1):
             bp = params.blocks[li]
+            if cfg.family == "ssm":
+                st = _layer_state(seg, li - i0)
+                h = rmsnorm_apply(bp.norm1, x, cfg.norm_eps)
+                tm, wkv, tm_x = ssm_mod.rwkv_time_mix(bp.rwkv, h, cfg, st)
+                x = x + tm
+                h2 = rmsnorm_apply(bp.norm2, x, cfg.norm_eps)
+                cm, cm_x = ssm_mod.rwkv_channel_mix(bp.rwkv, h2, st)
+                x = x + cm
+                st["wkv"].copy_(wkv)
+                st["tm_x"].copy_(tm_x)
+                st["cm_x"].copy_(cm_x)
+                continue
             h = rmsnorm_apply(bp.attn_norm, x, cfg.norm_eps)
             if mode == "sals":
+                view = seg.layer_view(li - i0)
                 a, _, *t = sals_decode_attend(
-                    bp.attn, projectors["u"][li], seg.layer_view(li - i0), h,
-                    pos, cfg, sals, collect=collect_selection)
+                    bp.attn, projectors["u"][li], view, h, pos, cfg, sals,
+                    collect=collect_selection)
                 seg_touch += t
+                ssm = view.ssm
             else:
                 a, _, _ = attn.attend_decode_full(
                     bp.attn, h, cfg, seg["k"][li - i0], seg["v"][li - i0],
                     pos)
-            x = _finish_block(bp, x, a, cfg)
+                ssm = _layer_state(seg["ssm"], li - i0) \
+                    if "ssm" in seg else None
+            x = _finish_block(bp, x, h, a, cfg, ssm)
         if seg_touch:
             touched[f"seg{si}"] = torch.stack(seg_touch)
     x = rmsnorm_apply(params.final_norm, x, cfg.norm_eps)
@@ -363,6 +500,10 @@ def decode_window(params: Transformer, projectors: Optional[dict],
     ((ls, B, Q, Hkv, dh)) for :func:`commit_window`."""
     if not cfg.is_decoder:
         raise ValueError("encoder family has no decode step")
+    if cfg.family in RECURRENT:
+        raise ValueError(f"{cfg.family} decode carries recurrent state — a "
+                         "rejected draft would need a state rollback; "
+                         "speculative windows support attention families")
     x = embed_apply(params.embed, tokens, cfg)                # (B,Q,d)
     aux: Dict[str, Any] = {}
     for si, (i0, i1, mode) in enumerate(segment_plan(cfg, sals)):
@@ -381,7 +522,7 @@ def decode_window(params: Transformer, projectors: Optional[dict],
                 a = attn.attend_decode_full_window(
                     bp.attn, h, cfg, seg["k"][li - i0], seg["v"][li - i0],
                     pos)
-            x = _finish_block(bp, x, a, cfg)
+            x = _finish_block(bp, x, h, a, cfg)
         if mode == "sals":
             aux[f"seg{si}"] = {"k": torch.stack(ks), "v": torch.stack(vs)}
     x = rmsnorm_apply(params.final_norm, x, cfg.norm_eps)

@@ -4,7 +4,10 @@
 Batching is ragged: prompts are right-padded with ``scfg.pad_id`` and carry
 their true lengths (per-slot ``lengths`` on the latent cache, per-row decode
 positions through every kernel), so pad tokens are never selectable nor
-attended.  Decoding is greedy at ``temperature`` 0, else a draw from
+attended.  The recurrent families (ssm, hybrid), whose state would absorb
+pads, batch uniform-length prompts instead and have no chunked prefill,
+paged cache or speculative decode (:attr:`ServeEngine.ragged_ok`).
+Decoding is greedy at ``temperature`` 0, else a draw from
 ``softmax(logits / temperature)`` by Gumbel-max with the engine's own
 ``torch.Generator``, seeded from ``scfg.seed`` at the start of every
 :meth:`~ServeEngine.generate` and every scheduler run (the streams differ
@@ -109,14 +112,25 @@ _PARK_FIELDS = _WINDOW_FIELDS + ("lengths",)
 
 def _clone_state(tree):
     """Own copy of a cache or scratch tree (dicts of tensors and
-    ``LatentKVCache`` s)."""
+    ``LatentKVCache`` s, the hybrid's state dicts inside either)."""
     if isinstance(tree, LatentKVCache):
         return dataclasses.replace(tree, **{
-            f.name: getattr(tree, f.name).clone()
+            f.name: _clone_state(getattr(tree, f.name))
             for f in dataclasses.fields(tree)
-            if isinstance(getattr(tree, f.name), torch.Tensor)})
-    return {k: _clone_state(v) if isinstance(v, (dict, LatentKVCache))
-            else v.clone() for k, v in tree.items()}
+            if isinstance(getattr(tree, f.name), (torch.Tensor, dict))})
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    return {k: _clone_state(v) for k, v in tree.items()}
+
+
+def _splice_rows(dst: dict, src: dict, slot: int) -> None:
+    """Copy batch row 0 of every tensor of ``src`` (layer-stacked, batch
+    axis 1, nested dicts included) into row ``slot`` of ``dst``'s."""
+    for name, arr in dst.items():
+        if isinstance(arr, dict):
+            _splice_rows(arr, src[name], slot)
+        else:
+            arr[:, slot] = src[name][:, 0]
 
 
 @dataclasses.dataclass
@@ -197,16 +211,22 @@ class ServeEngine:
         # every cache constructor; the decode steps read it back
         check_slabs(scfg.max_seq_len, n_groups, name="max_seq_len")
         self.n_groups = n_groups
-        if scfg.prefill_chunk < 1:
-            raise ValueError("prefill_chunk must be >= 1")
-        if scfg.max_seq_len % scfg.prefill_chunk:
-            raise ValueError(f"max_seq_len {scfg.max_seq_len} must be a "
-                             f"multiple of prefill_chunk {scfg.prefill_chunk}")
+        if self.ragged_ok:
+            if scfg.prefill_chunk < 1:
+                raise ValueError("prefill_chunk must be >= 1")
+            if scfg.max_seq_len % scfg.prefill_chunk:
+                raise ValueError(
+                    f"max_seq_len {scfg.max_seq_len} must be a multiple of "
+                    f"prefill_chunk {scfg.prefill_chunk}")
         if scfg.page_size > 0 and self.sals is None:
             raise ValueError("page_size > 0 needs SALS latent segments "
                              "(sals enabled on an attention family) — the "
                              "page pool backs the compressed cache")
         if self.paged:
+            if not self.ragged_ok:
+                raise ValueError(f"{cfg.family} state is recurrent — the "
+                                 "paged latent cache needs chunked prefill "
+                                 "(attention families)")
             bs = min(BLOCK_S, scfg.max_seq_len)
             if bs % scfg.page_size:
                 raise ValueError(
@@ -219,6 +239,11 @@ class ServeEngine:
                 raise ValueError(
                     f"pool of {scfg.pool_pages} pages cannot hold one "
                     f"max_seq_len {scfg.max_seq_len} sequence")
+        if scfg.spec_window > 1 and not self.ragged_ok:
+            raise ValueError(
+                f"{cfg.family} decode carries recurrent state — a rejected "
+                "draft would need a state rollback; speculative decoding "
+                "needs an attention family (set spec_window=0)")
         if self.sals is not None:
             if projectors is None or "u" not in projectors:
                 raise ValueError("SALS needs calibrated projectors {'u': "
@@ -273,6 +298,14 @@ class ServeEngine:
         device slots; the r* score pool keeps every live page resident,
         cold payloads live in host mirrors."""
         return self.paged and self.scfg.hbm_pages > 0
+
+    @property
+    def ragged_ok(self) -> bool:
+        """Right-padded ragged batching (and chunked prefill) is exact for
+        the attention families; recurrent ssm / hybrid state would absorb
+        pad tokens and spans chunk boundaries, so they batch uniform-length
+        prompts (:meth:`generate`) and the scheduler runs them static."""
+        return self.cfg.family not in tf.RECURRENT
 
     # -- sampling ------------------------------------------------------------
 
@@ -407,6 +440,10 @@ class ServeEngine:
         suffix chunks run.  The task's cache and scratch are the engine's
         prefill workspace, reset in place here: the previous task's state
         is gone (:meth:`prefill_state_copy` keeps it)."""
+        if not self.ragged_ok:
+            raise ValueError(f"{self.cfg.family} prefill is recurrent — "
+                             "chunked prefill needs an attention family "
+                             "(the scheduler falls back to static batching)")
         plen = len(prompt)
         if plen > self.scfg.max_seq_len:
             raise ValueError(f"prompt {plen} exceeds max_seq "
@@ -507,8 +544,7 @@ class ServeEngine:
             if isinstance(seg, LatentKVCache):
                 seg.prefill_into_slot(slot, one)
             else:
-                for name, arr in seg.items():
-                    arr[:, slot] = one[name][:, 0]
+                _splice_rows(seg, one, slot)
         return cache
 
     def admit_paged(self, cache: dict, one_cache: dict, slot: int, page_ids,
@@ -554,8 +590,7 @@ class ServeEngine:
         for k, seg in cache.items():
             one = one_cache[k]
             if not isinstance(seg, LatentKVCache):
-                for name, arr in seg.items():
-                    arr[:, slot] = one[name][:, 0]
+                _splice_rows(seg, one, slot)
                 continue
 
             def pages(name):                      # (L, mp, ps, ·) view
@@ -790,7 +825,9 @@ class ServeEngine:
 
         Rows finishing early (``eos_id``) are truncated at their own EOS:
         each row's result carries exactly the tokens up to and including
-        its first EOS."""
+        its first EOS.  The recurrent families prefill a uniform-length
+        batch (see :attr:`ragged_ok`); their state changes in place in the
+        decode step, so the step program keeps one key."""
         mnt = max_new_tokens or self.scfg.max_new_tokens
         b = len(prompts)
         lens = [len(p) for p in prompts]
@@ -798,18 +835,29 @@ class ServeEngine:
         if max_len + mnt > self.scfg.max_seq_len:
             raise ValueError(f"prompt {max_len} + new {mnt} exceeds max_seq "
                              f"{self.scfg.max_seq_len}")
-        toks = np.full((b, max_len), self.scfg.pad_id, np.int32)
-        for i, p in enumerate(prompts):
-            toks[i, :lens[i]] = p
         dev = self.device
         self.reset_sampler()
         t0 = time.perf_counter()
-        pos0 = np.asarray(lens, np.int32)
+        if self.ragged_ok:
+            # right-padded; per-slot lengths mask the pads
+            toks = np.full((b, max_len), self.scfg.pad_id, np.int32)
+            for i, p in enumerate(prompts):
+                toks[i, :lens[i]] = p
+            pos0 = np.asarray(lens, np.int32)
+            lengths = torch.as_tensor(pos0, device=dev)
+        else:
+            # recurrent state: uniform-length layout, left-filled with the
+            # first real token (positions stay exact, state stays causal)
+            toks = np.zeros((b, max_len), np.int32)
+            for i, p in enumerate(prompts):
+                toks[i, max_len - lens[i]:] = p
+                toks[i, :max_len - lens[i]] = p[0]
+            pos0 = np.full((b,), max_len, np.int32)
+            lengths = None
         logits, cache = tf.prefill(
             self.params, self.projectors, self.cfg, self.sals,
             {"tokens": torch.as_tensor(toks, device=dev)},
-            self.scfg.max_seq_len, n_groups=self.n_groups,
-            lengths=torch.as_tensor(pos0, device=dev))
+            self.scfg.max_seq_len, n_groups=self.n_groups, lengths=lengths)
         out = np.zeros((b, mnt), np.int32)
         done = np.zeros((b,), bool)
         n_out = np.zeros((b,), np.int32)

@@ -132,7 +132,9 @@ through :meth:`~ServeEngine.generate` (:meth:`~ServeEngine.
 generate_speculative` when ``spec_window`` > 1).  Cancellations requested
 before a batch starts are honoured; states move QUEUED → PREFILLING →
 DECODING → DONE around each batch, and ``run(on_batch=...)`` fires after
-each.  It needs the dense arena (paged + static is refused).
+each.  It needs the dense arena (paged + static is refused).  It is
+also the mode of every scheduler over a recurrent family (ssm, hybrid:
+``ServeEngine.ragged_ok`` is False), whatever mode was asked for.
 """
 from __future__ import annotations
 
@@ -299,6 +301,8 @@ class RequestScheduler:
         mode = mode or scfg.scheduler
         if mode not in ("continuous", "static"):
             raise ValueError(f"unknown scheduler mode {mode!r}")
+        if not engine.ragged_ok:
+            mode = "static"        # recurrent state can't right-pad or chunk
         if engine.paged and mode != "continuous":
             raise ValueError("the paged latent cache requires the "
                              "continuous scheduler (admission = page "
