@@ -7,8 +7,9 @@ Phases, each printing one JSON line:
 
 1. device   — the card, as ``nvidia-smi`` reports its name and power limit;
 2. build    — nvcc builds ``src/repro_torch/csrc/*.cu`` into ``build/``
-              (registers, shared memory and spills of the flash and recon
-              kernels as ``-Xptxas -v`` reports them);
+              (registers, shared memory and spills of the flash forward
+              and backward and the recon kernels as ``-Xptxas -v``
+              reports them);
 3. kernels  — each CUDA kernel against its plain PyTorch twin on the card,
               at the llama2-7b slice shapes, a GQA case at mistral-7b
               widths and an int4-value case (flash also at dh 64 and
@@ -44,7 +45,15 @@ Phases, each printing one JSON line:
               rows 1, 2, 4-7 also at the families' shapes (hymba-1.5b:
               25 heads over 5, dh 64, r 80, r* 40; llama4-scout: 40 over
               8, r 256; qwen3-moe: 64 over 4, r 128) and flash at 25 / 5
-              heads dh 64 and 64 / 4 heads dh 128;
+              heads dh 64 and 64 / 4 heads dh 128; the flash backward
+              (D pass, dK/dV and dQ kernels) against ``attention_bwd_ref``
+              at qwen2-1.5b's training shape, llama2-7b's, dh 64 at 25 / 5
+              heads, dh 256 prefix-LM at 8 / 1, softcap and Sq < Sk:
+              relative error of dq, dk, dv within 1e-2 of each tensor's
+              max, two planted faults caught, two runs bitwise equal, the
+              library backward timed in turns, and the forward with its
+              LSE output in turns with the plain forward (O bitwise
+              equal, LSE within 1e-5 of the twin's);
 4. serve    — seeded paper-llama2-7b at full width and depth (bf16):
               calibrate U_r on the synthetic corpus, then
               ``ServeEngine.generate`` for 4 ragged prompts (4096, 3584,
@@ -195,7 +204,22 @@ Phases, each printing one JSON line:
               of it that the MoE layers or the recurrences take (one
               layer's call captured alone at the step's shapes, times the
               layers);
-14. whole   — a full-width 2-layer model (SALS on layer 1) decoded on the
+14. train   — qwen2-1.5b at full width and depth (bf16 weights, f32
+              master and moments, seed 0) through the launcher's
+              functions (``trainer.init_state``, ``make_train_step``,
+              ``train_loop`` over the corpus's batches): (a) B 4 x S 4096,
+              block remat, 20 steps at lr 3e-4 (warmup 5): loss, ce, grad
+              norm, lr and ms a step, tokens/s, peak memory, and 2 flash
+              forward + 1 backward launches a layer and step; the loss
+              must fall; (e) a profiled step of (a); (b) B 4 x S 2048
+              without remat, 3 steps; (c) 2 layers at full width, S 1024:
+              loss and gradients through the kernels against the twins'
+              attention on the card (loss within 1e-2, every gradient's
+              cosine >= 0.99); (d) the reduced config at head_dim 64
+              through ``run_with_restarts`` with a fault after the first
+              checkpoint: losses equal to an uninterrupted run's bit for
+              bit;
+15. whole   — a full-width 2-layer model (SALS on layer 1) decoded on the
               card (kernels) and on the CPU (twins) from the same weights
               and a 1024-token prompt (so top-k really selects), per-step
               logits compared under teacher forcing.
@@ -211,6 +235,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -230,7 +255,8 @@ BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12
 
 PHASES = ("device", "build", "kernels", "serve", "sched", "tier", "quality",
-          "spec", "slo", "obs", "grouped", "vlm", "families", "whole")
+          "spec", "slo", "obs", "grouped", "vlm", "families", "train",
+          "whole")
 # "profile" (not run by default) adds torch.profiler passes over four
 # chunked-prefill steps after the sched phase (replayed and eager, and the
 # host's issue time of a chunk), and over three
@@ -259,7 +285,8 @@ def bound(bytes_moved: float, flops: float, peak_flops: float):
 
 
 def ptxas_stats(log: str, names=("flash_fwd_kernel", "sra_kernel",
-                                   "sra_f32_kernel")) -> dict:
+                                   "sra_f32_kernel", "fb_dot_kernel",
+                                   "fb_dkdv_kernel", "fb_dq_kernel")) -> dict:
     """Registers, spills and shared memory that ``nvcc -Xptxas -v`` reports
     for each instance of the named kernels (mangled name -> counts)."""
     out, cur = {}, None
@@ -1130,6 +1157,120 @@ def flash_case(torch, name, b, sq, sk, h, hkv, dh, softcap, seed, flush,
                 ok=err <= FLASH_TOL and faults_caught)
 
 
+# Backward check: per tensor, max |kernel - twin| over the tensor's max
+# |twin| (the twin on the same bf16 inputs, rounding P and dS to bf16 as
+# the kernel does), against 1e-2; planted faults must exceed it.
+FLASH_BWD_TOL = 1e-2
+FLASH_LSE_TOL = 1e-5
+
+
+def rel_err(out, ref) -> float:
+    return float((out.float() - ref.float()).abs().max()
+                 / ref.float().abs().max().clamp_min(1e-30))
+
+
+def flash_bwd_case(torch, name, b, sq, sk, h, hkv, dh, softcap, seed, flush,
+                   causal=True, prefix_len=0):
+    """The flash backward (D pass, dK/dV and dQ kernels) against the twin
+    ``attention_bwd_ref`` on the card from the same bf16 q, k, v, dO and
+    the forward kernel's O and LSE.  Two runs must be bitwise equal; two
+    planted faults (the logit scale off by 5%, the D term dropped) must
+    fail the check.  The forward with the LSE output runs in turns with
+    the plain forward: O bitwise equal, LSE within 1e-5 of the twin's.
+    The library yardstick is ``scaled_dot_product_attention``'s backward
+    (``enable_gqa``; a boolean mask for Sq < Sk or a prefix), timed in
+    turns with the kernel, eager only."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    dev = "cuda"
+    causal = causal or prefix_len > 0
+    mk = dict(causal=causal, softcap=softcap, prefix_len=prefix_len)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, generator=g, device=dev)
+                   .to(torch.bfloat16) for shape in (
+                       (b, sq, h, dh), (b, sk, hkv, dh), (b, sk, hkv, dh),
+                       (b, sq, h, dh)))
+    o_plain = fa.flash_attention_cuda(q, k, v, **mk)
+    o, lse = fa.flash_attention_cuda(q, k, v, **mk, return_lse=True)
+    _, lse_t = ref.attention_lse_ref(q, k, v, **mk)
+    lse_err = float((lse - lse_t).abs().max())
+    o_equal = bool(torch.equal(o, o_plain))
+    del lse_t
+    bwd = lambda: fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, **mk)
+    got, again = bwd(), bwd()
+    torch.cuda.synchronize()
+    bitwise = all(bool(torch.equal(a, c)) for a, c in zip(got, again))
+    del again
+    want = ref.attention_bwd_ref(q, k, v, o, lse, do, **mk)
+    errs = {n: rel_err(a, r) for n, a, r in zip(("dq", "dk", "dv"), got,
+                                                want)}
+    abs_err = max(float((a.float() - r.float()).abs().max())
+                  for a, r in zip(got, want))
+    faults = {
+        "scale_5pct": ref.attention_bwd_ref(
+            (q.float() * 1.05).to(torch.bfloat16), k, v, o, lse, do, **mk),
+        "no_D_term": ref.attention_bwd_ref(q, k, v, torch.zeros_like(o),
+                                           lse, do, **mk),
+    }
+    fault_err = {f: max(rel_err(a, r) for a, r in zip(fg, want))
+                 for f, fg in faults.items()}
+    del faults, want, got
+    torch.cuda.synchronize()
+    times = eager_graph_ms(torch, bwd, 10, flush)
+    device = kernel_device_ms(torch, bwd, 10, flush)
+    plain_ms = time_ms(torch, lambda: ref.attention_bwd_ref(
+        q, k, v, o, lse, do, **mk), 2, warmup=1, flush=flush)
+    fwd_turns = paired_times(
+        torch, lambda: fa.flash_attention_cuda(q, k, v, **mk,
+                                               return_lse=True),
+        lambda: fa.flash_attention_cuda(q, k, v, **mk), 10, flush)
+    library_ms = None
+    if not softcap:
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                      for x in (q, k, v))
+        mask = None
+        if causal and (sq != sk or prefix_len):
+            kp = torch.arange(sk, device=dev)[None, :]
+            mask = torch.arange(sq, device=dev)[:, None] + (sk - sq) >= kp
+            if prefix_len:
+                mask = mask | (kp < prefix_len)
+        out = F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=hkv != h)
+        dot = do.transpose(1, 2).contiguous()
+        lib = lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                          retain_graph=True)
+        turns = [time_ms(torch, f, 5, warmup=1, flush=flush)
+                 for f in (bwd, lib, lib, bwd)]
+        library_ms = (turns[1] + turns[2]) / 2
+        del out, qt, kt, vt
+    q_off = sk - sq
+    pairs = sum(max(min(sk, q_off + i + 1), min(sk, prefix_len))
+                for i in range(sq)) if causal else sq * sk
+    flops = 10.0 * b * h * dh * pairs
+    nbytes = 2 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) \
+        + 4 * lse.numel()
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+    faults_caught = all(e > FLASH_BWD_TOL for e in fault_err.values())
+    ok = (max(errs.values()) <= FLASH_BWD_TOL and faults_caught and bitwise
+          and o_equal and lse_err <= FLASH_LSE_TOL)
+    return dict(case=name, max_abs_err=abs_err, rel_err=errs,
+                tol=FLASH_BWD_TOL, planted_fault_rel_err=fault_err,
+                faults_caught=faults_caught, bitwise_equal_runs=bitwise,
+                fwd_lse_o_bitwise_equal=o_equal, fwd_lse_abs_err=lse_err,
+                fwd_lse_tol=FLASH_LSE_TOL,
+                fwd_lse_ms=fwd_turns[0]["ms"],
+                fwd_lse_graph_ms=fwd_turns[0]["graph_ms"],
+                fwd_plain_ms=fwd_turns[1]["ms"],
+                fwd_plain_graph_ms=fwd_turns[1]["graph_ms"],
+                prefix_len=prefix_len, ms=times["ms"],
+                graph_ms=times["graph_ms"], device_ms=device,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+                bound_by=b_by, share_of_bound=b_ms / times["graph_ms"],
+                achieved_tflops=flops / times["graph_ms"] * 1e-9, ok=ok)
+
+
 def phase_kernels(torch, scan: bool = False):
     flush = torch.empty(96 * 2 ** 20, dtype=torch.uint8, device="cuda")
     # the grouped fold (G 4, k_loc 108): llama2-7b and paligemma-3b (MQA,
@@ -1382,6 +1523,21 @@ def phase_kernels(torch, scan: bool = False):
                        2048, 25, 5, 64, 0.0, 98, flush),
             flash_case(torch, "qwen3-moe B4 S4096 H64 Hkv4", 4, 4096, 4096,
                        64, 4, 128, 0.0, 99, flush),
+        ],
+        "flash_attention_bwd": [
+            flash_bwd_case(torch, "qwen2-1.5b training B4 S4096 H12 Hkv2",
+                           4, 4096, 4096, 12, 2, 128, 0.0, 100, flush),
+            flash_bwd_case(torch, "llama2-7b B4 S4096 H32", 4, 4096, 4096,
+                           32, 32, 128, 0.0, 101, flush),
+            flash_bwd_case(torch, "hymba-1.5b dh64 B4 S2048 H25 Hkv5", 4,
+                           2048, 2048, 25, 5, 64, 0.0, 102, flush),
+            flash_bwd_case(torch, "paligemma-3b dh256 S4096 H8 Hkv1 prefix "
+                           "256", 2, 4096, 4096, 8, 1, 256, 0.0, 103, flush,
+                           prefix_len=256),
+            flash_bwd_case(torch, "softcap50 B2 S2048 H8 Hkv2", 2, 2048,
+                           2048, 8, 2, 128, 50.0, 104, flush),
+            flash_bwd_case(torch, "Sq1000<Sk3000 H8 Hkv8", 1, 1000, 3000, 8,
+                           8, 128, 0.0, 105, flush),
         ],
     }
     for name, cases in res.items():
@@ -4195,6 +4351,263 @@ def phase_families(torch, n_new: int = 32) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 14: training
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen2-1.5b"
+
+
+def train_run(torch, cfg, tcfg, state, remat: str, name: str,
+              start_step: int = 0) -> dict:
+    """``train_loop`` over ``make_train_step`` from ``start_step`` on the
+    corpus's batches (seed 0), launch counters zeroed just before and read
+    just after; per step loss, ce, grad norm, lr and ms."""
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import batches_for
+    from repro_torch.train import trainer
+    corpus = SyntheticCorpus(cfg.vocab_size, seed=0)
+    steps = []
+
+    def on_step(i, m, dt):
+        steps.append({"step": i, **{k: float(v) for k, v in m.items()},
+                      "ms": dt * 1e3})
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    trainer.train_loop(cfg, tcfg, state=state,
+                       step_fn=trainer.make_train_step(cfg, tcfg,
+                                                       remat=remat),
+                       batches=batches_for(cfg, corpus, tcfg, start_step),
+                       start_step=start_step, log=lambda *_: None,
+                       on_step=on_step)
+    counts = ops.launch_counts()
+    n = len(steps)
+    warm = [st["ms"] for st in steps[1:]] or [steps[0]["ms"]]
+    step_ms = statistics.median(warm)
+    row = dict(phase="train", run=name, arch=cfg.name,
+               n_layers=cfg.n_layers, batch=tcfg.batch_size,
+               seq=tcfg.seq_len, remat=remat, steps=steps,
+               median_step_ms=step_ms,
+               tokens_per_s=tcfg.batch_size * tcfg.seq_len / step_ms * 1e3,
+               peak_memory=torch.cuda.max_memory_allocated(),
+               launches=counts,
+               flash_fwd_per_step=counts["flash_attention"] / n,
+               flash_bwd_per_step=counts["flash_attention_bwd"] / n)
+    emit(row)
+    return row
+
+
+def train_profile(torch, cfg, tcfg, state, batch, remat: str) -> dict:
+    """torch.profiler over one step of run (a), in its two parts (the
+    forward and backward, then the AdamW update): device busy share, the
+    top kernels, and the shares of the flash forward, the flash backward
+    (D pass, dK/dV, dQ) and the update."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train import optimizer, trainer
+    parts = {}
+    grads = None
+    for part in ("grads", "adamw"):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            if part == "grads":
+                _, _, grads = trainer.loss_and_grads(state["params"], cfg,
+                                                     batch, remat)
+            else:
+                optimizer.adamw_update(grads, state["opt"], state["params"],
+                                       tcfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        parts[part] = (wall, kern)
+        (OUT_DIR / f"profile_train_{part}.txt").write_text(
+            prof.key_averages().table(sort_by="self_device_time_total",
+                                      row_limit=40))
+    wall = sum(w for w, _ in parts.values())
+    by_name = {}
+    for _, kern in parts.values():
+        for e in kern:
+            by_name[e.key] = by_name.get(e.key, 0.0) \
+                + e.self_device_time_total / 1e3
+    dev_ms = sum(by_name.values())
+    share = lambda keys: sum(v for k, v in by_name.items()
+                             if any(x in k for x in keys)) / dev_ms
+    adamw_ms = sum(e.self_device_time_total for e in parts["adamw"][1]) / 1e3
+    row = dict(phase="train", run="profile", wall_ms=wall * 1e3,
+               device_ms=dev_ms, device_busy_share=dev_ms / 1e3 / wall,
+               flash_fwd_share=share(("flash_fwd_kernel",)),
+               flash_bwd_share=share(("fb_dot_kernel", "fb_dkdv_kernel",
+                                      "fb_dq_kernel")),
+               flash_bwd_ms={k.split("<")[0].split("(")[0].strip()[-16:]: v
+                             for k, v in by_name.items() if "fb_" in k},
+               adamw_ms=adamw_ms, adamw_share=adamw_ms / dev_ms,
+               top_device_ms=[[k[:70], v] for k, v in sorted(
+                   by_name.items(), key=lambda kv: -kv[1])[:20]])
+    emit(row)
+    return row
+
+
+def train_twin_check(torch, cfg, seq: int = 1024, batch: int = 4) -> dict:
+    """2 of the model's layers at full width, one step's loss and
+    gradients through the kernels, then through the twin's attention on
+    the card (``twin_prefill``: autograd through ``attention_ref``): the
+    losses within 1e-2 relative, every gradient's cosine >= 0.99."""
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train import trainer
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    params = init_params(cfg2, device="cuda", seed=1).requires_grad_(True)
+    b = trainer.batch_to(SyntheticCorpus(cfg.vocab_size, seed=0).batch(
+        0, batch, seq), "cuda")
+    res = {}
+    step = lambda: trainer.loss_and_grads(params, cfg2, b, "block")
+    for name, run in (("kernel", lambda f: f()),
+                      ("twin", lambda f: twin_prefill(torch, f))):
+        loss, _, grads = run(step)
+        res[name] = (float(loss), grads)
+    lk, gk = res["kernel"]
+    lt, gt = res["twin"]
+    cos = {k: float(torch.nn.functional.cosine_similarity(
+        gk[k].float().flatten(), gt[k].float().flatten(), dim=0))
+        for k in gk}
+    worst = sorted(cos.items(), key=lambda kv: kv[1])[:5]
+    row = dict(phase="train", run="kernel_vs_twin", n_layers=2, seq=seq,
+               batch=batch, loss_kernel=lk, loss_twin=lt,
+               loss_rel_err=abs(lk - lt) / abs(lt), loss_tol=1e-2,
+               min_grad_cosine=min(cos.values()), cosine_tol=0.99,
+               worst_grad_cosines=worst,
+               ok=abs(lk - lt) <= 1e-2 * abs(lt)
+               and min(cos.values()) >= 0.99)
+    emit(row)
+    return row
+
+
+def train_restart_check(torch, cfg, steps: int = 8, fault_at: int = 5,
+                        every: int = 3) -> dict:
+    """``run_with_restarts`` around ``train_loop`` on ``cfg`` (bf16), a
+    fault injected after the first checkpoint: the losses after the
+    restart equal the uninterrupted run's, bit for bit."""
+    import shutil
+    import tempfile
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.config import TrainConfig
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.ft import run_with_restarts
+    from repro_torch.launch.train import batches_for
+    from repro_torch.train import trainer
+    tcfg = TrainConfig(steps=steps, batch_size=4, seq_len=256, lr=1e-3,
+                       warmup_steps=2, checkpoint_every=every, log_every=100)
+    corpus = SyntheticCorpus(cfg.vocab_size, seed=0)
+
+    def run(fault: int, d: str) -> dict:
+        losses, faulted = {}, []
+
+        def on_step(i, m, _):
+            if i == fault and not faulted:
+                faulted.append(i)
+                raise RuntimeError("injected fault")
+            losses[i] = float(m["loss"])
+
+        def train_once(start):
+            state = trainer.init_state(cfg, tcfg, device="cuda")
+            if start:
+                state, start = ckpt.restore(d, state)
+            return trainer.train_loop(
+                cfg, tcfg, state=state,
+                step_fn=trainer.make_train_step(cfg, tcfg),
+                batches=batches_for(cfg, corpus, tcfg, start),
+                start_step=start, ckpt_dir=d, log=lambda *_: None,
+                on_step=on_step)
+
+        run_with_restarts(train_once, d, log=lambda *_: None)
+        return dict(losses=losses, faulted=faulted)
+
+    root = tempfile.mkdtemp(dir=OUT_DIR)
+    try:
+        faulted = run(fault_at, os.path.join(root, "faulted"))
+        clean = run(-1, os.path.join(root, "clean"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    equal = faulted["losses"] == clean["losses"] and \
+        sorted(clean["losses"]) == list(range(steps))
+    row = dict(phase="train", run="restart", arch=cfg.name,
+               head_dim=cfg.head_dim, steps=steps, checkpoint_every=every,
+               fault_at=fault_at, restarted=bool(faulted["faulted"]),
+               losses_clean=[clean["losses"][i] for i in range(steps)],
+               losses_resumed=[faulted["losses"].get(i)
+                               for i in range(steps)],
+               bitwise_equal=equal, ok=equal and bool(faulted["faulted"]))
+    emit(row)
+    return row
+
+
+def phase_train(torch) -> dict:
+    """qwen2-1.5b at full width and depth (28 layers, d 1536, 12 / 2 heads
+    of dh 128, d_ff 8960, vocab 151,936, tied embeddings, QKV bias), seeded,
+    bf16 weights with f32 master and moments, through the launcher's own
+    functions.  (a) B 4 x S 4096, remat "block", 20 steps at lr 3e-4,
+    warmup 5: per step loss, ce, grad norm, lr and ms, tokens/s, peak
+    memory, flash launches a step; the loss must fall (the mean of the
+    last five below the first).  (b) B 4 x S 2048, remat "none", 3 steps.
+    (c) 2 layers at full width: kernels against twins.  (d) the reduced
+    config (head_dim 64) through ``run_with_restarts`` with a fault after
+    the first checkpoint: the resumed losses bit for bit.  (e) a profile
+    of one step of (a).  Returns the flash launches of run (a)."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.launch.train import batches_for, model_config
+    from repro_torch.train import trainer
+    cfg = model_config(TRAIN_ARCH, False, torch.device("cuda"))
+    tcfg = TrainConfig(steps=20, batch_size=4, seq_len=4096, lr=3e-4,
+                       warmup_steps=5, log_every=100, checkpoint_every=10**9)
+    t0 = time.perf_counter()
+    state = trainer.init_state(cfg, tcfg, device="cuda",
+                               dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    emit({"phase": "train", "arch": cfg.name, "params": n_params,
+          "init_s": time.perf_counter() - t0,
+          "state_bytes": torch.cuda.memory_allocated()})
+    a = train_run(torch, cfg, tcfg, state, "block", "a_block_S4096")
+    losses = [st["loss"] for st in a["steps"]]
+    falls = statistics.fmean(losses[-5:]) < losses[0]
+    emit({"phase": "train", "run": "a_block_S4096", "first_loss": losses[0],
+          "last5_mean_loss": statistics.fmean(losses[-5:]),
+          "loss_drop": losses[0] - statistics.fmean(losses[-5:]),
+          "loss_falls": falls})
+    batch = trainer.batch_to(next(batches_for(
+        cfg, SyntheticCorpus(cfg.vocab_size, seed=0), tcfg, tcfg.steps)),
+        "cuda")
+    prof = train_profile(torch, cfg, tcfg, state, batch, "block")
+    del batch
+    tcfg_b = dataclasses.replace(tcfg, steps=3, seq_len=2048)
+    b = train_run(torch, cfg, tcfg_b, state, "none", "b_none_S2048")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    twin = train_twin_check(torch, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    restart = train_restart_check(torch, model_config(
+        TRAIN_ARCH, True, torch.device("cuda"), log=lambda *_: None))
+    bad = [n for n, ok in (("loss_falls", falls), ("kernel_vs_twin",
+                                                   twin["ok"]),
+                           ("restart", restart["ok"]),
+                           ("flash_launches", a["flash_fwd_per_step"] ==
+                            2 * cfg.n_layers and a["flash_bwd_per_step"]
+                            == cfg.n_layers)) if not ok]
+    if bad:
+        raise AssertionError(f"train phase checks failed: {bad}")
+    return {"flash_attention_bwd": a["launches"]["flash_attention_bwd"],
+            "flash_attention": a["launches"]["flash_attention"],
+            "profile": prof, "b": b}
+
+
 def phase_whole(torch, n_new: int = 12, prompt_len: int = 1024):
     """The prompt is longer than n_sink + n_recent + N_c, so latent_topk
     picks N_c of ~945 selectable tokens at every step and a ranking that
@@ -4367,6 +4780,11 @@ def main() -> int:
     if "families" in phases:
         fam = phase_families(torch)
         lap("families")
+    train = {}
+    if "train" in phases:
+        train = phase_train(torch)
+        counts["flash_attention_bwd"] = train["flash_attention_bwd"]
+        lap("train")
     if "whole" in phases:
         phase_whole(torch)
         lap("whole")
@@ -4393,6 +4811,9 @@ def main() -> int:
             "src/repro/kernels/sparse_recon_attention.py:644"),
         "latent_score": ("src/repro_torch/csrc/latent_topk.cu",
                          "src/repro/kernels/latent_score.py:164"),
+        # the reference's custom VJP of its training attention (XLA)
+        "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
+                                "src/repro/kernels/ops.py:161"),
     }
     rows = []
     for name, (src, rep) in replaces.items():
@@ -4412,12 +4833,15 @@ def main() -> int:
                      "grouped_launches": grouped.get(name),
                      # the moe / hybrid paths (the families phase)
                      "families_launches": fam.get(name, 0 if fam and name
-                                                  != "latent_score"
-                                                  else None)})
+                                                  not in ("latent_score",
+                                                          "flash_attention_bwd")
+                                                  else None),
+                     # qwen2-1.5b's training run (a) (the train phase)
+                     "train_launches": train.get(name)})
     emit({"kernels": rows})
     idle = [r["name"] for r in rows if r["launches"] == 0
             or r["vlm_launches"] == 0 or r["grouped_launches"] == 0
-            or r["families_launches"] == 0]
+            or r["families_launches"] == 0 or r["train_launches"] == 0]
     if idle:    # None: its path did not run; 0: it ran without the kernel
         raise AssertionError(f"kernels never launched on their path: {idle}")
     print(smi, flush=True)

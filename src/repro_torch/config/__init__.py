@@ -5,8 +5,9 @@ from repro_torch.config.base import (
     ModelConfig,
     SALSConfig,
     ServeConfig,
+    TrainConfig,
     asdict,
 )
 
 __all__ = ["FAMILIES", "SALS_125", "SALS_25", "ModelConfig", "SALSConfig",
-           "ServeConfig", "asdict"]
+           "ServeConfig", "TrainConfig", "asdict"]

@@ -1,8 +1,8 @@
 """Configuration dataclasses for the PyTorch port of SALS.
 
 A copy of the reference's ``repro/config/base.py`` restricted to what the
-serving main path needs (:class:`ModelConfig`, :class:`SALSConfig`,
-:class:`ServeConfig`).  The port keeps its own copy so that it never imports
+serving and training paths need (:class:`ModelConfig`, :class:`SALSConfig`,
+:class:`ServeConfig`, :class:`TrainConfig`).  The port keeps its own copy so that it never imports
 the JAX package; the field names, defaults and validation are the
 reference's, so a config built here describes the same model there.
 """
@@ -200,6 +200,26 @@ def _round_to(x: int, m: int) -> int:
 
 SALS_25 = SALSConfig(rank_ratio=0.25, v_bits=8, n_critical=432)
 SALS_125 = SALSConfig(rank_ratio=0.125, v_bits=4, n_critical=432)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    steps: int = 300
+    batch_size: int = 8
+    seq_len: int = 256
+    lr: float = 3e-4
+    warmup_steps: int = 20
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    b1: float = 0.9
+    b2: float = 0.95
+    microbatches: int = 1
+    checkpoint_every: int = 50
+    keep_checkpoints: int = 3
+    log_every: int = 10
+    seed: int = 0
+    grad_compression: str = "none"   # none | int8_ef
+    ckpt_dir: str = "artifacts/ckpt"
 
 
 @dataclass(frozen=True)

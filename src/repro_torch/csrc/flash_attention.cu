@@ -36,6 +36,10 @@
 //   descriptor.  O, the row max and the row sum stay in registers for the
 //   whole KV loop: no S, P or O tile goes through shared memory.
 // * The epilogue divides by the row sum and writes bf16, rows >= Sq masked.
+//   Given a non-null lse (the training forward), it also writes each row's
+//   log-sum-exp (B, H, Sq) f32, natural log: m ln 2 + ln l from the
+//   log2-unit row max m and row sum l.  A null lse (serving) writes O
+//   only, as before.
 #include "common.cuh"
 #include "tma.cuh"
 #include "wgmma.cuh"
@@ -76,8 +80,8 @@ __global__ void __launch_bounds__(FA_THREADS, 1) flash_fwd_kernel(
     const __grid_constant__ CUtensorMap tm_q,
     const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
-    int Sq, int Sk, int H, int Hkv, int causal, int prefix_len, float softcap,
-    float scale) {
+    float* __restrict__ lse, int Sq, int Sk, int H, int Hkv, int causal,
+    int prefix_len, float softcap, float scale) {
   using L = FaSmem<DH>;
   constexpr int FA_BN = L::BN;
   constexpr int NB = DH / 64;  // 64-column boxes per row
@@ -295,6 +299,9 @@ __global__ void __launch_bounds__(FA_THREADS, 1) flash_fwd_kernel(
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const float inv = 1.f / fmaxf(l, 1e-30f);
     const int row = row0 + 8 * i;
+    if (lse != nullptr && quad == 0 && row < Sq)
+      lse[((size_t)b * H + h) * Sq + row] =
+          m_i[i] * 0.6931471805599453f + logf(l);
     if (row < Sq) {
       __nv_bfloat16* orow =
           o + ((size_t)b * Sq + row) * q_row + (size_t)h * DH + 2 * quad;
@@ -323,8 +330,9 @@ static int fa_tmap(CUtensorMap* map, const void* p, int B, int S, int heads,
 
 template <int DH, bool PREFIX>
 static int launch_fa(const void* q, const void* k, const void* v, void* o,
-                     int B, int Sq, int Sk, int H, int Hkv, int causal,
-                     int prefix_len, float softcap, cudaStream_t st) {
+                     float* lse, int B, int Sq, int Sk, int H, int Hkv,
+                     int causal, int prefix_len, float softcap,
+                     cudaStream_t st) {
   CUtensorMap tq, tk, tv;
   int err = fa_tmap(&tq, q, B, Sq, H, DH, FA_BM);
   if (!err) err = fa_tmap(&tk, k, B, Sk, Hkv, DH, FaSmem<DH>::BN);
@@ -336,40 +344,43 @@ static int launch_fa(const void* q, const void* k, const void* v, void* o,
                        (int)smem);
   dim3 grid(B * H, (Sq + FA_BM - 1) / FA_BM);
   flash_fwd_kernel<DH, PREFIX><<<grid, FA_THREADS, smem, st>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Sk, H, Hkv, causal,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, Sq, Sk, H, Hkv, causal,
       prefix_len, softcap, (float)(1.0 / sqrt((double)DH)));
   return (int)cudaGetLastError();
 }
 
 template <int DH>
 static int launch_fa(const void* q, const void* k, const void* v, void* o,
-                     int B, int Sq, int Sk, int H, int Hkv, int causal,
-                     int prefix_len, float softcap, cudaStream_t st) {
-  return prefix_len ? launch_fa<DH, true>(q, k, v, o, B, Sq, Sk, H, Hkv,
+                     float* lse, int B, int Sq, int Sk, int H, int Hkv,
+                     int causal, int prefix_len, float softcap,
+                     cudaStream_t st) {
+  return prefix_len ? launch_fa<DH, true>(q, k, v, o, lse, B, Sq, Sk, H, Hkv,
                                           causal, prefix_len, softcap, st)
-                    : launch_fa<DH, false>(q, k, v, o, B, Sq, Sk, H, Hkv,
-                                           causal, 0, softcap, st);
+                    : launch_fa<DH, false>(q, k, v, o, lse, B, Sq, Sk, H,
+                                           Hkv, causal, 0, softcap, st);
 }
 
 // prefix_len > 0 (prefix-LM) needs causal: the first prefix_len keys are
-// visible to every query, the rest causally.
+// visible to every query, the rest causally.  lse: NULL, or a (B, H, Sq)
+// f32 output for the rows' log-sum-exp (the training forward).
 extern "C" int sals_flash_attention(const void* q, const void* k,
-                                    const void* v, void* o, int B, int Sq,
-                                    int Sk, int H, int Hkv, int dh,
-                                    int causal, int prefix_len, float softcap,
-                                    void* stream) {
+                                    const void* v, void* o, void* lse,
+                                    int B, int Sq, int Sk, int H, int Hkv,
+                                    int dh, int causal, int prefix_len,
+                                    float softcap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Sq < 1 || Sk < 1 || (causal && Sq > Sk) || Hkv < 1 || H % Hkv ||
       prefix_len < 0 || (prefix_len && !causal))
     return (int)cudaErrorInvalidValue;
+  float* l = static_cast<float*>(lse);
   if (dh == 128)
-    return launch_fa<128>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, prefix_len,
-                          softcap, st);
+    return launch_fa<128>(q, k, v, o, l, B, Sq, Sk, H, Hkv, causal,
+                          prefix_len, softcap, st);
   if (dh == 64)
-    return launch_fa<64>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, prefix_len,
-                         softcap, st);
+    return launch_fa<64>(q, k, v, o, l, B, Sq, Sk, H, Hkv, causal,
+                         prefix_len, softcap, st);
   if (dh == 256)
-    return launch_fa<256>(q, k, v, o, B, Sq, Sk, H, Hkv, causal, prefix_len,
-                          softcap, st);
+    return launch_fa<256>(q, k, v, o, l, B, Sq, Sk, H, Hkv, causal,
+                          prefix_len, softcap, st);
   return (int)cudaErrorInvalidValue;
 }

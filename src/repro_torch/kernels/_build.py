@@ -77,8 +77,10 @@ SIGNATURES = {
         _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I,
         _P],
-    "sals_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                             _I, _F, _P],
+    "sals_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _F, _P],
+    "sals_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()

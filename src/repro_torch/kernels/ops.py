@@ -24,7 +24,8 @@ NEG_INF = _ref.NEG_INF
 
 COUNTERS = (_ls.launches, _sra.launches, _fa.launches,
             _ls.paged_launches, _sra.paged_launches, _sra.window_launches,
-            _sra.window_paged_launches, _ls.score_launches)
+            _sra.window_paged_launches, _ls.score_launches,
+            _fa.bwd_launches)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -62,14 +63,54 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     > 0 gives prefix-LM masking (paligemma): the first ``prefix_len`` keys
     are visible to every query, the rest causally, whatever ``causal``
     says — the reference's Pallas kernel turns its causal mask on for a
-    prefix.  The CUDA kernel runs at every length."""
+    prefix.  The CUDA kernel runs at every length.
+
+    Where autograd records (grad enabled and an input requiring grad) the
+    call is :class:`FlashAttentionFn`, whose forward also keeps the LSE
+    and whose backward is the flash backward; otherwise it is the plain
+    forward, with no LSE written."""
     causal = causal or prefix_len > 0
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, causal, softcap, prefix_len)
     if _on_cuda(q):
         return _fa.flash_attention_cuda(q, k, v, causal=causal,
                                         softcap=softcap,
                                         prefix_len=prefix_len)
     return _ref.attention_ref(q, k, v, causal=causal, softcap=softcap,
                               prefix_len=prefix_len)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with a gradient (the counterpart of the reference's
+    ``jax.custom_vjp`` ``ops._flash_xla``).  The forward saves (q, k, v, O,
+    LSE); the backward recomputes P from LSE and returns (dq, dk, dv), dk
+    and dv at the kv heads k and v came with.  CUDA tensors run the two
+    kernels, CPU tensors the twins ``attention_lse_ref`` /
+    ``attention_bwd_ref``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, softcap: float,
+                prefix_len: int):
+        mk = dict(causal=causal, softcap=softcap, prefix_len=prefix_len)
+        if _on_cuda(q):
+            o, lse = _fa.flash_attention_cuda(q, k, v, **mk, return_lse=True)
+        else:
+            o, lse = _ref.attention_lse_ref(q, k, v, **mk)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask = mk
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        if _on_cuda(q):
+            dq, dk, dv = _fa.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                                      **ctx.mask)
+        else:
+            dq, dk, dv = _ref.attention_bwd_ref(q, k, v, o, lse, do,
+                                                **ctx.mask)
+        return dq, dk, dv, None, None, None
 
 
 def latent_score(q_lat: torch.Tensor, k_lat: torch.Tensor,

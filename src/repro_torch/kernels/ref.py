@@ -30,6 +30,55 @@ def _rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def _attn_mask(sq: int, sk: int, causal: bool, prefix_len: int, device):
+    """(Sq, Sk) bool visibility, or None: causal at q_off = Sk - Sq, keys
+    below ``prefix_len`` visible to every query."""
+    if not (causal or prefix_len):
+        return None
+    kp = torch.arange(sk, device=device)[None, :]
+    cm = torch.arange(sq, device=device)[:, None] + (sk - sq) >= kp
+    if prefix_len:
+        cm = cm | (kp < prefix_len)
+    return cm
+
+
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """f32 for bf16 / f16 / f32 inputs; f64 stays f64 (gradcheck)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def _expand_kv(k: torch.Tensor, h: int) -> torch.Tensor:
+    return k if k.shape[2] == h else \
+        torch.repeat_interleave(k, h // k.shape[2], dim=2)
+
+
+def _attention(q, k, v, causal, softcap, mask, prefix_len, with_lse: bool):
+    b, sq, h, dh = q.shape
+    sk = k.shape[1]
+    k, v = _expand_kv(k, h), _expand_kv(v, h)
+    acc = _acc_dtype(q)
+    scale = dh ** -0.5
+    cm = _attn_mask(sq, sk, causal, prefix_len, q.device)
+    outs, lses = [], []
+    for i in range(b):
+        logits = torch.einsum("qhd,khd->hqk", q[i].to(acc),
+                              k[i].to(acc)) * scale
+        if softcap:
+            logits = softcap * torch.tanh(logits / softcap)
+        if cm is not None:
+            logits = torch.where(cm[None], logits, NEG_INF)
+        if mask is not None:
+            mi = mask[i] if mask.shape[0] == b else mask[0]
+            logits = torch.where(mi, logits, NEG_INF)
+        if with_lse:
+            lses.append(torch.logsumexp(logits, dim=-1))
+        p = torch.softmax(logits, dim=-1)
+        o = torch.einsum("hqk,khd->qhd", p.to(v.dtype).to(acc), v[i].to(acc))
+        outs.append(o.to(v.dtype))
+    out = torch.stack(outs)
+    return (out, torch.stack(lses)) if with_lse else out
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True, softcap: float = 0.0,
                   mask: Optional[torch.Tensor] = None,
@@ -44,31 +93,74 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``mask`` (1 or B, Sq, Sk) bool, if given, also drops logits where it
     is false.  Returns (B,Sq,H,dh) in v's dtype.  Rows are processed one
     batch row at a time to bound the (H, Sq, Sk) logits buffer."""
+    return _attention(q, k, v, causal, softcap, mask, prefix_len, False)
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, softcap: float = 0.0,
+                      prefix_len: int = 0
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`attention_ref` and each row's log-sum-exp of the masked
+    logits (B, H, Sq) f32, natural log (the reference's ``_flash_fwd_impl``
+    saves the same for its backward)."""
+    return _attention(q, k, v, causal, softcap, None, prefix_len, True)
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                      *, causal: bool = True, softcap: float = 0.0,
+                      prefix_len: int = 0
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward of :func:`attention_lse_ref` from the saved (O, LSE):
+    the reference's FlashAttention-2 rule ``ops._flash_bwd_rule`` in plain
+    tensor ops, one batch row at a time.
+
+    D = rowsum(dO·O); P = exp(S − LSE), masked entries 0; dV = Pᵀ dO;
+    dS = P·(dO Vᵀ − D), times (1 − tanh²) under softcap, times the scale;
+    dQ = dS K, dK = dSᵀ Q, all in f32 (f64 for f64 inputs).  P and dS are
+    rounded to the input dtype before their products (``_flash_bwd_rule``
+    l.199, 208; a no-op in f32).  GQA (Hk dividing H): dK and dV come back
+    at Hk heads, each group's heads summed in ascending head order.
+    Returns (dq, dk, dv) in the dtypes of q, k, v."""
     b, sq, h, dh = q.shape
     sk, hk = k.shape[1], k.shape[2]
-    if h != hk:
-        k = torch.repeat_interleave(k, h // hk, dim=2)
-        v = torch.repeat_interleave(v, h // hk, dim=2)
+    kx, vx = _expand_kv(k, h), _expand_kv(v, h)
+    acc = _acc_dtype(q)
     scale = dh ** -0.5
-    outs = []
+    cm = _attn_mask(sq, sk, causal, prefix_len, q.device)
+    dsum = torch.einsum("bqhd,bqhd->bhq", do.to(acc), o.to(acc))
+    dqs, dks, dvs = [], [], []
     for i in range(b):
-        logits = torch.einsum("qhd,khd->hqk", q[i].float(),
-                              k[i].float()) * scale
+        qi, ki, vi, doi = (x[i].to(acc) for x in (q, kx, vx, do))
+        s_raw = torch.einsum("qhd,khd->hqk", qi, ki) * scale
         if softcap:
-            logits = softcap * torch.tanh(logits / softcap)
-        if causal or prefix_len:
-            kp = torch.arange(sk, device=q.device)[None, :]
-            cm = torch.arange(sq, device=q.device)[:, None] + (sk - sq) >= kp
-            if prefix_len:
-                cm = cm | (kp < prefix_len)
-            logits = torch.where(cm[None], logits, NEG_INF)
-        if mask is not None:
-            mi = mask[i] if mask.shape[0] == b else mask[0]
-            logits = torch.where(mi, logits, NEG_INF)
-        p = torch.softmax(logits, dim=-1)
-        o = torch.einsum("hqk,khd->qhd", p.to(v.dtype).float(), v[i].float())
-        outs.append(o.to(v.dtype))
-    return torch.stack(outs)
+            t = torch.tanh(s_raw / softcap)
+            logits = softcap * t
+        else:
+            logits = s_raw
+        p = torch.exp(logits - lse[i][..., None])
+        if cm is not None:
+            p = torch.where(cm[None], p, 0.0)
+        p16 = p.to(do.dtype).to(acc)
+        dvs.append(torch.einsum("hqk,qhd->khd", p16, doi))
+        dp = torch.einsum("qhd,khd->hqk", doi, vi)
+        dl = p * (dp - dsum[i][..., None])
+        if softcap:
+            dl = dl * (1.0 - t * t)
+        dl16 = (dl * scale).to(k.dtype).to(acc)
+        dqs.append(torch.einsum("hqk,khd->qhd", dl16, ki))
+        dks.append(torch.einsum("hqk,qhd->khd", dl16, qi))
+    dq = torch.stack(dqs)
+    dk, dv = torch.stack(dks), torch.stack(dvs)
+    if hk != h:
+        def fold(x):
+            x = x.reshape(b, sk, hk, h // hk, dh)
+            tot = x[:, :, :, 0]
+            for g in range(1, h // hk):
+                tot = tot + x[:, :, :, g]
+            return tot
+        dk, dv = fold(dk), fold(dv)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def latent_score_ref(q_lat: torch.Tensor, k_lat: torch.Tensor,

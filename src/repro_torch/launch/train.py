@@ -1,0 +1,150 @@
+"""Training launcher of the port (port of ``repro/launch/train.py``).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
+        [--reduced | --full] [--steps 200] [--microbatches 2] \
+        [--remat none|block|save_dots] [--ckpt-dir artifacts/ckpt/qwen2] \
+        [--checkpoint-every 50] [--resume] [--device cpu] \
+        [--dtype bfloat16|float32]
+
+Weights are random, from ``--seed``; the data is the synthetic corpus
+(``SyntheticCorpus``, deterministic per step, so a resumed run sees the
+batches an uninterrupted one would).  The step is
+``trainer.make_train_step`` (AdamW with f32 master weights) driven by
+``trainer.train_loop``, which checkpoints every ``--checkpoint-every``
+steps into ``--ckpt-dir``.  With ``--resume`` the run starts from the
+newest complete checkpoint there, and a supervisor restarts a failed run
+from the newest one.
+
+Runs on the card unless ``--device cpu`` is asked for.  The dtype defaults
+to bfloat16 on the card (the flash kernels take bf16) and float32 on the
+CPU.  ``--reduced`` (the default) is the tiny same-family configuration;
+on the card its head_dim is raised from 32 to 64, the smallest the flash
+kernels take.  ``--full`` is the published widths.  The encoder family
+(hubert) and ``--grad-compression`` are not ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from repro_torch import checkpoint as ckpt
+from repro_torch.config import ModelConfig, TrainConfig
+from repro_torch.configs import ASSIGNED_ARCHS, PAPER_ARCHS, get_config
+from repro_torch.data import SyntheticCorpus, make_batches
+from repro_torch.ft import StragglerMonitor, run_with_restarts
+from repro_torch.kernels.flash_attention import HEAD_DIMS
+from repro_torch.models.transformer import torch_dtype
+from repro_torch.serve.engine import resolve_device
+from repro_torch.train import trainer
+
+
+def model_config(arch: str, reduced: bool, device: torch.device,
+                 log=print) -> ModelConfig:
+    """The architecture's config; ``reduced`` on the card takes head_dim
+    64 (the reduced configs' 32 is below what the flash kernels take)."""
+    cfg = get_config(arch)
+    if cfg.family == "encoder":
+        raise NotImplementedError(
+            f"{arch}: the encoder family's training forward (frames input, "
+            "non-causal attention at head_dim 80) comes with slice 7b")
+    if not reduced:
+        return cfg
+    small = cfg.reduced()
+    if device.type == "cuda" and small.head_dim < min(HEAD_DIMS):
+        small = cfg.reduced(head_dim=min(HEAD_DIMS))
+        log(f"[train] --reduced on the card: head_dim {small.head_dim} "
+            "(the flash kernels take 64, 128, 256)")
+    return small
+
+
+def batches_for(cfg: ModelConfig, corpus: SyntheticCorpus,
+                tcfg: TrainConfig, start_step: int) -> Iterator[dict]:
+    """The corpus's batches from ``start_step``; a vlm batch also carries
+    the reference's stub patch embeddings (N(0, 0.02) from seed 0)."""
+    gen = make_batches(corpus, tcfg.batch_size, tcfg.seq_len, start_step)
+    if cfg.family != "vlm":
+        return gen
+
+    def add_patches(b):
+        rng = np.random.default_rng(0)
+        b = dict(b)
+        b["patches"] = rng.normal(
+            0, 0.02, (b["tokens"].shape[0], cfg.vision_patches, cfg.d_model)
+        ).astype(np.float32)
+        return b
+
+    return (add_patches(b) for b in gen)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True,
+                    choices=ASSIGNED_ARCHS + PAPER_ARCHS)
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--steps", type=int, default=200)
+    ap.add_argument("--batch-size", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=256)
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--grad-compression", action="store_true")
+    ap.add_argument("--remat", default="none",
+                    choices=("none", "block", "save_dots"))
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--checkpoint-every", type=int,
+                    default=TrainConfig.checkpoint_every)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--max-restarts", type=int, default=2)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="the card unless 'cpu' is asked for")
+    ap.add_argument("--dtype", default=None,
+                    choices=("bfloat16", "float32"),
+                    help="bfloat16 on the card, float32 on the CPU")
+    args = ap.parse_args(argv)
+
+    if args.grad_compression:
+        raise NotImplementedError(
+            "--grad-compression (int8 error-feedback over a data-parallel "
+            "mesh) comes with the distributed slice, Queue A item 6")
+    dev = resolve_device(args.device)
+    cfg = model_config(args.arch, args.reduced, dev)
+    dtype = torch_dtype(args.dtype or ("bfloat16" if dev.type == "cuda"
+                                       else "float32"))
+    tcfg = TrainConfig(steps=args.steps, batch_size=args.batch_size,
+                       seq_len=args.seq_len, lr=args.lr,
+                       microbatches=args.microbatches, seed=args.seed,
+                       checkpoint_every=args.checkpoint_every)
+    corpus = SyntheticCorpus(cfg.vocab_size, seed=args.seed)
+
+    def train_once(start_step: int):
+        state = trainer.init_state(cfg, tcfg, device=dev, dtype=dtype)
+        if start_step and args.ckpt_dir:
+            state, start_step = ckpt.restore(args.ckpt_dir, state)
+            print(f"[train] restored step {start_step}")
+        step_fn = trainer.make_train_step(cfg, tcfg, remat=args.remat)
+        mon = StragglerMonitor()
+        state = trainer.train_loop(
+            cfg, tcfg, state=state, step_fn=step_fn,
+            batches=batches_for(cfg, corpus, tcfg, start_step),
+            start_step=start_step, ckpt_dir=args.ckpt_dir or None,
+            straggler=mon)
+        if mon.flags:
+            print(f"[train] straggler steps flagged: {mon.flags[:5]}")
+        return state
+
+    if args.ckpt_dir and args.resume:
+        # the first attempt also starts from the newest checkpoint
+        run_with_restarts(
+            lambda start: train_once(
+                start or ckpt.latest_step(args.ckpt_dir) or 0),
+            args.ckpt_dir, max_restarts=args.max_restarts)
+    else:
+        train_once(0)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,10 @@
-"""Multi-head / grouped-query attention (port of the prefill and
+"""Multi-head / grouped-query attention (port of the train, prefill and
 full-precision decode paths of ``repro/models/attention.py``).
 
+  * ``attend_train``       — full attention over a block for the training
+                             forward: ``ops.flash_attention``, which under
+                             autograd is the flash kernel with its backward
+                             (``FlashAttentionFn``).
   * ``attend_prefill``     — causal attention over the prompt through the
                              flash kernel (``ops.flash_attention``: the CUDA
                              kernel on the card at every length, the
@@ -124,6 +128,14 @@ def attend_prefill(params: Attention, x: torch.Tensor, cfg: ModelConfig,
                             softcap=cfg.attn_logit_softcap,
                             prefix_len=prefix_len)
     return out_proj(params, o, cfg), k_pre, v
+
+
+def attend_train(params: Attention, x: torch.Tensor, cfg: ModelConfig,
+                 positions: Optional[torch.Tensor] = None,
+                 prefix_len: int = 0) -> torch.Tensor:
+    """Full attention over a block: (B, S, d) -> (B, S, d) — the prefill
+    attention without its cache outputs."""
+    return attend_prefill(params, x, cfg, positions, prefix_len)[0]
 
 
 def _chunk_partial(logits: torch.Tensor, v: torch.Tensor, cfg: ModelConfig

@@ -1,5 +1,6 @@
 """Model assembly for the decoder families — dense, vlm, moe, hybrid and
-ssm: init / prefill / decode (port of ``repro/models/transformer.py``).
+ssm: init / train forward / prefill / decode (port of
+``repro/models/transformer.py``).
 
 Parameters are an ``nn.Module`` tree (:class:`Transformer`) whose tensors
 keep the reference's per-layer layouts; ``convert.params_from_numpy``
@@ -46,6 +47,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.config import ModelConfig, SALSConfig
 from repro_torch.core.latent_cache import LatentKVCache
@@ -72,8 +74,10 @@ RECURRENT = ("ssm", "hybrid")
 def _check_family(cfg: ModelConfig) -> None:
     if not cfg.is_decoder:
         raise NotImplementedError(
-            f"the {cfg.family} family has no decode phase; its forward is "
-            "ported with the training slice")
+            f"the {cfg.family} family is not ported: its forward (frames "
+            "input, non-causal attention at head_dim 80 in the flash "
+            "kernels) comes with slice 7b, the encoder half of the "
+            "training slice")
 
 
 # ---------------------------------------------------------------------------
@@ -167,9 +171,11 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 def _block_fwd(bp: Block, x: torch.Tensor, cfg: ModelConfig,
                positions: torch.Tensor, prefix_len: int, collect_kv: bool):
     """One block over a full sequence.  Returns (x, aux_loss, extras):
-    with ``collect_kv``, extras = {"k_pre", "v"[, "ssm"]} (the hybrid's
-    Mamba state), or the ssm family's {"wkv", "tm_x", "cm_x"}; aux_loss is
-    the MoE router's load-balance loss (0 elsewhere)."""
+    with ``collect_kv`` (prefill), extras = {"k_pre", "v"[, "ssm"]} (the
+    hybrid's Mamba state), or the ssm family's {"wkv", "tm_x", "cm_x"};
+    without it (training), extras is None and attention is
+    ``attend_train``.  aux_loss is the MoE router's load-balance loss (0
+    elsewhere)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     extras = None
     if cfg.family == "ssm":
@@ -183,14 +189,18 @@ def _block_fwd(bp: Block, x: torch.Tensor, cfg: ModelConfig,
             extras = {"wkv": wkv, "tm_x": tm_x, "cm_x": cm_x}
         return x, aux, extras
     h = rmsnorm_apply(bp.attn_norm, x, cfg.norm_eps)
-    a, k_pre, v = attn.attend_prefill(bp.attn, h, cfg, positions, prefix_len)
     if collect_kv:
+        a, k_pre, v = attn.attend_prefill(bp.attn, h, cfg, positions,
+                                          prefix_len)
         extras = {"k_pre": k_pre, "v": v}
+    else:
+        a = attn.attend_train(bp.attn, h, cfg, positions, prefix_len)
     if cfg.family == "hybrid":
-        s_out, s_state = ssm_mod.mamba_apply(bp.mamba, h, cfg,
-                                             return_state=True)
         if collect_kv:
-            extras["ssm"] = s_state
+            s_out, extras["ssm"] = ssm_mod.mamba_apply(bp.mamba, h, cfg,
+                                                       return_state=True)
+        else:
+            s_out = ssm_mod.mamba_apply(bp.mamba, h, cfg)
         a = (a + s_out) * 0.5
     x = x + a
     h2 = rmsnorm_apply(bp.mlp_norm, x, cfg.norm_eps)
@@ -213,6 +223,110 @@ def embed_inputs(params: Transformer, cfg: ModelConfig,
         patches = batch["patches"].to(tok_emb.dtype)
         return torch.cat([patches, tok_emb], dim=1), patches.shape[1]
     return tok_emb, 0
+
+
+# ---------------------------------------------------------------------------
+# Training forward
+# ---------------------------------------------------------------------------
+
+REMAT = ("none", "block", "save_dots")
+# what "save_dots" keeps (the reference: dots_with_no_batch_dims_saveable)
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+               torch.ops.aten.bmm.default)
+
+
+def _save_dots_policy(ctx, op, *args, **kwargs):
+    return ckpt.CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS \
+        else ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpointed(fn, remat: str, *args):
+    """``fn(*args)`` under the remat policy: "none" runs it as is; "block"
+    keeps only its inputs and recomputes the rest in the backward; and
+    "save_dots" also keeps the outputs of its matmuls."""
+    if remat == "none":
+        return fn(*args)
+    if remat == "block":
+        return ckpt.checkpoint(fn, *args, use_reentrant=False)
+    if remat == "save_dots":
+        return ckpt.checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=lambda: ckpt.create_selective_checkpoint_contexts(
+                _save_dots_policy))
+    raise ValueError(f"remat must be one of {REMAT}, not {remat!r}")
+
+
+def hidden(params: Transformer, cfg: ModelConfig,
+           batch: Dict[str, torch.Tensor], *, remat: str = "none"
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward up to the final norm.  Returns (hidden (B, S,
+    d), aux_loss): aux_loss () f32 is the MoE load-balance losses summed
+    over layers."""
+    x, prefix_len = embed_inputs(params, cfg, batch)
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for bp in params.blocks:
+        x, a = _checkpointed(
+            lambda x_in, bp=bp: _block_fwd(bp, x_in, cfg, positions,
+                                           prefix_len, False)[:2],
+            remat, x)
+        aux = aux + a
+    return rmsnorm_apply(params.final_norm, x, cfg.norm_eps), aux
+
+
+def forward(params: Transformer, cfg: ModelConfig,
+            batch: Dict[str, torch.Tensor], *, remat: str = "none"
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward.  Returns (logits (B, S, V) f32, aux_loss)."""
+    x, aux = hidden(params, cfg, batch, remat=remat)
+    return unembed_apply(params.embed, x, cfg), aux
+
+
+def _gold_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """(B, S) logsumexp(logits) − logits[label]."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return logz - gold
+
+
+def forward_loss(params: Transformer, cfg: ModelConfig,
+                 batch: Dict[str, torch.Tensor], *, remat: str = "none",
+                 ce_chunk: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward + chunked cross entropy (the training loss).  The unembed
+    and logsumexp run per sequence chunk of ``ce_chunk`` under a
+    checkpoint, so the (B, S, V) f32 logits are never held whole: peak
+    memory holds one (B, chunk, V) tile.  One chunk when S is not a
+    multiple of ``ce_chunk``.  vlm: the loss is over the text suffix.
+    Returns (mean NLL () f32, aux)."""
+    x, aux = hidden(params, cfg, batch, remat=remat)
+    labels = batch["labels"]
+    if x.shape[1] != labels.shape[1]:        # vlm: loss over the text suffix
+        x = x[:, -labels.shape[1]:]
+    b, s, _ = x.shape
+    c = min(ce_chunk, s)
+    if s % c:
+        c = s
+
+    def chunk_nll(x_c, y_c):
+        return _gold_nll(unembed_apply(params.embed, x_c, cfg), y_c).sum()
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, c):
+        total = total + ckpt.checkpoint(chunk_nll, x[:, c0:c0 + c],
+                                        labels[:, c0:c0 + c],
+                                        use_reentrant=False)
+    return total / (b * s), aux
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token-mean CE.  logits (B, S, V) f32; labels (B, S) int; mask
+    optional (B, S)."""
+    nll = _gold_nll(logits, labels)
+    if mask is not None:
+        nll = nll * mask
+        return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
 
 
 def _finish_block(bp: Block, x, h, a, cfg: ModelConfig,
