@@ -1171,9 +1171,11 @@ def rel_err(out, ref) -> float:
 
 def flash_bwd_case(torch, name, b, sq, sk, h, hkv, dh, softcap, seed, flush,
                    causal=True, prefix_len=0):
-    """The flash backward (D pass, dK/dV and dQ kernels) against the twin
-    ``attention_bwd_ref`` on the card from the same bf16 q, k, v, dO and
-    the forward kernel's O and LSE.  Two runs must be bitwise equal; two
+    """The flash backward (D pass, dK/dV and dQ kernels: TMA-fed wgmma,
+    no atomics) against the twin ``attention_bwd_ref`` on the card from the
+    same bf16 q, k, v, dO and the forward kernel's O and LSE; each
+    kernel's device ms (``kernel_device_ms``, every one must be there).
+    Two runs must be bitwise equal; two
     planted faults (the logit scale off by 5%, the D term dropped) must
     fail the check.  The forward with the LSE output runs in turns with
     the plain forward: O bitwise equal, LSE within 1e-5 of the twin's.
@@ -1253,8 +1255,14 @@ def flash_bwd_case(torch, name, b, sq, sk, h, hkv, dh, softcap, seed, flush,
         + 4 * lse.numel()
     b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
     faults_caught = all(e > FLASH_BWD_TOL for e in fault_err.values())
+    # each kernel's own device time (a rename must not hide one)
+    parts = {part: sum(v for k, v in device.items() if kname in k)
+             for part, kname in (("D", "fb_dot_kernel"),
+                                 ("dK/dV", "fb_dkdv_kernel"),
+                                 ("dQ", "fb_dq_kernel"))}
     ok = (max(errs.values()) <= FLASH_BWD_TOL and faults_caught and bitwise
-          and o_equal and lse_err <= FLASH_LSE_TOL)
+          and o_equal and lse_err <= FLASH_LSE_TOL
+          and all(v > 0 for v in parts.values()))
     return dict(case=name, max_abs_err=abs_err, rel_err=errs,
                 tol=FLASH_BWD_TOL, planted_fault_rel_err=fault_err,
                 faults_caught=faults_caught, bitwise_equal_runs=bitwise,
@@ -1266,6 +1274,7 @@ def flash_bwd_case(torch, name, b, sq, sk, h, hkv, dh, softcap, seed, flush,
                 fwd_plain_graph_ms=fwd_turns[1]["graph_ms"],
                 prefix_len=prefix_len, ms=times["ms"],
                 graph_ms=times["graph_ms"], device_ms=device,
+                kernel_device_ms=parts,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
                 bound_by=b_by, share_of_bound=b_ms / times["graph_ms"],
                 achieved_tflops=flops / times["graph_ms"] * 1e-9, ok=ok)
@@ -4600,7 +4609,11 @@ def phase_train(torch) -> dict:
                            ("restart", restart["ok"]),
                            ("flash_launches", a["flash_fwd_per_step"] ==
                             2 * cfg.n_layers and a["flash_bwd_per_step"]
-                            == cfg.n_layers)) if not ok]
+                            == cfg.n_layers),
+                           # the profile names the backward's kernels: a
+                           # launched backward must not read as 0
+                           ("flash_bwd_share", prof["flash_bwd_share"] > 0
+                            or not a["flash_bwd_per_step"])) if not ok]
     if bad:
         raise AssertionError(f"train phase checks failed: {bad}")
     return {"flash_attention_bwd": a["launches"]["flash_attention_bwd"],

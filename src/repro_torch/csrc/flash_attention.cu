@@ -315,28 +315,15 @@ __global__ void __launch_bounds__(FA_THREADS, 1) flash_fwd_kernel(
   }
 }
 
-// 4-D map (dh, heads, S, B) of a (B, S, heads, dh) bf16 tensor, boxes of
-// 64 x 1 x rows x 1.
-static int fa_tmap(CUtensorMap* map, const void* p, int B, int S, int heads,
-                   int dh, int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)heads,
-                              (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)dh * 2,
-                                 (cuuint64_t)heads * dh * 2,
-                                 (cuuint64_t)S * heads * dh * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  return sals_tmap_bf16(map, p, 4, dims, strides, box);
-}
-
 template <int DH, bool PREFIX>
 static int launch_fa(const void* q, const void* k, const void* v, void* o,
                      float* lse, int B, int Sq, int Sk, int H, int Hkv,
                      int causal, int prefix_len, float softcap,
                      cudaStream_t st) {
   CUtensorMap tq, tk, tv;
-  int err = fa_tmap(&tq, q, B, Sq, H, DH, FA_BM);
-  if (!err) err = fa_tmap(&tk, k, B, Sk, Hkv, DH, FaSmem<DH>::BN);
-  if (!err) err = fa_tmap(&tv, v, B, Sk, Hkv, DH, FaSmem<DH>::BN);
+  int err = sals_tmap_bshd(&tq, q, B, Sq, H, DH, FA_BM);
+  if (!err) err = sals_tmap_bshd(&tk, k, B, Sk, Hkv, DH, FaSmem<DH>::BN);
+  if (!err) err = sals_tmap_bshd(&tv, v, B, Sk, Hkv, DH, FaSmem<DH>::BN);
   if (err) return err;
   const size_t smem = FaSmem<DH>::BYTES;
   cudaFuncSetAttribute(flash_fwd_kernel<DH, PREFIX>,

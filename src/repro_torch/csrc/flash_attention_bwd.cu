@@ -19,31 +19,68 @@
 // Bound: operations.  Five GEMMs of 2*Sq*Sk*dh per head (the S recompute,
 // dV, dP, dQ, dK): 10*B*H*Sq*Sk*dh FLOP, about halved by causality, on the
 // bf16 tensor cores (989 TFLOP/s): 0.52 ms at qwen2-1.5b's training shape
-// (B 4, S 4096, 12 over 2 heads, dh 128).  This first design is simple and
-// deterministic, not yet fast (wgmma and TMA are later work):
+// (B 4, S 4096, 12 over 2 heads, dh 128).  The design keeps the tensor
+// cores fed the way the forward (flash_attention.cu) does, and keeps a
+// fixed summation order, so that two runs give the same bits:
 //
-// * Three kernels, no atomics, so two runs give the same bits.
-//   fb_dot_kernel: D, one warp per (b, q, h) row.
-//   fb_dkdv_kernel: grid (B*Hkv, ceil(Sk/64), dh/NC); a block of four warps
-//   owns a 64-key tile of one kv head (16 keys a warp) and NC of its dh
-//   columns (NC = min(dh, 128): dh 256 takes two column blocks, each
-//   recomputing S and dP over the full dh, so that the dK / dV
-//   accumulators fit in registers).  It walks the group's query heads in
-//   ascending order and, for each, the 32-row query tiles that can see the
-//   keys (under causality from the diagonal on, every tile where the keys
-//   lie in the prefix), computing S^T = K Q^T and dP^T = V dO^T, then P^T
-//   and dS^T in registers, and dV += P^T dO, dK += dS^T Q in f32
-//   registers; dK and dV are written once.
-//   fb_dq_kernel: grid (B*H, ceil(Sq/64)), longest query tiles first; a
-//   block owns 64 query rows (16 a warp) and walks the visible BN-key
-//   tiles (64 keys, 32 at dh 256), dQ += dS K in f32 registers.
-// * Tensor cores through mma.sync.m16n8k16 (bf16 in, f32 accumulate).
-//   Tiles are staged in shared memory by 16-byte loads, rows padded by 16
-//   bytes so that ldmatrix reads them without bank conflicts; ldmatrix
-//   (.trans for the operands whose contraction runs down the rows: dO and
-//   Q in dV / dK, K in dQ) feeds the fragments, and the accumulator
-//   fragments of S and dP are reused in place as the A fragments of the
-//   next products.
+// * Three kernels, no atomics.  FlashAttention-3 computes dQ inside the
+//   dK/dV kernel by f32 atomicAdd, whose order changes from run to run;
+//   here dQ has its own kernel, which recomputes S and dP: seven products
+//   against the bound's five, which caps the pair near 71% of the bound.
+// * fb_dot_kernel: D, one warp a row, written with the row's LSE * log2(e)
+//   into a (B*H, Sq rounded up to 128, 2) f32 scratch, so that a tile's
+//   {LSE, D} is one 16-byte-aligned bulk copy whatever Sq is (padding rows
+//   {0, 0}).
+// * Registers decide the block shape.  Three warpgroups (a producer beside
+//   two consumers) put three warps on an SM sub-partition, which caps a
+//   thread at 168 registers, and setmaxnreg did not reliably lift the
+//   consumers (nvcc 12.9 spilled and serialized the wgmmas).  So a block
+//   is 256 threads, two consumer warpgroups at up to 255 registers, and
+//   thread 0 issues the copies: the ring's next tile goes out once both
+//   warpgroups have released its stage.
+// * fb_dkdv_kernel: grid (B*Hkv, ceil(Sk/BN)), key tile 0 (the longest
+//   under causality) first.  TMA loads the block's K and V once and
+//   streams 64-row Q and dO tiles with their {LSE, D} through a ring of
+//   ST stages, over the forward's 4-D tensor maps (dh, heads, S, B) with
+//   the 128-byte swizzle.  The walk takes the group's query heads in
+//   ascending order and, for each, only the tiles that can see the keys
+//   (under causality from the diagonal on, every tile where the keys lie
+//   in the prefix).  Per tile: S^T = K Q^T and dP^T = V dO^T as two wgmma
+//   groups from shared memory (both K-major); P^T in f32 on the
+//   accumulator registers while dP^T runs, packed in place to bf16 A
+//   fragments; dV += P^T dO (A from registers, dO read MN-major) while
+//   dS^T is formed; then dK += dS^T Q.  dK and dV stay in f32 registers
+//   for the whole walk and are written once, as bf16.
+//   - dh 64 and 128 (pair): BN = 128 keys, each warpgroup owning 64 with
+//     both accumulators, ST 3.  Registers a thread: dK + dV 2 * dh/2 and
+//     S^T, P^T, dP^T 2 * 32 + 16: 160 at dh 64, 224 at dh 128 (ptxas:
+//     184 and 246).  Shared memory 84,536 / 166,456 bytes.
+//   - dh 256 (split): dK + dV of 64 keys are 256 floats a thread, which do
+//     not fit.  BN = 64, ST 2; warpgroup 0 computes S^T, P^T and dV +=
+//     P^T dO, warpgroup 1 dP^T, dS^T and dK += dS^T Q, each with one
+//     128-float accumulator; warpgroup 0 hands P^T (1 - t^2) in f32 to
+//     warpgroup 1 through a 16 KB buffer under two named barriers (full,
+//     empty).  No product is computed twice.  Shared memory: K, V (64 KB),
+//     two stages of Q and dO (128 KB), the buffer and {LSE, D}: 215,080
+//     bytes of 232,448.
+// * fb_dq_kernel: grid (B*H, ceil(Sq/BM)), the longest query tiles first,
+//   the forward's structure: TMA loads the block's Q and dO once and
+//   streams BN-key K and V tiles through a two-stage ring, never loading
+//   a tile wholly above the diagonal and outside the prefix.  Per tile:
+//   S = Q K^T and dP = dO V^T (wgmma from shared memory), P while dP runs,
+//   dS (each row's LSE and D in registers for the whole walk), then dQ +=
+//   dS K with K read MN-major (the forward's P V form), left running into
+//   the next tile's S and dP.  dh 64 and 128: two consumer warpgroups of
+//   64 rows (BM 128), BN 128; registers dQ dh/2 + S, dP 2 * 64 + dS 32:
+//   192 at dh 64, 224 at dh 128 (ptxas: 231 and 252); shared memory
+//   99,368 / 197,672 bytes.  dh 256: one consumer warpgroup (BM 64) beside
+//   a producer warpgroup, BN 64; registers 128 + 2 * 32 + 16 (ptxas 243);
+//   shared memory 197,672 bytes.
+// * A consumer warpgroup skips a tile wholly past its diagonal (the ring
+//   still turns), and masks only the tiles that cross the diagonal, Sq or
+//   Sk.  TMA zero-fills rows past Sq and Sk.  Softcap is a template
+//   argument (SC): its dS needs 1 - tanh^2 from the S pass, so that
+//   instance forms P and dS once both products are done.
 //
 // The kernels are in flash_attention_bwd.cuh; this source holds the entry
 // and the dh 128 instance, and the dh 64 and 256 instances compile in
@@ -61,20 +98,21 @@ extern template int launch_fb<256>(const void*, const void*, const void*,
                                    int, int, int, int, float, cudaStream_t);
 
 // q (B, Sq, H, dh), k / v (B, Sk, Hkv, dh), o / dout (B, Sq, H, dh) bf16;
-// lse (B, H, Sq) f32 from the forward; dsum a (B, H, Sq) f32 scratch.
+// lse (B, H, Sq) f32 from the forward; ld a (B, H, fb_rows(Sq), 2) f32
+// scratch for each row's {LSE, D}.
 // Writes dq (B, Sq, H, dh), dk / dv (B, Sk, Hkv, dh) bf16.  prefix_len > 0
 // (prefix-LM) needs causal.
 extern "C" int sals_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* lse, const void* dout, void* dq, void* dk, void* dv,
-    void* dsum, int B, int Sq, int Sk, int H, int Hkv, int dh, int causal,
+    void* ld, int B, int Sq, int Sk, int H, int Hkv, int dh, int causal,
     int prefix_len, float softcap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B < 1 || Sq < 1 || Sk < 1 || (causal && Sq > Sk) || Hkv < 1 ||
       H % Hkv || prefix_len < 0 || (prefix_len && !causal))
     return (int)cudaErrorInvalidValue;
   const float* l = static_cast<const float*>(lse);
-  float* ds = static_cast<float*>(dsum);
+  float* ds = static_cast<float*>(ld);
   if (dh == 128)
     return launch_fb<128>(q, k, v, o, l, dout, dq, dk, dv, ds, B, Sq, Sk, H,
                           Hkv, causal, prefix_len, softcap, st);

@@ -49,13 +49,37 @@ static inline int sals_tmap_bf16(CUtensorMap* map, const void* base,
   const SalsEncodeTiled fn = sals_encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                        const_cast<void*>(base), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  auto encode = [&]() {
+    return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+              const_cast<void*>(base), dims, strides, box, elem,
+              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  };
+  CUresult r = encode();
+  if (r != CUDA_SUCCESS) {
+    // A host thread that has not yet made a runtime call (autograd's
+    // backward thread, say) may have no current context, which the driver
+    // call needs: make the tensor's device current, then try again.
+    cudaPointerAttributes attr;
+    if (cudaPointerGetAttributes(&attr, base) == cudaSuccess &&
+        cudaSetDevice(attr.device) == cudaSuccess)
+      r = encode();
+  }
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// 4-D map (dh, heads, S, B) of a (B, S, heads, dh) bf16 tensor, boxes of
+// 64 x 1 x rows x 1: a tile of `rows` rows of one head is dh / 64 boxes.
+static inline int sals_tmap_bshd(CUtensorMap* map, const void* p, int B,
+                                 int S, int heads, int dh, int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)heads,
+                              (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)dh * 2,
+                                 (cuuint64_t)heads * dh * 2,
+                                 (cuuint64_t)S * heads * dh * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  return sals_tmap_bf16(map, p, 4, dims, strides, box);
 }
 
 // ---------------------------------------------------------------------------
@@ -143,6 +167,23 @@ __device__ __forceinline__ void fence_proxy_async() {
 // Barrier `id` (1..15; 0 is __syncthreads) over `n` threads.
 __device__ __forceinline__ void named_bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Barrier `id` without waiting: this thread's arrival counts towards the
+// `n` threads a bar.sync on `id` waits for.
+__device__ __forceinline__ void named_bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// A 1-D bulk copy of `bytes` (a multiple of 16; both addresses on 16
+// bytes) from global to shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(sals_smem(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(sals_smem(bar))
+      : "memory");
 }
 
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,

@@ -7,8 +7,24 @@ flash_attention_pallas`` (TPU) with the hand-written CUDA kernel in
 ``kernels/ref.py::attention_ref`` (``attention_lse_ref`` with the LSE).
 The backward replaces the reference's custom VJP
 ``repro/kernels/ops.py::_flash_bwd_rule`` with ``csrc/flash_attention_bwd.cu``
-(its twin ``kernels/ref.py::attention_bwd_ref``; design and bound in the
-source).  ``kernels/ops.py::FlashAttentionFn`` joins the two.
+(its twin ``kernels/ref.py::attention_bwd_ref``; design, bound and the
+register and shared-memory arithmetic in the source).
+``kernels/ops.py::FlashAttentionFn`` joins the two.
+
+Backward design (TMA-fed wgmma, deterministic): three kernels, no
+atomics, blocks of two consumer warpgroups (256 threads, so that a thread
+may hold 255 registers).  A D pass writes each query row's {LSE, D =
+rowsum(dO · O)} into a scratch padded to 128 rows a head.  The dK/dV
+kernel gives a block the keys of one kv head: TMA loads K and V once and
+streams 64-row Q and dO tiles (with their {LSE, D}) of the group's query
+heads through a ring, only the tiles that can see the keys; Sᵀ = KQᵀ and
+dPᵀ = VdOᵀ run as wgmma chains, Pᵀ and dSᵀ on the accumulator registers,
+and dV += PᵀdO, dK += dSᵀQ with A from registers (dh 64 / 128: each
+warpgroup 64 keys with both accumulators; dh 256: the two share 64 keys,
+one accumulating dV, the other dK, Pᵀ handed over through shared memory).
+The dQ kernel has the forward's structure: Q and dO loaded once, K and V
+streamed, dQ += dS·K.  Recomputing S and dP there costs seven products
+against the bound's five.
 
 Bound on the H100: operations.  4·B·H·Sq·Sk·dh FLOP, halved by causality —
 at the llama2-7b slice shapes (B=4, S=4096, H=32, dh=128) 550 GFLOP per
@@ -51,6 +67,42 @@ def smem_bytes(dh: int) -> int:
     1024-byte alignment slack, the 128-row Q tile, two stages of K and V
     tiles and the barriers."""
     return 1024 + 128 * dh * 2 + 2 * 2 * block_keys(dh) * dh * 2 + 8 * 9
+
+
+def bwd_tiles(dh: int) -> dict:
+    """Tile sizes of the backward's kernels (mirrors ``FbKV`` / ``FbQ`` in
+    ``csrc/flash_attention_bwd.cuh``): the dK/dV kernel's keys a block,
+    query rows a streamed tile and ring stages, and whether its two
+    warpgroups split one 64-key tile (dV / dK) instead of owning 64 keys
+    each; the dQ kernel's query rows a block, keys a streamed tile and
+    ring stages."""
+    split = dh > 128
+    return {"dkdv_keys": 64 if split else 128, "dkdv_rows": 64,
+            "dkdv_stages": 2 if split else 3, "dkdv_split": split,
+            "dq_rows": 64 if split else 128, "dq_keys": 64 if split else 128,
+            "dq_stages": 2}
+
+
+def bwd_smem_bytes(dh: int) -> tuple:
+    """Dynamic shared memory of one block of the dK/dV and of the dQ kernel
+    (mirrors ``FbKV::BYTES`` / ``FbQ::BYTES``): the 1024-byte alignment
+    slack, the resident tiles, the ring, the split body's f32 hand-over
+    buffer and the barriers."""
+    t = bwd_tiles(dh)
+    rows, st = t["dkdv_rows"], t["dkdv_stages"]
+    x = 64 * rows * 4 if t["dkdv_split"] else 0
+    dkdv = (1024 + 2 * t["dkdv_keys"] * dh * 2
+            + st * (2 * rows * dh * 2 + rows * 8) + x + 8 * (1 + 2 * st))
+    st = t["dq_stages"]
+    dq = (1024 + 2 * t["dq_rows"] * dh * 2 + 2 * st * t["dq_keys"] * dh * 2
+          + 8 * (1 + 2 * st))
+    return dkdv, dq
+
+
+def bwd_scratch_rows(sq: int) -> int:
+    """Rows a head of the backward's {LSE, D} scratch (``fb_rows``): Sq
+    rounded up to 128, so that every tile's rows are one aligned copy."""
+    return -(-sq // 128) * 128
 
 
 def _check_operands(q, k, v, causal: bool, prefix_len: int) -> None:
@@ -106,13 +158,18 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     and k / v (B, Sk, Hkv, dh) bf16, ``lse`` (B, H, Sq) f32 from the
     forward.  Returns (dq, dk, dv) bf16 in the shapes of q, k, v (GQA: each
     group's heads summed into its kv head).  Three kernels on the current
-    stream (the D pass, dK/dV, dQ), counted as one launch."""
+    stream (the D pass, dK/dV, dQ), counted as one launch.  TMA reads q, k,
+    v and do, and the D pass o, so each starts on 16 bytes; ``lse`` is
+    copied into the padded {LSE, D} scratch and needs no alignment of its
+    own."""
     _check_operands(q, k, v, causal, prefix_len)
     b, sq, h, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     require(all(t.dtype == torch.bfloat16 and t.is_contiguous()
                 and t.shape == q.shape for t in (o, do)),
             "o/do must be contiguous bf16 in q's shape")
+    require(all(t.data_ptr() % 16 == 0 for t in (o, do)),
+            "o/do must start on 16 bytes (TMA)")
     require(lse.dtype == torch.float32 and lse.is_contiguous()
             and lse.shape == (b, h, sq), "lse must be contiguous (B, H, Sq) "
             "f32")
@@ -120,11 +177,12 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     require(all(t.is_cuda and t.device == dev for t in (q, k, v, o, lse, do)),
             "tensors must share one CUDA device")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    dsum = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    scratch = torch.empty((b, h, bwd_scratch_rows(sq), 2),
+                          dtype=torch.float32, device=dev)
     lib = _build.library()
     err = lib.sals_flash_attention_bwd(
         ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), ptr(do), ptr(dq), ptr(dk),
-        ptr(dv), ptr(dsum), b, sq, sk, h, hkv, dh, int(causal),
+        ptr(dv), ptr(scratch), b, sq, sk, h, hkv, dh, int(causal),
         int(prefix_len), float(softcap), _build.stream_handle(dev))
     _build.check(err, "flash_attention_bwd")
     bwd_launches.add()

@@ -16,12 +16,18 @@ inputs.
   tensor's scale;
 * outside autograd (``torch.no_grad()``, or no input requiring grad) the
   call is the plain forward: no LSE, no Function;
+* the backward kernels' geometry (``bwd_tiles`` / ``bwd_smem_bytes``,
+  mirrors of the CUDA source) fits one block's shared memory at every
+  head_dim, and the wrapper's refusals come before its device check;
 * ``requires_cuda``: the forward kernel's LSE and the backward kernel
   against the twins on the card (relative max error 1e-2 of each tensor's
   max), the O of the forward with LSE bitwise equal to the one without,
-  and two backward runs bitwise equal.  Those cases import no JAX, so
-  they run on a machine with a card (``pytest --noconftest -m
-  requires_cuda``)."""
+  and two backward runs bitwise equal; sequence lengths that are
+  multiples of no tile, a prefix past one tile, group 6, Hkv = H, dh 256
+  non-causal with Sq < Sk; and planted faults (a zeroed LSE slice in the
+  last query tile, a K tile past the diagonal) that the kernels follow
+  as the twin does.  Those cases import no JAX, so they run on a machine
+  with a card (``pytest --noconftest -m requires_cuda``)."""
 import os
 
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -184,6 +190,72 @@ def test_no_function_and_no_lse_outside_autograd(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# The backward kernels' geometry and refusals (CPU)
+# ---------------------------------------------------------------------------
+
+SMEM_PER_BLOCK = 232448    # what one H100 block may use
+
+
+@pytest.mark.parametrize("dh", [64, 128, 256])
+def test_bwd_geometry_fits_shared_memory(dh):
+    """Both kernels' blocks fit in shared memory, the dK/dV block's keys
+    are whole 64-key warpgroup tiles (two, or one shared by the split
+    body at dh 256), and every streamed tile's {LSE, D} rows lie inside
+    the scratch rows of its head (Sq rounded up to 128)."""
+    from repro_torch.kernels import flash_attention as fa
+    t = fa.bwd_tiles(dh)
+    dkdv, dq = fa.bwd_smem_bytes(dh)
+    assert 0 < dkdv <= SMEM_PER_BLOCK and 0 < dq <= SMEM_PER_BLOCK
+    assert t["dkdv_keys"] == (64 if t["dkdv_split"] else 128)
+    assert t["dkdv_split"] == (dh > 128)
+    assert t["dq_rows"] in (64, 128) and t["dq_keys"] % 16 == 0
+    for rows in (t["dkdv_rows"], t["dq_rows"]):
+        assert 128 % rows == 0
+    for sq in (1, 64, 127, 128, 130, 200, 4000, 4096):
+        pad = fa.bwd_scratch_rows(sq)
+        assert pad >= sq and pad % 128 == 0 and pad - sq < 128
+
+
+def _bwd_operands(misalign=None):
+    """CPU operands of the backward at dh 64, one of them (by name) made
+    to start 2 bytes past a 16-byte boundary."""
+    shapes = dict(q=(1, 8, 2, 64), k=(1, 8, 1, 64), v=(1, 8, 1, 64),
+                  o=(1, 8, 2, 64), do=(1, 8, 2, 64))
+    ops_ = {}
+    for name, shape in shapes.items():
+        n = int(np.prod(shape))
+        if name == misalign:
+            ops_[name] = torch.zeros(n + 8, dtype=torch.bfloat16)[1:n + 1] \
+                .view(shape)
+        else:
+            ops_[name] = torch.zeros(shape, dtype=torch.bfloat16)
+    ops_["lse"] = torch.zeros((1, 2, 8), dtype=torch.float32)
+    return ops_
+
+
+@pytest.mark.parametrize("bad,match", [
+    ("o", "16 bytes"), ("do", "16 bytes"), ("q", "16 bytes"),
+    ("k", "16 bytes"), ("lse_shape", "lse"), ("lse_dtype", "lse")])
+def test_bwd_refusals_before_device(bad, match):
+    """What the TMA copies and the scratch need is refused on the CPU,
+    before the wrapper asks for a CUDA device."""
+    from repro_torch.kernels import flash_attention as fa
+    x = _bwd_operands(misalign=bad if bad in ("o", "do", "q", "k") else None)
+    assert all(t.is_contiguous() for t in x.values())
+    if bad == "lse_shape":
+        x["lse"] = torch.zeros((1, 2, 9), dtype=torch.float32)
+    if bad == "lse_dtype":
+        x["lse"] = x["lse"].to(torch.bfloat16)
+    with pytest.raises(ValueError, match=match):
+        fa.flash_attention_bwd_cuda(x["q"], x["k"], x["v"], x["o"], x["lse"],
+                                    x["do"], causal=True)
+    ok = _bwd_operands()
+    with pytest.raises(ValueError, match="CUDA device"):
+        fa.flash_attention_bwd_cuda(ok["q"], ok["k"], ok["v"], ok["o"],
+                                    ok["lse"], ok["do"], causal=True)
+
+
+# ---------------------------------------------------------------------------
 # The kernels on the card (no JAX)
 # ---------------------------------------------------------------------------
 
@@ -203,6 +275,15 @@ CUDA_CASES = [
     ("dh128 softcap 30", 1, 128, 128, 4, 2, 128, True, 30.0, 0),
     ("dh128 Sq 100 < Sk 300", 1, 100, 300, 4, 4, 128, True, 0.0, 0),
     ("dh64 non-causal Sq 70 < Sk 150", 2, 70, 150, 4, 1, 64, False, 0.0, 0),
+    # lengths that are multiples of no tile (64 / 128 rows)
+    ("dh128 Sq 130 < Sk 200", 1, 130, 200, 4, 2, 128, True, 0.0, 0),
+    ("dh64 S 4000 GQA 12/2", 1, 4000, 4000, 12, 2, 64, True, 0.0, 0),
+    ("dh128 prefix 300 S 1000", 1, 1000, 1000, 4, 2, 128, True, 0.0, 300),
+    ("dh128 group 6 S 1024", 1, 1024, 1024, 12, 2, 128, True, 0.0, 0),
+    ("dh128 Hkv = H 8 S 300", 1, 300, 300, 8, 8, 128, True, 0.0, 0),
+    ("dh256 non-causal Sq 130 < Sk 200", 1, 130, 200, 4, 2, 256, False, 0.0,
+     0),
+    ("dh256 softcap 20 S 200", 1, 200, 200, 4, 1, 256, True, 20.0, 0),
 ]
 BWD_TOL = 1e-2     # max |kernel - twin| over the tensor's max |twin|
 
@@ -253,3 +334,68 @@ def test_function_on_card_matches_cpu_function(cuda):
         res.append([out.detach().cpu()] + [x.grad.cpu() for x in leaves])
     for name, a, r in zip(("o", "dq", "dk", "dv"), res[1], res[0]):
         assert _rel(a, r) <= BWD_TOL, (name, _rel(a, r))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("fault", ["lse_last_tile", "k_past_diagonal"])
+@pytest.mark.parametrize("dh", [64, 128, 256])
+def test_kernels_follow_planted_faults(cuda, dh, fault):
+    """A planted fault that each kernel must not hide: the LSE of the last
+    64-row query tile zeroed (the rows the last dK/dV tile and the last
+    dQ block read), or K scaled by 1.5 in the last 128-key tile (past the
+    diagonal of every query before it).  On the faulted inputs each of
+    dq, dk, dv matches the twin within the tolerance, and lies further
+    than the tolerance from the clean result."""
+    from repro_torch.kernels import flash_attention as fa
+    b, s, h, hkv = 1, 200, 4, 2
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q = torch.randn((b, s, h, dh), generator=g, device=cuda).bfloat16()
+    k = torch.randn((b, s, hkv, dh), generator=g, device=cuda).bfloat16()
+    v = torch.randn((b, s, hkv, dh), generator=g, device=cuda).bfloat16()
+    do = torch.randn((b, s, h, dh), generator=g, device=cuda).bfloat16()
+    o, lse = fa.flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+    clean = ref.attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+    if fault == "lse_last_tile":
+        lse = lse.clone()
+        lse[:, :, (s - 1) // 64 * 64:] = 0.0
+    else:
+        k = k.clone()
+        k[:, (s - 1) // 128 * 128:] = (k[:, (s - 1) // 128 * 128:].float()
+                                       * 1.5).bfloat16()
+    got = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True)
+    want = ref.attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+    for name, a, r, c in zip(("dq", "dk", "dv"), got, want, clean):
+        assert _rel(a, r) <= BWD_TOL, (name, _rel(a, r))
+        assert _rel(a, c) > BWD_TOL, (name, _rel(a, c))
+
+
+@pytest.mark.requires_cuda
+def test_kernels_run_from_a_fresh_thread(cuda):
+    """The first call of the forward and of the backward in a host thread
+    that has not used the card yet (as autograd's backward thread may be)
+    encodes its TMA maps and matches the same call on this thread."""
+    import threading
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, do = (torch.from_numpy(x).bfloat16().to(cuda) for x in
+                   _inputs(9, 1, 96, 96, 4, 2, 128))
+    o, lse = fa.flash_attention_cuda(q, k, v, causal=True, return_lse=True)
+    want = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do, causal=True)
+    got = {}
+
+    def run():
+        try:
+            got["fwd"] = fa.flash_attention_cuda(q, k, v, causal=True,
+                                                 return_lse=True)
+            got["bwd"] = fa.flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                                     causal=True)
+            torch.cuda.synchronize()
+        except Exception as e:      # noqa: BLE001 (re-raised below)
+            got["error"] = e
+
+    for _ in range(2):              # two fresh threads
+        t = threading.Thread(target=run)
+        t.start()
+        t.join()
+        assert "error" not in got, got.get("error")
+        assert torch.equal(got["fwd"][0], o)
+        assert all(torch.equal(a, b) for a, b in zip(got["bwd"], want))
