@@ -45,10 +45,12 @@ Phases, each printing one JSON line:
               rows 1, 2, 4-7 also at the families' shapes (hymba-1.5b:
               25 heads over 5, dh 64, r 80, r* 40; llama4-scout: 40 over
               8, r 256; qwen3-moe: 64 over 4, r 128) and flash at 25 / 5
-              heads dh 64 and 64 / 4 heads dh 128; the flash backward
+              heads dh 64 and 64 / 4 heads dh 128, and at hubert-xlarge's
+              B 8 S 1024 16 heads dh 80 non-causal; the flash backward
               (D pass, dK/dV and dQ kernels) against ``attention_bwd_ref``
               at qwen2-1.5b's training shape, llama2-7b's, dh 64 at 25 / 5
-              heads, dh 256 prefix-LM at 8 / 1, softcap and Sq < Sk:
+              heads, dh 256 prefix-LM at 8 / 1, softcap, Sq < Sk, and
+              non-causal dh 80 at hubert's shape and ragged (B 2 S 1000):
               relative error of dq, dk, dv within 1e-2 of each tensor's
               max, two planted faults caught, two runs bitwise equal, the
               library backward timed in turns, and the forward with its
@@ -218,7 +220,15 @@ Phases, each printing one JSON line:
               cosine >= 0.99); (d) the reduced config at head_dim 64
               through ``run_with_restarts`` with a fault after the first
               checkpoint: losses equal to an uninterrupted run's bit for
-              bit;
+              bit; (g) ``launch.serve.main`` on the card with its defaults
+              (``--arch yi-9b``, reduced: head_dim 64) and with ``--ckpt``
+              at (d)'s checkpoints: every request ok, the restored step
+              printed; (f) hubert-xlarge at full width and depth (48
+              layers, d 1280, 16 heads of dh 80, non-causal) on the
+              frontend stub's frames, B 8 x S 1024, block remat, 10 steps:
+              the loss must fall, every step launch the dh-80 flash
+              forward 2 x 48 times and its backward 48; a profiled step,
+              two layers' gradients against the twins';
 15. whole   — a full-width 2-layer model (SALS on layer 1) decoded on the
               card (kernels) and on the CPU (twins) from the same weights
               and a 1024-token prompt (so top-k really selects), per-step
@@ -1532,6 +1542,9 @@ def phase_kernels(torch, scan: bool = False):
                        2048, 25, 5, 64, 0.0, 98, flush),
             flash_case(torch, "qwen3-moe B4 S4096 H64 Hkv4", 4, 4096, 4096,
                        64, 4, 128, 0.0, 99, flush),
+            flash_case(torch, "hubert-xlarge B8 S1024 H16 dh80 non-causal",
+                       8, 1024, 1024, 16, 16, 80, 0.0, 106, flush,
+                       causal=False),
         ],
         "flash_attention_bwd": [
             flash_bwd_case(torch, "qwen2-1.5b training B4 S4096 H12 Hkv2",
@@ -1547,6 +1560,12 @@ def phase_kernels(torch, scan: bool = False):
                            2048, 8, 2, 128, 50.0, 104, flush),
             flash_bwd_case(torch, "Sq1000<Sk3000 H8 Hkv8", 1, 1000, 3000, 8,
                            8, 128, 0.0, 105, flush),
+            flash_bwd_case(torch, "hubert-xlarge B8 S1024 H16 dh80 "
+                           "non-causal", 8, 1024, 1024, 16, 16, 80, 0.0, 107,
+                           flush, causal=False),
+            flash_bwd_case(torch, "dh80 ragged B2 S1000 H16 non-causal", 2,
+                           1000, 1000, 16, 16, 80, 0.0, 108, flush,
+                           causal=False),
         ],
     }
     for name, cases in res.items():
@@ -4388,7 +4407,8 @@ def train_run(torch, cfg, tcfg, state, remat: str, name: str,
     trainer.train_loop(cfg, tcfg, state=state,
                        step_fn=trainer.make_train_step(cfg, tcfg,
                                                        remat=remat),
-                       batches=batches_for(cfg, corpus, tcfg, start_step),
+                       batches=batches_for(cfg, corpus, tcfg, start_step,
+                                           device="cuda"),
                        start_step=start_step, log=lambda *_: None,
                        on_step=on_step)
     counts = ops.launch_counts()
@@ -4408,11 +4428,13 @@ def train_run(torch, cfg, tcfg, state, remat: str, name: str,
     return row
 
 
-def train_profile(torch, cfg, tcfg, state, batch, remat: str) -> dict:
-    """torch.profiler over one step of run (a), in its two parts (the
+def train_profile(torch, cfg, tcfg, state, batch, remat: str,
+                  run: str = "profile") -> dict:
+    """torch.profiler over one step of a run, in its two parts (the
     forward and backward, then the AdamW update): device busy share, the
     top kernels, and the shares of the flash forward, the flash backward
-    (D pass, dK/dV, dQ) and the update."""
+    (D pass, dK/dV, dQ) and the update.  Tables go to
+    ``chiprun_out/{run}_train_{part}.txt``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.train import optimizer, trainer
@@ -4434,7 +4456,7 @@ def train_profile(torch, cfg, tcfg, state, batch, remat: str) -> dict:
         kern = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA]
         parts[part] = (wall, kern)
-        (OUT_DIR / f"profile_train_{part}.txt").write_text(
+        (OUT_DIR / f"{run}_train_{part}.txt").write_text(
             prof.key_averages().table(sort_by="self_device_time_total",
                                       row_limit=40))
     wall = sum(w for w, _ in parts.values())
@@ -4447,7 +4469,7 @@ def train_profile(torch, cfg, tcfg, state, batch, remat: str) -> dict:
     share = lambda keys: sum(v for k, v in by_name.items()
                              if any(x in k for x in keys)) / dev_ms
     adamw_ms = sum(e.self_device_time_total for e in parts["adamw"][1]) / 1e3
-    row = dict(phase="train", run="profile", wall_ms=wall * 1e3,
+    row = dict(phase="train", run=run, arch=cfg.name, wall_ms=wall * 1e3,
                device_ms=dev_ms, device_busy_share=dev_ms / 1e3 / wall,
                flash_fwd_share=share(("flash_fwd_kernel",)),
                flash_bwd_share=share(("fb_dot_kernel", "fb_dkdv_kernel",
@@ -4465,14 +4487,19 @@ def train_twin_check(torch, cfg, seq: int = 1024, batch: int = 4) -> dict:
     """2 of the model's layers at full width, one step's loss and
     gradients through the kernels, then through the twin's attention on
     the card (``twin_prefill``: autograd through ``attention_ref``): the
-    losses within 1e-2 relative, every gradient's cosine >= 0.99."""
+    losses within 1e-2 relative, every gradient's cosine >= 0.99, a
+    gradient that is zero in the twin's run zero in the kernels'."""
+    from repro_torch.config import TrainConfig
     from repro_torch.data import SyntheticCorpus
+    from repro_torch.launch.train import batches_for
     from repro_torch.models.transformer import init_params
     from repro_torch.train import trainer
     cfg2 = dataclasses.replace(cfg, n_layers=2)
     params = init_params(cfg2, device="cuda", seed=1).requires_grad_(True)
-    b = trainer.batch_to(SyntheticCorpus(cfg.vocab_size, seed=0).batch(
-        0, batch, seq), "cuda")
+    b = trainer.batch_to(next(batches_for(
+        cfg2, SyntheticCorpus(cfg.vocab_size, seed=0),
+        TrainConfig(batch_size=batch, seq_len=seq), 0, device="cuda")),
+        "cuda")
     res = {}
     step = lambda: trainer.loss_and_grads(params, cfg2, b, "block")
     for name, run in (("kernel", lambda f: f()),
@@ -4481,28 +4508,34 @@ def train_twin_check(torch, cfg, seq: int = 1024, batch: int = 4) -> dict:
         res[name] = (float(loss), grads)
     lk, gk = res["kernel"]
     lt, gt = res["twin"]
+    # a parameter the loss does not read (the encoder's token table) has a
+    # zero gradient in both: equal, and no cosine
+    unused = sorted(k for k in gk if not gt[k].any())
+    unused_equal = all(not gk[k].any() for k in unused)
     cos = {k: float(torch.nn.functional.cosine_similarity(
         gk[k].float().flatten(), gt[k].float().flatten(), dim=0))
-        for k in gk}
+        for k in gk if k not in unused}
     worst = sorted(cos.items(), key=lambda kv: kv[1])[:5]
-    row = dict(phase="train", run="kernel_vs_twin", n_layers=2, seq=seq,
+    row = dict(phase="train", run="kernel_vs_twin", arch=cfg.name,
+               head_dim=cfg.head_dim, causal=cfg.causal, n_layers=2, seq=seq,
                batch=batch, loss_kernel=lk, loss_twin=lt,
                loss_rel_err=abs(lk - lt) / abs(lt), loss_tol=1e-2,
                min_grad_cosine=min(cos.values()), cosine_tol=0.99,
-               worst_grad_cosines=worst,
+               worst_grad_cosines=worst, zero_grads=unused,
+               zero_grads_equal=unused_equal,
                ok=abs(lk - lt) <= 1e-2 * abs(lt)
-               and min(cos.values()) >= 0.99)
+               and min(cos.values()) >= 0.99 and unused_equal)
     emit(row)
     return row
 
 
-def train_restart_check(torch, cfg, steps: int = 8, fault_at: int = 5,
-                        every: int = 3) -> dict:
+def train_restart_check(torch, cfg, root: str, steps: int = 8,
+                        fault_at: int = 5, every: int = 3) -> dict:
     """``run_with_restarts`` around ``train_loop`` on ``cfg`` (bf16), a
     fault injected after the first checkpoint: the losses after the
-    restart equal the uninterrupted run's, bit for bit."""
-    import shutil
-    import tempfile
+    restart equal the uninterrupted run's, bit for bit.  The runs
+    checkpoint under ``root`` (``root``/faulted, ``root``/clean), which
+    the caller removes."""
     from repro_torch import checkpoint as ckpt
     from repro_torch.config import TrainConfig
     from repro_torch.data import SyntheticCorpus
@@ -4536,12 +4569,8 @@ def train_restart_check(torch, cfg, steps: int = 8, fault_at: int = 5,
         run_with_restarts(train_once, d, log=lambda *_: None)
         return dict(losses=losses, faulted=faulted)
 
-    root = tempfile.mkdtemp(dir=OUT_DIR)
-    try:
-        faulted = run(fault_at, os.path.join(root, "faulted"))
-        clean = run(-1, os.path.join(root, "clean"))
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    faulted = run(fault_at, os.path.join(root, "faulted"))
+    clean = run(-1, os.path.join(root, "clean"))
     equal = faulted["losses"] == clean["losses"] and \
         sorted(clean["losses"]) == list(range(steps))
     row = dict(phase="train", run="restart", arch=cfg.name,
@@ -4555,6 +4584,105 @@ def train_restart_check(torch, cfg, steps: int = 8, fault_at: int = 5,
     return row
 
 
+ENCODER_ARCH = "hubert-xlarge"
+
+
+def train_encoder(torch) -> dict:
+    """(f) hubert-xlarge at full width and depth (48 layers, d 1280, 16 MHA
+    heads of dh 80, d_ff 5120, vocab 504, non-causal, no RoPE), seeded,
+    bf16 weights with f32 master and moments, through the launcher's own
+    functions, on the reference's frontend stub (frames = rows of an
+    N(0, 0.02) table at the corpus's tokens): B 8 x S 1024 frames (about
+    20 s of 50 Hz audio a row), remat "block", 10 steps at lr 5e-5, warmup
+    3; then a profiled step and 2 layers' kernel-vs-twin gradients.  The
+    loss must fall, and a step must launch the flash forward 2 x 48 times
+    and its backward 48 times, all of them the dh-80 instances."""
+    from repro_torch.config import TrainConfig
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.launch import model_config
+    from repro_torch.launch.train import batches_for
+    from repro_torch.train import trainer
+    cfg = model_config(ENCODER_ARCH, False, torch.device("cuda"))
+    # a 48-layer model's first AdamW steps move every weight by about the
+    # lr: at 1.5e-4 the first step took the loss from 6.57 to 10.61 on an
+    # H100, so the peak is 5e-5 after 3 warmup steps
+    tcfg = TrainConfig(steps=10, batch_size=8, seq_len=1024, lr=5e-5,
+                       warmup_steps=3, log_every=100, checkpoint_every=10**9)
+    t0 = time.perf_counter()
+    state = trainer.init_state(cfg, tcfg, device="cuda",
+                               dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    emit({"phase": "train", "arch": cfg.name,
+          "params": sum(p.numel() for p in state["params"].parameters()),
+          "init_s": time.perf_counter() - t0,
+          "state_bytes": torch.cuda.memory_allocated()})
+    f = train_run(torch, cfg, tcfg, state, "block", "f_hubert_block_S1024")
+    losses = [st["loss"] for st in f["steps"]]
+    falls = statistics.fmean(losses[-5:]) < losses[0]
+    n = len(f["steps"])
+    dh80 = (f["launches"]["flash_attention_dh80"] / n,
+            f["launches"]["flash_attention_bwd_dh80"] / n)
+    launches_ok = (f["flash_fwd_per_step"] == dh80[0] == 2 * cfg.n_layers
+                   and f["flash_bwd_per_step"] == dh80[1] == cfg.n_layers)
+    emit({"phase": "train", "run": "f_hubert_block_S1024",
+          "first_loss": losses[0],
+          "last5_mean_loss": statistics.fmean(losses[-5:]),
+          "loss_drop": losses[0] - statistics.fmean(losses[-5:]),
+          "loss_falls": falls, "head_dim": cfg.head_dim,
+          "flash_dh80_fwd_per_step": dh80[0],
+          "flash_dh80_bwd_per_step": dh80[1], "launches_ok": launches_ok})
+    batch = trainer.batch_to(next(batches_for(
+        cfg, SyntheticCorpus(cfg.vocab_size, seed=0), tcfg, tcfg.steps,
+        device="cuda")), "cuda")
+    prof = train_profile(torch, cfg, tcfg, state, batch, "block",
+                         run="profile_hubert")
+    del batch, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    twin = train_twin_check(torch, cfg, seq=1024, batch=8)
+    bad = [k for k, ok in (("loss_falls", falls),
+                           ("flash_launches", launches_ok),
+                           ("kernel_vs_twin", twin["ok"]),
+                           ("flash_bwd_share", prof["flash_bwd_share"] > 0))
+           if not ok]
+    if bad:
+        raise AssertionError(f"train (f) hubert checks failed: {bad}")
+    return f
+
+
+def train_launchers(torch, ckpt_dir: str) -> dict:
+    """(g) the launchers on the card: ``launch.serve.main`` with its
+    defaults (reduced, ``--device cuda``) on yi-9b, then on the reduced
+    qwen2-1.5b with ``--ckpt`` at (d)'s checkpoints: every request ends
+    ok, and the second prints the restored step."""
+    import contextlib
+    import io
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.launch import serve
+    runs = {}
+    step = ckpt.latest_step(ckpt_dir)
+    for name, argv in (("serve_defaults", ["--arch", "yi-9b"]),
+                       ("serve_ckpt", ["--arch", TRAIN_ARCH, "--ckpt",
+                                       ckpt_dir])):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            serve.main(argv)
+        out = buf.getvalue().splitlines()
+        summary = next((ln for ln in out if "requests ok" in ln), "")
+        m = re.search(r"(\d+)/(\d+) requests ok", summary)
+        ok = bool(m) and m.group(1) == m.group(2) != "0"
+        if name == "serve_ckpt":
+            ok = ok and f"[serve] loaded checkpoint step {step}" in out
+        runs[name] = dict(argv=argv, seconds=time.perf_counter() - t0,
+                          output=out, ok=ok)
+        emit({"phase": "train", "run": f"g_{name}", **runs[name]})
+    bad = [k for k, r in runs.items() if not r["ok"]]
+    if bad:
+        raise AssertionError(f"train (g) launcher runs failed: {bad}")
+    return runs
+
+
 def phase_train(torch) -> dict:
     """qwen2-1.5b at full width and depth (28 layers, d 1536, 12 / 2 heads
     of dh 128, d_ff 8960, vocab 151,936, tied embeddings, QKV bias), seeded,
@@ -4566,10 +4694,16 @@ def phase_train(torch) -> dict:
     (c) 2 layers at full width: kernels against twins.  (d) the reduced
     config (head_dim 64) through ``run_with_restarts`` with a fault after
     the first checkpoint: the resumed losses bit for bit.  (e) a profile
-    of one step of (a).  Returns the flash launches of run (a)."""
+    of one step of (a).  (g) the serving launcher on the card: its
+    defaults, then ``--ckpt`` at (d)'s checkpoints.  (f) hubert-xlarge at
+    full width and depth (``train_encoder``).  Returns the flash launches
+    of runs (a) and (f)."""
+    import shutil
+    import tempfile
     from repro_torch.config import TrainConfig
     from repro_torch.data import SyntheticCorpus
-    from repro_torch.launch.train import batches_for, model_config
+    from repro_torch.launch import model_config
+    from repro_torch.launch.train import batches_for
     from repro_torch.train import trainer
     cfg = model_config(TRAIN_ARCH, False, torch.device("cuda"))
     tcfg = TrainConfig(steps=20, batch_size=4, seq_len=4096, lr=3e-4,
@@ -4602,8 +4736,16 @@ def phase_train(torch) -> dict:
     twin = train_twin_check(torch, cfg)
     gc.collect()
     torch.cuda.empty_cache()
-    restart = train_restart_check(torch, model_config(
-        TRAIN_ARCH, True, torch.device("cuda"), log=lambda *_: None))
+    root = tempfile.mkdtemp(dir=OUT_DIR)
+    try:
+        restart = train_restart_check(torch, model_config(
+            TRAIN_ARCH, True, torch.device("cuda"), log=lambda *_: None),
+            root)
+        launchers = train_launchers(torch, os.path.join(root, "clean"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     bad = [n for n, ok in (("loss_falls", falls), ("kernel_vs_twin",
                                                    twin["ok"]),
                            ("restart", restart["ok"]),
@@ -4616,9 +4758,15 @@ def phase_train(torch) -> dict:
                             or not a["flash_bwd_per_step"])) if not ok]
     if bad:
         raise AssertionError(f"train phase checks failed: {bad}")
+    f = train_encoder(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
     return {"flash_attention_bwd": a["launches"]["flash_attention_bwd"],
             "flash_attention": a["launches"]["flash_attention"],
-            "profile": prof, "b": b}
+            "flash_attention_dh80": f["launches"]["flash_attention_dh80"],
+            "flash_attention_bwd_dh80":
+                f["launches"]["flash_attention_bwd_dh80"],
+            "profile": prof, "b": b, "launchers": launchers}
 
 
 def phase_whole(torch, n_new: int = 12, prompt_len: int = 1024):
@@ -4796,7 +4944,10 @@ def main() -> int:
     train = {}
     if "train" in phases:
         train = phase_train(torch)
-        counts["flash_attention_bwd"] = train["flash_attention_bwd"]
+        # the dh-80 instances' path is hubert-xlarge's training run (f)
+        for k in ("flash_attention_bwd", "flash_attention_dh80",
+                  "flash_attention_bwd_dh80"):
+            counts[k] = train[k]
         lap("train")
     if "whole" in phases:
         phase_whole(torch)
@@ -4827,10 +4978,22 @@ def main() -> int:
         # the reference's custom VJP of its training attention (XLA)
         "flash_attention_bwd": ("src/repro_torch/csrc/flash_attention_bwd.cu",
                                 "src/repro/kernels/ops.py:161"),
+        # the head_dim 80 instances (hubert-xlarge's training path)
+        "flash_attention_dh80": ("src/repro_torch/csrc/flash_attention.cu",
+                                 "src/repro/kernels/flash_attention.py:93"),
+        "flash_attention_bwd_dh80": (
+            "src/repro_torch/csrc/flash_attention_bwd_dh80.cu",
+            "src/repro/kernels/ops.py:161"),
     }
+    training_only = ("latent_score", "flash_attention_bwd",
+                     "flash_attention_dh80", "flash_attention_bwd_dh80")
     rows = []
     for name, (src, rep) in replaces.items():
-        main_case = kern[name][0] if name in kern else {}
+        if name.endswith("_dh80"):      # its case at hubert-xlarge's shape
+            main_case = next((c for c in kern.get(name[:-5], [])
+                              if "hubert" in c["case"]), {})
+        else:
+            main_case = kern[name][0] if name in kern else {}
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": rep, "launches": counts.get(name),
                      "max_abs_err": main_case.get("max_abs_err"),
@@ -4846,10 +5009,10 @@ def main() -> int:
                      "grouped_launches": grouped.get(name),
                      # the moe / hybrid paths (the families phase)
                      "families_launches": fam.get(name, 0 if fam and name
-                                                  not in ("latent_score",
-                                                          "flash_attention_bwd")
+                                                  not in training_only
                                                   else None),
-                     # qwen2-1.5b's training run (a) (the train phase)
+                     # qwen2-1.5b's training run (a), hubert-xlarge's (f)
+                     # for the dh-80 rows (the train phase)
                      "train_launches": train.get(name)})
     emit({"kernels": rows})
     idle = [r["name"] for r in rows if r["launches"] == 0

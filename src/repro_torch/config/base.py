@@ -23,8 +23,7 @@ class ModelConfig:
       moe     — attention + mixture-of-experts (llama4-scout, qwen3-moe)
       hybrid  — parallel attention ‖ SSM heads (hymba)
       ssm     — attention-free RWKV6 blocks    (rwkv6)
-      encoder — bidirectional attention        (hubert; the port builds
-                its config only, see ``models/transformer.py``)
+      encoder — bidirectional attention        (hubert; training only)
       vlm     — dense LM + vision-prefix stub  (paligemma)
     """
 

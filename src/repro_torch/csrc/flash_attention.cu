@@ -20,6 +20,12 @@
 //   TMA zero-fills rows past Sk; the kernel masks kp >= Sk and the causal
 //   diagonal (q_off = Sk - Sq) itself, on the tiles that cross them only.
 //   Tiles wholly above the diagonal are never loaded.
+// * dh 80 (hubert-xlarge) keeps dh 128's shared-memory layout: two
+//   64-column boxes and the same descriptors, over tensor maps of the true
+//   80 columns (a 160-byte row), so TMA reads 80 columns from HBM and
+//   zero-fills columns 80-127.  Q K^T stops after 5 k-steps of 16, P V is
+//   one m64n80k16 chain (its B columns 64-79 the second box's first 16),
+//   O holds 40 floats a thread, and the scale is 80^-0.5.
 // * Prefix-LM (prefix_len > 0, causal; the PREFIX instance): keys kp <
 //   prefix_len are visible to every query, so the mask keeps (qp >= kp) |
 //   (kp < prefix_len) and the live tiles run to max(diagonal, prefix_len);
@@ -57,8 +63,9 @@ constexpr int fa_bn() { return DH > 128 ? 64 : 128; }
 template <int DH>
 struct FaSmem {
   static constexpr int BN = fa_bn<DH>();
-  static constexpr size_t Q = (size_t)FA_BM * DH * 2;
-  static constexpr size_t KV = (size_t)BN * DH * 2;
+  static constexpr int TDH = sals_tile_dh(DH);  // dh 80: dh 128's tiles
+  static constexpr size_t Q = (size_t)FA_BM * TDH * 2;
+  static constexpr size_t KV = (size_t)BN * TDH * 2;
   static constexpr size_t BARS = 8 * (1 + 4 * FA_STAGES);
   // + 1024: the tiles start on a 1024-byte boundary (the swizzle's period)
   static constexpr size_t BYTES = 1024 + Q + 2 * FA_STAGES * KV + BARS;
@@ -84,7 +91,7 @@ __global__ void __launch_bounds__(FA_THREADS, 1) flash_fwd_kernel(
     int prefix_len, float softcap, float scale) {
   using L = FaSmem<DH>;
   constexpr int FA_BN = L::BN;
-  constexpr int NB = DH / 64;  // 64-column boxes per row
+  constexpr int NB = L::TDH / 64;  // 64-column boxes per row
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -369,5 +376,8 @@ extern "C" int sals_flash_attention(const void* q, const void* k,
   if (dh == 256)
     return launch_fa<256>(q, k, v, o, l, B, Sq, Sk, H, Hkv, causal,
                           prefix_len, softcap, st);
+  if (dh == 80)
+    return launch_fa<80>(q, k, v, o, l, B, Sq, Sk, H, Hkv, causal,
+                         prefix_len, softcap, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -82,13 +82,24 @@
 //   argument (SC): its dS needs 1 - tanh^2 from the S pass, so that
 //   instance forms P and dS once both products are done.
 //
+// * dh 80 (hubert-xlarge) is the dh 128 body over dh 128's shared-memory
+//   layout: tensor maps of the true 80 columns (160-byte rows), so TMA
+//   reads 80 columns and zero-fills 80-127; S^T, dP^T, S and dP stop
+//   after 5 k-steps of 16, dV, dK and dQ are m64n80k16 chains (40 floats
+//   a thread each), the D pass and the stores touch 80 columns, and the
+//   scale is 80^-0.5.  Shared memory is dh 128's.
+//
 // The kernels are in flash_attention_bwd.cuh; this source holds the entry
-// and the dh 128 instance, and the dh 64 and 256 instances compile in
-// their own sources, so that the build runs the three at once.
+// and the dh 128 instance, and the dh 64, 80 and 256 instances compile in
+// their own sources, so that the build runs the four at once.
 #include "flash_attention_bwd.cuh"
 
-// the dh 64 and 256 instances live in their own sources
+// the dh 64, 80 and 256 instances live in their own sources
 extern template int launch_fb<64>(const void*, const void*, const void*,
+                                  const void*, const float*, const void*,
+                                  void*, void*, void*, float*, int, int, int,
+                                  int, int, int, int, float, cudaStream_t);
+extern template int launch_fb<80>(const void*, const void*, const void*,
                                   const void*, const float*, const void*,
                                   void*, void*, void*, float*, int, int, int,
                                   int, int, int, int, float, cudaStream_t);
@@ -122,5 +133,8 @@ extern "C" int sals_flash_attention_bwd(
   if (dh == 256)
     return launch_fb<256>(q, k, v, o, l, dout, dq, dk, dv, ds, B, Sq, Sk, H,
                           Hkv, causal, prefix_len, softcap, st);
+  if (dh == 80)
+    return launch_fb<80>(q, k, v, o, l, dout, dq, dk, dv, ds, B, Sq, Sk, H,
+                         Hkv, causal, prefix_len, softcap, st);
   return (int)cudaErrorInvalidValue;
 }

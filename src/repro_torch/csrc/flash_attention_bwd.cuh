@@ -2,7 +2,11 @@
 // shared-memory arithmetic in flash_attention_bwd.cu).  Each head_dim
 // instance of launch_fb is compiled in its own source
 // (flash_attention_bwd.cu: 128, flash_attention_bwd_dh64.cu,
-// flash_attention_bwd_dh256.cu), so the three build in parallel.
+// flash_attention_bwd_dh80.cu, flash_attention_bwd_dh256.cu), so the four
+// build in parallel.  DH is the true head_dim; the tiles in shared memory
+// are sals_tile_dh(DH) columns wide (dh 80 takes dh 128's layout, the
+// columns past 80 zero-filled by TMA), the products over dh take DH / 16
+// k-steps and those whose N is dh run at N = DH.
 #pragma once
 
 #include "common.cuh"
@@ -33,8 +37,9 @@ struct FbKV {
   static constexpr int BM = 64;
   static constexpr int ST = SPLIT ? 2 : 3;
   static constexpr int THREADS = 256;
-  static constexpr size_t KV = (size_t)BN * DH * 2;  // the K tile (and V)
-  static constexpr size_t QT = (size_t)BM * DH * 2;  // a Q tile (and dO)
+  static constexpr int TDH = sals_tile_dh(DH);  // columns of a tile
+  static constexpr size_t KV = (size_t)BN * TDH * 2;  // the K tile (and V)
+  static constexpr size_t QT = (size_t)BM * TDH * 2;  // a Q tile (and dO)
   static constexpr size_t LD = (size_t)BM * 8;       // {LSE, D} of a tile
   static constexpr size_t X = SPLIT ? 64 * BM * 4 : 0;  // P^T (1 - t^2)
   static constexpr size_t BARS = 8 * (1 + 2 * ST);
@@ -56,8 +61,9 @@ struct FbQ {
   static constexpr int BN = DH > 128 ? 64 : 128;
   static constexpr int ST = 2;
   static constexpr int THREADS = 128 * (NWG + PRODUCER);
-  static constexpr size_t QT = (size_t)BM * DH * 2;  // the Q tile (and dO)
-  static constexpr size_t KV = (size_t)BN * DH * 2;  // a K tile (and V)
+  static constexpr int TDH = sals_tile_dh(DH);  // columns of a tile
+  static constexpr size_t QT = (size_t)BM * TDH * 2;  // the Q tile (and dO)
+  static constexpr size_t KV = (size_t)BN * TDH * 2;  // a K tile (and V)
   static constexpr size_t BARS = 8 * (1 + 2 * ST);
   static constexpr size_t BYTES = 1024 + 2 * QT + 2 * ST * KV + BARS;
   static_assert(BYTES <= FB_SMEM_MAX, "dQ shared memory");
@@ -79,7 +85,8 @@ __device__ __forceinline__ unsigned char* fb_align1024(unsigned char* p) {
       (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
 }
 
-// acc (64 x N) += A B^T over K = DH: A the 64 rows at a_addr of a K-major
+// acc (64 x N) += A B^T over K = DH (DH / 16 k-steps: dh 80 stops at the
+// second box's first 16 columns): A the 64 rows at a_addr of a K-major
 // tile of a_rows rows, B a K-major tile of N rows at b_addr.
 template <int DH, int N>
 __device__ __forceinline__ void fb_ss(float* acc, uint32_t a_addr,
@@ -95,7 +102,8 @@ __device__ __forceinline__ void fb_ss(float* acc, uint32_t a_addr,
 
 // acc (64 x DH) += A B over K = KD: A in bf16 fragments a[KD / 16][4] (an
 // accumulator's layout), B the KD x DH tile at b_addr read MN-major (its
-// rows are K; columns 64c.. lie in box c, KD * 128 bytes on).
+// rows are K; columns 64c.. lie in box c, KD * 128 bytes on; dh 80 is one
+// m64n80k16 chain).
 template <int DH, int KD>
 __device__ __forceinline__ void fb_rs(float* acc, const uint32_t (*a)[4],
                                       uint32_t b_addr) {
@@ -180,7 +188,7 @@ __global__ void __launch_bounds__(FbKV<DH>::THREADS, 1) fb_dkdv_kernel(
     __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Sq,
     int Sk, int H, int Hkv, int causal, int prefix_len, FbScale ks) {
   using L = FbKV<DH>;
-  constexpr int BN = L::BN, BM = L::BM, NB = DH / 64, ST = L::ST;
+  constexpr int BN = L::BN, BM = L::BM, NB = L::TDH / 64, ST = L::ST;
   constexpr bool SPLIT = L::SPLIT;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* k_s = fb_align1024(smem_raw);
@@ -469,7 +477,7 @@ __global__ void __launch_bounds__(FbQ<DH>::THREADS, 1) fb_dq_kernel(
     __nv_bfloat16* __restrict__ dq, int Sq, int Sk, int H, int Hkv,
     int causal, int prefix_len, FbScale ks) {
   using L = FbQ<DH>;
-  constexpr int BM = L::BM, BN = L::BN, NB = DH / 64, NWG = L::NWG;
+  constexpr int BM = L::BM, BN = L::BN, NB = L::TDH / 64, NWG = L::NWG;
   constexpr int ST = L::ST;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* q_s = fb_align1024(smem_raw);

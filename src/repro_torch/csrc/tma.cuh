@@ -69,8 +69,18 @@ static inline int sals_tmap_bf16(CUtensorMap* map, const void* base,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// Columns that a tile of head_dim dh takes in shared memory: whole
+// 64-column boxes (dh 80 takes dh 128's two).  The tensor map covers the
+// true dh, so TMA moves only the true row from HBM and zero-fills the
+// columns past it; the mbarrier still counts the whole box.
+__host__ __device__ constexpr int sals_tile_dh(int dh) {
+  return (dh + 63) / 64 * 64;
+}
+
 // 4-D map (dh, heads, S, B) of a (B, S, heads, dh) bf16 tensor, boxes of
-// 64 x 1 x rows x 1: a tile of `rows` rows of one head is dh / 64 boxes.
+// 64 x 1 x rows x 1: a tile of `rows` rows of one head is
+// sals_tile_dh(dh) / 64 boxes.  dh * 2 bytes (the row stride) must be a
+// multiple of 16, as TMA requires: dh 80's 160 is.
 static inline int sals_tmap_bshd(CUtensorMap* map, const void* p, int B,
                                  int S, int heads, int dh, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)dh, (cuuint64_t)heads,

@@ -1,7 +1,8 @@
 // Warpgroup matrix multiply (wgmma) on sm_90a: shared-memory operand
-// descriptors for 128-byte-swizzled tiles and the four shapes the port's
+// descriptors for 128-byte-swizzled tiles and the shapes the port's
 // kernels issue (m64n64k16 / m64n128k16, bf16 in, f32 accumulate, A from
-// shared memory or from registers).
+// shared memory or from registers; m64n80k16 with A from registers, for
+// head_dim 80).
 //
 // Tile layout (what TMA with CU_TENSOR_MAP_SWIZZLE_128B writes, and what
 // the cp.async gathers write by hand): rows of 64 bf16 (128 bytes), the
@@ -121,6 +122,33 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
         "r"(accumulate));
 }
 
+// D (64 x 80, f32) += A (64 x 16, bf16 registers) * B (16 x 80, smem),
+// B MN-major: the products whose N is head_dim 80.  B's columns 64-79 are
+// the first 16 of the second 64-column box, LBO bytes on.
+__device__ __forceinline__ void wgmma_rs_n80(float* d, const uint32_t* a,
+                                            uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
 // D (64 x 128, f32) += A (64 x 16, bf16 registers) * B (16 x 128, smem),
 // B MN-major (its rows contiguous: the transposed-B form).
 __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
@@ -166,7 +194,8 @@ __device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db,
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
                                          uint64_t db, int accumulate) {
-  static_assert(N == 64 || N == 128, "wgmma N");
+  static_assert(N == 64 || N == 80 || N == 128, "wgmma N");
   if constexpr (N == 64) wgmma_rs_n64(d, a, db, accumulate);
+  else if constexpr (N == 80) wgmma_rs_n80(d, a, db, accumulate);
   else wgmma_rs_n128(d, a, db, accumulate);
 }

@@ -40,6 +40,11 @@ rows run S = QKᵀ and O += PV as wgmma chains (P from registers, rounded to
 bf16), with the softcap, mask and online softmax in f32 on the accumulator
 registers and O, the row max and sum in registers for the whole KV loop.
 K/V are read at kv head h // group, so GQA needs no expanded copy.
+Head dims 64, 80, 128 and 256: dh 80 (hubert-xlarge) runs dh 128's
+shared-memory layout over tensor maps of the true 80 columns (TMA
+zero-fills columns 80-127 and reads only 80 from HBM), with the products
+over dh cut to 5 k-steps and those whose N is dh at N 80; nothing is
+padded in HBM.
 Prefix-LM (``prefix_len`` > 0, with ``causal``): keys below ``prefix_len``
 are visible to every query, the rest causally — the Pallas kernel's mask
 ``(qp >= kp) | (kp < prefix_len)``.
@@ -53,8 +58,18 @@ from repro_torch.kernels._build import ptr, require
 
 launches = _build.LaunchCounter("flash_attention")
 bwd_launches = _build.LaunchCounter("flash_attention_bwd")
+# the head_dim 80 instances (hubert-xlarge), also counted above
+dh80_launches = _build.LaunchCounter("flash_attention_dh80")
+bwd_dh80_launches = _build.LaunchCounter("flash_attention_bwd_dh80")
 
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 80, 128, 256)
+
+
+def tile_dh(dh: int) -> int:
+    """Columns a tile takes in shared memory (mirrors ``sals_tile_dh``):
+    whole 64-column boxes, so dh 80 keeps dh 128's layout and TMA
+    zero-fills the columns past 80."""
+    return -(-dh // 64) * 64
 
 
 def block_keys(dh: int) -> int:
@@ -66,7 +81,8 @@ def smem_bytes(dh: int) -> int:
     """Dynamic shared memory of one block (mirrors ``FaSmem``): the
     1024-byte alignment slack, the 128-row Q tile, two stages of K and V
     tiles and the barriers."""
-    return 1024 + 128 * dh * 2 + 2 * 2 * block_keys(dh) * dh * 2 + 8 * 9
+    t = tile_dh(dh)
+    return 1024 + 128 * t * 2 + 2 * 2 * block_keys(dh) * t * 2 + 8 * 9
 
 
 def bwd_tiles(dh: int) -> dict:
@@ -88,13 +104,13 @@ def bwd_smem_bytes(dh: int) -> tuple:
     (mirrors ``FbKV::BYTES`` / ``FbQ::BYTES``): the 1024-byte alignment
     slack, the resident tiles, the ring, the split body's f32 hand-over
     buffer and the barriers."""
-    t = bwd_tiles(dh)
+    t, w = bwd_tiles(dh), tile_dh(dh)
     rows, st = t["dkdv_rows"], t["dkdv_stages"]
     x = 64 * rows * 4 if t["dkdv_split"] else 0
-    dkdv = (1024 + 2 * t["dkdv_keys"] * dh * 2
-            + st * (2 * rows * dh * 2 + rows * 8) + x + 8 * (1 + 2 * st))
+    dkdv = (1024 + 2 * t["dkdv_keys"] * w * 2
+            + st * (2 * rows * w * 2 + rows * 8) + x + 8 * (1 + 2 * st))
     st = t["dq_stages"]
-    dq = (1024 + 2 * t["dq_rows"] * dh * 2 + 2 * st * t["dq_keys"] * dh * 2
+    dq = (1024 + 2 * t["dq_rows"] * w * 2 + 2 * st * t["dq_keys"] * w * 2
           + 8 * (1 + 2 * st))
     return dkdv, dq
 
@@ -146,6 +162,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    float(softcap), _build.stream_handle(dev))
     _build.check(err, "flash_attention")
     launches.add()
+    if dh == 80:
+        dh80_launches.add()
     return (out, lse) if return_lse else out
 
 
@@ -186,4 +204,6 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         int(prefix_len), float(softcap), _build.stream_handle(dev))
     _build.check(err, "flash_attention_bwd")
     bwd_launches.add()
+    if dh == 80:
+        bwd_dh80_launches.add()
     return dq, dk, dv

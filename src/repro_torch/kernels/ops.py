@@ -25,7 +25,7 @@ NEG_INF = _ref.NEG_INF
 COUNTERS = (_ls.launches, _sra.launches, _fa.launches,
             _ls.paged_launches, _sra.paged_launches, _sra.window_launches,
             _sra.window_paged_launches, _ls.score_launches,
-            _fa.bwd_launches)
+            _fa.bwd_launches, _fa.dh80_launches, _fa.bwd_dh80_launches)
 
 
 def launch_counts() -> Dict[str, int]:

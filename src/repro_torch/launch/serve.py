@@ -5,14 +5,19 @@ card (port of ``repro/launch/serve.py``).
         --requests 8 --max-new-tokens 32 [--sals 0.25|0.125|off] \
         [--page-size 16] [--spec-window 4] [--full] [--device cpu] \
         [--temperature 0.7] [--priority-classes 2 --preempt-policy park] \
-        [--metrics-out m.prom|m.json] [--trace-out t.json] [--stream]
+        [--metrics-out m.prom|m.json] [--trace-out t.json] [--stream] \
+        [--ckpt artifacts/ckpt/qwen2]
 
-Weights are random, from ``--seed``.  Calibrates the SALS projectors on the
+Weights are random, from ``--seed``, or with ``--ckpt`` the newest
+checkpoint of a training run (``launch.train --ckpt-dir``), cast to the
+serving dtype.  Calibrates the SALS projectors on the
 synthetic corpus (paper §5.1; not for an attention-free family, which has
 no SALS), builds the engine, runs the requests through
 ``RequestScheduler`` (static batches for the recurrent families) and
-reports tokens/s.  ``--reduced`` (the default) is
-the tiny same-family configuration; ``--full`` the published widths.
+reports tokens/s.  Runs on the card unless ``--device cpu`` is asked
+for.  ``--reduced`` (the default) is the tiny same-family configuration,
+on the card at head_dim 64 as ``launch.train`` takes it
+(``launch.model_config``); ``--full`` the published widths.
 Requests round-robin the priority classes and two demo tenants, so the SLO
 machinery runs when its flags enable it.  ``--metrics-out``,
 ``--trace-out`` or ``--obs-snapshot-every`` turn telemetry on
@@ -28,10 +33,12 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.config import SALSConfig, ServeConfig
-from repro_torch.configs import _ARCH_MODULES, get_config
+from repro_torch import checkpoint as ckpt
+from repro_torch.config import ModelConfig, SALSConfig, ServeConfig
+from repro_torch.configs import _ARCH_MODULES
 from repro_torch.core import calibration as cal
 from repro_torch.data import CalibrationSampler, SyntheticCorpus
+from repro_torch.launch import model_config
 from repro_torch.models import transformer as tf
 from repro_torch import obs
 from repro_torch.obs import metrics as obs_metrics
@@ -77,6 +84,17 @@ def calibrate(params, cfg, sals, corpus, n_sequences: int = 16,
     return out
 
 
+def sals_config(cfg: ModelConfig, sals: str) -> SALSConfig:
+    """The launcher's SALS settings for ``--sals`` 0.25 or 0.125: r =
+    ratio · kv_dim, 8- or 4-bit values in groups of min(32, kv_dim), N_c
+    64, 4 sink and 16 recent tokens, the first two layers and the last one
+    full."""
+    return SALSConfig(
+        rank_ratio=float(sals), v_bits=8 if sals == "0.25" else 4,
+        n_critical=64, n_sink=4, n_recent=16, v_group=min(32, cfg.kv_dim),
+        skip_layers_front=min(2, cfg.n_layers - 1), skip_layers_back=1)
+
+
 def write_metrics(registry, path: str) -> None:
     """Write ``registry`` to ``path``: the JSON snapshot for a ``.json``
     path, Prometheus text exposition otherwise."""
@@ -92,7 +110,10 @@ def main(argv=None) -> None:
                          "the reference's launcher does; the recurrent "
                          "families (hymba-1.5b, rwkv6-7b) run static "
                          "batches; rwkv6-7b has no attention, so no SALS")
-    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--reduced", action="store_true", default=True,
+                    help="the tiny same-family config (the default); on "
+                         "the card at head_dim 64, the smallest the "
+                         "kernels take (the CPU keeps 32)")
     ap.add_argument("--full", dest="reduced", action="store_false")
     ap.add_argument("--sals", default="0.25",
                     choices=("0.25", "0.125", "off"))
@@ -200,27 +221,30 @@ def main(argv=None) -> None:
                     help="re-export --metrics-out every N scheduler steps "
                          "while serving (0 = only at drain); implies "
                          "telemetry on")
+    ap.add_argument("--ckpt", default="",
+                    help="serve the newest checkpoint in this directory "
+                         "(a launch.train --ckpt-dir of the same --arch "
+                         "and --reduced / --full, on the same device type)"
+                         " instead of random weights")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="the card unless 'cpu' is asked for")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
+    cfg = model_config(args.arch, args.reduced, dev, who="serve")
     if not cfg.is_decoder:
         raise SystemExit(f"{args.arch} is encoder-only — no serving path")
     params = tf.init_params(cfg, device=dev, seed=args.seed)
+    if args.ckpt:
+        # the checkpoint's params, each cast to its serving tensor's dtype
+        # as it is copied in (a train state's other leaves are not read)
+        _, step = ckpt.restore(args.ckpt, {"params": params})
+        print(f"[serve] loaded checkpoint step {step}")
     corpus = SyntheticCorpus(cfg.vocab_size, seed=args.seed)
     sals, projectors = None, None
     if args.sals != "off" and cfg.has_attention:
-        sals = SALSConfig(
-            rank_ratio=float(args.sals),
-            v_bits=8 if args.sals == "0.25" else 4,
-            n_critical=64, n_sink=4, n_recent=16,
-            v_group=min(32, cfg.kv_dim),
-            skip_layers_front=min(2, cfg.n_layers - 1), skip_layers_back=1)
+        sals = sals_config(cfg, args.sals)
         projectors = calibrate(params, cfg, sals, corpus)
         print(f"[serve] calibrated projectors in {projectors['seconds']:.1f}s "
               f"(rank {sals.rank(cfg.kv_dim)}/{cfg.kv_dim})")

@@ -19,52 +19,59 @@ Runs on the card unless ``--device cpu`` is asked for.  The dtype defaults
 to bfloat16 on the card (the flash kernels take bf16) and float32 on the
 CPU.  ``--reduced`` (the default) is the tiny same-family configuration;
 on the card its head_dim is raised from 32 to 64, the smallest the flash
-kernels take.  ``--full`` is the published widths.  The encoder family
-(hubert) and ``--grad-compression`` are not ported yet.
+kernels take (``launch.model_config``).  ``--full`` is the published
+widths.  The encoder family (hubert-xlarge) trains on frames from the
+reference's frontend stub (:func:`batches_for`).  ``--grad-compression``
+is not ported yet.
 """
 from __future__ import annotations
 
 import argparse
-from typing import Iterator
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import checkpoint as ckpt
 from repro_torch.config import ModelConfig, TrainConfig
-from repro_torch.configs import ASSIGNED_ARCHS, PAPER_ARCHS, get_config
+from repro_torch.configs import ASSIGNED_ARCHS, PAPER_ARCHS
 from repro_torch.data import SyntheticCorpus, make_batches
 from repro_torch.ft import StragglerMonitor, run_with_restarts
-from repro_torch.kernels.flash_attention import HEAD_DIMS
+from repro_torch.launch import model_config
 from repro_torch.models.transformer import torch_dtype
 from repro_torch.serve.engine import resolve_device
 from repro_torch.train import trainer
 
 
-def model_config(arch: str, reduced: bool, device: torch.device,
-                 log=print) -> ModelConfig:
-    """The architecture's config; ``reduced`` on the card takes head_dim
-    64 (the reduced configs' 32 is below what the flash kernels take)."""
-    cfg = get_config(arch)
-    if cfg.family == "encoder":
-        raise NotImplementedError(
-            f"{arch}: the encoder family's training forward (frames input, "
-            "non-causal attention at head_dim 80) comes with slice 7b")
-    if not reduced:
-        return cfg
-    small = cfg.reduced()
-    if device.type == "cuda" and small.head_dim < min(HEAD_DIMS):
-        small = cfg.reduced(head_dim=min(HEAD_DIMS))
-        log(f"[train] --reduced on the card: head_dim {small.head_dim} "
-            "(the flash kernels take 64, 128, 256)")
-    return small
+def frame_table(cfg: ModelConfig, device="cpu") -> torch.Tensor:
+    """The encoder's frontend stub: a (vocab, d_model) f32 table of
+    N(0, 0.02) rows, drawn on the CPU from a ``torch.Generator`` seeded 0
+    (the reference draws its own from ``jax.random.PRNGKey(0)``), then
+    moved to ``device``."""
+    g = torch.Generator().manual_seed(0)
+    return (torch.randn((cfg.vocab_size, cfg.d_model), generator=g)
+            * 0.02).to(device)
 
 
 def batches_for(cfg: ModelConfig, corpus: SyntheticCorpus,
-                tcfg: TrainConfig, start_step: int) -> Iterator[dict]:
-    """The corpus's batches from ``start_step``; a vlm batch also carries
-    the reference's stub patch embeddings (N(0, 0.02) from seed 0)."""
+                tcfg: TrainConfig, start_step: int,
+                table: Optional[torch.Tensor] = None,
+                device="cpu") -> Iterator[dict]:
+    """The corpus's batches from ``start_step``.  A vlm batch also carries
+    the reference's stub patch embeddings (N(0, 0.02) from seed 0).  An
+    encoder batch is the reference's frontend stub: {"frames": the rows
+    of ``table`` (default :func:`frame_table` on ``device``) at the
+    tokens, "labels": labels % vocab}."""
     gen = make_batches(corpus, tcfg.batch_size, tcfg.seq_len, start_step)
+    if cfg.family == "encoder":
+        table = frame_table(cfg, device) if table is None else table
+
+        def to_frames(b):
+            tokens = torch.as_tensor(b["tokens"], device=table.device)
+            return {"frames": table[tokens.long()],
+                    "labels": b["labels"] % cfg.vocab_size}
+
+        return (to_frames(b) for b in gen)
     if cfg.family != "vlm":
         return gen
 
@@ -83,7 +90,10 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
                     choices=ASSIGNED_ARCHS + PAPER_ARCHS)
-    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--reduced", action="store_true", default=True,
+                    help="the tiny same-family config (the default); on "
+                         "the card at head_dim 64, the smallest the "
+                         "kernels take (the CPU keeps 32)")
     ap.add_argument("--full", dest="reduced", action="store_false")
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--batch-size", type=int, default=8)
@@ -129,7 +139,7 @@ def main(argv=None) -> None:
         mon = StragglerMonitor()
         state = trainer.train_loop(
             cfg, tcfg, state=state, step_fn=step_fn,
-            batches=batches_for(cfg, corpus, tcfg, start_step),
+            batches=batches_for(cfg, corpus, tcfg, start_step, device=dev),
             start_step=start_step, ckpt_dir=args.ckpt_dir or None,
             straggler=mon)
         if mon.flags:

@@ -1,6 +1,6 @@
 """Model assembly for the decoder families — dense, vlm, moe, hybrid and
-ssm: init / train forward / prefill / decode (port of
-``repro/models/transformer.py``).
+ssm: init / train forward / prefill / decode — and the encoder family's
+init and training forward (port of ``repro/models/transformer.py``).
 
 Parameters are an ``nn.Module`` tree (:class:`Transformer`) whose tensors
 keep the reference's per-layer layouts; ``convert.params_from_numpy``
@@ -10,9 +10,12 @@ over layers; here a Python loop walks them.
 Blocks.  dense / vlm: attention + gated MLP; moe: attention + the
 mixture-of-experts layer (``models/moe.py``); hybrid: attention ∥ Mamba
 heads on the same normed input, merged as (a + s) / 2, + gated MLP; ssm:
-RWKV6 time-mix + channel-mix (``models/ssm.py``), no attention.  The
-encoder family (hubert) has no decode phase; its forward belongs to the
-training slice, and building it here raises ``NotImplementedError``.
+RWKV6 time-mix + channel-mix (``models/ssm.py``), no attention; encoder
+(hubert): the dense block over precomputed frame embeddings
+({"frames": (B, S, d)}), bidirectional and without RoPE, so its
+attention reaches the flash kernels non-causal (at head_dim 80 for
+hubert-xlarge).  The encoder has no decode phase: its caches, prefill and
+decode raise ``ValueError`` as the reference's do.
 
 Segments.  The SALS layer mask is front/back-contiguous, so the stack
 splits into up to three segments ``full | sals | full``, each with its own
@@ -69,15 +72,6 @@ def torch_dtype(name) -> torch.dtype:
 
 
 RECURRENT = ("ssm", "hybrid")
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    if not cfg.is_decoder:
-        raise NotImplementedError(
-            f"the {cfg.family} family is not ported: its forward (frames "
-            "input, non-causal attention at head_dim 80 in the flash "
-            "kernels) comes with slice 7b, the encoder half of the "
-            "training slice")
 
 
 # ---------------------------------------------------------------------------
@@ -137,11 +131,12 @@ class Block(nn.Module):
 
 
 class Transformer(nn.Module):
-    """Decoder parameters: embed, blocks[L], final_norm."""
+    """Model parameters: embed, blocks[L], final_norm.  The encoder's embed
+    holds the unused token table and its untied unembed (``lm_head``), as
+    the reference's does."""
 
     def __init__(self, cfg: ModelConfig, dtype=None, device="cuda"):
         super().__init__()
-        _check_family(cfg)
         dtype = torch_dtype(dtype or cfg.dtype)
         self.embed = Embedding(cfg, dtype, device)
         self.blocks = nn.ModuleList(Block(cfg, dtype, device)
@@ -213,11 +208,14 @@ def _block_fwd(bp: Block, x: torch.Tensor, cfg: ModelConfig,
 
 def embed_inputs(params: Transformer, cfg: ModelConfig,
                  batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, int]:
-    """Returns (x (B,S,d), prefix_len) from {"tokens": (B, S)}, or for the
+    """Returns (x (B,S,d), prefix_len) from {"tokens": (B, S)}; for the
     vlm family {"patches": (B, P, d), "tokens": (B, S)}: the patch
     embeddings, cast to the token embedding's dtype and not scaled, then
-    the tokens' (P + S positions, prefix_len P)."""
-    _check_family(cfg)
+    the tokens' (P + S positions, prefix_len P); for the encoder family
+    {"frames": (B, S, d)}: the frame embeddings (the frontend stub's),
+    cast to the params' compute dtype (``final_norm``'s), prefix_len 0."""
+    if cfg.family == "encoder":
+        return batch["frames"].to(params.final_norm.scale.dtype), 0
     tok_emb = embed_apply(params.embed, batch["tokens"], cfg)
     if cfg.family == "vlm" and "patches" in batch:
         patches = batch["patches"].to(tok_emb.dtype)

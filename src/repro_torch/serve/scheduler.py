@@ -295,9 +295,14 @@ class RequestScheduler:
     submitted = _CounterView("serve_requests_submitted_total")
     done = _CounterView("serve_requests_done_total")
 
-    def __init__(self, engine: ServeEngine, mode: Optional[str] = None,
+    def __init__(self, engine: ServeEngine, max_batch: Optional[int] = None,
+                 mode: Optional[str] = None,
                  clock: Optional[Callable[[], float]] = None):
+        """``max_batch`` (default the engine's ``scfg.max_batch``) is the
+        static mode's batch; continuous mode batches over the engine's slot
+        arena and refuses another value when it runs."""
         scfg = engine.scfg
+        self.max_batch = max_batch or scfg.max_batch
         mode = mode or scfg.scheduler
         if mode not in ("continuous", "static"):
             raise ValueError(f"unknown scheduler mode {mode!r}")
@@ -668,7 +673,7 @@ class RequestScheduler:
                                         f"req {req.req_id} cancelled"),
                                     issued)
             batch: List[Request] = []
-            while self.pending and len(batch) < self.engine.scfg.max_batch:
+            while self.pending and len(batch) < self.max_batch:
                 batch.append(self.pending.popleft())
             if not batch:
                 break
@@ -706,6 +711,10 @@ class RequestScheduler:
             return self._run_static(on_batch)
         eng = self.engine
         scfg = eng.scfg
+        if self.max_batch != scfg.max_batch:
+            raise ValueError("continuous mode uses the engine's slot arena: "
+                             f"max_batch {self.max_batch} != "
+                             f"engine {scfg.max_batch}")
         b = scfg.max_batch
         ps = scfg.page_size
         mp = scfg.max_seq_len // ps if self.paged else 0

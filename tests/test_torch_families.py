@@ -24,7 +24,8 @@ weights, at ``reduced(dtype="float32")``:
 * every ``ValueError`` the reference raises for a recurrent family (a
   paged cache, chunked prefill, a verify window, speculative decoding,
   an SSD chunk the prompt does not fill), raised here for the same
-  reason; the encoder family raises ``NotImplementedError``;
+  reason; the encoder family's serving engine and decode cache refuse
+  it as the reference's do;
 * the serving CLI on the CPU for hymba (static) and qwen3-moe (paged)."""
 import dataclasses
 import os
@@ -435,13 +436,11 @@ def test_hybrid_ssd_chunk_needs_whole_chunks():
 
 
 def test_encoder_family_not_ported():
-    """hubert has a config but no decode phase: the port's model raises
-    NotImplementedError naming the training slice, and its serving
-    engine refuses it as the reference's does."""
+    """hubert has no decode phase (its training forward is ported, see
+    ``tests/test_torch_encoder.py``): the port's serving engine and
+    decode cache refuse it as the reference's do."""
     cfg = get_config("hubert-xlarge").reduced(dtype="float32")
     jcfg = jax_get_config("hubert-xlarge").reduced(dtype="float32")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        ttf.Transformer(cfg, device="cpu")
     _raises_both(ValueError, "encoder models cannot be served",
                  lambda: JEngine(None, None, jcfg, JServe()),
                  lambda: ServeEngine(None, None, cfg, ServeConfig(),

@@ -24,7 +24,8 @@ inputs.
   max), the O of the forward with LSE bitwise equal to the one without,
   and two backward runs bitwise equal; sequence lengths that are
   multiples of no tile, a prefix past one tile, group 6, Hkv = H, dh 256
-  non-causal with Sq < Sk; and planted faults (a zeroed LSE slice in the
+  non-causal with Sq < Sk, dh 80 (non-causal, GQA with Sq < Sk,
+  softcap); and planted faults (a zeroed LSE slice in the
   last query tile, a K tile past the diagonal) that the kernels follow
   as the twin does.  Those cases import no JAX, so they run on a machine
   with a card (``pytest --noconftest -m requires_cuda``)."""
@@ -196,7 +197,7 @@ def test_no_function_and_no_lse_outside_autograd(monkeypatch):
 SMEM_PER_BLOCK = 232448    # what one H100 block may use
 
 
-@pytest.mark.parametrize("dh", [64, 128, 256])
+@pytest.mark.parametrize("dh", [64, 80, 128, 256])
 def test_bwd_geometry_fits_shared_memory(dh):
     """Both kernels' blocks fit in shared memory, the dK/dV block's keys
     are whole 64-key warpgroup tiles (two, or one shared by the split
@@ -284,6 +285,12 @@ CUDA_CASES = [
     ("dh256 non-causal Sq 130 < Sk 200", 1, 130, 200, 4, 2, 256, False, 0.0,
      0),
     ("dh256 softcap 20 S 200", 1, 200, 200, 4, 1, 256, True, 20.0, 0),
+    # hubert-xlarge's head_dim: dh 128's tiles over 80 true columns
+    ("dh80 non-causal MHA 16 S 200", 1, 200, 200, 16, 16, 80, False, 0.0,
+     0),
+    ("dh80 causal GQA Sq 130 < Sk 200", 2, 130, 200, 4, 2, 80, True, 0.0,
+     0),
+    ("dh80 softcap 30 S 300", 1, 300, 300, 4, 4, 80, True, 30.0, 0),
 ]
 BWD_TOL = 1e-2     # max |kernel - twin| over the tensor's max |twin|
 
@@ -338,7 +345,7 @@ def test_function_on_card_matches_cpu_function(cuda):
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("fault", ["lse_last_tile", "k_past_diagonal"])
-@pytest.mark.parametrize("dh", [64, 128, 256])
+@pytest.mark.parametrize("dh", [64, 80, 128, 256])
 def test_kernels_follow_planted_faults(cuda, dh, fault):
     """A planted fault that each kernel must not hide: the LSE of the last
     64-row query tile zeroed (the rows the last dK/dV tile and the last

@@ -19,7 +19,8 @@ on the same seeded weights and batches, f32 at reduced widths.
   is left out: ``_assert_state_close`` says how); for the dense
   (qwen2-1.5b: QKV bias, tied embeddings), vlm (paligemma-3b: patches,
   prefix-LM, the loss over the text suffix), moe (llama4-scout: the aux
-  loss), hybrid (hymba-1.5b) and ssm (rwkv6-7b) families; the encoder family raises, naming slice 7b;
+  loss), hybrid (hymba-1.5b) and ssm (rwkv6-7b) families (the encoder's are in
+  ``tests/test_torch_encoder.py``); ``--grad-compression`` raises;
 * the reference's system check (``tests/test_system.py::trained``): a
   small qwen2 trained by the port learns (loss falls by more than 0.5),
   and the port's calibrated projector reconstructs its keys better than a
@@ -309,12 +310,8 @@ def test_train_step_equals_reference(arch):
 
 
 def test_encoder_family_raises_naming_slice_7b():
-    cfg = get_config("hubert-xlarge").reduced(dtype="float32")
-    with pytest.raises(NotImplementedError, match="slice 7b"):
-        trainer.init_state(cfg, TrainConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 7b"):
-        train_cli.main(["--arch", "hubert-xlarge", "--device", "cpu",
-                        "--steps", "1"])
+    """The encoder family trains now (``tests/test_torch_encoder.py``);
+    what still raises is ``--grad-compression``, naming its queue item."""
     with pytest.raises(NotImplementedError, match="item 6"):
         train_cli.main(["--arch", "qwen2-1.5b", "--device", "cpu",
                         "--steps", "1", "--grad-compression"])
