@@ -228,8 +228,32 @@ Phases, each printing one JSON line:
               frontend stub's frames, B 8 x S 1024, block remat, 10 steps:
               the loss must fall, every step launch the dh-80 flash
               forward 2 x 48 times and its backward 48; a profiled step,
-              two layers' gradients against the twins';
-15. whole   — a full-width 2-layer model (SALS on layer 1) decoded on the
+              two layers' gradients against the twins'; (h) qwen2-1.5b as
+              (a), at (a)'s lr 3e-4 and at 1e-4: 10 steps of
+              ``make_train_step`` then 10 of ``make_compressed_train_step``
+              (int8 error-feedback, one rank) from the same seed: per-step
+              loss and ms, peak memory of each (the compressed one carries
+              the f32 ``ef`` residual), the device time of
+              ``compressed_mean_grads`` over one step's gradients
+              (profiled), ``wire_bytes`` for a world of 1 and 8; every
+              compressed loss must fall, and at 1e-4 (no loss spike) end
+              within 2% of the uncompressed one;
+15. examples — the port's examples (``repro_torch.examples``) through
+              their ``main`` on the card, bf16: (a) ``quickstart``
+              (reduced yi-9b at head_dim 64: tokens of ``full``, ``sals``
+              and ``sals-g2``, calibration and wall seconds); (b)
+              ``multi_arch_smoke`` over all ten assigned architectures
+              (loss, decode ok, finite logits; any exception fails the
+              phase); (c) ``train_then_serve --full-100m`` at 300 steps
+              (d 512, 8 layers, vocab 32,768: loss first and last, ms a
+              step, peak memory, calibration seconds, tok/s of ``full``,
+              ``sals25`` and ``sals25-g2`` through the scheduler and each
+              SALS engine's greedy agreement with ``full`` on the trained
+              weights); (d) ``fault_tolerant_train`` (two crashes: the
+              restarts, the kept checkpoints and the max parameter delta
+              against the uninterrupted run, below the example's 1e-5);
+              launch counts of each run, zeroed just before it;
+16. whole   — a full-width 2-layer model (SALS on layer 1) decoded on the
               card (kernels) and on the CPU (twins) from the same weights
               and a 1024-token prompt (so top-k really selects), per-step
               logits compared under teacher forcing.
@@ -266,7 +290,7 @@ F32_FLOP_PER_S = 67e12
 
 PHASES = ("device", "build", "kernels", "serve", "sched", "tier", "quality",
           "spec", "slo", "obs", "grouped", "vlm", "families", "train",
-          "whole")
+          "examples", "whole")
 # "profile" (not run by default) adds torch.profiler passes over four
 # chunked-prefill steps after the sched phase (replayed and eager, and the
 # host's issue time of a chunk), and over three
@@ -4387,10 +4411,11 @@ TRAIN_ARCH = "qwen2-1.5b"
 
 
 def train_run(torch, cfg, tcfg, state, remat: str, name: str,
-              start_step: int = 0) -> dict:
-    """``train_loop`` over ``make_train_step`` from ``start_step`` on the
-    corpus's batches (seed 0), launch counters zeroed just before and read
-    just after; per step loss, ce, grad norm, lr and ms."""
+              start_step: int = 0, step_fn=None) -> dict:
+    """``train_loop`` over ``step_fn`` (default ``make_train_step``) from
+    ``start_step`` on the corpus's batches (seed 0), launch counters zeroed
+    just before and read just after; per step loss, ce, grad norm, lr and
+    ms."""
     from repro_torch.data import SyntheticCorpus
     from repro_torch.kernels import ops
     from repro_torch.launch.train import batches_for
@@ -4405,8 +4430,8 @@ def train_run(torch, cfg, tcfg, state, remat: str, name: str,
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     trainer.train_loop(cfg, tcfg, state=state,
-                       step_fn=trainer.make_train_step(cfg, tcfg,
-                                                       remat=remat),
+                       step_fn=step_fn or trainer.make_train_step(
+                           cfg, tcfg, remat=remat),
                        batches=batches_for(cfg, corpus, tcfg, start_step,
                                            device="cuda"),
                        start_step=start_step, log=lambda *_: None,
@@ -4584,6 +4609,107 @@ def train_restart_check(torch, cfg, root: str, steps: int = 8,
     return row
 
 
+H_STABLE_LR = 1e-4
+
+
+def train_compressed(torch, cfg, tcfg) -> dict:
+    """(h) qwen2-1.5b at (a)'s shape, at two peak learning rates: (a)'s
+    3e-4, and ``H_STABLE_LR``.  At each, 10 steps of ``make_train_step``,
+    then 10 of ``make_compressed_train_step`` (int8 error-feedback
+    gradients over this one rank), each from a fresh seeded state (bf16
+    weights, f32 master and moments; the compressed one also an f32 ``ef``
+    residual): per-step loss and ms, peak memory of each run.  Then the
+    device time of ``compressed_mean_grads`` over one step's gradients,
+    profiled, and ``wire_bytes`` for a world of 1 and of 8.  Every
+    compressed loss must fall.  At (a)'s lr a 10-step schedule spikes the
+    loss at step 4 in both runs (15.2 and 15.7 on an H100), so the two
+    runs compare spike recovery, not convergence; the convergence check
+    (the compressed last loss within 2% of the uncompressed one) is made
+    at the stable lr, where neither spikes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.distributed import compression as gcomp
+    from repro_torch.launch.train import batches_for
+    from repro_torch.train import trainer
+    rows, comp = [], None
+    for lr in (tcfg.lr, H_STABLE_LR):
+        tc = dataclasses.replace(tcfg, steps=10, lr=lr)
+        runs = {}
+        for compressed in (False, True):
+            name = f"h_{'compressed' if compressed else 'plain'}_lr{lr:g}"
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            state = trainer.init_state(cfg, tc, device="cuda",
+                                       dtype=torch.bfloat16,
+                                       ef_residual=compressed)
+            state_bytes = torch.cuda.memory_allocated()
+            step_fn = (trainer.make_compressed_train_step if compressed
+                       else trainer.make_train_step)(cfg, tc, remat="block")
+            runs[compressed] = train_run(torch, cfg, tc, state, "block",
+                                         name, step_fn=step_fn)
+            runs[compressed]["state_bytes"] = state_bytes
+            if compressed and comp is None:
+                batch = trainer.batch_to(next(batches_for(
+                    cfg, SyntheticCorpus(cfg.vocab_size, seed=0), tc,
+                    tc.steps)), "cuda")
+                _, _, grads = trainer.loss_and_grads(state["params"], cfg,
+                                                     batch, "block")
+                del batch
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    gcomp.compressed_mean_grads(grads, state["ef"])
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                kern = [e for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA]
+                (OUT_DIR / "h_compression_profile.txt").write_text(
+                    prof.key_averages().table(
+                        sort_by="self_device_time_total", row_limit=30))
+                comp = dict(
+                    wall_ms=wall * 1e3,
+                    device_ms=sum(e.self_device_time_total
+                                  for e in kern) / 1e3,
+                    top_device_ms=[[e.key[:60],
+                                    e.self_device_time_total / 1e3]
+                                   for e in sorted(
+                                       kern, key=lambda e:
+                                       -e.self_device_time_total)[:8]],
+                    wire_bytes={str(n): gcomp.wire_bytes(state["params"], n)
+                                for n in (1, 8)})
+                del grads
+            del state, step_fn
+        plain, cmp_ = runs[False], runs[True]
+        lp = [st["loss"] for st in plain["steps"]]
+        lc = [st["loss"] for st in cmp_["steps"]]
+        rows.append(dict(
+            phase="train", run=f"h_compression_lr{lr:g}", arch=cfg.name,
+            lr=lr, batch=tc.batch_size, seq=tc.seq_len,
+            loss_plain=lp, loss_compressed=lc,
+            last_loss_rel_diff=abs(lc[-1] - lp[-1]) / abs(lp[-1]),
+            median_step_ms_plain=plain["median_step_ms"],
+            median_step_ms_compressed=cmp_["median_step_ms"],
+            peak_memory_plain=plain["peak_memory"],
+            peak_memory_compressed=cmp_["peak_memory"],
+            peak_memory_extra=cmp_["peak_memory"] - plain["peak_memory"],
+            state_bytes_plain=plain["state_bytes"],
+            state_bytes_compressed=cmp_["state_bytes"],
+            loss_falls=statistics.fmean(lc[-5:]) < lc[0],
+            last_loss_within_2pct=abs(lc[-1] - lp[-1]) <= 0.02 * abs(lp[-1])))
+    row = dict(phase="train", run="h_compression", arch=cfg.name,
+               compression=comp, runs=rows)
+    emit(row)
+    bad = [r["run"] for r in rows if not r["loss_falls"]]
+    if not rows[-1]["last_loss_within_2pct"]:
+        bad.append(rows[-1]["run"] + ": last loss not within 2%")
+    if bad:
+        raise AssertionError(f"train (h) compression checks failed: {bad}")
+    return row
+
+
 ENCODER_ARCH = "hubert-xlarge"
 
 
@@ -4696,8 +4822,9 @@ def phase_train(torch) -> dict:
     the first checkpoint: the resumed losses bit for bit.  (e) a profile
     of one step of (a).  (g) the serving launcher on the card: its
     defaults, then ``--ckpt`` at (d)'s checkpoints.  (f) hubert-xlarge at
-    full width and depth (``train_encoder``).  Returns the flash launches
-    of runs (a) and (f)."""
+    full width and depth (``train_encoder``).  (h) the compressed step
+    against the plain one (``train_compressed``).  Returns the flash
+    launches of runs (a) and (f)."""
     import shutil
     import tempfile
     from repro_torch.config import TrainConfig
@@ -4733,6 +4860,9 @@ def phase_train(torch) -> dict:
     del state
     gc.collect()
     torch.cuda.empty_cache()
+    h = train_compressed(torch, cfg, tcfg)
+    gc.collect()
+    torch.cuda.empty_cache()
     twin = train_twin_check(torch, cfg)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4766,7 +4896,125 @@ def phase_train(torch) -> dict:
             "flash_attention_dh80": f["launches"]["flash_attention_dh80"],
             "flash_attention_bwd_dh80":
                 f["launches"]["flash_attention_bwd_dh80"],
-            "profile": prof, "b": b, "launchers": launchers}
+            "profile": prof, "b": b, "h": h, "launchers": launchers}
+
+
+EXAMPLE_KERNELS = ("latent_topk", "sparse_recon_attention", "flash_attention",
+                   "flash_attention_bwd")
+
+
+def example_run(torch, name: str, fn) -> tuple:
+    """``fn()`` (an example's ``main``) with its printed lines kept in
+    ``chiprun_out/examples_{name}.txt``, the launch counters zeroed just
+    before and read just after, and the peak device memory.  Returns (its
+    result, a row of those)."""
+    import contextlib
+    import io
+    from repro_torch.kernels import ops
+    buf = io.StringIO()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+        torch.cuda.synchronize()
+    finally:
+        (OUT_DIR / f"examples_{name}.txt").write_text(buf.getvalue())
+    row = dict(phase="examples", run=name,
+               seconds=time.perf_counter() - t0,
+               peak_memory=torch.cuda.max_memory_allocated(),
+               launches={k: v for k, v in ops.launch_counts().items() if v},
+               printed=buf.getvalue().splitlines()[-12:])
+    return out, row
+
+
+def phase_examples(torch) -> dict:
+    """The port's examples through their ``main`` on the card (bf16, seeded
+    weights): (a) quickstart, (b) multi_arch_smoke over the ten assigned
+    architectures, (c) train_then_serve --full-100m at its 300 steps, (d)
+    fault_tolerant_train.  Any exception fails the phase.  Returns the
+    phase's launches of each kernel of its path, summed over the runs."""
+    import shutil
+    import tempfile
+    from repro_torch.examples import (fault_tolerant_train,
+                                      multi_arch_smoke, quickstart,
+                                      train_then_serve)
+    total = {}
+    bad = []
+
+    def add(row):
+        for k, v in row["launches"].items():
+            total[k] = total.get(k, 0) + v
+
+    a, row = example_run(torch, "a_quickstart", lambda: quickstart.main([]))
+    row.update(tokens=a["tokens"], agreement=a["agreement"],
+               calibration_s=a["calibration_s"], engine_s=a["seconds"],
+               wall_s=a["wall_s"], bytes_per_token=a["bytes_per_token"])
+    emit(row)
+    add(row)
+    if any(len(t) != 12 for rows in a["tokens"].values() for t in rows):
+        bad.append("a_tokens")
+
+    b, row = example_run(torch, "b_multi_arch_smoke",
+                         lambda: multi_arch_smoke.main([]))
+    row.update(archs=b)
+    emit(row)
+    add(row)
+    if [o["arch"] for o in b] != multi_arch_smoke.ASSIGNED_ARCHS or not all(
+            np.isfinite(o["loss"]) and o.get("decode_finite", True)
+            for o in b):
+        bad.append("b_archs")
+
+    # checkpoints of a 100M model: under build/, which no call brings back
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(dir=ROOT / "build")
+    try:
+        steps = []
+        c, row = example_run(torch, "c_train_then_serve", lambda: (
+            train_then_serve.main(
+                ["--full-100m", "--ckpt-dir", os.path.join(root, "e2e")],
+                on_step=lambda i, m, dt: steps.append(
+                    (float(m["loss"]), dt * 1e3)))))
+        losses = [l for l, _ in steps]
+        row.update(steps_run=c["steps_run"], train_s=c["train_s"],
+                   first_loss=losses[0], last_loss=losses[-1],
+                   last10_mean_loss=statistics.fmean(losses[-10:]),
+                   median_step_ms=statistics.median(
+                       [ms for _, ms in steps[1:]]),
+                   stragglers=c["stragglers"],
+                   calibration_s=c["calibration_s"], tok_s=c["tok_s"],
+                   agreement=c["agreement"],
+                   requests_done=c["requests_done"])
+        del c
+        emit(row)
+        add(row)
+        if row["steps_run"] != 300 \
+                or not row["last10_mean_loss"] < losses[0] \
+                or set(row["requests_done"].values()) != {8}:
+            bad.append("c_train_then_serve")
+
+        d, row = example_run(torch, "d_fault_tolerant_train", lambda: (
+            fault_tolerant_train.main(
+                [], ckpt_dir=os.path.join(root, "ft"))))
+        row.update(restarts=d["restarts"], checkpoints=d["checkpoints"],
+                   max_param_delta=d["max_delta"],
+                   exact_recovery=d["max_delta"] < 1e-5)
+        del d
+        emit(row)
+        add(row)
+        if row["restarts"] != 2 or row["checkpoints"] != [25, 30] \
+                or not row["exact_recovery"]:
+            bad.append("d_fault_tolerant_train")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"examples phase checks failed: {bad}")
+    return total
 
 
 def phase_whole(torch, n_new: int = 12, prompt_len: int = 1024):
@@ -4949,6 +5197,10 @@ def main() -> int:
                   "flash_attention_bwd_dh80"):
             counts[k] = train[k]
         lap("train")
+    examples = {}
+    if "examples" in phases:
+        examples = phase_examples(torch)
+        lap("examples")
     if "whole" in phases:
         phase_whole(torch)
         lap("whole")
@@ -5013,11 +5265,15 @@ def main() -> int:
                                                   else None),
                      # qwen2-1.5b's training run (a), hubert-xlarge's (f)
                      # for the dh-80 rows (the train phase)
-                     "train_launches": train.get(name)})
+                     "train_launches": train.get(name),
+                     # the port's examples (the examples phase)
+                     "examples_launches": examples.get(name, 0)
+                     if examples and name in EXAMPLE_KERNELS else None})
     emit({"kernels": rows})
     idle = [r["name"] for r in rows if r["launches"] == 0
             or r["vlm_launches"] == 0 or r["grouped_launches"] == 0
-            or r["families_launches"] == 0 or r["train_launches"] == 0]
+            or r["families_launches"] == 0 or r["train_launches"] == 0
+            or r["examples_launches"] == 0]
     if idle:    # None: its path did not run; 0: it ran without the kernel
         raise AssertionError(f"kernels never launched on their path: {idle}")
     print(smi, flush=True)

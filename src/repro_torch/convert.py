@@ -16,7 +16,8 @@ f32 exactly, and the port writes its bf16 leaves as f32 (numpy without
 ``ml_dtypes`` has no bf16).
 
 The train state (``train/trainer.py``) carries ``opt`` {"mu", "nu",
-"master"} dicts keyed by parameter name and a ``count`` scalar;
+"master"} dicts keyed by parameter name and a ``count`` scalar (and, for
+the compressed step, an ``ef`` residual dict keyed by parameter name);
 :func:`state_to_numpy` / :func:`state_load_` map any such tree to the
 reference's pytree layout (``{"params": {"blocks": {"attn": {"wq": (L, d,
 qd)}}}, "opt": {"mu": ..., "count": ()}}``) and back, which is what the
@@ -208,8 +209,10 @@ def state_load_(tree, arrays: dict) -> None:
 def state_from_numpy(state_np: dict, cfg: ModelConfig, device="cuda",
                      dtype=None, moment_dtype=torch.float32) -> dict:
     """The reference's train state (numpy) -> a port train state: its
-    weights, moments, master copies and count."""
+    weights, moments, master copies and count, and its error-feedback
+    residual ``ef`` when it has one."""
     params = params_from_numpy(state_np["params"], cfg, device, dtype)
-    state = state_for(params, moment_dtype)
-    state_load_(state["opt"], state_np["opt"])
+    state = state_for(params, moment_dtype, ef_residual="ef" in state_np)
+    state_load_({k: state[k] for k in state if k != "params"},
+                {k: state_np[k] for k in state if k != "params"})
     return state

@@ -7,15 +7,19 @@ and fits one rank-r PCA projector per layer.  At full width (kv_dim 4096,
 accumulates each layer's key covariance on the model's device in float64
 and takes ``torch.linalg.eigh`` there; :func:`collect_keys` keeps the
 reference's materialized form for small runs and tests.
+:func:`random_layer_projectors` is the uncalibrated stand-in (orthonormal
+random bases) and :func:`adaptive_ranks` the layer-adaptive rank choice.
 """
 from __future__ import annotations
 
-from typing import Callable, Iterable
+from typing import Callable, Iterable, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.core.projection import fit_projector, fit_projector_from_cov
+from repro_torch.config import ModelConfig, SALSConfig
+from repro_torch.core.projection import (fit_projector, fit_projector_from_cov,
+                                         gaussian, orthonormal_projector)
 
 U_DTYPE = torch.bfloat16   # stored projector dtype (consumers upcast to f32)
 
@@ -65,5 +69,57 @@ def fit_layer_projectors(keys, rank: int) -> dict:
 def fit_layer_projectors_from_cov(cov: torch.Tensor, rank: int) -> dict:
     """cov: (L, kvd, kvd) f64 -> {"u": (L, kvd, r) bf16, "eigvals"}."""
     fits = [fit_projector_from_cov(cov[l], rank) for l in range(cov.shape[0])]
+    return {"u": torch.stack([f["u"] for f in fits]).to(U_DTYPE),
+            "eigvals": torch.stack([f["eigvals"] for f in fits])}
+
+
+def adaptive_ranks(eigvals, target_energy: float = 0.90,
+                   round_to: int = 8) -> list:
+    """Layer-adaptive rank selection (paper appendix A): per layer of
+    ``eigvals`` (L, kv_dim), descending, the rank capturing
+    ``target_energy`` of the variance, rounded up to ``round_to``.  The
+    runtime cache keeps one uniform r; these ranks are bookkeeping."""
+    ev = np.asarray(eigvals.detach().cpu() if torch.is_tensor(eigvals)
+                    else eigvals, np.float64)
+    ranks = []
+    for l in range(ev.shape[0]):
+        e = np.maximum(ev[l], 0)
+        c = np.cumsum(e) / max(e.sum(), 1e-12)
+        r = int(np.searchsorted(c, target_energy) + 1)
+        ranks.append(max(round_to, ((r + round_to - 1) // round_to)
+                         * round_to))
+    return ranks
+
+
+def layer_gaussians(kv_dim: int, n_layers: int,
+                    generator: Optional[torch.Generator] = None,
+                    device="cpu") -> torch.Tensor:
+    """(n_layers, kv_dim, kv_dim) f32 standard-normal matrices on
+    ``device``, one per layer, each from its own generator seeded by a draw
+    of ``generator`` (made on ``device`` with seed 0 when None): the
+    counterpart of the reference's ``jax.random.split`` per layer."""
+    device = torch.device(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    seeds = torch.randint(0, 2**62, (n_layers,), generator=generator,
+                          device=generator.device).tolist()
+    return torch.stack([
+        gaussian(kv_dim, torch.Generator(device=device).manual_seed(s),
+                 device) for s in seeds])
+
+
+def random_layer_projectors(cfg: ModelConfig, sals: SALSConfig,
+                            n_layers: int,
+                            generator: Optional[torch.Generator] = None,
+                            device="cpu",
+                            gaussians: Optional[torch.Tensor] = None) -> dict:
+    """Orthonormal random projectors — the placeholder before calibration:
+    {"u": (L, kvd, r) bf16, "eigvals": (L, kvd) f32 ones} on ``device``.
+    ``gaussians`` (L, kvd, kvd) replaces the draw of
+    :func:`layer_gaussians` (a test passes the reference's)."""
+    g = layer_gaussians(cfg.kv_dim, n_layers, generator, device) \
+        if gaussians is None else gaussians.to(device)
+    fits = [orthonormal_projector(g[l], sals.rank(cfg.kv_dim))
+            for l in range(n_layers)]
     return {"u": torch.stack([f["u"] for f in fits]).to(U_DTYPE),
             "eigvals": torch.stack([f["eigvals"] for f in fits])}

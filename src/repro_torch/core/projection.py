@@ -9,8 +9,13 @@ runs in float64 on whatever device holds the covariance.
 Two groupings, as the reference's: one projector over all kv heads
 (:func:`fit_projector`, the paper's default) and a block-diagonal one with
 an independent PCA per kv-head group (:func:`fit_projector_grouped`).
+:func:`random_projector` is the uncalibrated stand-in: the QR of a
+Gaussian matrix, drawn (:func:`gaussian`) and factored
+(:func:`orthonormal_projector`) in separate steps.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -62,6 +67,32 @@ def fit_projector_grouped(keys, rank: int, n_groups: int) -> dict:
         u[g * gd:(g + 1) * gd, g * gr:(g + 1) * gr] = evec[:, :gr]
         eigvals.append(ev)
     return {"u": u.float(), "eigvals": torch.stack(eigvals).float()}
+
+
+def gaussian(kv_dim: int, generator: Optional[torch.Generator] = None,
+             device="cpu") -> torch.Tensor:
+    """A (kv_dim, kv_dim) f32 standard-normal matrix on ``device``
+    (``generator`` lives there too)."""
+    return torch.randn((kv_dim, kv_dim), generator=generator,
+                       dtype=torch.float32, device=device)
+
+
+def orthonormal_projector(g: torch.Tensor, rank: int) -> dict:
+    """The first ``rank`` columns of the QR of a square f32 matrix ``g``,
+    and all-one eigenvalues: {"u": (kv_dim, rank) f32, "eigvals":
+    (kv_dim,) f32}."""
+    q, _ = torch.linalg.qr(g.float())
+    return {"u": q[:, :rank],
+            "eigvals": torch.ones(g.shape[0], dtype=torch.float32,
+                                  device=g.device)}
+
+
+def random_projector(kv_dim: int, rank: int,
+                     generator: Optional[torch.Generator] = None,
+                     device="cpu") -> dict:
+    """Orthonormal random projector — used for tests and un-calibrated
+    init (the reference draws its matrix from ``jax.random``)."""
+    return orthonormal_projector(gaussian(kv_dim, generator, device), rank)
 
 
 def to_latent(u: torch.Tensor, k_flat: torch.Tensor) -> torch.Tensor:

@@ -3,8 +3,8 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
         [--reduced | --full] [--steps 200] [--microbatches 2] \
         [--remat none|block|save_dots] [--ckpt-dir artifacts/ckpt/qwen2] \
-        [--checkpoint-every 50] [--resume] [--device cpu] \
-        [--dtype bfloat16|float32]
+        [--checkpoint-every 50] [--resume] [--grad-compression] \
+        [--device cpu] [--dtype bfloat16|float32]
 
 Weights are random, from ``--seed``; the data is the synthetic corpus
 (``SyntheticCorpus``, deterministic per step, so a resumed run sees the
@@ -22,7 +22,11 @@ on the card its head_dim is raised from 32 to 64, the smallest the flash
 kernels take (``launch.model_config``).  ``--full`` is the published
 widths.  The encoder family (hubert-xlarge) trains on frames from the
 reference's frontend stub (:func:`batches_for`).  ``--grad-compression``
-is not ported yet.
+takes ``trainer.make_compressed_train_step`` (int8 error-feedback
+gradients, the residual ``ef`` in the state and its checkpoints): under
+``torchrun`` (``torch.distributed`` initialized) it reduces over the
+world, otherwise over this one rank, as the reference's host mesh of one
+device does.
 """
 from __future__ import annotations
 
@@ -36,10 +40,9 @@ from repro_torch import checkpoint as ckpt
 from repro_torch.config import ModelConfig, TrainConfig
 from repro_torch.configs import ASSIGNED_ARCHS, PAPER_ARCHS
 from repro_torch.data import SyntheticCorpus, make_batches
+from repro_torch.distributed import compression as gc
 from repro_torch.ft import StragglerMonitor, run_with_restarts
-from repro_torch.launch import model_config
-from repro_torch.models.transformer import torch_dtype
-from repro_torch.serve.engine import resolve_device
+from repro_torch.launch import add_device_args, device_and_dtype, model_config
 from repro_torch.train import trainer
 
 
@@ -86,7 +89,8 @@ def batches_for(cfg: ModelConfig, corpus: SyntheticCorpus,
     return (add_patches(b) for b in gen)
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> dict:
+    """Parse ``argv``, train, and return the final train state."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
                     choices=ASSIGNED_ARCHS + PAPER_ARCHS)
@@ -100,7 +104,10 @@ def main(argv=None) -> None:
     ap.add_argument("--seq-len", type=int, default=256)
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--microbatches", type=int, default=1)
-    ap.add_argument("--grad-compression", action="store_true")
+    ap.add_argument("--grad-compression", action="store_true",
+                    help="int8 error-feedback gradient reduction over the "
+                         "torch.distributed world when it is initialized, "
+                         "else over this rank alone")
     ap.add_argument("--remat", default="none",
                     choices=("none", "block", "save_dots"))
     ap.add_argument("--ckpt-dir", default="")
@@ -109,38 +116,52 @@ def main(argv=None) -> None:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--max-restarts", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--device", default="cuda",
-                    help="the card unless 'cpu' is asked for")
-    ap.add_argument("--dtype", default=None,
-                    choices=("bfloat16", "float32"),
-                    help="bfloat16 on the card, float32 on the CPU")
+    add_device_args(ap)
     args = ap.parse_args(argv)
 
-    if args.grad_compression:
-        raise NotImplementedError(
-            "--grad-compression (int8 error-feedback over a data-parallel "
-            "mesh) comes with the distributed slice, Queue A item 6")
-    dev = resolve_device(args.device)
+    dev, dtype = device_and_dtype(args)
     cfg = model_config(args.arch, args.reduced, dev)
-    dtype = torch_dtype(args.dtype or ("bfloat16" if dev.type == "cuda"
-                                       else "float32"))
     tcfg = TrainConfig(steps=args.steps, batch_size=args.batch_size,
                        seq_len=args.seq_len, lr=args.lr,
                        microbatches=args.microbatches, seed=args.seed,
                        checkpoint_every=args.checkpoint_every)
     corpus = SyntheticCorpus(cfg.vocab_size, seed=args.seed)
+    ranks, rank = 1, 0
+    if args.grad_compression:
+        ranks = gc.group_size()
+        rank = torch.distributed.get_rank() if ranks > 1 else 0
+        if tcfg.batch_size % ranks:
+            raise ValueError(f"--batch-size {tcfg.batch_size} must be a "
+                             f"multiple of the {ranks} ranks")
+        print(f"[train] int8 error-feedback gradients over {ranks} "
+              f"rank{'s' if ranks > 1 else ''} (rank {rank})")
+
+    def rank_rows(batches):
+        """This rank's rows of each global batch (the reference's batch
+        sharded over its data axis); the whole batch on one rank."""
+        per = tcfg.batch_size // ranks
+        for b in batches:
+            yield {k: v[rank * per:(rank + 1) * per] for k, v in b.items()}
 
     def train_once(start_step: int):
-        state = trainer.init_state(cfg, tcfg, device=dev, dtype=dtype)
+        state = trainer.init_state(cfg, tcfg, device=dev, dtype=dtype,
+                                   ef_residual=args.grad_compression)
         if start_step and args.ckpt_dir:
             state, start_step = ckpt.restore(args.ckpt_dir, state)
             print(f"[train] restored step {start_step}")
-        step_fn = trainer.make_train_step(cfg, tcfg, remat=args.remat)
+        if args.grad_compression:
+            step_fn = trainer.make_compressed_train_step(cfg, tcfg,
+                                                         remat=args.remat)
+        else:
+            step_fn = trainer.make_train_step(cfg, tcfg, remat=args.remat)
         mon = StragglerMonitor()
+        # every rank holds the same weights and moments; rank 0 writes them
         state = trainer.train_loop(
             cfg, tcfg, state=state, step_fn=step_fn,
-            batches=batches_for(cfg, corpus, tcfg, start_step, device=dev),
-            start_step=start_step, ckpt_dir=args.ckpt_dir or None,
+            batches=rank_rows(batches_for(cfg, corpus, tcfg, start_step,
+                                          device=dev)),
+            start_step=start_step,
+            ckpt_dir=(args.ckpt_dir or None) if rank == 0 else None,
             straggler=mon)
         if mon.flags:
             print(f"[train] straggler steps flagged: {mon.flags[:5]}")
@@ -148,12 +169,11 @@ def main(argv=None) -> None:
 
     if args.ckpt_dir and args.resume:
         # the first attempt also starts from the newest checkpoint
-        run_with_restarts(
+        return run_with_restarts(
             lambda start: train_once(
                 start or ckpt.latest_step(args.ckpt_dir) or 0),
             args.ckpt_dir, max_restarts=args.max_restarts)
-    else:
-        train_once(0)
+    return train_once(0)
 
 
 if __name__ == "__main__":

@@ -1,13 +1,15 @@
 """Training step and loop (port of ``repro/train/trainer.py``):
-microbatch gradient accumulation, remat, checkpoint / restart integration.
+microbatch gradient accumulation, remat, optional int8 error-feedback
+gradient compression, checkpoint / restart integration.
 
 ``make_train_step`` builds ``step(state, batch) -> (state, metrics)``; the
 state is updated IN PLACE (the counterpart of the reference's
 ``jax.jit(step, donate_argnums=(0,))``) and the step runs eagerly.
-``train_loop`` is the host driver (data, checkpoints, straggler timing,
-logging).  The reference's int8 error-feedback gradient compression
-(``make_compressed_train_step``) needs a data-parallel mesh and comes with
-the distributed slice.
+``make_compressed_train_step`` reduces the gradients over a
+``torch.distributed`` group with int8 codes on the wire
+(``distributed/compression.py``), carrying each rank's quantization error
+in ``state["ef"]``.  ``train_loop`` is the host driver (data, checkpoints,
+straggler timing, logging).
 """
 from __future__ import annotations
 
@@ -17,30 +19,37 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.config import ModelConfig, TrainConfig
+from repro_torch.distributed import compression as gc
 from repro_torch.models import transformer as tf
 from repro_torch.train.optimizer import adamw_init, adamw_update
 
-TrainState = Dict[str, Any]     # {"params": Transformer, "opt": {...}}
+TrainState = Dict[str, Any]     # {"params": Transformer, "opt": {...}[,
+                                #  "ef": {name: f32 residual}]}
 AUX_WEIGHT = 0.01   # MoE load-balance loss weight
 
 
 def init_state(cfg: ModelConfig, tcfg: TrainConfig, device="cuda",
                dtype=None, moment_dtype=torch.float32,
                generator: Optional[torch.Generator] = None,
-               seed: Optional[int] = None) -> TrainState:
+               seed: Optional[int] = None,
+               ef_residual: bool = False) -> TrainState:
     """Seeded parameters (``seed`` defaults to ``tcfg.seed``) with their
-    gradients turned on, and a fresh AdamW state."""
+    gradients turned on, a fresh AdamW state and, with ``ef_residual``, a
+    zero error-feedback residual ``ef`` for the compressed step."""
     params = tf.init_params(cfg, generator, device=device, dtype=dtype,
                             seed=tcfg.seed if seed is None else seed)
-    return state_for(params, moment_dtype)
+    return state_for(params, moment_dtype, ef_residual)
 
 
-def state_for(params: tf.Transformer, moment_dtype=torch.float32
-              ) -> TrainState:
+def state_for(params: tf.Transformer, moment_dtype=torch.float32,
+              ef_residual: bool = False) -> TrainState:
     """A train state over existing parameters: their gradients on, AdamW
-    state zero."""
+    state zero (and a zero ``ef`` residual with ``ef_residual``)."""
     params.requires_grad_(True)
-    return {"params": params, "opt": adamw_init(params, moment_dtype)}
+    state = {"params": params, "opt": adamw_init(params, moment_dtype)}
+    if ef_residual:
+        state["ef"] = gc.init_residual(params)
+    return state
 
 
 def loss_fn(params: tf.Transformer, cfg: ModelConfig, batch: dict,
@@ -93,6 +102,28 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *,
             loss = torch.stack(losses).mean()
             extras = {k: torch.stack([e[k] for e in extra_seq]).mean()
                       for k in extra_seq[0]}
+        _, _, om = adamw_update(grads, state["opt"], params, tcfg)
+        return state, {"loss": loss, **extras, **om}
+
+    return step
+
+
+def make_compressed_train_step(cfg: ModelConfig, tcfg: TrainConfig,
+                               group=None, *, remat: str = "none"
+                               ) -> Callable:
+    """The data-parallel step with int8 error-feedback compression: each
+    rank's loss and gradients on its own batch, the gradients mean-reduced
+    over ``group`` by ``compressed_mean_grads`` (``state["ef"]`` updated in
+    place), the loss and extras averaged over it, then AdamW.  ``group``
+    None is the world when ``torch.distributed`` is initialized, else this
+    rank alone (the reference's one-device mesh)."""
+
+    def step(state: TrainState, batch: dict):
+        params = state["params"]
+        loss, extras, grads = loss_and_grads(params, cfg, batch, remat)
+        grads, _ = gc.compressed_mean_grads(grads, state["ef"], group)
+        loss = gc.mean_over(loss, group)
+        extras = {k: gc.mean_over(v, group) for k, v in extras.items()}
         _, _, om = adamw_update(grads, state["opt"], params, tcfg)
         return state, {"loss": loss, **extras, **om}
 

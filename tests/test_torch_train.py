@@ -20,7 +20,9 @@ on the same seeded weights and batches, f32 at reduced widths.
   (qwen2-1.5b: QKV bias, tied embeddings), vlm (paligemma-3b: patches,
   prefix-LM, the loss over the text suffix), moe (llama4-scout: the aux
   loss), hybrid (hymba-1.5b) and ssm (rwkv6-7b) families (the encoder's are in
-  ``tests/test_torch_encoder.py``); ``--grad-compression`` raises;
+  ``tests/test_torch_encoder.py``); ``--grad-compression`` trains and
+  checkpoints its residual ``ef`` (``tests/test_torch_compression.py``
+  holds the compressed step to the reference's);
 * the reference's system check (``tests/test_system.py::trained``): a
   small qwen2 trained by the port learns (loss falls by more than 0.5),
   and the port's calibrated projector reconstructs its keys better than a
@@ -309,12 +311,24 @@ def test_train_step_equals_reference(arch):
                                 f"{arch} step {i}")
 
 
-def test_encoder_family_raises_naming_slice_7b():
-    """The encoder family trains now (``tests/test_torch_encoder.py``);
-    what still raises is ``--grad-compression``, naming its queue item."""
-    with pytest.raises(NotImplementedError, match="item 6"):
-        train_cli.main(["--arch", "qwen2-1.5b", "--device", "cpu",
-                        "--steps", "1", "--grad-compression"])
+def test_train_cli_grad_compression_trains_and_checkpoints_ef(tmp_path,
+                                                              capsys):
+    """``launch.train --grad-compression`` trains reduced qwen2-1.5b on
+    one rank (the int8 error-feedback step) and checkpoints the residual
+    ``ef`` beside the weights and moments, in the reference's layout."""
+    d = str(tmp_path / "ck")
+    train_cli.main(["--arch", "qwen2-1.5b", "--device", "cpu", "--steps",
+                    "2", "--batch-size", "2", "--seq-len", "32",
+                    "--grad-compression", "--ckpt-dir", d,
+                    "--checkpoint-every", "2"])
+    out = capsys.readouterr().out
+    assert "int8 error-feedback gradients over 1 rank" in out
+    assert "step 0: loss=" in out and "step 1: loss=" in out
+    with np.load(os.path.join(d, "step_000000002", "arrays.npz")) as z:
+        ef = sorted(k for k in z.files if k.startswith("ef/"))
+        params = sorted(k for k in z.files if k.startswith("params/"))
+        assert [k[3:] for k in ef] == [k[7:] for k in params]
+        assert any(z[k].any() for k in ef)
 
 
 # ---------------------------------------------------------------------------
