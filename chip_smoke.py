@@ -171,7 +171,26 @@ Phases, each printing one JSON line:
               one window kernel and top-k per SALS layer and round; (4)
               ``mode="static"``, 8 requests in batches of 4: tokens equal
               ``generate`` on the same batches;
-12. vlm     — seeded paligemma-3b at full width (18 layers, d 2048, MQA
+12. mesh    — the sharding layer (``distributed/sharding.py``,
+              ``launch/specs.py``) at world 1: a one-rank NCCL process
+              group on a file store and a (1, 1) ("data", "model")
+              ``DeviceMesh`` on the card.  (a) ``build_train``'s step on
+              qwen2-1.5b at full width and depth (B 4 x S 4096, block
+              remat, 3 steps) from the plain step's initial state: per-step
+              losses within 1e-5 relative of ``make_train_step``'s, 56 + 28
+              flash launches a step, the max parameter delta, ms a step
+              and peak memory of both; (b) ``build_prefill`` +
+              ``build_decode`` (eager) on paper-llama2-7b at full width
+              and depth with ``sals_for_shape``'s SALS-25% at
+              ShapeConfig("d4k", "decode", 4096, 4): 32 greedy tokens of 4
+              prompts equal to ``ServeEngine.generate``'s from the same
+              weights and U_r, in both ``dist_mode``s, rows 1 and 2 once
+              per SALS layer and step, ms a step; (c) the shard-local slab
+              body (``sparse_attention.shard_partials``) once per slab as
+              rank r of G would call it, at the grouped phase's llama2
+              shape for G 2 and 4: (m, l, o) bitwise equal to the fold's.
+              The group is destroyed and the memory freed after it;
+13. vlm     — seeded paligemma-3b at full width (18 layers, d 2048, MQA
               with head_dim 256, vocab 257,216; bf16), SALS-25% (r 64, r*
               32, 15 SALS layers), U_r calibrated on tokens: (a) prefill of
               4 rows of 256 patch embeddings + 3840 ... 2304 tokens through
@@ -183,7 +202,7 @@ Phases, each printing one JSON line:
               serve phase, and at G 4 as the grouped phase's (1); (c)
               ``RequestScheduler``, 4 requests on 64-token pages and on the
               dense arena (tokens equal); every path's launch counts;
-13. families — the moe, hybrid and ssm families at full width, bf16,
+14. families — the moe, hybrid and ssm families at full width, bf16,
               seeded, SALS-25% at the defaults where the family has
               attention (U_r calibrated on the synthetic corpus): (a)
               hymba-1.5b at full depth (32 layers, 29 SALS): ``generate``
@@ -206,7 +225,7 @@ Phases, each printing one JSON line:
               of it that the MoE layers or the recurrences take (one
               layer's call captured alone at the step's shapes, times the
               layers);
-14. train   — qwen2-1.5b at full width and depth (bf16 weights, f32
+15. train   — qwen2-1.5b at full width and depth (bf16 weights, f32
               master and moments, seed 0) through the launcher's
               functions (``trainer.init_state``, ``make_train_step``,
               ``train_loop`` over the corpus's batches): (a) B 4 x S 4096,
@@ -238,7 +257,7 @@ Phases, each printing one JSON line:
               (profiled), ``wire_bytes`` for a world of 1 and 8; every
               compressed loss must fall, and at 1e-4 (no loss spike) end
               within 2% of the uncompressed one;
-15. examples — the port's examples (``repro_torch.examples``) through
+16. examples — the port's examples (``repro_torch.examples``) through
               their ``main`` on the card, bf16: (a) ``quickstart``
               (reduced yi-9b at head_dim 64: tokens of ``full``, ``sals``
               and ``sals-g2``, calibration and wall seconds); (b)
@@ -253,7 +272,7 @@ Phases, each printing one JSON line:
               restarts, the kept checkpoints and the max parameter delta
               against the uninterrupted run, below the example's 1e-5);
               launch counts of each run, zeroed just before it;
-16. whole   — a full-width 2-layer model (SALS on layer 1) decoded on the
+17. whole   — a full-width 2-layer model (SALS on layer 1) decoded on the
               card (kernels) and on the CPU (twins) from the same weights
               and a 1024-token prompt (so top-k really selects), per-step
               logits compared under teacher forcing.
@@ -289,8 +308,8 @@ BF16_FLOP_PER_S = 989e12
 F32_FLOP_PER_S = 67e12
 
 PHASES = ("device", "build", "kernels", "serve", "sched", "tier", "quality",
-          "spec", "slo", "obs", "grouped", "vlm", "families", "train",
-          "examples", "whole")
+          "spec", "slo", "obs", "grouped", "mesh", "vlm", "families",
+          "train", "examples", "whole")
 # "profile" (not run by default) adds torch.profiler passes over four
 # chunked-prefill steps after the sched phase (replayed and eager, and the
 # host's issue time of a chunk), and over three
@@ -5082,6 +5101,290 @@ def phase_whole(torch, n_new: int = 12, prompt_len: int = 1024):
         raise AssertionError("card and CPU disagree on the whole path")
 
 
+# ---------------------------------------------------------------------------
+# mesh: the sharding layer (launch/specs.py over a DeviceMesh) at world 1
+# ---------------------------------------------------------------------------
+
+def mesh_start(torch):
+    """A world-1 NCCL process group on a FileStore (no network) and the
+    (1, 1) ("data", "model") mesh on the card.  Returns (mesh, store
+    directory)."""
+    import tempfile
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    d = tempfile.mkdtemp(prefix="mesh_store_")
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(d, "store"), 1), rank=0,
+        world_size=1, device_id=torch.device("cuda", 0))
+    return DeviceMesh("cuda", torch.arange(1).reshape(1, 1),
+                      mesh_dim_names=("data", "model")), d
+
+
+def mesh_train(torch, mesh) -> dict:
+    """(a) qwen2-1.5b at full width and depth, B 4 x S 4096, block remat, 3
+    steps: the plain ``make_train_step`` from seed 0, then ``build_train``'s
+    step on the mesh from the same initial state (placed by its
+    placements): per-step losses within 1e-5 relative, 56 + 28 flash
+    launches a step, the max parameter delta, ms a step and peak memory
+    of each."""
+    from repro_torch.config import MeshConfig, ShapeConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.launch import specs
+    from repro_torch.launch.train import batches_for
+    from repro_torch.train import trainer
+    cfg = get_config("qwen2-1.5b")
+    shape = ShapeConfig("train_a", "train", 4096, 4)
+    tcfg = TrainConfig(steps=3, batch_size=4, seq_len=4096, lr=3e-4,
+                       warmup_steps=5)
+    corpus = SyntheticCorpus(cfg.vocab_size, seed=0)
+    batches = [trainer.batch_to(b, "cuda") for b in
+               (next(batches_for(cfg, corpus, tcfg, i)) for i in range(3))]
+    mc = MeshConfig(shape=(1, 1), axis_names=("data", "model"),
+                    seq_parallel=False)
+    fn, like, in_pl, _ = specs.build_train(cfg, shape, mesh, mc,
+                                           remat="block", tcfg=tcfg)
+    runs = {}
+    for name in ("plain", "mesh"):
+        state = trainer.init_state(cfg, tcfg, device="cuda", seed=0)
+        if name == "mesh":
+            state = {k: shd.place(v, mesh, in_pl[0][k])
+                     for k, v in state.items()}
+            step = fn
+            batch_pl = in_pl[1]
+        else:
+            step = trainer.make_train_step(cfg, tcfg, remat="block")
+        losses, ms = [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        for b in batches:
+            t0 = time.perf_counter()
+            state, m = step(state, shd.place(b, mesh, batch_pl)
+                            if name == "mesh" else b)
+            losses.append(float(m["loss"].to_local()
+                                if shd.is_dtensor(m["loss"])
+                                else m["loss"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        counts = ops.launch_counts()
+        params = {k: (p.to_local() if shd.is_dtensor(p) else p).detach()
+                  for k, p in state["params"].named_parameters()}
+        runs[name] = dict(losses=losses, ms=ms, counts=counts,
+                          peak_memory=torch.cuda.max_memory_allocated(),
+                          params=params)
+        del state, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    plain, mesh_run = runs["plain"], runs["mesh"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(mesh_run["losses"],
+                                                  plain["losses"]))
+    delta = max(float((mesh_run["params"][k].float()
+                       - plain["params"][k].float()).abs().max())
+                for k in plain["params"])
+    fwd = mesh_run["counts"]["flash_attention"] / 3
+    bwd = mesh_run["counts"]["flash_attention_bwd"] / 3
+    row = dict(phase="mesh", run="a_train", arch=cfg.name, batch=4,
+               seq=4096, remat="block", losses=mesh_run["losses"],
+               plain_losses=plain["losses"], max_rel_loss_diff=rel,
+               max_param_delta=delta, flash_fwd_per_step=fwd,
+               flash_bwd_per_step=bwd,
+               ms_per_step=statistics.median(mesh_run["ms"][1:]),
+               plain_ms_per_step=statistics.median(plain["ms"][1:]),
+               step_ms=mesh_run["ms"], plain_step_ms=plain["ms"],
+               peak_memory=mesh_run["peak_memory"],
+               plain_peak_memory=plain["peak_memory"],
+               placements_at_rest=sorted({str(v) for v in
+                                          in_pl[0]["params"].values()}))
+    emit(row)
+    if rel > 1e-5:
+        raise AssertionError(f"mesh (a): losses {mesh_run['losses']} vs "
+                             f"plain {plain['losses']}")
+    if fwd != 2 * cfg.n_layers or bwd != cfg.n_layers:
+        raise AssertionError(f"mesh (a): flash launches a step {fwd} + "
+                             f"{bwd}, expected {2 * cfg.n_layers} + "
+                             f"{cfg.n_layers}")
+    return mesh_run["counts"]
+
+
+def mesh_serve(torch, model, mesh, n_new: int = 32) -> dict:
+    """(b) paper-llama2-7b at full width and depth with ``sals_for_shape``'s
+    SALS at ShapeConfig("d4k", "decode", 4096, 4): ``build_prefill`` +
+    ``build_decode`` (eager) on 4 prompts of 4096 - 32 tokens, 32 greedy
+    tokens in both ``dist_mode``s, against ``ServeEngine.generate`` from
+    the same weights, U_r and SALS config; launches of rows 1 and 2 (and
+    the prefill's flash), ms a step."""
+    from repro_torch.config import MeshConfig, ServeConfig, ShapeConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.launch import specs
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serve import ServeEngine
+    cfg, params, proj = model["cfg"], model["params"], model["proj"]
+    shape = ShapeConfig("d4k", "decode", 4096, 4)
+    sals = specs.sals_for_shape(cfg, shape)
+    plen = shape.seq_len - n_new
+    prompts = [model["corpus"].batch(300 + i, 1, plen)["tokens"][0]
+               for i in range(4)]
+    eng = ServeEngine(params, proj, cfg, ServeConfig(
+        max_seq_len=shape.seq_len, max_batch=4, sals=sals), device="cuda")
+    want = np.stack([r.tokens for r in eng.generate(prompts,
+                                                    max_new_tokens=n_new)])
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    mc = MeshConfig(shape=(1, 1), axis_names=("data", "model"))
+    tokens = torch.as_tensor(np.stack(prompts), device="cuda")
+    out, counts = {}, {}
+    for mode in ("local", "global"):
+        pf = specs.build_prefill(cfg, shape, mesh, mc, dist_mode=mode)
+        dc = specs.build_decode(cfg, shape, mesh, mc, dist_mode=mode)
+        # a module over the same tensors, placed (the serve model stays)
+        mod = Transformer(cfg, params.final_norm.scale.dtype, "meta")
+        mod.load_state_dict(params.state_dict(), assign=True)
+        pp = shd.place(mod, mesh, pf[2][0])
+        pj = shd.place({k: proj[k] for k in ("u", "eigvals")}, mesh,
+                       pf[2][1])
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        ms = []
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            lg, cache = pf[0](pp, pj, shd.place({"tokens": tokens}, mesh,
+                                                pf[2][2]))
+            tok = lg.full_tensor().argmax(-1)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            toks = [tok]
+            for t in range(n_new - 1):
+                t0 = time.perf_counter()
+                lg, cache = dc[0](pp, pj, cache,
+                                  shd.place(tok, mesh, dc[2][3]),
+                                  torch.tensor(plen + t, dtype=torch.int32,
+                                               device="cuda"))
+                tok = lg.full_tensor().argmax(-1)
+                toks.append(tok)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        counts[mode] = ops.launch_counts()
+        got = torch.stack(toks, 1).cpu().numpy()
+        seg = next(v for v in cache.values() if hasattr(v, "n_groups"))
+        steps = n_new - 1
+        row = dict(phase="mesh", run=f"b_serve_{mode}", arch=cfg.name,
+                   batch=4, prompt=plen, new_tokens=n_new,
+                   n_groups=seg.n_groups,
+                   tokens_equal_generate=bool(np.array_equal(got, want)),
+                   first_differing_step=next(
+                       (i for i in range(n_new)
+                        if not np.array_equal(got[:, i], want[:, i])), None),
+                   prefill_s=prefill_s, ms_per_step=statistics.median(ms),
+                   latent_topk_per_step=counts[mode]["latent_topk"] / steps,
+                   recon_per_step=counts[mode]["sparse_recon_attention"]
+                   / steps,
+                   flash_prefill=counts[mode]["flash_attention"],
+                   peak_memory=torch.cuda.max_memory_allocated())
+        emit(row)
+        out[mode] = row
+        del pp, pj, cache, mod, lg
+        gc.collect()
+        torch.cuda.empty_cache()
+    for mode, row in out.items():
+        if not row["tokens_equal_generate"]:
+            raise AssertionError(f"mesh (b) {mode}: tokens differ from "
+                                 f"generate's at step "
+                                 f"{row['first_differing_step']}")
+        if row["latent_topk_per_step"] != model["n_sals"] or \
+                row["recon_per_step"] != model["n_sals"] or \
+                row["flash_prefill"] != cfg.n_layers:
+            raise AssertionError(f"mesh (b) {mode}: launches {row}")
+    return counts["local"]
+
+
+def mesh_slabs(torch) -> dict:
+    """(c) the shard-local body (``sparse_attention.shard_partials``) once
+    per slab, as rank r of G would call it — slab-local operands (B, S/G,
+    ·), base r·S/G — at the grouped phase's llama2-7b shape (B 4, S 4096,
+    32 heads of dh 128, r 1024, r* 512, N_c 432), G 2 and 4: the stacked
+    (m, l, o) bitwise equal to the folded plan's (``_grouped_partials``)."""
+    from repro_torch.config import SALSConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core import quantization as qz
+    from repro_torch.core import selection as sel
+    from repro_torch.core import sparse_attention as sa
+    from repro_torch.core.latent_cache import LatentKVCache
+    cfg = get_config("paper-llama2-7b")
+    sals = SALSConfig()
+    b, s, h, dh = 4, 4096, cfg.n_heads, cfg.head_dim
+    kvd, r = cfg.kv_dim, sals.rank(cfg.kv_dim)
+    gen = torch.Generator(device="cuda").manual_seed(81)
+    pos = torch.tensor([s - 1 - 512 * i for i in range(b)],
+                       dtype=torch.int32, device="cuda")
+    k_lat = torch.randn((b, s, r), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    vq = qz.quantize(torch.randn((b, s, kvd), generator=gen,
+                                 device="cuda"), 8, 64)
+    u = (torch.randn((kvd, r), generator=gen, device="cuda")
+         * r ** -0.5).to(torch.bfloat16)
+    q0 = torch.randn((b, h, dh), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    q_bar = sel.group_query(q0, cfg)
+    rows = []
+    for g in (2, 4):
+        cache = LatentKVCache(
+            k_lat=k_lat, v_q=vq["q"], v_scale=vq["scale"], v_zero=vq["zero"],
+            sink_k=None, sink_v=None, recent_k=None, recent_v=None,
+            n_groups=g)
+        fold = sa._grouped_partials(q0, q_bar, u, cache, pos, cfg, sals)
+        s_loc = s // g
+        parts = [sa.shard_partials(
+            q0, q_bar, u, k_lat[:, i * s_loc:(i + 1) * s_loc].contiguous(),
+            None, *(vq[k][:, i * s_loc:(i + 1) * s_loc].contiguous()
+                    for k in ("q", "scale", "zero")),
+            pos, i * s_loc, cfg, sals, g) for i in range(g)]
+        stacked = [torch.cat([p[j] for p in parts], dim=1) for j in range(3)]
+        torch.cuda.synchronize()
+        equal = all(bool(torch.equal(x, y)) for x, y in zip(stacked, fold))
+        row = dict(phase="mesh", run=f"c_slabs_G{g}", case=(
+            f"llama2-7b B{b} S{s} r{r} r*{sals.score_rank(kvd)} "
+            f"N_c {sals.n_critical}"), groups=g, slab=s_loc,
+            k_loc=-(-sals.n_critical // g), bitwise_equal_fold=equal,
+            max_abs_diff=max(float((x - y).abs().max())
+                             for x, y in zip(stacked, fold)))
+        emit(row)
+        rows.append(row)
+    bad = [r["groups"] for r in rows if not r["bitwise_equal_fold"]]
+    if bad:
+        raise AssertionError(f"mesh (c): shard-local slabs differ from the "
+                             f"fold at G {bad}")
+    return rows
+
+
+def phase_mesh(torch, model) -> dict:
+    """The sharding layer on the card at world 1 (see the module
+    docstring, phase ``mesh``).  Returns the launches of the paths it
+    drove: the flash forward and backward of (a), rows 1 and 2 and the
+    prefill's flash of (b)."""
+    import shutil
+    import torch.distributed as dist
+    mesh, store = mesh_start(torch)
+    try:
+        train = mesh_train(torch, mesh)
+        serve = mesh_serve(torch, model, mesh)
+        mesh_slabs(torch)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"flash_attention": train["flash_attention"]
+            + serve["flash_attention"],
+            "flash_attention_bwd": train["flash_attention_bwd"],
+            "latent_topk": serve["latent_topk"],
+            "sparse_recon_attention": serve["sparse_recon_attention"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -5128,8 +5431,9 @@ def main() -> int:
     if "tier" in phases and "sched" not in phases:
         raise SystemExit("the tier phase compares with the sched phase's "
                          "untiered paged run: add sched")
+    mesh = {}
     if any(p in phases for p in ("serve", "sched", "quality", "spec",
-                                 "slo", "obs", "grouped")):
+                                 "slo", "obs", "grouped", "mesh")):
         model = build_model(torch)
         lap("model")
         serve_sals = None
@@ -5178,6 +5482,9 @@ def main() -> int:
             grouped = phase_grouped(torch, depth_view(torch, model,
                                                       GROUPED_LAYERS))
             lap("grouped")
+        if "mesh" in phases:
+            mesh = phase_mesh(torch, model)
+            lap("mesh")
         del model, serve_sals
         gc.collect()      # engines and step graphs hold reference cycles
         torch.cuda.empty_cache()
@@ -5268,12 +5575,14 @@ def main() -> int:
                      "train_launches": train.get(name),
                      # the port's examples (the examples phase)
                      "examples_launches": examples.get(name, 0)
-                     if examples and name in EXAMPLE_KERNELS else None})
+                     if examples and name in EXAMPLE_KERNELS else None,
+                     # the sharding layer's steps on the (1, 1) mesh
+                     "mesh_launches": mesh.get(name)})
     emit({"kernels": rows})
     idle = [r["name"] for r in rows if r["launches"] == 0
             or r["vlm_launches"] == 0 or r["grouped_launches"] == 0
             or r["families_launches"] == 0 or r["train_launches"] == 0
-            or r["examples_launches"] == 0]
+            or r["examples_launches"] == 0 or r["mesh_launches"] == 0]
     if idle:    # None: its path did not run; 0: it ran without the kernel
         raise AssertionError(f"kernels never launched on their path: {idle}")
     print(smi, flush=True)

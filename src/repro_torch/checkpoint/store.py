@@ -19,7 +19,13 @@ Write protocol: serialize into ``step_X.tmp/``, fsync, ``os.rename`` to the
 final name (atomic on POSIX), then update LATEST.  A crash mid-write leaves
 only a ``.tmp`` dir that restore ignores and the next save garbage-collects.
 Restore copies into the tensors of ``like`` in place, on whatever device
-they live.
+they live, and with ``shardings`` places each leaf on a mesh.
+
+Sharded trees: ``save`` gathers every DTensor leaf whole (a collective
+each, so every rank calls it), rank 0 writes and the other ranks wait at a
+barrier; ``restore(..., shardings=)`` lays each restored leaf out with
+``distribute_tensor`` against its (mesh, placements), whatever mesh wrote
+the checkpoint (elastic restore across world sizes).
 """
 from __future__ import annotations
 
@@ -31,7 +37,10 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+import torch
+
 from repro_torch.convert import state_load_, state_to_numpy
+from repro_torch.distributed.sharding import gather, is_dtensor
 
 
 def _flatten(tree: dict, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -59,15 +68,37 @@ def _unflatten(flat: Dict[str, np.ndarray]) -> dict:
 
 def save(directory: str, step: int, tree, *, keep: int = 3,
          extra_meta: Optional[dict] = None) -> str:
-    """Atomically write ``tree`` as checkpoint ``step``; prune to ``keep``."""
-    os.makedirs(directory, exist_ok=True)
+    """Atomically write ``tree`` as checkpoint ``step``; prune to ``keep``.
+    A tree with DTensor leaves is saved by every rank of the world: each
+    leaf is gathered, rank 0 writes, the others wait at a barrier."""
     final = os.path.join(directory, f"step_{step:09d}")
+    if _sharded(tree):
+        import torch.distributed as dist
+        arrays = _flatten(state_to_numpy(gather(tree)))
+        if dist.get_rank() == 0:
+            _write(directory, final, step, arrays, keep, extra_meta)
+        dist.barrier()
+        return final
+    _write(directory, final, step, _flatten(state_to_numpy(tree)), keep,
+           extra_meta)
+    return final
+
+
+def _sharded(tree) -> bool:
+    if isinstance(tree, torch.nn.Module):
+        return any(is_dtensor(p) for p in tree.parameters())
+    if isinstance(tree, dict):
+        return any(_sharded(v) for v in tree.values())
+    return is_dtensor(tree)
+
+
+def _write(directory: str, final: str, step: int, arrays: dict, keep: int,
+           extra_meta: Optional[dict]) -> None:
+    os.makedirs(directory, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-
-    arrays = _flatten(state_to_numpy(tree))
     np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
     manifest = {
         "step": step,
@@ -91,7 +122,6 @@ def save(directory: str, step: int, tree, *, keep: int = 3,
     os.rename(os.path.join(directory, "LATEST.tmp"),
               os.path.join(directory, "LATEST"))
     _gc(directory, keep)
-    return final
 
 
 def _gc(directory: str, keep: int) -> None:
@@ -140,10 +170,15 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(directory: str, like, step: Optional[int] = None):
+def restore(directory: str, like, step: Optional[int] = None,
+            shardings=None):
     """Load checkpoint ``step`` (default: latest) into the tensors of
     ``like`` (a port tree: a train state, ``{"params": module}``, ...), in
-    place.  Returns (like, step)."""
+    place.  ``shardings``: a tree over ``like`` whose leaves are (mesh,
+    placements) pairs — a module's a {parameter name: pair} dict — each
+    restored leaf then becomes a DTensor placed by its pair
+    (``distribute_tensor``; every rank calls restore).  Returns (like,
+    step), ``like`` with its placed leaves."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -156,4 +191,26 @@ def restore(directory: str, like, step: Optional[int] = None):
     except KeyError as e:
         raise KeyError(f"checkpoint {path} missing keys: {e.args[0]}") \
             from None
-    return like, step
+    return _distribute(like, shardings), step
+
+
+def _distribute(tree, shardings):
+    """``tree``'s leaves placed by ``shardings`` (see :func:`restore`)."""
+    if shardings is None:
+        return tree
+    from torch.distributed.tensor import distribute_tensor
+    if isinstance(tree, torch.nn.Module):
+        for name, p in list(tree.named_parameters()):
+            if name not in shardings:
+                continue
+            mesh, pl = shardings[name]
+            owner_name, _, leaf = name.rpartition(".")
+            owner = tree.get_submodule(owner_name) if owner_name else tree
+            owner.register_parameter(leaf, torch.nn.Parameter(
+                distribute_tensor(p.detach(), mesh, pl),
+                requires_grad=p.requires_grad))
+        return tree
+    if isinstance(tree, torch.Tensor):
+        mesh, pl = shardings
+        return distribute_tensor(tree.detach(), mesh, pl)
+    return {k: _distribute(v, shardings.get(k)) for k, v in tree.items()}

@@ -1,8 +1,9 @@
 """Configuration dataclasses for the PyTorch port of SALS.
 
-A copy of the reference's ``repro/config/base.py`` restricted to what the
-serving and training paths need (:class:`ModelConfig`, :class:`SALSConfig`,
-:class:`ServeConfig`, :class:`TrainConfig`).  The port keeps its own copy so that it never imports
+A copy of the reference's ``repro/config/base.py``: :class:`ModelConfig`,
+:class:`SALSConfig`, the mesh layout :class:`MeshConfig`, the grid cells
+:class:`ShapeConfig` / :data:`SHAPES`, :class:`ServeConfig` and
+:class:`TrainConfig`.  The port keeps its own copy so that it never imports
 the JAX package; the field names, defaults and validation are the
 reference's, so a config built here describes the same model there.
 """
@@ -10,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field, replace
+from typing import Tuple
 
 FAMILIES = ("dense", "moe", "hybrid", "ssm", "encoder", "vlm")
 
@@ -199,6 +201,55 @@ def _round_to(x: int, m: int) -> int:
 
 SALS_25 = SALSConfig(rank_ratio=0.25, v_bits=8, n_critical=432)
 SALS_125 = SALSConfig(rank_ratio=0.125, v_bits=4, n_critical=432)
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device mesh + sharding strategy.
+
+    ``dist_mode`` for SALS decode:
+      "global" — paper-faithful: one global top-N_c over the whole cache
+      "local"  — one top-N_c/G per kv_seq shard + an LSE merge
+    """
+
+    shape: Tuple[int, ...] = (16, 16)
+    axis_names: Tuple[str, ...] = ("data", "model")
+    dist_mode: str = "local"
+    seq_parallel: bool = True          # shard residual stream on model axis
+
+    @property
+    def n_devices(self) -> int:
+        n = 1
+        for s in self.shape:
+            n *= s
+        return n
+
+    @property
+    def data_axes(self) -> Tuple[str, ...]:
+        return tuple(a for a in self.axis_names if a != "model")
+
+    @property
+    def model_axis(self) -> str:
+        return "model"
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One (input-shape) cell of the grid."""
+
+    name: str
+    kind: str        # train | prefill | decode
+    seq_len: int
+    global_batch: int
+    microbatches: int = 1  # grad-accumulation splits for train cells
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
 
 
 @dataclass(frozen=True)

@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed.sharding import is_dtensor, place
 from repro_torch.models.transformer import Transformer, init_params, torch_dtype
 from repro_torch.train.trainer import state_for
 
@@ -111,6 +112,9 @@ def _ref_path(name: str) -> Tuple[Tuple[str, ...], Optional[int]]:
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy (a DTensor gathered whole: a collective)."""
+    if is_dtensor(t):
+        t = t.full_tensor()
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         t = t.float()
@@ -191,8 +195,8 @@ def _leaves(tree, prefix=()):
 @torch.no_grad()
 def state_load_(tree, arrays: dict) -> None:
     """Copy a reference-layout numpy tree into the port tree's tensors IN
-    PLACE, each cast to its tensor's dtype.  Raises KeyError naming what
-    is missing."""
+    PLACE, each cast to its tensor's dtype (a DTensor takes its own
+    block).  Raises KeyError naming what is missing."""
     for path, layer, t in _leaves(tree):
         try:
             a = _get(arrays, path)
@@ -203,7 +207,11 @@ def state_load_(tree, arrays: dict) -> None:
         if tuple(src.shape) != tuple(t.shape):
             raise ValueError(f"{'/'.join(path)}: shape {tuple(src.shape)} "
                              f"!= {tuple(t.shape)}")
-        t.copy_(src)
+        if is_dtensor(t):            # this rank's block of the whole array
+            t.to_local().copy_(place(src, t.device_mesh,
+                                     tuple(t.placements)).to_local())
+        else:
+            t.copy_(src)
 
 
 def state_from_numpy(state_np: dict, cfg: ModelConfig, device="cuda",

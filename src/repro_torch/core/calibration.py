@@ -123,3 +123,8 @@ def random_layer_projectors(cfg: ModelConfig, sals: SALSConfig,
             for l in range(n_layers)]
     return {"u": torch.stack([f["u"] for f in fits]).to(U_DTYPE),
             "eigvals": torch.stack([f["eigvals"] for f in fits])}
+
+
+def projector_specs() -> dict:
+    from repro_torch.distributed.sharding import P
+    return {"u": P(None, None, None), "eigvals": P(None, None)}

@@ -39,6 +39,14 @@ so ``max_seq`` (paged: the pages per sequence) must divide by G.  The
 arrays are the same in both layouts; :meth:`LatentKVCache.group_view` is
 the slab view the tests hold the fold to.
 
+Under a sharding context (``distributed/sharding.py``) the fields are
+DTensors placed by ``launch.specs.cache_pspecs``: the per-token fields
+split along S over the mesh axes of the logical axis ``shard_axis``
+("kv_seq"), every field along B over the batch axes.  Each rank then
+writes only the rows it owns, at its slab-local position
+(:meth:`write_sharded`; a plain global-index write into a sequence-sharded
+DTensor would land nowhere).
+
 ``ssm`` optionally carries the hybrid family's recurrent state beside the
 latents, ``{"ssm": ([L,] B, H, P, N), "conv": ([L,] B, K-1, inner)}`` f32
 (with the same leading axes): :meth:`layer_view`, :meth:`set_layer` and
@@ -65,6 +73,7 @@ _PER_TOKEN_FIELDS = ("k_lat", "k_scale", "v_q", "v_scale", "v_zero")
 _ALL_FIELDS = ("k_lat", "v_q", "v_scale", "v_zero", "sink_k", "sink_v",
                "recent_k", "recent_v", "k_scale", "lengths", "page_table",
                "k_score", "k_scale_score", "hot_table")
+LATENT_FIELDS = _ALL_FIELDS
 
 
 def check_slabs(max_seq: int, n_groups: int, page_size: int = 0, *,
@@ -127,6 +136,7 @@ class LatentKVCache:
     hot_table: Optional[torch.Tensor] = None      # ([L,] B, max_pages)
     n_groups: int = 1                      # decode selection layout
     ssm: Optional[dict] = None             # hybrid-family recurrent state
+    shard_axis: str = "kv_seq"             # logical axis of the S dim
 
     @property
     def paged(self) -> bool:
@@ -339,7 +349,40 @@ class LatentKVCache:
         kernels."""
         return self.k_lat, self.k_scale
 
+    def local(self) -> "LatentKVCache":
+        """The rank's local blocks of a DTensor cache (views: writes land
+        in the DTensors), ``lengths`` left out."""
+        return dataclasses.replace(self, **{
+            f: None if getattr(self, f) is None or f == "lengths" else
+            getattr(self, f).to_local() for f in _ALL_FIELDS})
+
     # ---------------------------------------------------------------- writes
+
+    def write_sharded(self, sals: SALSConfig, pos: torch.Tensor,
+                      k_lat: torch.Tensor, v_flat: torch.Tensor,
+                      k_pre: torch.Tensor, v: torch.Tensor
+                      ) -> "LatentKVCache":
+        """:meth:`write` into a single-layer DTensor cache: each rank
+        turns the global positions ``pos`` (B,) of its own rows into
+        slab-local ones and writes the rows whose position falls in its
+        slab (the others keep their bytes); the ring / sink, replicated
+        along S, take every row.  ``lengths`` advances on every rank.
+        The operands are DTensors split along B as the cache is."""
+        from repro_torch.distributed import sharding as shd
+        r0, nb = shd.shard_range(self.k_lat, 0)
+        s0, ns = shd.shard_range(self.k_lat, 1)
+        pos_l = pos[r0:r0 + nb].long()
+        inside = (pos_l >= s0) & (pos_l < s0 + ns)
+        loc = self.local()
+        loc.write_latents(sals, (pos_l - s0).clamp(0, ns - 1),
+                          shd.rows_like(k_lat, self.k_lat),
+                          shd.rows_like(v_flat, self.k_lat), keep=inside)
+        loc.write_ring(sals, pos_l, shd.rows_like(k_pre, self.sink_k),
+                       shd.rows_like(v, self.sink_k))
+        if self.lengths is not None:
+            lens = self.lengths.to_local()
+            lens.copy_(torch.maximum(lens, (pos_l + 1).to(lens.dtype)))
+        return self
 
     def write(self, sals: SALSConfig, pos, k_lat: torch.Tensor,
               v_flat: torch.Tensor, k_pre: torch.Tensor, v: torch.Tensor
@@ -466,31 +509,45 @@ class LatentKVCache:
         every chunk position, pads included (per-slot lengths keep pads
         unselectable); ring/sink inserts are masked to each row's real
         positions, so a pad never evicts a real token from the ring.
-        Per-slot ``lengths`` advance to min(lengths, off+C)."""
+        Per-slot ``lengths`` advance to min(lengths, off+C).  A DTensor
+        cache takes :meth:`_append_chunk_sharded`."""
         if self.paged:
             raise ValueError("append_chunk writes a DENSE single-request "
                              "prefill cache; paged admission scatters its "
                              "pages afterwards (ServeEngine.admit_paged)")
+        from repro_torch.distributed import sharding as shd
+        if shd.is_dtensor(self.k_lat):
+            return self._append_chunk_sharded(cfg, sals, u, off, k_pre, v,
+                                              lengths)
         b, c = k_pre.shape[:2]
         dev = k_pre.device
-        kvd = cfg.kv_dim
         len_v = torch.as_tensor(lengths, device=dev).to(torch.int64) \
             .reshape(-1).expand(b)
         off = torch.as_tensor(off, device=dev)
         span = off + torch.arange(c, device=dev)
-        end = off + c
-        lat = to_latent(u.float(), k_pre.reshape(b, c, kvd))
-        vq = qz.quantize(v.reshape(b, c, kvd), sals.v_bits, sals.v_group)
-        if sals.k_latent_dtype == "int8":
-            q8, scale = qz.quantize_latent_int8(lat)
-            self.k_lat.index_copy_(1, span, q8)
-            self.k_scale.index_copy_(1, span, scale.to(self.k_scale.dtype))
-        else:
-            self.k_lat.index_copy_(1, span, lat.to(self.k_lat.dtype))
-        self.v_q.index_copy_(1, span, vq["q"])
-        self.v_scale.index_copy_(1, span, vq["scale"])
-        self.v_zero.index_copy_(1, span, vq["zero"])
+        for f, val in self._chunk_codes(cfg, sals, u, k_pre, v).items():
+            getattr(self, f).index_copy_(1, span, val)
+        return self._chunk_ring_sink(sals, off, k_pre, v, len_v)
 
+    def _chunk_codes(self, cfg: ModelConfig, sals: SALSConfig,
+                     u: torch.Tensor, k_pre: torch.Tensor,
+                     v: torch.Tensor) -> dict:
+        """The stored per-token fields of a chunk's (B, C, n_kv, dh) keys
+        and values, each in its field's dtype."""
+        b, c = k_pre.shape[:2]
+        vals = self._quantized(
+            sals, to_latent(u.float(), k_pre.reshape(b, c, cfg.kv_dim)),
+            v.reshape(b, c, cfg.kv_dim))
+        return {f: val.to(getattr(self, f).dtype) for f, val in vals.items()}
+
+    def _chunk_ring_sink(self, sals: SALSConfig, off: torch.Tensor,
+                         k_pre: torch.Tensor, v: torch.Tensor,
+                         len_v: torch.Tensor) -> "LatentKVCache":
+        """The chunk's ring / sink inserts and the lengths' advance (see
+        :meth:`append_chunk`)."""
+        b, c = k_pre.shape[:2]
+        dev = k_pre.device
+        end = off + c
         # ragged ring: slot j takes the LAST real chunk position p ≡ j
         # (mod w); p outside [off, min(len, off+C)) leaves the slot alone
         w = sals.n_recent
@@ -510,6 +567,43 @@ class LatentKVCache:
         for arr, val in ((self.sink_k, k_pre), (self.sink_v, v)):
             arr.copy_(torch.where(keep_s, val[bi, spc].to(arr.dtype), arr))
         self.lengths.copy_(torch.minimum(len_v, end).to(self.lengths.dtype))
+        return self
+
+    def _append_chunk_sharded(self, cfg: ModelConfig, sals: SALSConfig,
+                              u: torch.Tensor, off, k_pre: torch.Tensor,
+                              v: torch.Tensor, lengths: torch.Tensor
+                              ) -> "LatentKVCache":
+        """:meth:`append_chunk` into a single-layer DTensor cache: each
+        rank takes its rows of the chunk (plain or DTensor operands, whole
+        along C), writes the chunk positions inside its slab at slab-local
+        rows (``off`` read on the host: the sharded path runs eagerly) and
+        makes the ring / sink / lengths updates, replicated along S, on
+        its rows."""
+        from repro_torch.distributed import sharding as shd
+        r0, nb = shd.shard_range(self.k_lat, 0)
+        s0, ns = shd.shard_range(self.k_lat, 1)
+        off_i = int(off)
+
+        def rows(t):
+            return shd.rows_like(t, self.k_lat) if shd.is_dtensor(t) \
+                else t[r0:r0 + nb]
+
+        k_l, v_l = rows(k_pre), rows(v)
+        dev = k_l.device
+        len_v = torch.as_tensor(lengths, device=dev).to(torch.int64) \
+            .reshape(-1).expand(k_pre.shape[0])[r0:r0 + nb]
+        loc = self.local()
+        lo, hi = max(off_i, s0), min(off_i + k_pre.shape[1], s0 + ns)
+        if lo < hi:          # the chunk's positions inside this slab
+            sl = slice(lo - off_i, hi - off_i)
+            codes = loc._chunk_codes(cfg, sals,
+                                     u.to_local() if shd.is_dtensor(u)
+                                     else u, k_l[:, sl], v_l[:, sl])
+            for f, val in codes.items():
+                getattr(loc, f)[:, lo - s0:hi - s0].copy_(val)
+        loc.lengths = self.lengths.to_local()
+        loc._chunk_ring_sink(sals, torch.as_tensor(off_i, device=dev), k_l,
+                             v_l, len_v)
         return self
 
     def write_ring(self, sals: SALSConfig, pos, k_pre: torch.Tensor,

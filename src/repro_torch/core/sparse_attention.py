@@ -19,9 +19,13 @@ positions each take their own top-⌈N_c/G⌉ through the SAME two kernels,
 with the group axis folded into the kernel batch (row b·G + g is slab g of
 row b, views of the arena, no copy) and a per-row ``pos_base`` = g·S/G
 that keeps indices slab-local and positions global; the G partials then
-LSE-merge with the sink / recent window.  The reference also runs the
-slabs shard-locally under a sequence-sharded mesh; on one GPU it folds, as
-here.
+LSE-merge with the sink / recent window.  Under a sharding context whose
+kv_seq axes number G shards (``DecodePlan.shard_axes``), the slabs are
+the shards of a sequence-sharded DTensor cache and each rank runs the
+same two kernels on its own slab (``local_map``, base rank·S/G); the
+partials merge by DTensor reductions over the group axis.  Under a
+context whose shards do not match G (the global plan on a sharded cache)
+the latents are gathered along S and the plan folds on every rank.
 
 Both layouts of the cache run through the same code: the dense slot arena,
 and the paged one, whose page table rides to both kernels (which then
@@ -47,6 +51,8 @@ import torch
 from repro_torch.config import ModelConfig, SALSConfig
 from repro_torch.core import selection as sel
 from repro_torch.core.latent_cache import LatentKVCache
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import constrain
 from repro_torch.kernels import ops
 from repro_torch.models.attention import out_proj, qkv_proj
 from repro_torch.models.layers import apply_rope
@@ -57,15 +63,24 @@ NEG = sel.NEG
 @dataclasses.dataclass(frozen=True)
 class DecodePlan:
     """How one decode step selects: ``n_groups`` 1 = the global top-N_c;
-    G > 1 = a top-⌈N_c/G⌉ per sequence slab, the slabs folded into the
-    kernel batch, and one LSE merge across them."""
+    G > 1 = a top-⌈N_c/G⌉ per sequence slab and one LSE merge across them.
+    ``shard_axes``: the mesh axes backing the group axis — non-empty means
+    each rank runs its own slab (``local_map``); empty means the group
+    axis folds into the kernel batch."""
 
     n_groups: int = 1
+    shard_axes: Tuple[str, ...] = ()
 
 
 def plan_decode(cache: LatentKVCache) -> DecodePlan:
-    """The decode plan of ``cache``'s layout metadata."""
-    return DecodePlan(max(1, cache.n_groups))
+    """The decode plan of ``cache``'s layout metadata and the ambient
+    sharding context."""
+    g = max(1, cache.n_groups)
+    if g == 1 or cache.paged:
+        # paged pools are never kv_seq-sharded: their slabs fold
+        return DecodePlan(g)
+    axes, total = shd.mesh_axes_for(cache.shard_axis)
+    return DecodePlan(g, axes) if total == g else DecodePlan(g)
 
 
 def _region_logits(q_r: torch.Tensor, k_pre: torch.Tensor,
@@ -232,6 +247,11 @@ def _grouped_partials(q0, q_bar, u, cache: LatentKVCache, pos,
     b, h = q0.shape[:2]
     q_lat = sel.latent_query(q_bar, u, sals.score_rank(cfg.kv_dim))
     kv, tables, s_loc = _fold_operands(cache, g)
+    if not cache.paged:
+        kv = (constrain(kv[0], ("batch", "kv_seq", None)),
+              kv[1] if kv[1] is None else constrain(kv[1],
+                                                    ("batch", "kv_seq")),
+              *kv[2:])
     base = _slab_base(b, g, s_loc, q0.device) if g > 1 else None
     m, l, o, idx, valid = _slab_partials(
         _per_slab(q0, g), _per_slab(q_lat, g), *kv, u, _per_slab(pos, g),
@@ -266,6 +286,11 @@ def sals_decode_attend(params, u: torch.Tensor, cache: LatentKVCache,
     pos_v = torch.as_tensor(pos, device=dev).to(torch.int32).reshape(-1) \
         .expand(b).contiguous()
 
+    if shd.is_dtensor(x):
+        if collect:
+            raise ValueError("selection collection needs the paged cache, "
+                             "which is never sequence-sharded")
+        return _sals_decode_sharded(params, u, cache, x, pos_v, cfg, sals)
     q, k_new, v_new = qkv_proj(params, x, cfg)
     k_flat = k_new.reshape(b, kvd)
     v_flat = v_new.reshape(b, kvd)
@@ -279,29 +304,129 @@ def sals_decode_attend(params, u: torch.Tensor, cache: LatentKVCache,
            if cfg.use_rope else q)[:, 0]
 
     # ---- sink + recent region (always attended, full precision) ----------
-    ns = sals.n_sink
-    sink_pos = torch.arange(ns, device=dev)[None, :].expand(b, ns)
-    rec_pos = sel.ring_positions(pos_v.long(), w)
-    sr_k = torch.cat([cache.sink_k, cache.recent_k], dim=1)
-    sr_v = torch.cat([cache.sink_v, cache.recent_v], dim=1)
-    sr_positions = torch.cat([sink_pos, rec_pos], dim=1)
-    sr_valid = (sr_positions >= 0) & (sr_positions <= pos_v[:, None])
-    sr_logits = _region_logits(q_r, sr_k, sr_positions, cfg)
-    sr_logits = torch.where(sr_valid[:, None, :], sr_logits, NEG)
-    m_sr, l_sr, o_sr = _partial_attend(sr_logits, sr_v, cfg)
+    m_sr, l_sr, o_sr = _window_partial(q_r, cache, pos_v, cfg, sals)
 
     # ---- stages 2-4: fused selected-token partials (B, G, H[, dh]) ------
     m_c, l_c, o_c, *touched = _grouped_partials(q[:, 0], q_bar, u, cache,
                                                 pos_v, cfg, sals, collect)
 
     # ---- stage 5: LSE merge across the slabs and the window ---------------
-    m_all = torch.maximum(torch.max(m_c, dim=1).values, m_sr)
+    o = _merge(m_c, l_c, o_c, m_sr, l_sr, o_sr)
+    return (out_proj(params, o[:, None].to(x.dtype), cfg), cache, *touched)
+
+
+def _window_partial(q_r, cache: LatentKVCache, pos_v, cfg: ModelConfig,
+                    sals: SALSConfig):
+    """The sink + recent region's partial (m, l, o) for RoPE'd queries
+    q_r (B, H, dh) at positions ``pos_v`` (B,)."""
+    b, dev = q_r.shape[0], q_r.device
+    ns = sals.n_sink
+    sink_pos = torch.arange(ns, device=dev)[None, :].expand(b, ns)
+    rec_pos = sel.ring_positions(pos_v.long(), sals.n_recent)
+    sr_k = torch.cat([cache.sink_k, cache.recent_k], dim=1)
+    sr_v = torch.cat([cache.sink_v, cache.recent_v], dim=1)
+    sr_positions = torch.cat([sink_pos, rec_pos], dim=1)
+    sr_valid = (sr_positions >= 0) & (sr_positions <= pos_v[:, None])
+    sr_logits = _region_logits(q_r, sr_k, sr_positions, cfg)
+    sr_logits = torch.where(sr_valid[:, None, :], sr_logits, NEG)
+    return _partial_attend(sr_logits, sr_v, cfg)
+
+
+def _merge(m_c, l_c, o_c, m_sr, l_sr, o_sr):
+    """LSE merge of the G slab partials (B, G, [Q,] H[, dh]) with the
+    window's (B, [Q,] H[, dh]) into the normalized output (B, [Q,] H,
+    dh).  On DTensors with
+    a sharded group axis the G reductions are cross-rank reductions."""
+    m_all = torch.maximum(torch.amax(m_c, dim=1), m_sr)
     wc = torch.exp(m_c - m_all[:, None, :])
     wsr = torch.exp(m_sr - m_all)
     denom = torch.sum(wc * l_c, dim=1) + wsr * l_sr
     numer = torch.sum(wc[..., None] * o_c, dim=1) + wsr[..., None] * o_sr
-    o = numer / torch.clamp_min(denom, 1e-30)[..., None]
-    return (out_proj(params, o[:, None].to(x.dtype), cfg), cache, *touched)
+    return numer / torch.clamp_min(denom, 1e-30)[..., None]
+
+
+def shard_partials(q0, q_bar, u, k_lat, k_scale, v_q, v_scale, v_zero, pos,
+                   s0: int, cfg: ModelConfig, sals: SALSConfig, g: int):
+    """One rank's slab of the grouped plan: the top-⌈N_c/G⌉ and recon
+    partials over slab-local operands (B, S/G, ·) whose first position is
+    ``s0`` — the folded plan's row b·G + r for s0 = r·S/G.  Returns (m, l,
+    o) with a group axis of 1."""
+    q_lat = sel.latent_query(q_bar, u, sals.score_rank(cfg.kv_dim))
+    base = torch.full((q0.shape[0],), s0, dtype=torch.int32,
+                      device=q0.device)
+    m, l, o, _, _ = _slab_partials(q0.contiguous(), q_lat, k_lat, k_scale,
+                                   v_q, v_scale, v_zero, u, pos, base, cfg,
+                                   sals, -(-sals.n_critical // g))
+    return m[:, None], l[:, None], o[:, None]
+
+
+def _sals_decode_sharded(params, u, cache: LatentKVCache, x, pos_v,
+                         cfg: ModelConfig, sals: SALSConfig):
+    """:func:`sals_decode_attend` over a DTensor cache (a sharding
+    context): the write is each rank's own (:meth:`LatentKVCache.
+    write_sharded`); the partials run per rank on local blocks
+    (``local_map``) — shard-local slabs when the plan's shard axes split
+    S, else the fold over latents gathered along S — and merge as
+    DTensors."""
+    from torch.distributed.tensor import Replicate, Shard
+    b, kvd = x.shape[0], cfg.kv_dim
+    plan = plan_decode(cache)
+    q, k_new, v_new = qkv_proj(params, x, cfg)
+    u_d = u if shd.is_dtensor(u) else shd.replicate_like(u, q)
+    k_lat_new = k_new.reshape(b, kvd).float() @ u_d.float()
+    cache.write_sharded(sals, pos_v, k_lat_new, v_new.reshape(b, kvd),
+                        k_new[:, 0], v_new[:, 0])
+
+    k_lat = constrain(cache.k_lat, ("batch", "kv_seq", None))
+    k_scale = None if cache.k_scale is None else \
+        constrain(cache.k_scale, ("batch", "kv_seq"))
+    seq_axes = shd.dim_axes(k_lat, 1)
+    local = bool(plan.shard_axes) and seq_axes == plan.shard_axes
+    per_tok = [k_lat, k_scale, cache.v_q, cache.v_scale, cache.v_zero]
+    if not local:          # the global plan: gather S on every rank
+        per_tok = [None if t is None else t.redistribute(
+            t.device_mesh, tuple(Replicate() if p == Shard(1) else p
+                                 for p in t.placements)) for t in per_tok]
+    mesh = k_lat.device_mesh
+    bpl = tuple(Shard(0) if p == Shard(0) else Replicate()
+                for p in k_lat.placements)
+    gpl = tuple(Shard(0) if p == Shard(0) else
+                Shard(1) if local and p == Shard(1) else Replicate()
+                for p in k_lat.placements)
+    r0, nb = shd.shard_range(k_lat, 0)
+    s0, _ = shd.shard_range(k_lat, 1)
+
+    def body(q, u, pos, k_lat, k_scale, v_q, v_scale, v_zero, sink_k,
+             sink_v, recent_k, recent_v):
+        pos_l = pos[r0:r0 + nb].contiguous()
+        q_bar = sel.group_query(q[:, 0], cfg)
+        q_r = (apply_rope(q, pos_l[:, None], cfg.rope_theta)
+               if cfg.use_rope else q)[:, 0]
+        loc = LatentKVCache(k_lat=k_lat, k_scale=k_scale, v_q=v_q,
+                            v_scale=v_scale, v_zero=v_zero, sink_k=sink_k,
+                            sink_v=sink_v, recent_k=recent_k,
+                            recent_v=recent_v, n_groups=plan.n_groups)
+        win = _window_partial(q_r, loc, pos_l, cfg, sals)
+        if local:
+            part = shard_partials(q[:, 0], q_bar, u, k_lat, k_scale, v_q,
+                                  v_scale, v_zero, pos_l, s0, cfg, sals,
+                                  plan.n_groups)
+        else:
+            part = _grouped_partials(q[:, 0], q_bar, u, loc, pos_l, cfg,
+                                     sals)
+        return (*part, *win)
+
+    def pl(t):
+        return None if t is None else tuple(t.placements)
+
+    ring = (cache.sink_k, cache.sink_v, cache.recent_k, cache.recent_v)
+    args = (q, u_d, pos_v, *per_tok, *ring)
+    m_c, l_c, o_c, m_sr, l_sr, o_sr = shd.local_map(
+        body, (gpl, gpl, gpl, bpl, bpl, bpl),
+        (bpl, pl(u_d), None, *(pl(t) for t in per_tok),
+         *(pl(t) for t in ring)), mesh)(*args)
+    o = _merge(m_c, l_c, o_c, m_sr, l_sr, o_sr)
+    return out_proj(params, o[:, None].to(x.dtype), cfg), cache
 
 
 # ---------------------------------------------------------------------------
@@ -339,6 +464,11 @@ def _grouped_window_partials(q, q_bar, u, cache: LatentKVCache, pos,
     b, h = q.shape[0], q.shape[2]
     q_lat = sel.latent_query(q_bar, u, sals.score_rank(cfg.kv_dim))
     kv, tables, s_loc = _fold_operands(cache, g)
+    if not cache.paged:
+        kv = (constrain(kv[0], ("batch", "kv_seq", None)),
+              kv[1] if kv[1] is None else constrain(kv[1],
+                                                    ("batch", "kv_seq")),
+              *kv[2:])
     base = _slab_base(b, g, s_loc, q.device) if g > 1 else None
     m, l, o = _slab_window_partials(
         _per_slab(q, g), _per_slab(q_lat, g), *kv, u, _per_slab(pos, g),
@@ -427,10 +557,5 @@ def sals_window_attend(params, u: torch.Tensor, cache: LatentKVCache,
                                              cfg, sals)
 
     # ---- LSE merge across the slabs and the window ------------------------
-    m_all = torch.maximum(torch.max(m_c, dim=1).values, m_sr)   # (B,Q,H)
-    wc = torch.exp(m_c - m_all[:, None])
-    wsr = torch.exp(m_sr - m_all)
-    denom = torch.sum(wc * l_c, dim=1) + wsr * l_sr
-    numer = torch.sum(wc[..., None] * o_c, dim=1) + wsr[..., None] * o_sr
-    o = numer / torch.clamp_min(denom, 1e-30)[..., None]
+    o = _merge(m_c, l_c, o_c, m_sr, l_sr, o_sr)
     return out_proj(params, o.to(x.dtype), cfg), k_new, v_new

@@ -3,6 +3,10 @@
 A CUDA tensor launches the hand-written Hopper kernel (``csrc/*.cu``); a CPU
 tensor runs the plain PyTorch twin in ``kernels/ref.py``.  There is no
 backend switch and no fallback: on CUDA the kernel runs or the call raises.
+The kernels read raw pointers, so a ``DTensor`` never reaches them: each
+wrapper raises on one, and sharded callers run the wrappers on local
+blocks through ``local_map`` (``models/attention.py``,
+``core/sparse_attention.py``).
 The signatures are the reference's (``repro/kernels/ops.py``): a
 ``page_table`` makes the cache operands page pools and selects the paged
 kernel (or twin); ``prefix_len`` gives prefix-LM masking.
@@ -14,6 +18,7 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import latent_score as _ls
@@ -47,6 +52,12 @@ def add_launch_counts(counts: Dict[str, int]) -> None:
         c.count += counts.get(c.name, 0)
 
 
+def _local_only(*ts) -> None:
+    if any(isinstance(t, DTensor) for t in ts):
+        raise TypeError("a DTensor reached a kernel wrapper: run the kernel "
+                        "on local blocks (local_map)")
+
+
 def _on_cuda(t: torch.Tensor) -> bool:
     if t.device.type == "cuda":
         return True
@@ -69,6 +80,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     call is :class:`FlashAttentionFn`, whose forward also keeps the LSE
     and whose backward is the flash backward; otherwise it is the plain
     forward, with no LSE written."""
+    _local_only(q, k, v)
     causal = causal or prefix_len > 0
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttentionFn.apply(q, k, v, causal, softcap, prefix_len)
@@ -91,6 +103,7 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, softcap: float,
                 prefix_len: int):
+        _local_only(q, k, v)
         mk = dict(causal=causal, softcap=softcap, prefix_len=prefix_len)
         if _on_cuda(q):
             o, lse = _fa.flash_attention_cuda(q, k, v, **mk, return_lse=True)
@@ -118,6 +131,7 @@ def latent_score(q_lat: torch.Tensor, k_lat: torch.Tensor,
     """q_lat (B, r*), k_lat (B, S, r >= r*) raw latents (+ the int8
     per-token ``k_scale`` (B, S)) -> (B, S) f32 scores over the leading r*
     columns, read in place (no slice, pad or dequantized copy)."""
+    _local_only(k_lat, k_scale)
     if _on_cuda(q_lat):
         return _ls.latent_score_cuda(q_lat, k_lat, k_scale)
     return _ref.latent_score_ref(q_lat, k_lat, k_scale)
@@ -134,6 +148,7 @@ def latent_topk(q_lat: torch.Tensor, k_lat: torch.Tensor,
     Returns (idx (B, N_c) int32, valid (B, N_c) bool)."""
     kw = dict(n_critical=n_critical, n_sink=n_sink, n_recent=n_recent,
               pos_base=pos_base)
+    _local_only(k_lat, k_scale, page_table)
     if _on_cuda(q_lat):
         return _ls.latent_topk_cuda(q_lat, k_lat, k_scale, pos, **kw,
                                     page_table=page_table,
@@ -156,6 +171,7 @@ def sparse_recon_attention(q, k_lat, k_scale, v_q, v_scale, v_zero, u,
     page pools resolved through ``page_table``, ``idx`` logical).  Returns
     f32 partials (m (B,H), l (B,H), o (B,H,dh))."""
     args = (q, k_lat, k_scale, v_q, v_scale, v_zero, u, idx, valid, q_pos)
+    _local_only(*args, page_table)
     kw = dict(n_kv=n_kv, v_bits=v_bits, v_group=v_group, theta=theta,
               softcap=softcap, use_rope=use_rope, pos_base=pos_base)
     if _on_cuda(q):
@@ -183,6 +199,7 @@ def sparse_recon_attention_window(q, k_lat, k_scale, v_q, v_scale, v_zero,
     Returns f32 partials (m (B,Q,H), l (B,Q,H), o (B,Q,H,dh)); Q = 1
     equals :func:`sparse_recon_attention` bit for bit."""
     args = (q, k_lat, k_scale, v_q, v_scale, v_zero, u, idx, valid, q_pos)
+    _local_only(*args, page_table)
     kw = dict(n_kv=n_kv, n_recent=n_recent, v_bits=v_bits, v_group=v_group,
               theta=theta, softcap=softcap, use_rope=use_rope,
               pos_base=pos_base)

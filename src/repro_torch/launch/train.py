@@ -23,14 +23,25 @@ kernels take (``launch.model_config``).  ``--full`` is the published
 widths.  The encoder family (hubert-xlarge) trains on frames from the
 reference's frontend stub (:func:`batches_for`).  ``--grad-compression``
 takes ``trainer.make_compressed_train_step`` (int8 error-feedback
-gradients, the residual ``ef`` in the state and its checkpoints): under
-``torchrun`` (``torch.distributed`` initialized) it reduces over the
-world, otherwise over this one rank, as the reference's host mesh of one
-device does.
+gradients, the residual ``ef`` in the state and its checkpoints).
+
+Under ``torchrun`` (``python -m torch.distributed.run --standalone
+--nproc-per-node N -m repro_torch.launch.train ...``) the launcher starts
+the process group from torchrun's environment (NCCL on the card, gloo on
+the CPU) and, as the reference does, builds the host mesh (1, N)
+("data", "model") and its logical-axis rules (``default_rules``, no
+sequence parallelism): the train state is placed by
+``launch.specs.train_state_pspecs`` (TP over the ranks), each batch by
+``batch_pspecs``, and the loop runs inside ``use_sharding``; checkpoints
+are gathered and written by rank 0.  With ``--grad-compression`` the mesh
+is (N, 1) and the int8 gradients reduce over ``mesh["data"]``'s group,
+each rank training on its own rows.  Alone, it runs with no context, the
+reference's mesh of one device.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 from typing import Iterator, Optional
 
 import numpy as np
@@ -42,7 +53,11 @@ from repro_torch.configs import ASSIGNED_ARCHS, PAPER_ARCHS
 from repro_torch.data import SyntheticCorpus, make_batches
 from repro_torch.distributed import compression as gc
 from repro_torch.ft import StragglerMonitor, run_with_restarts
+from repro_torch.config import MeshConfig, ShapeConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.launch import add_device_args, device_and_dtype, model_config
+from repro_torch.launch import specs
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.train import trainer
 
 
@@ -120,21 +135,65 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     dev, dtype = device_and_dtype(args)
+    started = _init_from_torchrun(dev)
+    try:
+        return _run(args, dev, dtype)
+    finally:
+        if started:
+            torch.distributed.destroy_process_group()
+
+
+def _init_from_torchrun(dev: torch.device) -> bool:
+    """Start the process group from torchrun's environment (RANK,
+    WORLD_SIZE, MASTER_ADDR / MASTER_PORT) unless one is running.
+    Returns whether it started one."""
+    import os
+    dist = torch.distributed
+    if dist.is_initialized() or int(os.environ.get("WORLD_SIZE", "1")) < 2:
+        return False
+    if dev.type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        torch.cuda.set_device(local)
+        dist.init_process_group("nccl", device_id=torch.device("cuda", local))
+    else:
+        dist.init_process_group("gloo")
+    return True
+
+
+def _run(args, dev: torch.device, dtype: torch.dtype) -> dict:
     cfg = model_config(args.arch, args.reduced, dev)
     tcfg = TrainConfig(steps=args.steps, batch_size=args.batch_size,
                        seq_len=args.seq_len, lr=args.lr,
                        microbatches=args.microbatches, seed=args.seed,
                        checkpoint_every=args.checkpoint_every)
     corpus = SyntheticCorpus(cfg.vocab_size, seed=args.seed)
-    ranks, rank = 1, 0
+    world = gc.group_size()
+    ranks, rank, group = 1, 0, None
+    mesh = rules = None
     if args.grad_compression:
-        ranks = gc.group_size()
+        ranks = world
         rank = torch.distributed.get_rank() if ranks > 1 else 0
+        if ranks > 1:
+            from torch.distributed.device_mesh import DeviceMesh
+            group = DeviceMesh(dev.type, torch.arange(ranks).reshape(
+                ranks, 1), mesh_dim_names=("data", "model")).get_group(
+                "data")
         if tcfg.batch_size % ranks:
             raise ValueError(f"--batch-size {tcfg.batch_size} must be a "
                              f"multiple of the {ranks} ranks")
         print(f"[train] int8 error-feedback gradients over {ranks} "
               f"rank{'s' if ranks > 1 else ''} (rank {rank})")
+    elif world > 1:
+        mesh = make_host_mesh(device=dev)
+        mesh_cfg = MeshConfig(shape=tuple(mesh.shape),
+                              axis_names=("data", "model"),
+                              seq_parallel=False)
+        shape = ShapeConfig("cli", "train", tcfg.seq_len, tcfg.batch_size)
+        rules = shd.default_rules(mesh_cfg, shape)
+        batch_pl = shd.tree_shardings(
+            mesh, specs.batch_pspecs(cfg, shape, rules))
+        print(f"[train] mesh {tuple(mesh.shape)} (data, model) over "
+              f"{world} ranks")
 
     def rank_rows(batches):
         """This rank's rows of each global batch (the reference's batch
@@ -143,26 +202,40 @@ def main(argv=None) -> dict:
         for b in batches:
             yield {k: v[rank * per:(rank + 1) * per] for k, v in b.items()}
 
+    def placed(batches):
+        """Each global batch as DTensors placed by the rules."""
+        for b in batches:
+            yield shd.place(trainer.batch_to(b, dev), mesh, batch_pl)
+
     def train_once(start_step: int):
         state = trainer.init_state(cfg, tcfg, device=dev, dtype=dtype,
                                    ef_residual=args.grad_compression)
+        if mesh is not None:
+            pl = shd.tree_shardings(mesh, specs.train_state_pspecs(
+                cfg, tcfg, mesh, state))
+            state = {k: shd.place(v, mesh, pl[k]) for k, v in state.items()}
         if start_step and args.ckpt_dir:
             state, start_step = ckpt.restore(args.ckpt_dir, state)
             print(f"[train] restored step {start_step}")
         if args.grad_compression:
-            step_fn = trainer.make_compressed_train_step(cfg, tcfg,
-                                                         remat=args.remat)
+            step_fn = trainer.make_compressed_train_step(
+                cfg, tcfg, group, remat=args.remat)
         else:
             step_fn = trainer.make_train_step(cfg, tcfg, remat=args.remat)
         mon = StragglerMonitor()
-        # every rank holds the same weights and moments; rank 0 writes them
-        state = trainer.train_loop(
-            cfg, tcfg, state=state, step_fn=step_fn,
-            batches=rank_rows(batches_for(cfg, corpus, tcfg, start_step,
-                                          device=dev)),
-            start_step=start_step,
-            ckpt_dir=(args.ckpt_dir or None) if rank == 0 else None,
-            straggler=mon)
+        batches = batches_for(cfg, corpus, tcfg, start_step, device=dev)
+        with shd.use_sharding(mesh, rules) if mesh is not None \
+                else contextlib.nullcontext():
+            # a sharded state is gathered and written by every rank
+            # together; a replicated one by rank 0
+            state = trainer.train_loop(
+                cfg, tcfg, state=state, step_fn=step_fn,
+                batches=placed(batches) if mesh is not None
+                else rank_rows(batches),
+                start_step=start_step,
+                ckpt_dir=(args.ckpt_dir or None)
+                if rank == 0 or mesh is not None else None,
+                straggler=mon)
         if mon.flags:
             print(f"[train] straggler steps flagged: {mon.flags[:5]}")
         return state

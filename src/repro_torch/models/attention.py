@@ -44,6 +44,8 @@ import torch
 from torch import nn
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import P, constrain
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (apply_rope, frozen_param,
                                        truncated_normal_)
@@ -76,6 +78,18 @@ class Attention(nn.Module):
         truncated_normal_(self.wo.data, qd ** -0.5, generator)
 
 
+def attention_specs(cfg: ModelConfig) -> dict:
+    specs = {
+        "wq": P(None, "model"),
+        "wk": P(None, "model"),
+        "wv": P(None, "model"),
+        "wo": P("model", None),
+    }
+    if cfg.qkv_bias:
+        specs.update({"bq": P("model"), "bk": P("model"), "bv": P("model")})
+    return specs
+
+
 def qkv_proj(params: Attention, x: torch.Tensor, cfg: ModelConfig
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> q (B,S,H,dh), k/v (B,S,Hkv,dh).  No RoPE applied."""
@@ -85,9 +99,12 @@ def qkv_proj(params: Attention, x: torch.Tensor, cfg: ModelConfig
     v = x @ params.wv
     if cfg.qkv_bias:
         q, k, v = q + params.bq, k + params.bk, v + params.bv
-    return (q.reshape(b, s, cfg.n_heads, cfg.head_dim),
-            k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim),
-            v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim))
+    return (constrain(q.reshape(b, s, cfg.n_heads, cfg.head_dim),
+                      ("batch", "seq", "heads", None)),
+            constrain(k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim),
+                      ("batch", "seq", "kv_heads", None)),
+            constrain(v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim),
+                      ("batch", "seq", "kv_heads", None)))
 
 
 def out_proj(params: Attention, attn_out: torch.Tensor,
@@ -119,6 +136,10 @@ def attend_prefill(params: Attention, x: torch.Tensor, cfg: ModelConfig,
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
     q, k_pre, v = qkv_proj(params, x, cfg)
+    if shd.is_dtensor(q):
+        o = _flash_sharded(q, k_pre, v, positions, cfg, prefix_len)
+        o = constrain(o, ("batch", "seq", "heads", None))
+        return out_proj(params, o, cfg), k_pre, v
     q_r = apply_rope(q, positions, cfg.rope_theta) if cfg.use_rope else q
     k_r = apply_rope(k_pre, positions, cfg.rope_theta) if cfg.use_rope \
         else k_pre
@@ -128,6 +149,60 @@ def attend_prefill(params: Attention, x: torch.Tensor, cfg: ModelConfig,
                             softcap=cfg.attn_logit_softcap,
                             prefix_len=prefix_len)
     return out_proj(params, o, cfg), k_pre, v
+
+
+def _kv_for_heads(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig,
+                  h0: int, h_loc: int):
+    """The K/V heads query heads [h0, h0 + h_loc) read, as the flash
+    kernel takes them (kv head h // group): a slice when the range covers
+    whole groups or lies inside one, else the GQA-expanded slice."""
+    g = cfg.group_size
+    if h_loc == cfg.n_heads:
+        return k, v
+    if h_loc % g == 0 and h0 % g == 0:
+        sl = slice(h0 // g, (h0 + h_loc) // g)
+    elif g % h_loc == 0:
+        sl = slice(h0 // g, h0 // g + 1)
+    else:
+        sl = slice(h0, h0 + h_loc)
+        k, v = repeat_kv(k, g), repeat_kv(v, g)
+    return k[:, :, sl], v[:, :, sl]
+
+
+def _flash_sharded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   positions: torch.Tensor, cfg: ModelConfig,
+                   prefix_len: int) -> torch.Tensor:
+    """RoPE + the flash kernel on each rank's batch rows and query heads
+    (``local_map``): K/V come replicated over the head axes and each rank
+    takes the kv heads its query heads read; their gradient leaves each
+    rank partial and is summed.  The backward is ``FlashAttentionFn``'s on
+    the same local blocks."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = q.device_mesh
+    qpl = tuple(q.placements)
+    on_heads = [i for i, p in enumerate(qpl) if p == Shard(2)]
+    kvpl = tuple(Replicate() if i in on_heads else p
+                 for i, p in enumerate(qpl))
+    kv_grad = tuple(Partial() if i in on_heads else p
+                    for i, p in enumerate(qpl))
+    head_axes = tuple(mesh.mesh_dim_names[i] for i in on_heads)
+
+    def body(q, k, v, positions):
+        h_loc = q.shape[2]
+        h0 = shd.axis_index(mesh, head_axes) * h_loc
+        if cfg.use_rope:
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+        k, v = _kv_for_heads(k, v, cfg, h0, h_loc)
+        return ops.flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(),
+                                   causal=cfg.causal and not prefix_len,
+                                   softcap=cfg.attn_logit_softcap,
+                                   prefix_len=prefix_len)
+
+    return shd.local_map(body, qpl, (qpl, kvpl, kvpl, None), mesh,
+                         in_grad_placements=(qpl, kv_grad, kv_grad, None))(
+        q, k, v, positions)
 
 
 def attend_train(params: Attention, x: torch.Tensor, cfg: ModelConfig,
@@ -219,7 +294,36 @@ def attend_prefill_chunk(params: Attention, x: torch.Tensor, cfg: ModelConfig,
     y = out_proj(params, o, cfg)
     k_cache.index_copy_(1, positions[0], k_r.to(k_cache.dtype))
     v_cache.index_copy_(1, positions[0], v.to(v_cache.dtype))
-    return y, k_pre, v, k_cache, v_cache
+    return (y, k_pre, v, constrain(k_cache, CACHE_AXES),
+            constrain(v_cache, CACHE_AXES))
+
+
+def _decode_logits(q: torch.Tensor, kc: torch.Tensor, pos: torch.Tensor,
+                   s0: int, cfg: ModelConfig) -> torch.Tensor:
+    """Masked logits of one RoPE'd query token per row against cache rows
+    s0 .. s0+n-1: q (B, 1, H, dh); kc (B, n, Hkv, dh) post-RoPE keys;
+    pos (B,).  Returns (B, Hkv, G, n) f32, positions past ``pos`` at
+    NEG_INF, taken in f32 over the cache's working-dtype values, as the
+    reference's ``preferred_element_type=f32`` contraction."""
+    b, n = kc.shape[:2]
+    valid = torch.arange(s0, s0 + n, device=kc.device)[None, :] \
+        <= pos[:, None]
+    q_g = q[:, 0].reshape(b, cfg.n_kv_heads, cfg.group_size, cfg.head_dim)
+    logits = torch.einsum("bkrd,bskd->bkrs", q_g.float(),
+                          kc.to(q.dtype).float()) * cfg.head_dim ** -0.5
+    if cfg.attn_logit_softcap:
+        logits = cfg.attn_logit_softcap * torch.tanh(
+            logits / cfg.attn_logit_softcap)
+    return torch.where(valid[:, None, None, :], logits, NEG_INF)
+
+
+def _decode_pv(p: torch.Tensor, vc: torch.Tensor, dtype, cfg: ModelConfig
+               ) -> torch.Tensor:
+    """Softmax probabilities p (B, Hkv, G, n), rounded to the working
+    ``dtype``, times values vc (B, n, Hkv, dh): (B, H, dh) f32."""
+    o = torch.einsum("bkrs,bskd->bkrd", p.to(dtype).float(),
+                     vc.to(dtype).float())
+    return o.reshape(p.shape[0], cfg.n_heads, cfg.head_dim)
 
 
 def attend_decode_full(params: Attention, x: torch.Tensor, cfg: ModelConfig,
@@ -237,6 +341,8 @@ def attend_decode_full(params: Attention, x: torch.Tensor, cfg: ModelConfig,
     dev = x.device
     pos_v = torch.as_tensor(pos, device=dev).to(torch.int64).reshape(-1) \
         .expand(b)
+    if shd.is_dtensor(x):
+        return _decode_full_sharded(params, x, cfg, k_cache, v_cache, pos_v)
     q, k, v = qkv_proj(params, x, cfg)
     if cfg.use_rope:
         q = apply_rope(q, pos_v[:, None], cfg.rope_theta)
@@ -244,20 +350,65 @@ def attend_decode_full(params: Attention, x: torch.Tensor, cfg: ModelConfig,
     rows = torch.arange(b, device=dev)
     k_cache[rows, pos_v] = k[:, 0].to(k_cache.dtype)
     v_cache[rows, pos_v] = v[:, 0].to(v_cache.dtype)
-    s_max = k_cache.shape[1]
-    valid = torch.arange(s_max, device=dev)[None, :] <= pos_v[:, None]
-    q_g = q[:, 0].reshape(b, cfg.n_kv_heads, cfg.group_size, cfg.head_dim)
-    logits = torch.einsum("bkrd,bskd->bkrs", q_g.float(),
-                          k_cache.to(q.dtype).float()) \
-        * cfg.head_dim ** -0.5
-    if cfg.attn_logit_softcap:
-        logits = cfg.attn_logit_softcap * torch.tanh(
-            logits / cfg.attn_logit_softcap)
-    logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
-    p = torch.softmax(logits, dim=-1)
-    o = torch.einsum("bkrs,bskd->bkrd", p.to(q.dtype).float(),
-                     v_cache.to(q.dtype).float())
+    p = torch.softmax(_decode_logits(q, k_cache, pos_v, 0, cfg), dim=-1)
+    o = _decode_pv(p, v_cache, q.dtype, cfg)
     o = o.reshape(b, 1, cfg.n_heads, cfg.head_dim).to(x.dtype)
+    return out_proj(params, o, cfg), k_cache, v_cache
+
+
+CACHE_AXES = ("batch", "kv_seq_full", "kv_heads", None)
+
+
+def _decode_full_sharded(params: Attention, x, cfg: ModelConfig, k_cache,
+                         v_cache, pos_v: torch.Tensor):
+    """:func:`attend_decode_full` over DTensor caches: each rank writes the
+    new token's K/V into the rows and positions it owns (at its
+    slab-local index), then takes the logits of its own slab
+    (``local_map``: RoPE'd query, positions <= pos).  The softmax runs on
+    the logits as a DTensor, which makes each row whole along S first, so
+    the probabilities are the plain path's bits, rounded to the working
+    dtype as there; each rank's slab gives its share of P V and the shares
+    sum."""
+    from torch.distributed.tensor import Replicate, Shard
+    q, k, v = qkv_proj(params, x, cfg)
+    r0, nb = shd.shard_range(k_cache, 0)
+    s0, ns = shd.shard_range(k_cache, 1)
+    pos_l = pos_v[r0:r0 + nb]
+    k_l = shd.rows_like(k, k_cache)
+    if cfg.use_rope:
+        k_l = apply_rope(k_l, pos_l[:, None], cfg.rope_theta)
+    mine = ((pos_l >= s0) & (pos_l < s0 + ns))[:, None, None]
+    at = (torch.arange(nb, device=x.device), (pos_l - s0).clamp(0, ns - 1))
+    for cache, val in ((k_cache, k_l), (v_cache, shd.rows_like(v, k_cache))):
+        loc = cache.to_local()
+        loc[at] = torch.where(mine, val[:, 0].to(loc.dtype), loc[at])
+    k_cache = constrain(k_cache, CACHE_AXES)
+    v_cache = constrain(v_cache, CACHE_AXES)
+
+    mesh = k_cache.device_mesh
+    cpl = tuple(k_cache.placements)
+    bpl = tuple(Shard(0) if p == Shard(0) else Replicate() for p in cpl)
+    # logits (B, Hkv, G, S) and the P V shares (B, S-shards, H, dh): S
+    # split as the cache's
+    lpl = tuple(Shard(0) if p == Shard(0) else
+                Shard(3) if p == Shard(1) else Replicate() for p in cpl)
+    gpl = tuple(Shard(0) if p == Shard(0) else
+                Shard(1) if p == Shard(1) else Replicate() for p in cpl)
+
+    def logits_body(q, kc, pos):
+        pos_l = pos[r0:r0 + nb]
+        if cfg.use_rope:
+            q = apply_rope(q, pos_l[:, None], cfg.rope_theta)
+        return _decode_logits(q, kc, pos_l, s0, cfg)
+
+    logits = shd.local_map(logits_body, lpl, (bpl, cpl, None), mesh)(
+        q, k_cache, pos_v)
+    p = torch.softmax(logits, dim=-1)
+    o = shd.local_map(lambda p, vc: _decode_pv(p, vc, q.dtype, cfg)[:, None],
+                      gpl, (lpl, tuple(v_cache.placements)), mesh)(
+        p, v_cache)
+    # the shares sum in f32 before the cast to the working dtype
+    o = torch.sum(o, dim=1).redistribute(mesh, bpl)[:, None].to(x.dtype)
     return out_proj(params, o, cfg), k_cache, v_cache
 
 
@@ -283,6 +434,8 @@ def attend_decode_full_window(params: Attention, x: torch.Tensor,
         k = apply_rope(k, qpos, cfg.rope_theta)
     rows = torch.arange(b, device=dev)
     s_max = k_cache.shape[1]
+    k = constrain(k, ("batch", "seq", "kv_heads", None))
+    v = constrain(v, ("batch", "seq", "kv_heads", None))
     for t in range(ql):
         # one slot per write: a clamped position can never alias another
         # row's (or this row's kept) target within one index_put
@@ -291,6 +444,8 @@ def attend_decode_full_window(params: Attention, x: torch.Tensor,
         for cache, val in ((k_cache, k), (v_cache, v)):
             cache[at] = torch.where(inside[:, None, None],
                                     val[:, t].to(cache.dtype), cache[at])
+    k_cache = constrain(k_cache, CACHE_AXES)
+    v_cache = constrain(v_cache, CACHE_AXES)
     valid = torch.arange(s_max, device=dev)[None, None, :] \
         <= qpos[:, :, None]                                    # (B, Q, S)
     q_g = q.reshape(b, ql, cfg.n_kv_heads, cfg.group_size, cfg.head_dim)

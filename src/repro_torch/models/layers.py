@@ -16,6 +16,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed.sharding import (P, axis_index, constrain,
+                                              is_dtensor, local_map,
+                                              replicate_like)
 
 
 def frozen_param(t: torch.Tensor) -> nn.Parameter:
@@ -40,6 +43,10 @@ class RMSNorm(nn.Module):
     def __init__(self, dim: int, dtype, device):
         super().__init__()
         self.scale = frozen_param(torch.ones(dim, dtype=dtype, device=device))
+
+
+def rmsnorm_specs() -> dict:
+    return {"scale": P(None)}
 
 
 def rmsnorm_apply(params: RMSNorm, x: torch.Tensor,
@@ -98,6 +105,14 @@ class MLP(nn.Module):
         truncated_normal_(self.w_down.data, f ** -0.5, generator)
 
 
+def mlp_specs() -> dict:
+    return {
+        "w_gate": P(None, "model"),
+        "w_up": P(None, "model"),
+        "w_down": P("model", None),
+    }
+
+
 def mlp_apply(params: MLP, x: torch.Tensor, act: str = "swiglu"
               ) -> torch.Tensor:
     gate = x @ params.w_gate
@@ -106,7 +121,7 @@ def mlp_apply(params: MLP, x: torch.Tensor, act: str = "swiglu"
         gate = F.gelu(gate, approximate="tanh")
     else:
         gate = F.silu(gate)
-    return (gate * up) @ params.w_down
+    return constrain(gate * up, ("batch", "seq", "mlp")) @ params.w_down
 
 
 # ---------------------------------------------------------------------------
@@ -130,13 +145,58 @@ class Embedding(nn.Module):
             truncated_normal_(self.lm_head.data, std, generator)
 
 
+def embedding_specs(cfg: ModelConfig) -> dict:
+    specs = {"embedding": P("model", None)}
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = P(None, "model")
+    return specs
+
+
+def _embed_sharded(table, tokens):
+    """Vocab-parallel lookup (``local_map``): the table whole along d and
+    split along the vocab as its placement says, the ids whole on those
+    axes; each rank reads the rows it holds, zeros elsewhere, and the
+    partial rows sum.  The table's gradient leaves each batch shard
+    partial."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = table.device_mesh
+    on_vocab = [i for i, p in enumerate(table.placements) if p == Shard(0)]
+    vocab_axes = tuple(mesh.mesh_dim_names[i] for i in on_vocab)
+    tpl = tuple(Shard(0) if i in on_vocab else Replicate()
+                for i in range(mesh.ndim))
+    ipl = tuple(Replicate() if i in on_vocab else
+                (p if isinstance(p, Shard) else Replicate())
+                for i, p in enumerate(tokens.placements))
+    gpl = tuple(Shard(0) if i in on_vocab else
+                (Partial() if isinstance(ipl[i], Shard) else Replicate())
+                for i in range(mesh.ndim))
+    opl = tuple(Partial() if i in on_vocab else ipl[i]
+                for i in range(mesh.ndim))
+
+    def body(tab, ids):
+        v_loc = tab.shape[0]
+        rel = ids.long() - axis_index(mesh, vocab_axes) * v_loc
+        mine = (rel >= 0) & (rel < v_loc)
+        rows = tab[rel.clamp(0, v_loc - 1)]
+        return torch.where(mine[..., None], rows, torch.zeros_like(rows))
+
+    return local_map(body, opl, (tpl, ipl), mesh,
+                     in_grad_placements=(gpl, ipl))(table, tokens)
+
+
 def embed_apply(params: Embedding, tokens: torch.Tensor,
                 cfg: ModelConfig) -> torch.Tensor:
-    x = params.embedding[tokens.long()]
+    """Token embeddings · sqrt(d).  A DTensor table is looked up by
+    :func:`_embed_sharded`."""
+    if is_dtensor(params.embedding):
+        x = _embed_sharded(params.embedding, tokens)
+    else:
+        x = params.embedding[tokens.long()]
     # gemma-style sqrt(d) scaling, in the embedding's dtype as the reference
     # (a device fill, not a host-to-device copy)
-    return x * torch.full((), math.sqrt(cfg.d_model), dtype=x.dtype,
-                          device=x.device)
+    x = x * replicate_like(torch.full((), math.sqrt(cfg.d_model),
+                                      dtype=x.dtype, device=x.device), x)
+    return constrain(x, ("batch", "seq", "embed"))
 
 
 def unembed_apply(params: Embedding, x: torch.Tensor,
@@ -145,7 +205,7 @@ def unembed_apply(params: Embedding, x: torch.Tensor,
         logits = x @ params.embedding.T.to(x.dtype)
     else:
         logits = x @ params.lm_head
-    logits = logits.float()
+    logits = constrain(logits.float(), ("batch", "seq", "vocab"))
     if cfg.attn_logit_softcap:
         logits = cfg.attn_logit_softcap * torch.tanh(
             logits / cfg.attn_logit_softcap)

@@ -23,7 +23,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.config import ModelConfig
-from repro_torch.models.layers import (MLP, frozen_param, mlp_apply,
+from repro_torch.distributed.sharding import P, constrain
+from repro_torch.models.layers import (MLP, frozen_param, mlp_apply, mlp_specs,
                                        truncated_normal_)
 
 CAPACITY_FACTOR = 1.25
@@ -58,6 +59,18 @@ class MoE(nn.Module):
         truncated_normal_(self.w_down.data, f ** -0.5, generator)
         if self.shared is not None:
             self.shared.init_(generator)
+
+
+def moe_specs(cfg: ModelConfig) -> dict:
+    specs = {
+        "router": P(None, None),
+        "w_gate": P("model", None, None),   # expert parallelism
+        "w_up": P("model", None, None),
+        "w_down": P("model", None, None),
+    }
+    if cfg.n_shared_experts:
+        specs["shared"] = mlp_specs()
+    return specs
 
 
 def _capacity(n_tokens: int, n_experts: int, top_k: int,
@@ -112,15 +125,18 @@ def moe_apply(params: MoE, x: torch.Tensor, cfg: ModelConfig
                         onehot.float() * (gate_vals * keep.float())[..., None],
                         cap_onehot.float()).to(x.dtype)
 
-    expert_in = torch.einsum("bsec,bsd->becd", disp, x)         # (B,E,C,d)
+    expert_in = constrain(torch.einsum("bsec,bsd->becd", disp, x),
+                          ("batch", "experts", None, "embed"))  # (B,E,C,d)
     # batched over experts: (E, B·C, d) @ (E, d, f)
     xe = expert_in.transpose(0, 1).reshape(e, b * cap, d)
     gate = torch.bmm(xe, params.w_gate)
     up = torch.bmm(xe, params.w_up)
     act = F.gelu(gate, approximate="tanh") if cfg.mlp_act == "geglu" \
         else F.silu(gate)
-    expert_out = torch.bmm(act * up, params.w_down)             # (E,B·C,d)
-    expert_out = expert_out.reshape(e, b, cap, d).transpose(0, 1)
+    h = constrain(act * up, ("experts", None, None))            # (E,B·C,f)
+    expert_out = torch.bmm(h, params.w_down)                    # (E,B·C,d)
+    expert_out = constrain(expert_out.reshape(e, b, cap, d).transpose(0, 1),
+                           ("batch", "experts", None, "embed"))
 
     y = torch.einsum("bsec,becd->bsd", comb, expert_out)
     if params.shared is not None:

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed.sharding import P
 from repro_torch.models.layers import frozen_param, truncated_normal_
 
 SSD_CHUNK = 128
@@ -70,6 +71,20 @@ class Mamba(nn.Module):
         truncated_normal_(self.w_dt.data, std, generator)
         truncated_normal_(self.w_bc.data, std, generator)
         truncated_normal_(self.w_out.data, inner ** -0.5, generator)
+
+
+def mamba_specs(cfg: ModelConfig) -> dict:
+    return {
+        "w_in": P(None, "model"),
+        "conv": P(None, "model"),
+        "w_dt": P(None, None),
+        "dt_bias": P(None),
+        "a_log": P(None),
+        "d_skip": P(None),
+        "w_bc": P(None, None),
+        "w_out": P("model", None),
+        "norm_scale": P("model"),
+    }
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
@@ -249,6 +264,20 @@ class RWKV(nn.Module):
         truncated_normal_(self.cm_k.data, std, generator)
         truncated_normal_(self.cm_v.data, d_ff ** -0.5, generator)
         truncated_normal_(self.cm_r.data, std, generator)
+
+
+def rwkv_specs(cfg: ModelConfig) -> dict:
+    return {
+        "mu": P(None, None),
+        "w_r": P(None, "model"), "w_k": P(None, "model"),
+        "w_v": P(None, "model"), "w_g": P(None, "model"),
+        "w_o": P("model", None),
+        "w0": P(None), "w_lora_a": P(None, None), "w_lora_b": P(None, None),
+        "bonus_u": P(None, None), "ln_scale": P(None),
+        "mu_cm": P(None, None),
+        "cm_k": P(None, "model"), "cm_v": P("model", None),
+        "cm_r": P(None, "model"),
+    }
 
 
 def _shift(x: torch.Tensor, prev: Optional[torch.Tensor] = None

@@ -53,14 +53,17 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.config import ModelConfig, SALSConfig
-from repro_torch.core.latent_cache import LatentKVCache
+from repro_torch.core.latent_cache import LATENT_FIELDS, LatentKVCache
 from repro_torch.core.sparse_attention import (sals_decode_attend,
                                                sals_window_attend)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.sharding import P, constrain
 from repro_torch.models.layers import (MLP, Embedding, RMSNorm, embed_apply,
-                                       mlp_apply, rmsnorm_apply,
+                                       embedding_specs, mlp_apply, mlp_specs,
+                                       rmsnorm_apply, rmsnorm_specs,
                                        unembed_apply)
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -72,6 +75,19 @@ def torch_dtype(name) -> torch.dtype:
 
 
 RECURRENT = ("ssm", "hybrid")
+# families whose layers run on DTensors under a sharding context
+SHARDED = ("dense", "vlm", "encoder")
+
+
+def _check_sharded(cfg: ModelConfig) -> None:
+    if cfg.family not in SHARDED:
+        raise ValueError(f"{cfg.family}: sharded runs support the "
+                         f"{', '.join(SHARDED)} families")
+
+
+def _check_unsharded(tokens, what: str) -> None:
+    if shd.is_dtensor(tokens):
+        raise ValueError(f"{what} runs unsharded: no DTensor inputs")
 
 
 # ---------------------------------------------------------------------------
@@ -159,6 +175,47 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return params
 
 
+def block_specs(cfg: ModelConfig) -> dict:
+    """Specs of one block's parameters, nested as the :class:`Block`'s
+    submodules (the reference's stacked-block specs without the layer
+    axis)."""
+    if cfg.family == "ssm":
+        return {"norm1": rmsnorm_specs(), "norm2": rmsnorm_specs(),
+                "rwkv": ssm_mod.rwkv_specs(cfg)}
+    sp = {
+        "attn_norm": rmsnorm_specs(),
+        "attn": attn.attention_specs(cfg),
+        "mlp_norm": rmsnorm_specs(),
+    }
+    if cfg.family == "moe":
+        sp["moe"] = moe_mod.moe_specs(cfg)
+    else:
+        sp["mlp"] = mlp_specs()
+    if cfg.family == "hybrid":
+        sp["mamba"] = ssm_mod.mamba_specs(cfg)
+    return sp
+
+
+def _flat(tree: dict, prefix: str) -> Dict[str, P]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, P):
+            out[prefix + k] = v
+        else:
+            out.update(_flat(v, f"{prefix}{k}."))
+    return out
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, P]:
+    """Parameter name (``Transformer.named_parameters``) -> :class:`P`."""
+    out = _flat(embedding_specs(cfg), "embed.")
+    blk = _flat(block_specs(cfg), "")
+    for i in range(cfg.n_layers):
+        out.update({f"blocks.{i}.{k}": v for k, v in blk.items()})
+    out.update(_flat(rmsnorm_specs(), "final_norm."))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Forward pieces
 # ---------------------------------------------------------------------------
@@ -171,7 +228,8 @@ def _block_fwd(bp: Block, x: torch.Tensor, cfg: ModelConfig,
     without it (training), extras is None and attention is
     ``attend_train``.  aux_loss is the MoE router's load-balance loss (0
     elsewhere)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = shd.replicate_like(
+        torch.zeros((), dtype=torch.float32, device=x.device), x)
     extras = None
     if cfg.family == "ssm":
         h = rmsnorm_apply(bp.norm1, x, cfg.norm_eps)
@@ -197,13 +255,13 @@ def _block_fwd(bp: Block, x: torch.Tensor, cfg: ModelConfig,
         else:
             s_out = ssm_mod.mamba_apply(bp.mamba, h, cfg)
         a = (a + s_out) * 0.5
-    x = x + a
+    x = constrain(x + a, ("batch", "residual_seq", "embed"))
     h2 = rmsnorm_apply(bp.mlp_norm, x, cfg.norm_eps)
     if cfg.family == "moe":
         m, aux = moe_mod.moe_apply(bp.moe, h2, cfg)
     else:
         m = mlp_apply(bp.mlp, h2, cfg.mlp_act)
-    return x + m, aux, extras
+    return constrain(x + m, ("batch", "residual_seq", "embed")), aux, extras
 
 
 def embed_inputs(params: Transformer, cfg: ModelConfig,
@@ -215,11 +273,13 @@ def embed_inputs(params: Transformer, cfg: ModelConfig,
     {"frames": (B, S, d)}: the frame embeddings (the frontend stub's),
     cast to the params' compute dtype (``final_norm``'s), prefix_len 0."""
     if cfg.family == "encoder":
-        return batch["frames"].to(params.final_norm.scale.dtype), 0
+        x = batch["frames"].to(params.final_norm.scale.dtype)
+        return constrain(x, ("batch", "seq", "embed")), 0
     tok_emb = embed_apply(params.embed, batch["tokens"], cfg)
     if cfg.family == "vlm" and "patches" in batch:
         patches = batch["patches"].to(tok_emb.dtype)
-        return torch.cat([patches, tok_emb], dim=1), patches.shape[1]
+        x = torch.cat([patches, tok_emb], dim=1)
+        return constrain(x, ("batch", "seq", "embed")), patches.shape[1]
     return tok_emb, 0
 
 
@@ -261,8 +321,11 @@ def hidden(params: Transformer, cfg: ModelConfig,
     d), aux_loss): aux_loss () f32 is the MoE load-balance losses summed
     over layers."""
     x, prefix_len = embed_inputs(params, cfg, batch)
+    if shd.is_dtensor(x):
+        _check_sharded(cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = shd.replicate_like(
+        torch.zeros((), dtype=torch.float32, device=x.device), x)
     for bp in params.blocks:
         x, a = _checkpointed(
             lambda x_in, bp=bp: _block_fwd(bp, x_in, cfg, positions,
@@ -280,8 +343,44 @@ def forward(params: Transformer, cfg: ModelConfig,
     return unembed_apply(params.embed, x, cfg), aux
 
 
+def _gold_nll_sharded(logits, labels):
+    """:func:`_gold_nll` of DTensor logits, without gathering a
+    vocab-sharded last dim: each rank's local log-sum-exp and the gold
+    logit of the shard that holds the label (``local_map``), then the
+    log-sum-exp of the per-shard ones and the sum of the gold partials
+    (small all-reduces over the vocab axes)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = logits.device_mesh
+    vd = logits.ndim - 1
+    pl = tuple(logits.placements)
+    on_vocab = [i for i, p in enumerate(pl) if p == Shard(vd)]
+    vocab_axes = tuple(mesh.mesh_dim_names[i] for i in on_vocab)
+    lab_pl = tuple(Replicate() if i in on_vocab else p
+                   for i, p in enumerate(pl))
+    lse_pl = pl                                       # (..., 1) per shard
+    gold_pl = tuple(Partial() if i in on_vocab else p
+                    for i, p in enumerate(pl))
+
+    def body(lg, lab):
+        v_loc = lg.shape[-1]
+        rel = lab.long() - shd.axis_index(mesh, vocab_axes) * v_loc
+        mine = (rel >= 0) & (rel < v_loc)
+        gold = torch.gather(lg, -1, rel.clamp(0, v_loc - 1)[..., None])
+        return (torch.logsumexp(lg, dim=-1, keepdim=True),
+                torch.where(mine, gold[..., 0], torch.zeros_like(gold[..., 0])))
+
+    lse, gold = shd.local_map(body, (lse_pl, gold_pl), (pl, lab_pl), mesh)(
+        logits, labels)
+    m = lse.detach().amax(dim=-1, keepdim=True)
+    logz = (m + torch.log(torch.sum(torch.exp(lse - m), dim=-1,
+                                    keepdim=True)))[..., 0]
+    return logz - gold
+
+
 def _gold_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """(B, S) logsumexp(logits) − logits[label]."""
+    if shd.is_dtensor(logits):
+        return _gold_nll_sharded(logits, labels)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     return logz - gold
@@ -308,7 +407,8 @@ def forward_loss(params: Transformer, cfg: ModelConfig,
     def chunk_nll(x_c, y_c):
         return _gold_nll(unembed_apply(params.embed, x_c, cfg), y_c).sum()
 
-    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    total = shd.replicate_like(
+        torch.zeros((), dtype=torch.float32, device=x.device), x)
     for c0 in range(0, s, c):
         total = total + ckpt.checkpoint(chunk_nll, x[:, c0:c0 + c],
                                         labels[:, c0:c0 + c],
@@ -405,6 +505,48 @@ def init_cache(cfg: ModelConfig, sals: Optional[SALSConfig], batch: int,
     return cache
 
 
+def cache_pspecs(cache: dict, rules: dict) -> dict:
+    """:class:`P` tree of an :func:`init_cache` tree, by leaf name: a SALS
+    segment's :class:`LatentKVCache` becomes {field: P} (its hybrid state
+    under "ssm"), the other segments keep their dict structure."""
+    ba, sa = rules["batch"], rules["kv_seq"]
+
+    def by_name(name: str, nd: int) -> P:
+        if name in ("k_lat", "v_q", "v_scale", "v_zero"):
+            return P(None, ba, sa, *([None] * (nd - 3)))
+        if name == "k_scale":
+            return P(None, ba, sa)
+        if name in ("sink_k", "sink_v", "recent_k", "recent_v"):
+            return P(None, ba, None, None, None)
+        if name == "lengths":                # per-slot token counts (L, B)
+            return P(None, ba)
+        if name in ("k", "v"):               # full-precision skip layers:
+            # seq-sharded, each rank writes the rows it owns
+            return P(None, ba, sa if isinstance(sa, str) else None,
+                     None, None)
+        if name == "wkv":                    # rwkv6 (L,B,H,hs,hs)
+            return P(None, ba, None, None, None)
+        if name in ("tm_x", "cm_x"):
+            return P(None, ba, None)
+        if name == "ssm":                    # hybrid (L,B,H,P,N)
+            return P(None, ba, *([None] * (nd - 2)))
+        if name == "conv":                   # hybrid (L,B,K-1,inner)
+            return P(None, ba, None, None)
+        return P(*([None] * nd))
+
+    def walk(node) -> dict:
+        if isinstance(node, LatentKVCache):
+            out = {f: by_name(f, getattr(node, f).dim())
+                   for f in LATENT_FIELDS if getattr(node, f) is not None}
+            if node.ssm is not None:
+                out["ssm"] = walk(node.ssm)
+            return out
+        return {k: walk(v) if isinstance(v, (dict, LatentKVCache))
+                else by_name(k, v.dim()) for k, v in node.items()}
+
+    return walk(cache)
+
+
 def init_prefill_scratch(cfg: ModelConfig, sals: Optional[SALSConfig],
                          batch: int, max_seq: int, dtype=None,
                          device="cuda") -> dict:
@@ -438,8 +580,16 @@ def prefill(params: Transformer, projectors: Optional[dict],
     row's cache span is prefix_len + its token length, and ``max_seq``
     must hold P + S and the tokens to decode.  The recurrent families'
     state absorbs every position, pads included: their serving layout is
-    uniform-length (``ServeEngine.generate``).  Returns (last-position
-    logits (B, V) f32, cache)."""
+    uniform-length (``ServeEngine.generate``).  Under a sharding context
+    the blocks run on DTensors and the cache is :func:`placed_cache`'s:
+    each layer's cache is built from the rank's own batch rows, whole
+    along S, and the rank keeps the slab its placement gives it.
+    Returns (last-position logits (B, V) f32, cache)."""
+    sharded = shd.current_ctx() is not None
+    if sharded:
+        if lengths is not None:
+            raise ValueError("a sharded prefill takes uniform-length rows")
+        _check_sharded(cfg)
     dtype = torch_dtype(cfg.dtype)
     x, prefix_len = embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
@@ -449,7 +599,8 @@ def prefill(params: Transformer, projectors: Optional[dict],
         torch.as_tensor(lengths, device=dev).to(torch.int32)
     # cache positions include any vision prefix
     cache_len = None if len_v is None else prefix_len + len_v
-    cache = init_cache(cfg, sals, b, max_seq, dtype, n_groups, device=dev)
+    cache = (placed_cache if sharded else init_cache)(
+        cfg, sals, b, max_seq, dtype, n_groups, device=dev)
     for si, (i0, i1, mode) in enumerate(segment_plan(cfg, sals)):
         seg = cache[f"seg{si}"]
         for li in range(i0, i1):
@@ -460,28 +611,92 @@ def prefill(params: Transformer, projectors: Optional[dict],
                     t.copy_(ex[name])
                 continue
             if mode == "sals":
+                u = projectors["u"][li]
+                rows = seg.layer_view(li - i0).sink_k
                 layer = LatentKVCache.prefill_layer(
-                    cfg, sals, projectors["u"][li], ex["k_pre"], ex["v"],
-                    max_seq, dtype, n_groups=n_groups, lengths=cache_len)
+                    cfg, sals, u.to_local() if shd.is_dtensor(u) else u,
+                    shd.rows_like(ex["k_pre"], rows),
+                    shd.rows_like(ex["v"], rows), max_seq, dtype,
+                    n_groups=n_groups, lengths=cache_len)
                 layer.ssm = ex.get("ssm")
-                seg.set_layer(li - i0, layer)
+                _put_layer(seg, li - i0, layer)
             else:
-                k_r = attn.apply_rope(ex["k_pre"], positions,
-                                      cfg.rope_theta) \
-                    if cfg.use_rope else ex["k_pre"]
-                seg["k"][li - i0, :, :s] = k_r.to(dtype)
-                seg["v"][li - i0, :, :s] = ex["v"].to(dtype)
+                dst = seg["k"][li - i0]
+                k_r = shd.rows_like(ex["k_pre"], dst)
+                if cfg.use_rope:
+                    k_r = attn.apply_rope(k_r, positions, cfg.rope_theta)
+                _put_seq_block(dst, k_r.to(dtype))
+                _put_seq_block(seg["v"][li - i0],
+                               shd.rows_like(ex["v"], dst).to(dtype))
                 if "ssm" in ex:
                     for name, t in _layer_state(seg["ssm"],
                                                 li - i0).items():
                         t.copy_(ex["ssm"][name])
     x = rmsnorm_apply(params.final_norm, x, cfg.norm_eps)
+    x = constrain(x, ("batch", "seq", "embed"))
     if len_v is None:
         last = x[:, -1:, :]
     else:
         last_idx = (cache_len - 1).long()
         last = x[torch.arange(b, device=dev), last_idx][:, None]
     return unembed_apply(params.embed, last, cfg)[:, 0], cache
+
+
+def cache_shapes(cache) -> dict:
+    """The shape tree of an :func:`init_cache` tree, in the structure of
+    :func:`cache_pspecs`."""
+    if isinstance(cache, LatentKVCache):
+        out = {f: tuple(getattr(cache, f).shape)
+               for f in LATENT_FIELDS if getattr(cache, f) is not None}
+        if cache.ssm is not None:
+            out["ssm"] = cache_shapes(cache.ssm)
+        return out
+    return {k: tuple(v.shape) if isinstance(v, torch.Tensor)
+            else cache_shapes(v) for k, v in cache.items()}
+
+
+def placed_cache(cfg: ModelConfig, sals: Optional[SALSConfig], batch: int,
+                 max_seq: int, dtype, n_groups: int, device) -> dict:
+    """:func:`init_cache`'s zeros as DTensors placed by the sharding
+    context's rules (:func:`cache_pspecs`, sanitized to the mesh)."""
+    ctx = shd.current_ctx()
+    like = init_cache(cfg, sals, batch, max_seq, dtype, n_groups,
+                      device="meta")
+    spec = shd.sanitize_pspecs(cache_pspecs(like, ctx.rules),
+                               cache_shapes(like), ctx.mesh)
+    return shd.zeros_placed(like, ctx.mesh,
+                            shd.tree_shardings(ctx.mesh, spec), device)
+
+
+def _put_seq_block(dst, src: torch.Tensor) -> None:
+    """Write ``src`` (this rank's rows, positions 0 .. S_src-1) into
+    ``dst`` (B, S, ·): a plain tensor takes it whole; a DTensor's rank
+    writes the positions of its own slab, at slab-local rows."""
+    if not shd.is_dtensor(dst):
+        dst[:, :src.shape[1]].copy_(src)
+        return
+    s0, ns = shd.shard_range(dst, 1)
+    loc = dst.to_local()
+    n = max(0, min(ns, src.shape[1] - s0))
+    loc[:, :n].copy_(src[:, s0:s0 + n])
+
+
+def _put_layer(seg: LatentKVCache, l: int, layer: LatentKVCache) -> None:
+    """Copy the single-layer cache ``layer`` (this rank's rows, whole
+    along S) into layer ``l`` of ``seg``; a sequence-sharded ``seg``
+    keeps each per-token field's own slab."""
+    if not shd.is_dtensor(seg.sink_k):
+        seg.set_layer(l, layer)
+        return
+    lay = seg.layer_view(l)
+    for f in LATENT_FIELDS:
+        dst = getattr(lay, f)
+        if dst is None:
+            continue
+        if f in ("k_lat", "k_scale", "v_q", "v_scale", "v_zero"):
+            _put_seq_block(dst, getattr(layer, f))
+        else:
+            dst.to_local().copy_(getattr(layer, f))
 
 
 def prefill_chunk(params: Transformer, projectors: Optional[dict],
@@ -514,6 +729,7 @@ def prefill_chunk(params: Transformer, projectors: Optional[dict],
                          "prefill supports attention-only families")
     if not cfg.is_decoder:
         raise ValueError("encoder family has no decode cache to prefill")
+    _check_unsharded(batch["tokens"], "chunked prefill")
     x = embed_apply(params.embed, batch["tokens"], cfg)
     b, c, _ = x.shape
     dev = x.device
@@ -554,6 +770,10 @@ def decode_step(params: Transformer, projectors: Optional[dict], cache: dict,
     fetch oracle."""
     if not cfg.is_decoder:
         raise ValueError("encoder family has no decode step")
+    if shd.is_dtensor(tokens):
+        _check_sharded(cfg)
+        if shd.is_dtensor(pos):
+            pos = pos.full_tensor()
     x = embed_apply(params.embed, tokens[:, None], cfg)       # (B,1,d)
     touched: Dict[str, Any] = {}
     for si, (i0, i1, mode) in enumerate(segment_plan(cfg, sals)):
@@ -616,6 +836,7 @@ def decode_window(params: Transformer, projectors: Optional[dict],
         raise ValueError(f"{cfg.family} decode carries recurrent state — a "
                          "rejected draft would need a state rollback; "
                          "speculative windows support attention families")
+    _check_unsharded(tokens, "the verify window")
     x = embed_apply(params.embed, tokens, cfg)                # (B,Q,d)
     aux: Dict[str, Any] = {}
     for si, (i0, i1, mode) in enumerate(segment_plan(cfg, sals)):

@@ -10,6 +10,11 @@ on every leaf (norms and embeddings included), which is not
 ``torch.optim.AdamW``'s decoupled ``p ← p·(1 − lr·wd)``.  The schedule and
 the bias corrections are computed in f32 on the device from ``count``,
 as ``jnp`` computes them, so a step reads nothing back to the host.
+
+Over DTensor parameters (a sharded train state, ``launch/specs.py``) the
+moments and master copies take each parameter's placement, ``count`` is
+a replicated DTensor, each gradient is redistributed to its parameter's
+placement, and the global norm's sums reduce across the ranks.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import torch
 from torch import nn
 
 from repro_torch.config import TrainConfig
+from repro_torch.distributed.sharding import is_dtensor, replicate_like
 
 Params = Union[nn.Module, Dict[str, torch.Tensor]]
 
@@ -48,11 +54,12 @@ def adamw_init(params: Params, moment_dtype=torch.float32) -> dict:
     leaves = _named(params)
     first = next(iter(leaves.values()))
     state = {
-        "mu": {k: torch.zeros(p.shape, dtype=moment_dtype, device=p.device)
+        "mu": {k: torch.zeros_like(p, dtype=moment_dtype)
                for k, p in leaves.items()},
-        "nu": {k: torch.zeros(p.shape, dtype=moment_dtype, device=p.device)
+        "nu": {k: torch.zeros_like(p, dtype=moment_dtype)
                for k, p in leaves.items()},
-        "count": torch.zeros((), dtype=torch.int32, device=first.device),
+        "count": replicate_like(torch.zeros((), dtype=torch.int32,
+                                            device=first.device), first),
     }
     if any(p.dtype != torch.float32 for p in leaves.values()):
         state["master"] = {k: p.detach().float().clone()
@@ -83,14 +90,17 @@ def adamw_update(grads: Dict[str, torch.Tensor], opt_state: dict,
         clip = torch.clamp(tcfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                            max=1.0)
     else:
-        clip = torch.ones((), dtype=torch.float32, device=gnorm.device)
+        clip = torch.ones_like(gnorm)
     b1, b2 = tcfg.b1, tcfg.b2
     cf = count.float()
     c1 = 1.0 - torch.pow(torch.full_like(cf, b1), cf)
     c2 = 1.0 - torch.pow(torch.full_like(cf, b2), cf)
     master = opt_state.get("master", leaves)
     for k, p in leaves.items():
-        g = grads[k].float() * clip
+        g = grads[k]
+        if is_dtensor(g) and g.placements != p.placements:
+            g = g.redistribute(p.device_mesh, p.placements)
+        g = g.float() * clip
         mu, nu, m = opt_state["mu"][k], opt_state["nu"][k], master[k]
         mu32 = b1 * mu.float() + (1 - b1) * g
         nu32 = b2 * nu.float() + (1 - b2) * torch.square(g)

@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.config import ModelConfig, TrainConfig
 from repro_torch.distributed import compression as gc
+from repro_torch.distributed.sharding import replicated
 from repro_torch.models import transformer as tf
 from repro_torch.train.optimizer import adamw_init, adamw_update
 
@@ -63,11 +64,13 @@ def loss_fn(params: tf.Transformer, cfg: ModelConfig, batch: dict,
 
 def loss_and_grads(params: tf.Transformer, cfg: ModelConfig, batch: dict,
            remat: str):
-    """(loss, extras, {name: grad in the parameter's dtype})."""
+    """(loss, extras, {name: grad in the parameter's dtype}); over a
+    sharded state the loss and extras come back whole on every rank."""
     names, leaves = zip(*params.named_parameters())
     loss, extras = loss_fn(params, cfg, batch, remat)
     grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
-    return loss.detach(), {k: v.detach() for k, v in extras.items()}, \
+    return replicated(loss.detach()), \
+        {k: replicated(v.detach()) for k, v in extras.items()}, \
         dict(zip(names, grads))
 
 
@@ -94,8 +97,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *,
                 losses.append(l)
                 extra_seq.append(ex)
                 if grads is None:
-                    grads = {k: torch.zeros(p.shape, dtype=torch.float32,
-                                            device=p.device)
+                    grads = {k: torch.zeros_like(p, dtype=torch.float32)
                              for k, p in params.named_parameters()}
                 for k, gi in g.items():
                     grads[k] += gi.float() / mb
