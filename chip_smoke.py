@@ -190,7 +190,24 @@ Phases, each printing one JSON line:
               rank r of G would call it, at the grouped phase's llama2
               shape for G 2 and 4: (m, l, o) bitwise equal to the fold's.
               The group is destroyed and the memory freed after it;
-13. vlm     — seeded paligemma-3b at full width (18 layers, d 2048, MQA
+13. pipe    — GPipe (``distributed/pipeline.py``) at P = 1 over the same
+              world-1 NCCL group (one card holds one stage; multi-stage
+              runs are held on CPU ranks by the tests): qwen2-1.5b at full
+              width and depth, bf16, 4 microbatches of B 1 x S 4096,
+              blocks under block remat, against the plain path's mean
+              ``forward_loss`` and its gradients (loss within 1e-5
+              relative, every gradient within 1e-2 of its max); flash
+              launches a step, ms a step, peak memory, the bubble fraction;
+14. roofline — ``analysis.analyze_step`` over the plain qwen2-1.5b train
+              step (B 4 x S 4096, block remat) and the serve model's
+              SALS-25% decode step at the serve phase's shape: per-device
+              flops, bytes, the three roofline terms on the H100 constants
+              (``analysis/roofline.py``), the bound and its share, then
+              each step timed without the counter over the bound;
+15. dryrun  — ``python -m repro_torch.launch.dryrun --arch qwen2-1.5b
+              --shape decode_32k`` with no CUDA device visible (a fake
+              256-rank process group, meta tensors): status ``ok``;
+16. vlm     — seeded paligemma-3b at full width (18 layers, d 2048, MQA
               with head_dim 256, vocab 257,216; bf16), SALS-25% (r 64, r*
               32, 15 SALS layers), U_r calibrated on tokens: (a) prefill of
               4 rows of 256 patch embeddings + 3840 ... 2304 tokens through
@@ -202,7 +219,7 @@ Phases, each printing one JSON line:
               serve phase, and at G 4 as the grouped phase's (1); (c)
               ``RequestScheduler``, 4 requests on 64-token pages and on the
               dense arena (tokens equal); every path's launch counts;
-14. families — the moe, hybrid and ssm families at full width, bf16,
+17. families — the moe, hybrid and ssm families at full width, bf16,
               seeded, SALS-25% at the defaults where the family has
               attention (U_r calibrated on the synthetic corpus): (a)
               hymba-1.5b at full depth (32 layers, 29 SALS): ``generate``
@@ -225,7 +242,7 @@ Phases, each printing one JSON line:
               of it that the MoE layers or the recurrences take (one
               layer's call captured alone at the step's shapes, times the
               layers);
-15. train   — qwen2-1.5b at full width and depth (bf16 weights, f32
+18. train   — qwen2-1.5b at full width and depth (bf16 weights, f32
               master and moments, seed 0) through the launcher's
               functions (``trainer.init_state``, ``make_train_step``,
               ``train_loop`` over the corpus's batches): (a) B 4 x S 4096,
@@ -257,7 +274,7 @@ Phases, each printing one JSON line:
               (profiled), ``wire_bytes`` for a world of 1 and 8; every
               compressed loss must fall, and at 1e-4 (no loss spike) end
               within 2% of the uncompressed one;
-16. examples — the port's examples (``repro_torch.examples``) through
+19. examples — the port's examples (``repro_torch.examples``) through
               their ``main`` on the card, bf16: (a) ``quickstart``
               (reduced yi-9b at head_dim 64: tokens of ``full``, ``sals``
               and ``sals-g2``, calibration and wall seconds); (b)
@@ -272,7 +289,7 @@ Phases, each printing one JSON line:
               restarts, the kept checkpoints and the max parameter delta
               against the uninterrupted run, below the example's 1e-5);
               launch counts of each run, zeroed just before it;
-17. whole   — a full-width 2-layer model (SALS on layer 1) decoded on the
+20. whole   — a full-width 2-layer model (SALS on layer 1) decoded on the
               card (kernels) and on the CPU (twins) from the same weights
               and a 1024-token prompt (so top-k really selects), per-step
               logits compared under teacher forcing.
@@ -301,15 +318,18 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
+sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM data-sheet peaks (dense)
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOP_PER_S = 989e12
-F32_FLOP_PER_S = 67e12
+# H100 SXM data-sheet peaks (dense), defined once in the port's roofline;
+# this import fails outside a checkout of the repository
+from repro_torch.analysis.roofline import (  # noqa: E402
+    F32_PEAK_FLOPS as F32_FLOP_PER_S, HBM_BW as HBM_BYTES_PER_S,
+    PEAK_FLOPS as BF16_FLOP_PER_S)
+from repro_torch.kernels import cost  # noqa: E402
 
 PHASES = ("device", "build", "kernels", "serve", "sched", "tier", "quality",
-          "spec", "slo", "obs", "grouped", "mesh", "vlm", "families",
-          "train", "examples", "whole")
+          "spec", "slo", "obs", "grouped", "mesh", "pipe", "roofline",
+          "dryrun", "vlm", "families", "train", "examples", "whole")
 # "profile" (not run by default) adds torch.profiler passes over four
 # chunked-prefill steps after the sched phase (replayed and eager, and the
 # host's issue time of a chunk), and over three
@@ -331,6 +351,8 @@ def nvidia_smi_line() -> str:
 
 
 def bound(bytes_moved: float, flops: float, peak_flops: float):
+    """(ms, "bytes" | "operations"): the larger of the bytes over the HBM
+    rate and the operations over ``peak_flops``."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S
     t_ops = flops / peak_flops
     return (max(t_bytes, t_ops) * 1e3,
@@ -581,11 +603,9 @@ def topk_case(torch, name, b, s, r, r_star, n_c, k_dtype, seed, flush,
     j = torch.arange(s, device=dev)[None, :] + kw["pos_base"][:, None]
     n_sel = int(((j >= kw["n_sink"])
                  & (j <= pos[:, None] - kw["n_recent"])).sum())
-    kb = k_lat.element_size()
-    nbytes = b * r_star * 4 + n_sel * r_star * kb + 2 * b * 4 + b * n_c * 5 \
-        + (n_sel * 2 if k_scale is not None else 0) \
-        + (b * (s // ps) * 4 if ps else 0)
-    b_ms, b_by = bound(nbytes, 2.0 * n_sel * r_star, F32_FLOP_PER_S)
+    flops, nbytes = cost.latent_topk_work(q_lat, k_lat, k_scale, pos, **kw,
+                                          **pg, selectable_rows=n_sel)
+    b_ms, b_by = bound(nbytes, flops, F32_FLOP_PER_S)
     out.update(ms=whole["ms"], graph_ms=whole["graph_ms"], parts=parts,
                device_ms=device, device_ms_sum=sum(device.values()),
                device_ms_read_flush=device_read,
@@ -684,14 +704,8 @@ def sra_case(torch, name, b, h, n_kv, dh, s, r, n_c, k_dtype, v_bits,
     kern_ms = order["ms"]
     plain_ms = time_ms(torch, lambda: twin(*args(cache), **kw, **pg), 5,
                        flush=flush)
-    nv = int(valid.sum())
-    code_w = kvd if v_bits == 8 else kvd // 2
-    row_bytes = r * k_lat.element_size() + (2 if k_scale is not None else 0) \
-        + code_w + 2 * 2 * (kvd // 64)
-    nbytes = q.numel() * 2 + nv * row_bytes + u.numel() * u.element_size() \
-        + b * n_c * 5 + b * 4 + b * h * (2 + dh) * 4 \
-        + (b * (s // ps) * 4 if ps else 0)
-    flops = 2.0 * nv * kvd * r + 4.0 * nv * (h // n_kv) * kvd
+    flops, nbytes = cost.recon_work(*args(cache), n_kv=n_kv, **pg,
+                                    valid_rows=int(valid.sum()))
     b_ms, b_by = bound(nbytes, flops, F32_FLOP_PER_S if "f32" in (
         k_dtype, u_dtype) else BF16_FLOP_PER_S)
     out = dict(case=name, max_abs_err=err, tol=tol, all_invalid_row_ok=dead_ok,
@@ -754,9 +768,8 @@ def score_case(torch, name, b, s, r, r_star, k_dtype, seed, flush):
     lib_device, lib_read, lib_warm = (
         kernel_device_ms(torch, library, 20, flush, m)
         for m in ("zero", "read", "none"))
-    nbytes = b * r_star * 4 + b * s * r_star * k_lat.element_size() \
-        + b * s * 4 + (b * s * 2 if k_scale is not None else 0)
-    b_ms, b_by = bound(nbytes, 2.0 * b * s * r_star, F32_FLOP_PER_S)
+    flops, nbytes = cost.latent_score_work(q_lat, k_lat, k_scale)
+    b_ms, b_by = bound(nbytes, flops, F32_FLOP_PER_S)
     return dict(case=name, max_abs_err=err, tol=tol, ms=kern["ms"],
                 graph_ms=kern["graph_ms"], plain_ms=plain_ms,
                 library_ms=lib["ms"], library_graph_ms=lib["graph_ms"],
@@ -958,14 +971,22 @@ def window_bound(b, ql, h, n_kv, dh, r, n_c, nv, lat_bytes, scaled, v_bits,
     of the selected keys plus Q times the scoring, at the bf16 peak (the
     float32 one for f32 latents, the CUDA-core body; the gate drops no
     operation the kernel does)."""
+    import torch
     kvd = n_kv * dh
-    code_w = kvd if v_bits == 8 else kvd // 2
-    row_bytes = r * lat_bytes + (2 if scaled else 0) + code_w \
-        + 2 * 2 * (kvd // 64)
-    nbytes = b * ql * h * dh * 2 + nv * row_bytes + kvd * r * 2 \
-        + b * n_c * 5 + b * 4 + b * ql * h * (2 + dh) * 4 \
-        + b * pages_per_row * 4
-    flops = 2.0 * nv * kvd * r + 4.0 * nv * ql * h * dh
+
+    def meta(*shape, dtype=torch.bfloat16):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    lat = {4: torch.float32, 2: torch.bfloat16, 1: torch.int8}[lat_bytes]
+    grp = meta(b, 1, kvd // 64)
+    flops, nbytes = cost.recon_work(
+        meta(b, ql, h, dh), meta(b, 1, r, dtype=lat),
+        meta(b, 1) if scaled else None,
+        meta(b, 1, kvd if v_bits == 8 else kvd // 2, dtype=torch.int8),
+        grp, grp, meta(kvd, r), meta(b, n_c, dtype=torch.int32),
+        meta(b, n_c, dtype=torch.bool), None, n_kv=n_kv,
+        page_table=meta(b, pages_per_row, dtype=torch.int32)
+        if pages_per_row else None, valid_rows=nv)
     return bound(nbytes, flops,
                  F32_FLOP_PER_S if lat_bytes == 4 else BF16_FLOP_PER_S)
 
@@ -1095,16 +1116,14 @@ def grouped_case(torch, name, b, h, n_kv, dh, s, r, r_star, n_c, g, seed,
     # the valid selected rows, as topk_case and sra_case count them
     j = torch.arange(s_loc, device=dev)[None, :] + base[:, None]
     n_sel = int(((j >= 16) & (j <= pos_g[:, None] - 64)).sum())
-    pages = b * (s // ps) * 4 if ps else 0
-    nbytes = b * g * r_star * 4 + n_sel * r_star * 2 + 2 * b * g * 4 \
-        + b * g * k_loc * 5 + pages
-    t_ms, t_by = bound(nbytes, 2.0 * n_sel * r_star, F32_FLOP_PER_S)
-    nv = int(val_s.sum())
-    row_bytes = r * 2 + kvd + 2 * 2 * (kvd // 64)
-    nbytes = qg.numel() * 2 + nv * row_bytes + u.numel() * 2 \
-        + b * g * k_loc * 5 + b * g * 4 + b * g * h * (2 + dh) * 4 + pages
-    r_ms, r_by = bound(nbytes, 2.0 * nv * kvd * r + 4.0 * nv * h * dh,
-                       BF16_FLOP_PER_S)
+    fpg = pg if ps else {}
+    flops, nbytes = cost.latent_topk_work(qlg, kv[0], None, pos_g, **tkw,
+                                          **fpg, selectable_rows=n_sel)
+    t_ms, t_by = bound(nbytes, flops, F32_FLOP_PER_S)
+    flops, nbytes = cost.recon_work(qg, *kv, u, idx_s, val_s, pos_g,
+                                    n_kv=n_kv, **fpg,
+                                    valid_rows=int(val_s.sum()))
+    r_ms, r_by = bound(nbytes, flops, BF16_FLOP_PER_S)
     ok = exact and err <= tol and dead_ok and merge_err <= tol and shared \
         and bitwise is not False
     lines[0].update(exact_idx=exact, valid=int(val_t.sum()),
@@ -1189,11 +1208,8 @@ def flash_case(torch, name, b, sq, sk, h, hkv, dh, softcap, seed, flush,
             torch, lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask,
                 is_causal=causal and mask is None), 10, flush)
-    q_off = sk - sq
-    pairs = sum(max(min(sk, q_off + i + 1), min(sk, prefix_len))
-                for i in range(sq)) if causal else sq * sk
-    flops = 4.0 * b * h * dh * pairs
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    flops, nbytes = cost.flash_work(q, k, v, causal=causal,
+                                    prefix_len=prefix_len)
     b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
     faults_caught = all(e > FLASH_TOL for e in fault_err.values())
     return dict(case=name, max_abs_err=abs_err, max_row_rel_err=err,
@@ -1300,12 +1316,8 @@ def flash_bwd_case(torch, name, b, sq, sk, h, hkv, dh, softcap, seed, flush,
                  for f in (bwd, lib, lib, bwd)]
         library_ms = (turns[1] + turns[2]) / 2
         del out, qt, kt, vt
-    q_off = sk - sq
-    pairs = sum(max(min(sk, q_off + i + 1), min(sk, prefix_len))
-                for i in range(sq)) if causal else sq * sk
-    flops = 10.0 * b * h * dh * pairs
-    nbytes = 2 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) \
-        + 4 * lse.numel()
+    flops, nbytes = cost.flash_bwd_work(q, k, v, o, lse, do, causal=causal,
+                                        prefix_len=prefix_len)
     b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
     faults_caught = all(e > FLASH_BWD_TOL for e in fault_err.values())
     # each kernel's own device time (a rename must not hide one)
@@ -5385,6 +5397,235 @@ def phase_mesh(torch, model) -> dict:
             "sparse_recon_attention": serve["sparse_recon_attention"]}
 
 
+def phase_pipe(torch) -> dict:
+    """GPipe (``distributed/pipeline.py``) at P = 1 on the card: the
+    world-1 NCCL group of ``mesh_start`` (one card holds one stage: NCCL
+    refuses two ranks on one device, and gloo sends no CUDA tensors;
+    multi-stage runs are held on CPU ranks by the tests).  qwen2-1.5b at
+    full width and depth, bf16, M 4 microbatches of B 1 x S 4096,
+    ``block_fn`` the stage's blocks under block remat, against the plain
+    path (the mean over microbatches of ``forward_loss``, then
+    ``torch.autograd.grad``): the loss within 1e-5 relative, every
+    gradient within ``FLASH_BWD_TOL`` of its tensor's max; flash forward
+    and backward launches a step, ms a step (median of 3), peak memory,
+    ``bubble_fraction(4, 1)``.  Returns the pipelined steps' launches."""
+    import shutil
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.distributed.pipeline import (bubble_fraction, gpipe_loss,
+                                                  stage_slice)
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import embed_apply, rmsnorm_apply
+    cfg = get_config("qwen2-1.5b")
+    n_micro, b, s = 4, 1, 4096
+    params = tf.init_params(cfg, device="cuda", seed=0)
+    params.requires_grad_(True)
+    leaves = list(params.parameters())
+    corpus = SyntheticCorpus(cfg.vocab_size, seed=0)
+    mbs = [corpus.batch(i, b, s) for i in range(n_micro)]
+    batch = {k: torch.as_tensor(np.stack([m[k] for m in mbs]),
+                                device="cuda") for k in ("tokens", "labels")}
+    positions = torch.arange(s, device="cuda")[None, :]
+
+    def plain():
+        loss = sum(tf.forward_loss(params, cfg, {k: v[i] for k, v in
+                                                 batch.items()},
+                                   remat="block")[0]
+                   for i in range(n_micro)) / n_micro
+        return loss, torch.autograd.grad(loss, leaves)
+
+    def block_fn(blocks, x):
+        for bp in blocks:
+            x = tf._checkpointed(lambda x_in, bp=bp: tf._block_fwd(
+                bp, x_in, cfg, positions, 0, False)[0], "block", x)
+        return x
+
+    def embed_fn(io, mb):
+        return embed_apply(io["embed"], mb["tokens"], cfg)
+
+    def head_loss_fn(io, x, mb):
+        return tf.head_loss(io["embed"], cfg, rmsnorm_apply(
+            io["final_norm"], x, cfg.norm_eps), mb["labels"])
+
+    _, store = mesh_start(torch)
+    try:
+        p = dist.get_world_size()
+        blocks = stage_slice(params.blocks, dist.get_rank(), p, cfg.n_layers)
+        io = {"embed": params.embed, "final_norm": params.final_norm}
+        loss_fn = gpipe_loss(block_fn, embed_fn, head_loss_fn)
+
+        def piped():
+            loss = loss_fn(blocks, io, batch)
+            return loss, torch.autograd.grad(loss, leaves)
+
+        want_loss, want = plain()
+        got_loss, got = piped()                 # also the warm-up
+        torch.cuda.synchronize()
+        got_loss, want_loss = (float(x.detach()) for x in (got_loss,
+                                                           want_loss))
+        rel = abs(got_loss - want_loss) / abs(want_loss)
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        del got, want
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            piped()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    fwd, bwd = (counts[k] / 3 for k in ("flash_attention",
+                                         "flash_attention_bwd"))
+    row = dict(phase="pipe", arch=cfg.name, stages=p, microbatches=n_micro,
+               batch=b, seq=s, remat="block", loss=got_loss,
+               plain_loss=want_loss, rel_loss_diff=rel,
+               loss_tol=1e-5, max_grad_rel_err=max(errs),
+               grad_tol=FLASH_BWD_TOL, flash_fwd_per_step=fwd,
+               flash_bwd_per_step=bwd, ms_per_step=statistics.median(ms),
+               step_ms=ms, peak_memory=peak,
+               bubble_fraction=bubble_fraction(n_micro, p))
+    emit(row)
+    del params, leaves, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    if rel > 1e-5 or max(errs) > FLASH_BWD_TOL:
+        raise AssertionError(f"pipe: loss {rel} / gradients {max(errs)} "
+                             f"against the plain path")
+    if fwd != 2 * n_micro * cfg.n_layers or bwd != n_micro * cfg.n_layers:
+        raise AssertionError(f"pipe: flash launches a step {fwd} + {bwd}")
+    return {k: counts[k] for k in ("flash_attention", "flash_attention_bwd")}
+
+
+def roofline_row(name, rep, cost, ms) -> dict:
+    """A roofline report's terms beside the measured step ms."""
+    bound_ms = rep.step_seconds * 1e3
+    return dict(phase="roofline", run=name, arch=rep.arch, shape=rep.shape,
+                flops=rep.hlo_flops, bytes=rep.hlo_bytes,
+                collective_bytes=rep.collective_bytes,
+                t_compute_ms=rep.t_compute * 1e3,
+                t_memory_ms=rep.t_memory * 1e3,
+                t_collective_ms=rep.t_collective * 1e3, bound=rep.bound,
+                bound_ms=bound_ms, roofline_fraction=rep.roofline_fraction,
+                model_flops=rep.model_flops, useful_ratio=rep.useful_ratio,
+                mfu=rep.mfu, memory=cost.memory,
+                kernels={k: v for k, v in cost.ops.items()
+                         if not k.startswith(("aten.", "_c10d", "c10d"))},
+                ms=ms, median_ms=statistics.median(ms),
+                measured_over_bound=statistics.median(ms) / bound_ms)
+
+
+def phase_roofline(torch, model) -> list:
+    """``analysis.analyze_step`` once on the card over (1) the plain
+    qwen2-1.5b train step (B 4 x S 4096, block remat, f32 master and
+    moments) and (2) the serve model's SALS-25% paper-llama2-7b decode step
+    at the serve phase's replayed shape (4 rows after prefills of 4096 ...
+    2560 tokens, max_seq 4160), eager; each step's per-device flops,
+    bytes, three terms, bound and ``roofline_fraction`` on the H100
+    constants of ``analysis/roofline.py``, then the step timed without the
+    counter (median of 3; the decode step also replayed through the
+    engine's CUDA graph) over the bound."""
+    from repro_torch.analysis import analyze_step, roofline
+    from repro_torch.config import ServeConfig, ShapeConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.launch.train import batches_for
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import ServeEngine
+    from repro_torch.train import trainer
+
+    def timed(fn, n=3):
+        ms = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return ms
+
+    rows = []
+    cfg = get_config("qwen2-1.5b")
+    tcfg = TrainConfig(steps=4, batch_size=4, seq_len=4096, lr=3e-4,
+                       warmup_steps=5)
+    state = trainer.init_state(cfg, tcfg, device="cuda", seed=0)
+    batch = trainer.batch_to(next(batches_for(
+        cfg, SyntheticCorpus(cfg.vocab_size, seed=0), tcfg, 0)), "cuda")
+    step = trainer.make_train_step(cfg, tcfg, remat="block")
+    cost, _ = analyze_step(step, state, batch)
+    rep = roofline(cfg.name, cfg, ShapeConfig("train_a", "train", 4096, 4),
+                   "single", 1, cost, cost.memory["peak_bytes"])
+    rows.append(roofline_row("train", rep, cost,
+                             timed(lambda: step(state, batch))))
+    emit(rows[-1])
+    del state, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg, sals = model["cfg"], model["sals"]
+    lens = [4096, 3584, 3072, 2560]
+    prompts = [model["corpus"].batch(100 + i, 1, n)["tokens"][0]
+               for i, n in enumerate(lens)]
+    eng = ServeEngine(model["params"], model["proj"], cfg, ServeConfig(
+        max_seq_len=4160, max_batch=4, sals=sals), device="cuda")
+    with torch.inference_mode():
+        logits, cache, host_lens = prefill_batch(torch, eng, prompts)
+        args = (eng.params, eng.projectors, cache,
+                logits.argmax(-1).to(torch.int32),
+                torch.as_tensor(host_lens, device="cuda"), cfg, sals)
+        cost, _ = analyze_step(tf.decode_step, *args)
+        rep = roofline(cfg.name, cfg, ShapeConfig("d4k", "decode", 4096, 4),
+                       "single", 1, cost, cost.memory["peak_bytes"])
+        row = roofline_row("decode_sals25", rep, cost,
+                           timed(lambda: tf.decode_step(*args)))
+        tok = args[3]
+        eng.decode(tok, cache, host_lens)       # captures the step program
+        replay = timed(lambda: eng.decode(tok, cache, host_lens))
+    row.update(replayed_ms=replay,
+               replayed_over_bound=statistics.median(replay)
+               / row["bound_ms"])
+    rows.append(row)
+    emit(row)
+    del eng, cache, logits, args
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_dryrun(torch) -> dict:
+    """``python -m repro_torch.launch.dryrun --arch qwen2-1.5b --shape
+    decode_32k`` with no CUDA device visible: the fake 256-rank process
+    group and the meta step on this machine's torch; it must exit 0 with
+    status ``ok``."""
+    out = OUT_DIR / "dryrun"
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "",
+           "PYTHONPATH": str(ROOT / "src")}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                           "--arch", "qwen2-1.5b", "--shape", "decode_32k",
+                           "--out", str(out)], capture_output=True,
+                          text=True, timeout=300, env=env, cwd=str(ROOT))
+    path = out / "qwen2-1.5b.decode_32k.pod16x16.json"
+    rec = json.loads(path.read_text()) if path.exists() else {}
+    row = dict(phase="dryrun", returncode=proc.returncode,
+               status=rec.get("status"), error=rec.get("error"),
+               wall_s=time.perf_counter() - t0, run_s=rec.get("run_s"),
+               roofline=rec.get("roofline"),
+               memory_analysis=rec.get("memory_analysis"),
+               stdout=proc.stdout.strip().splitlines()[:5])
+    emit(row)
+    if proc.returncode != 0 or rec.get("status") != "ok":
+        raise AssertionError(f"dryrun: rc {proc.returncode}, "
+                             f"{rec.get('status')}: {proc.stderr[-2000:]}")
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -5397,8 +5638,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.kernels import _build   # fails outside a checkout
+    from repro_torch.kernels import _build
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5431,9 +5671,10 @@ def main() -> int:
     if "tier" in phases and "sched" not in phases:
         raise SystemExit("the tier phase compares with the sched phase's "
                          "untiered paged run: add sched")
-    mesh = {}
+    mesh, pipe = {}, {}
     if any(p in phases for p in ("serve", "sched", "quality", "spec",
-                                 "slo", "obs", "grouped", "mesh")):
+                                 "slo", "obs", "grouped", "mesh", "pipe",
+                                 "roofline")):
         model = build_model(torch)
         lap("model")
         serve_sals = None
@@ -5485,9 +5726,18 @@ def main() -> int:
         if "mesh" in phases:
             mesh = phase_mesh(torch, model)
             lap("mesh")
+        if "pipe" in phases:
+            pipe = phase_pipe(torch)
+            lap("pipe")
+        if "roofline" in phases:
+            phase_roofline(torch, model)
+            lap("roofline")
         del model, serve_sals
         gc.collect()      # engines and step graphs hold reference cycles
         torch.cuda.empty_cache()
+    if "dryrun" in phases:
+        phase_dryrun(torch)
+        lap("dryrun")
     vlm = {}
     if "vlm" in phases:
         vlm = phase_vlm(torch, prof="profile" in phases)
@@ -5577,12 +5827,15 @@ def main() -> int:
                      "examples_launches": examples.get(name, 0)
                      if examples and name in EXAMPLE_KERNELS else None,
                      # the sharding layer's steps on the (1, 1) mesh
-                     "mesh_launches": mesh.get(name)})
+                     "mesh_launches": mesh.get(name),
+                     # GPipe's pipelined steps (the pipe phase)
+                     "pipe_launches": pipe.get(name)})
     emit({"kernels": rows})
     idle = [r["name"] for r in rows if r["launches"] == 0
             or r["vlm_launches"] == 0 or r["grouped_launches"] == 0
             or r["families_launches"] == 0 or r["train_launches"] == 0
-            or r["examples_launches"] == 0 or r["mesh_launches"] == 0]
+            or r["examples_launches"] == 0 or r["mesh_launches"] == 0
+            or r["pipe_launches"] == 0]
     if idle:    # None: its path did not run; 0: it ran without the kernel
         raise AssertionError(f"kernels never launched on their path: {idle}")
     print(smi, flush=True)

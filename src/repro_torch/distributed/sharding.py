@@ -400,11 +400,21 @@ def place(tree, mesh, pl_tree):
 
 def zeros_placed(like, mesh, pl_tree, device):
     """Zeros shaped as the meta tree ``like`` (dicts, cache dataclasses,
-    tensors) as DTensors placed by ``pl_tree``: each rank allocates its
-    own block only."""
+    tensors, modules) as DTensors placed by ``pl_tree``: each rank
+    allocates its own block only (on ``device`` "meta", nothing).  A
+    module's parameters are replaced in place, each keeping its
+    ``requires_grad``."""
     import dataclasses
     if like is None:
         return None
+    if isinstance(like, torch.nn.Module):
+        for name, p in list(like.named_parameters()):
+            owner_name, _, leaf = name.rpartition(".")
+            owner = like.get_submodule(owner_name) if owner_name else like
+            owner.register_parameter(leaf, torch.nn.Parameter(
+                zeros_placed(p.detach(), mesh, pl_tree[name], device),
+                requires_grad=p.requires_grad))
+        return like
     if isinstance(like, torch.Tensor):
         shape = list(like.shape)
         for i, p in enumerate(pl_tree):

@@ -3,6 +3,10 @@
 A CUDA tensor launches the hand-written Hopper kernel (``csrc/*.cu``); a CPU
 tensor runs the plain PyTorch twin in ``kernels/ref.py``.  There is no
 backend switch and no fallback: on CUDA the kernel runs or the call raises.
+A meta tensor computes nothing: the wrapper returns meta outputs of the
+twin's shapes and dtypes (a step traced for its cost,
+``analysis/hlo_cost.py``).  Every call reports its work
+(``kernels/cost.py``) to the innermost active cost counter, if any.
 The kernels read raw pointers, so a ``DTensor`` never reaches them: each
 wrapper raises on one, and sharded callers run the wrappers on local
 blocks through ``local_map`` (``models/attention.py``,
@@ -20,6 +24,7 @@ from typing import Dict, Optional
 import torch
 from torch.distributed.tensor import DTensor
 
+from repro_torch.kernels import cost as _cost
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import latent_score as _ls
 from repro_torch.kernels import ref as _ref
@@ -58,12 +63,19 @@ def _local_only(*ts) -> None:
                         "on local blocks (local_map)")
 
 
-def _on_cuda(t: torch.Tensor) -> bool:
-    if t.device.type == "cuda":
-        return True
-    if t.device.type == "cpu":
-        return False
+def _device(t: torch.Tensor) -> str:
+    """"cuda" (the kernel), "cpu" (the twin) or "meta" (shapes only)."""
+    if t.device.type in ("cuda", "cpu", "meta"):
+        return t.device.type
     raise RuntimeError(f"no kernel or twin for device {t.device}")
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _paged(name: str, page_table) -> str:
+    return name + "_paged" if page_table is not None else name
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -84,12 +96,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal = causal or prefix_len > 0
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return FlashAttentionFn.apply(q, k, v, causal, softcap, prefix_len)
-    if _on_cuda(q):
-        return _fa.flash_attention_cuda(q, k, v, causal=causal,
-                                        softcap=softcap,
-                                        prefix_len=prefix_len)
-    return _ref.attention_ref(q, k, v, causal=causal, softcap=softcap,
-                              prefix_len=prefix_len)
+    mk = dict(causal=causal, softcap=softcap, prefix_len=prefix_len)
+    with _cost.launch("flash_attention", _cost.flash_work, q, k, v,
+                      causal=causal, prefix_len=prefix_len):
+        dev = _device(q)
+        if dev == "meta":
+            return _meta(q.shape, v.dtype)
+        if dev == "cuda":
+            return _fa.flash_attention_cuda(q, k, v, **mk)
+        return _ref.attention_ref(q, k, v, **mk)
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -98,17 +113,25 @@ class FlashAttentionFn(torch.autograd.Function):
     LSE); the backward recomputes P from LSE and returns (dq, dk, dv), dk
     and dv at the kv heads k and v came with.  CUDA tensors run the two
     kernels, CPU tensors the twins ``attention_lse_ref`` /
-    ``attention_bwd_ref``."""
+    ``attention_bwd_ref``, meta tensors neither."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, softcap: float,
                 prefix_len: int):
         _local_only(q, k, v)
         mk = dict(causal=causal, softcap=softcap, prefix_len=prefix_len)
-        if _on_cuda(q):
-            o, lse = _fa.flash_attention_cuda(q, k, v, **mk, return_lse=True)
-        else:
-            o, lse = _ref.attention_lse_ref(q, k, v, **mk)
+        with _cost.launch("flash_attention", _cost.flash_work, q, k, v,
+                          causal=causal, prefix_len=prefix_len, lse=True):
+            dev = _device(q)
+            if dev == "meta":
+                b, sq, h, _ = q.shape
+                o = _meta(q.shape, v.dtype)
+                lse = _meta((b, h, sq), torch.float32)
+            elif dev == "cuda":
+                o, lse = _fa.flash_attention_cuda(q, k, v, **mk,
+                                                  return_lse=True)
+            else:
+                o, lse = _ref.attention_lse_ref(q, k, v, **mk)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.mask = mk
         return o
@@ -117,12 +140,18 @@ class FlashAttentionFn(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()
-        if _on_cuda(q):
-            dq, dk, dv = _fa.flash_attention_bwd_cuda(q, k, v, o, lse, do,
-                                                      **ctx.mask)
-        else:
-            dq, dk, dv = _ref.attention_bwd_ref(q, k, v, o, lse, do,
-                                                **ctx.mask)
+        with _cost.launch("flash_attention_bwd", _cost.flash_bwd_work, q, k,
+                          v, o, lse, do, causal=ctx.mask["causal"],
+                          prefix_len=ctx.mask["prefix_len"]):
+            dev = _device(q)
+            if dev == "meta":
+                dq, dk, dv = (_meta(t.shape, t.dtype) for t in (q, k, v))
+            elif dev == "cuda":
+                dq, dk, dv = _fa.flash_attention_bwd_cuda(
+                    q, k, v, o, lse, do, **ctx.mask)
+            else:
+                dq, dk, dv = _ref.attention_bwd_ref(q, k, v, o, lse, do,
+                                                    **ctx.mask)
         return dq, dk, dv, None, None, None
 
 
@@ -132,9 +161,14 @@ def latent_score(q_lat: torch.Tensor, k_lat: torch.Tensor,
     per-token ``k_scale`` (B, S)) -> (B, S) f32 scores over the leading r*
     columns, read in place (no slice, pad or dequantized copy)."""
     _local_only(k_lat, k_scale)
-    if _on_cuda(q_lat):
-        return _ls.latent_score_cuda(q_lat, k_lat, k_scale)
-    return _ref.latent_score_ref(q_lat, k_lat, k_scale)
+    with _cost.launch("latent_score", _cost.latent_score_work, q_lat, k_lat,
+                      k_scale):
+        dev = _device(q_lat)
+        if dev == "meta":
+            return _meta(k_lat.shape[:2], torch.float32)
+        if dev == "cuda":
+            return _ls.latent_score_cuda(q_lat, k_lat, k_scale)
+        return _ref.latent_score_ref(q_lat, k_lat, k_scale)
 
 
 def latent_topk(q_lat: torch.Tensor, k_lat: torch.Tensor,
@@ -149,15 +183,31 @@ def latent_topk(q_lat: torch.Tensor, k_lat: torch.Tensor,
     kw = dict(n_critical=n_critical, n_sink=n_sink, n_recent=n_recent,
               pos_base=pos_base)
     _local_only(k_lat, k_scale, page_table)
-    if _on_cuda(q_lat):
-        return _ls.latent_topk_cuda(q_lat, k_lat, k_scale, pos, **kw,
-                                    page_table=page_table,
-                                    page_size=page_size)
-    if page_table is not None:
-        return _ref.latent_topk_paged_ref(q_lat, k_lat, k_scale, pos, **kw,
-                                          page_table=page_table,
-                                          page_size=page_size)
-    return _ref.latent_topk_ref(q_lat, k_lat, k_scale, pos, **kw)
+    with _cost.launch(_paged("latent_topk", page_table),
+                      _cost.latent_topk_work, q_lat, k_lat, k_scale, pos,
+                      n_critical=n_critical, page_table=page_table,
+                      page_size=page_size):
+        dev = _device(q_lat)
+        if dev == "meta":
+            b = q_lat.shape[0]
+            return (_meta((b, n_critical), torch.int32),
+                    _meta((b, n_critical), torch.bool))
+        if dev == "cuda":
+            return _ls.latent_topk_cuda(q_lat, k_lat, k_scale, pos, **kw,
+                                        page_table=page_table,
+                                        page_size=page_size)
+        if page_table is not None:
+            return _ref.latent_topk_paged_ref(
+                q_lat, k_lat, k_scale, pos, **kw, page_table=page_table,
+                page_size=page_size)
+        return _ref.latent_topk_ref(q_lat, k_lat, k_scale, pos, **kw)
+
+
+def _partials_meta(q_shape):
+    """Meta (m, l, o) f32 partials for a query of ``q_shape`` (..., H, dh)."""
+    return (_meta(q_shape[:-1], torch.float32),
+            _meta(q_shape[:-1], torch.float32),
+            _meta(q_shape, torch.float32))
 
 
 def sparse_recon_attention(q, k_lat, k_scale, v_q, v_scale, v_zero, u,
@@ -174,13 +224,19 @@ def sparse_recon_attention(q, k_lat, k_scale, v_q, v_scale, v_zero, u,
     _local_only(*args, page_table)
     kw = dict(n_kv=n_kv, v_bits=v_bits, v_group=v_group, theta=theta,
               softcap=softcap, use_rope=use_rope, pos_base=pos_base)
-    if _on_cuda(q):
-        return _sra.sparse_recon_attention_cuda(
-            *args, **kw, page_table=page_table, page_size=page_size)
-    if page_table is not None:
-        return _ref.sparse_recon_attention_paged_ref(
-            *args, **kw, page_table=page_table, page_size=page_size)
-    return _ref.sparse_recon_attention_fused_ref(*args, **kw)
+    with _cost.launch(_paged("sparse_recon_attention", page_table),
+                      _cost.recon_work, *args, n_kv=n_kv,
+                      page_table=page_table):
+        dev = _device(q)
+        if dev == "meta":
+            return _partials_meta(q.shape)
+        if dev == "cuda":
+            return _sra.sparse_recon_attention_cuda(
+                *args, **kw, page_table=page_table, page_size=page_size)
+        if page_table is not None:
+            return _ref.sparse_recon_attention_paged_ref(
+                *args, **kw, page_table=page_table, page_size=page_size)
+        return _ref.sparse_recon_attention_fused_ref(*args, **kw)
 
 
 def sparse_recon_attention_window(q, k_lat, k_scale, v_q, v_scale, v_zero,
@@ -203,10 +259,16 @@ def sparse_recon_attention_window(q, k_lat, k_scale, v_q, v_scale, v_zero,
     kw = dict(n_kv=n_kv, n_recent=n_recent, v_bits=v_bits, v_group=v_group,
               theta=theta, softcap=softcap, use_rope=use_rope,
               pos_base=pos_base)
-    if _on_cuda(q):
-        return _sra.sparse_recon_attention_window_cuda(
-            *args, **kw, page_table=page_table, page_size=page_size)
-    if page_table is not None:
-        return _ref.sparse_recon_attention_window_paged_ref(
-            *args, **kw, page_table=page_table, page_size=page_size)
-    return _ref.sparse_recon_attention_fused_window_ref(*args, **kw)
+    with _cost.launch(_paged("sparse_recon_attention_window", page_table),
+                      _cost.recon_work, *args, n_kv=n_kv,
+                      page_table=page_table):
+        dev = _device(q)
+        if dev == "meta":
+            return _partials_meta(q.shape)
+        if dev == "cuda":
+            return _sra.sparse_recon_attention_window_cuda(
+                *args, **kw, page_table=page_table, page_size=page_size)
+        if page_table is not None:
+            return _ref.sparse_recon_attention_window_paged_ref(
+                *args, **kw, page_table=page_table, page_size=page_size)
+        return _ref.sparse_recon_attention_fused_window_ref(*args, **kw)

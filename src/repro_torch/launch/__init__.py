@@ -1,5 +1,6 @@
-"""Launchers of the port (``launch.train``, ``launch.serve``) and the
-config and device rules they and the examples share."""
+"""Launchers of the port (``launch.train``, ``launch.serve``, and on the
+CPU the dry-run ``launch.dryrun`` and its grid runner ``launch.rungrid``)
+and the config and device rules they and the examples share."""
 from __future__ import annotations
 
 import argparse

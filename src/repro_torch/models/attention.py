@@ -42,6 +42,7 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import Replicate, Shard
 
 from repro_torch.config import ModelConfig
 from repro_torch.distributed import sharding as shd
@@ -99,19 +100,47 @@ def qkv_proj(params: Attention, x: torch.Tensor, cfg: ModelConfig
     v = x @ params.wv
     if cfg.qkv_bias:
         q, k, v = q + params.bq, k + params.bk, v + params.bv
-    return (constrain(q.reshape(b, s, cfg.n_heads, cfg.head_dim),
+    return (constrain(_heads(q, cfg.n_heads, cfg.head_dim),
                       ("batch", "seq", "heads", None)),
-            constrain(k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim),
+            constrain(_heads(k, cfg.n_kv_heads, cfg.head_dim),
                       ("batch", "seq", "kv_heads", None)),
-            constrain(v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim),
+            constrain(_heads(v, cfg.n_kv_heads, cfg.head_dim),
                       ("batch", "seq", "kv_heads", None)))
+
+
+class _MergeHeads(torch.autograd.Function):
+    """(B, S, H, dh) -> (B, S, H·dh), whose backward splits the gradient
+    with :func:`_heads`: under tensor parallelism the gradient comes back
+    split along H·dh over the ``model`` axis, which may not divide H."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.heads = x.shape[-2:]
+        return x.reshape(*x.shape[:-2], -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _heads(g, *ctx.heads)
+
+
+def _heads(t: torch.Tensor, n: int, dh: int) -> torch.Tensor:
+    """(B, S, n·dh) -> (B, S, n, dh).  A DTensor whose last dim is split
+    over more ranks than divide ``n`` (qwen2-1.5b's 12 heads over a
+    16-wide model axis) is made whole along it first: DTensor cannot split
+    a view's head dim unevenly, where the reference's GSPMD pads."""
+    if shd.is_dtensor(t):
+        last = Shard(t.ndim - 1)
+        axes = shd.dim_axes(t, t.ndim - 1)
+        if axes and n % shd.axis_size(axes, t.device_mesh):
+            t = t.redistribute(t.device_mesh, tuple(
+                Replicate() if p == last else p for p in t.placements))
+    return t.reshape(*t.shape[:-1], n, dh)
 
 
 def out_proj(params: Attention, attn_out: torch.Tensor,
              cfg: ModelConfig) -> torch.Tensor:
     """attn_out: (B, S, H, dh) -> (B, S, d)."""
-    b, s = attn_out.shape[:2]
-    return attn_out.reshape(b, s, cfg.q_dim) @ params.wo
+    return _MergeHeads.apply(attn_out) @ params.wo
 
 
 def repeat_kv(x: torch.Tensor, group: int) -> torch.Tensor:

@@ -389,14 +389,21 @@ def _gold_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 def forward_loss(params: Transformer, cfg: ModelConfig,
                  batch: Dict[str, torch.Tensor], *, remat: str = "none",
                  ce_chunk: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Forward + chunked cross entropy (the training loss).  The unembed
-    and logsumexp run per sequence chunk of ``ce_chunk`` under a
-    checkpoint, so the (B, S, V) f32 logits are never held whole: peak
-    memory holds one (B, chunk, V) tile.  One chunk when S is not a
-    multiple of ``ce_chunk``.  vlm: the loss is over the text suffix.
-    Returns (mean NLL () f32, aux)."""
+    """Forward + chunked cross entropy (the training loss,
+    :func:`head_loss`).  vlm: the loss is over the text suffix.  Returns
+    (mean NLL () f32, aux)."""
     x, aux = hidden(params, cfg, batch, remat=remat)
-    labels = batch["labels"]
+    return head_loss(params.embed, cfg, x, batch["labels"], ce_chunk), aux
+
+
+def head_loss(embed, cfg: ModelConfig, x: torch.Tensor,
+              labels: torch.Tensor, ce_chunk: int = 512) -> torch.Tensor:
+    """Mean NLL of ``labels`` under the final-normed hidden ``x`` (B, S,
+    d) through ``embed``'s unembedding.  The unembed and logsumexp run per
+    sequence chunk of ``ce_chunk`` under a checkpoint, so the (B, S, V)
+    f32 logits are never held whole: peak memory holds one (B, chunk, V)
+    tile.  One chunk when S is not a multiple of ``ce_chunk``; a longer
+    ``x`` (vlm) is cut to its last S positions."""
     if x.shape[1] != labels.shape[1]:        # vlm: loss over the text suffix
         x = x[:, -labels.shape[1]:]
     b, s, _ = x.shape
@@ -405,7 +412,7 @@ def forward_loss(params: Transformer, cfg: ModelConfig,
         c = s
 
     def chunk_nll(x_c, y_c):
-        return _gold_nll(unembed_apply(params.embed, x_c, cfg), y_c).sum()
+        return _gold_nll(unembed_apply(embed, x_c, cfg), y_c).sum()
 
     total = shd.replicate_like(
         torch.zeros((), dtype=torch.float32, device=x.device), x)
@@ -413,7 +420,7 @@ def forward_loss(params: Transformer, cfg: ModelConfig,
         total = total + ckpt.checkpoint(chunk_nll, x[:, c0:c0 + c],
                                         labels[:, c0:c0 + c],
                                         use_reentrant=False)
-    return total / (b * s), aux
+    return total / (b * s)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
