@@ -241,7 +241,24 @@ Phases, each printing one JSON line:
               1-7 a step, a profiled replayed step by kernel and the share
               of it that the MoE layers or the recurrences take (one
               layer's call captured alone at the step's shapes, times the
-              layers);
+              layers); (e) on the mesh phase's world-1 NCCL group and
+              (1, 1) mesh: each of (a)-(d) served through
+              ``build_prefill`` + ``build_decode`` (eager, both
+              ``dist_mode``s) on 4 prompts of 1024 tokens x 16 greedy
+              tokens (a 1056-token cache), tokens equal to its
+              ``generate``'s from the same weights, U_r and
+              ``sals_for_shape``'s SALS, ms a step and the launches of rows
+              1-3; then two ``build_train`` steps against the plain
+              ``make_train_step`` from the same seeded state (bf16
+              weights, f32 master, the full config's moment dtype) for
+              hymba-1.5b at full depth (B 4 x S 64), llama4-scout at 1 of
+              48 layers and vocabulary 32,768 under ``tp_sp`` and
+              ``ep_dp`` (B 2 x S 512) and rwkv6-7b at 4 of 32 layers (B 2 x
+              S 128): the first step's loss within 1e-5 relative, which
+              parameters are equal bit for bit after the second (and the
+              largest difference of the rest), the second step's ms, peak
+              memory, 2 flash forward + 1 backward launches a layer and
+              step;
 18. train   — qwen2-1.5b at full width and depth (bf16 weights, f32
               master and moments, seed 0) through the launcher's
               functions (``trainer.init_state``, ``make_train_step``,
@@ -4406,32 +4423,188 @@ def family_recurrent(torch, model, n_new: int) -> dict:
     return counts
 
 
-def phase_families(torch, n_new: int = 32) -> dict:
+# (e) on the (1, 1) mesh: serving 4 x (1024 + 16) tokens in a 1056-token
+# cache (the hybrid's prompts are multiples of 128, the engine's cache of
+# its 32-token prefill chunk); training (arch, layers (0: all), vocabulary
+# (0: the config's), B, S, strategies): hymba at S 64 (at its 128-token SSD
+# chunk the zero-initialised decay overflows exp and both paths' gradients
+# are NaN); llama4-scout at 1 of 48 layers with its vocabulary cut from
+# 202,048 to 32,768 (at the full vocabulary one layer is 4.27e9 parameters,
+# and the step's f32 copies of the gradients put it past 80 GB); rwkv6-7b at
+# 4 of 32 layers and S 128 (the per-token loop)
+FAMILY_MESH_SEQ, FAMILY_MESH_PROMPT, FAMILY_MESH_NEW = 1056, 1024, 16
+FAMILY_MESH_KERNELS = ("latent_topk", "sparse_recon_attention",
+                       "flash_attention", "flash_attention_bwd")
+FAMILY_MESH_TRAIN = (("hymba-1.5b", 0, 0, 4, 64, ("tp_sp",)),
+                     ("llama4-scout-17b-a16e", 1, 32768, 2, 512,
+                      ("tp_sp", "ep_dp")),
+                     ("rwkv6-7b", 4, 0, 2, 128, ("tp_sp",)))
+
+
+def family_mesh_train(torch, mesh, arch: str, layers: int, vocab: int,
+                      b: int, s: int, strategies, steps: int = 2) -> dict:
+    """(e) ``steps`` ``build_train`` steps of ``arch`` at full width on the
+    (1, 1) mesh per strategy, each against the plain ``make_train_step``
+    from the same seeded state (bf16 weights, f32 master, the full
+    config's moment dtype) and batches: the first step's loss (from the
+    same state) within 1e-5 relative; which parameters are equal bit for
+    bit after the last step and the largest difference of the others
+    (later losses differ as far as the parameters do); the last step's ms
+    (the first carries the warm-up), peak memory, flash forward / backward
+    launches a step.  Returns the mesh runs' launch counts."""
+    from repro_torch.config import MeshConfig, ShapeConfig, TrainConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticCorpus
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels import ops
+    from repro_torch.launch import specs
+    from repro_torch.launch.train import batches_for
+    from repro_torch.train import trainer
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers or full.n_layers,
+                              vocab_size=vocab or full.vocab_size)
+    moments = torch.bfloat16 if full.param_count() > specs.BIG_PARAMS \
+        else torch.float32
+    tcfg = TrainConfig(steps=steps, batch_size=b, seq_len=s, lr=3e-4,
+                       warmup_steps=5)
+    corpus = SyntheticCorpus(cfg.vocab_size, seed=0)
+    batches = [trainer.batch_to(next(batches_for(cfg, corpus, tcfg, i)),
+                                "cuda") for i in range(steps)]
+    mc = MeshConfig(shape=(1, 1), axis_names=("data", "model"))
+    shape = ShapeConfig("t", "train", s, b)
+    runs, counts = {}, {}
+    for name in ("plain", *strategies):
+        state = trainer.init_state(cfg, tcfg, device="cuda", seed=0,
+                                   moment_dtype=moments)
+        if name == "plain":
+            step, bts = trainer.make_train_step(cfg, tcfg, remat="block"), \
+                batches
+        else:
+            step, _, in_pl, _ = specs.build_train(
+                cfg, shape, mesh, mc, remat="block", tcfg=tcfg,
+                strategy=name)
+            state = {k: shd.place(v, mesh, in_pl[0][k])
+                     for k, v in state.items()}
+            bts = [shd.place(bt, mesh, in_pl[1]) for bt in batches]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        losses, ms = [], []
+        for bt in bts:
+            t0 = time.perf_counter()
+            state, m = step(state, bt)
+            losses.append(float(m["loss"].to_local()
+                                if shd.is_dtensor(m["loss"])
+                                else m["loss"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        c = ops.launch_counts()
+        runs[name] = dict(losses=losses, ms=ms, counts=c,
+                          peak_memory=torch.cuda.max_memory_allocated(),
+                          params={k: (p.to_local() if shd.is_dtensor(p)
+                                      else p).detach().cpu()
+                                  for k, p in
+                                  state["params"].named_parameters()})
+        if name != "plain":
+            for k, v in c.items():
+                counts[k] = counts.get(k, 0) + v
+        del state, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    plain = runs.pop("plain")
+    rows = []
+    for name, r in runs.items():
+        unequal = [k for k, p in plain["params"].items()
+                   if not torch.equal(p, r["params"][k])]
+        row = dict(phase="families", run=f"e_mesh_train_{name}", arch=arch,
+                   n_layers=cfg.n_layers, vocab=cfg.vocab_size,
+                   param_count=cfg.param_count(), batch=b, seq=s,
+                   remat="block", moment_dtype=str(moments),
+                   losses=r["losses"], plain_losses=plain["losses"],
+                   rel_loss_diff=[abs(x - y) / abs(y) for x, y in zip(
+                       r["losses"], plain["losses"])],
+                   params_bitwise_equal=len(plain["params"]) - len(unequal),
+                   params=len(plain["params"]),
+                   params_not_bitwise_equal=unequal,
+                   max_param_delta=max((float((r["params"][k].float()
+                                               - plain["params"][k].float())
+                                              .abs().max())
+                                        for k in unequal), default=0.0),
+                   params_finite=all(bool(torch.isfinite(p).all())
+                                     for p in r["params"].values()),
+                   ms=r["ms"][-1], plain_ms=plain["ms"][-1],
+                   step_ms=r["ms"], plain_step_ms=plain["ms"],
+                   peak_memory=r["peak_memory"],
+                   plain_peak_memory=plain["peak_memory"],
+                   flash_fwd=r["counts"]["flash_attention"] / steps,
+                   flash_bwd=r["counts"]["flash_attention_bwd"] / steps)
+        emit(row)
+        rows.append(row)
+    for row in rows:
+        if not row["rel_loss_diff"][0] <= 1e-5:
+            raise AssertionError(f"families (e) {row['run']} {arch}: losses "
+                                 f"{row['losses']} vs plain "
+                                 f"{row['plain_losses']}")
+        n_att = cfg.n_layers if cfg.has_attention else 0
+        if row["flash_fwd"] != 2 * n_att or row["flash_bwd"] != n_att:
+            raise AssertionError(f"families (e) {row['run']} {arch}: flash "
+                                 f"launches {row['flash_fwd']} + "
+                                 f"{row['flash_bwd']}")
+    return counts
+
+
+def _add(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def phase_families(torch, n_new: int = 32) -> tuple:
     """hymba-1.5b, rwkv6-7b, llama4-scout (13 of 48 layers) and qwen3-moe
     (12 of 94 layers) at full width, bf16, seeded, SALS-25% at the
     defaults where the family has attention (U_r calibrated on the
-    synthetic corpus).  Returns the launch counts of rows 1-7 on these
-    paths."""
-    counts = {}
-    for arch, depth in FAMILY_RUNS:
-        t0 = time.perf_counter()
-        model = build_model(torch, arch, n_layers=depth, phase="families")
-        if model["cfg"].family == "moe":
-            c = family_moe(torch, model, n_new)
-            family_shares(torch, model, [p[:2048] for p in (
-                model["corpus"].batch(100 + i, 1, 2048)["tokens"][0]
-                for i in range(4))], 4160)
-        else:
-            c = family_recurrent(torch, model, n_new)
-        for k, v in c.items():
-            counts[k] = counts.get(k, 0) + v
-        emit({"phase": "families", "arch": arch, "n_layers":
-              model["cfg"].n_layers, "depth_cut": bool(depth),
-              "seconds": time.perf_counter() - t0})
-        del model
-        gc.collect()
-        torch.cuda.empty_cache()
-    return counts
+    synthetic corpus); then (e) each model served through ``build_prefill``
+    / ``build_decode`` on the world-1 NCCL group's (1, 1) mesh against its
+    ``generate`` (:func:`mesh_serve`), and the sharded train steps of
+    :data:`FAMILY_MESH_TRAIN` (:func:`family_mesh_train`).  Returns (the
+    launch counts of rows 1-7 on the unsharded paths, the launches of
+    (e))."""
+    import shutil
+    import torch.distributed as dist
+    counts, on_mesh = {}, {}
+    mesh, store = mesh_start(torch)
+    try:
+        for arch, depth in FAMILY_RUNS:
+            t0 = time.perf_counter()
+            model = build_model(torch, arch, n_layers=depth,
+                                phase="families")
+            if model["cfg"].family == "moe":
+                c = family_moe(torch, model, n_new)
+                family_shares(torch, model, [p[:2048] for p in (
+                    model["corpus"].batch(100 + i, 1, 2048)["tokens"][0]
+                    for i in range(4))], 4160)
+            else:
+                c = family_recurrent(torch, model, n_new)
+            _add(counts, c)
+            t1 = time.perf_counter()
+            _add(on_mesh, mesh_serve(torch, model, mesh, FAMILY_MESH_NEW,
+                                     FAMILY_MESH_SEQ, "families",
+                                     "e_mesh_serve", FAMILY_MESH_PROMPT))
+            emit({"phase": "families", "arch": arch, "n_layers":
+                  model["cfg"].n_layers, "depth_cut": bool(depth),
+                  "seconds": time.perf_counter() - t0,
+                  "mesh_serve_seconds": time.perf_counter() - t1})
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+        for run in FAMILY_MESH_TRAIN:
+            t0 = time.perf_counter()
+            _add(on_mesh, family_mesh_train(torch, mesh, *run))
+            emit({"phase": "families", "arch": run[0], "part": "e_train",
+                  "seconds": time.perf_counter() - t0})
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    return counts, on_mesh
 
 
 # ---------------------------------------------------------------------------
@@ -5221,13 +5394,18 @@ def mesh_train(torch, mesh) -> dict:
     return mesh_run["counts"]
 
 
-def mesh_serve(torch, model, mesh, n_new: int = 32) -> dict:
+def mesh_serve(torch, model, mesh, n_new: int = 32, seq: int = 4096,
+               phase: str = "mesh", run: str = "b_serve",
+               prompt: int = 0) -> dict:
     """(b) paper-llama2-7b at full width and depth with ``sals_for_shape``'s
     SALS at ShapeConfig("d4k", "decode", 4096, 4): ``build_prefill`` +
     ``build_decode`` (eager) on 4 prompts of 4096 - 32 tokens, 32 greedy
     tokens in both ``dist_mode``s, against ``ServeEngine.generate`` from
     the same weights, U_r and SALS config; launches of rows 1 and 2 (and
-    the prefill's flash), ms a step."""
+    the prefill's flash), ms a step.  The families phase's (e) runs it on
+    its models at ``seq`` with ``prompt``-token prompts (an attention-free
+    model: no SALS, no kernel).  Returns the "local" run's launch
+    counts."""
     from repro_torch.config import MeshConfig, ServeConfig, ShapeConfig
     from repro_torch.distributed import sharding as shd
     from repro_torch.kernels import ops
@@ -5235,9 +5413,9 @@ def mesh_serve(torch, model, mesh, n_new: int = 32) -> dict:
     from repro_torch.models.transformer import Transformer
     from repro_torch.serve import ServeEngine
     cfg, params, proj = model["cfg"], model["params"], model["proj"]
-    shape = ShapeConfig("d4k", "decode", 4096, 4)
+    shape = ShapeConfig("d", "decode", seq, 4)
     sals = specs.sals_for_shape(cfg, shape)
-    plen = shape.seq_len - n_new
+    plen = prompt or shape.seq_len - n_new
     prompts = [model["corpus"].batch(300 + i, 1, plen)["tokens"][0]
                for i in range(4)]
     eng = ServeEngine(params, proj, cfg, ServeConfig(
@@ -5257,8 +5435,8 @@ def mesh_serve(torch, model, mesh, n_new: int = 32) -> dict:
         mod = Transformer(cfg, params.final_norm.scale.dtype, "meta")
         mod.load_state_dict(params.state_dict(), assign=True)
         pp = shd.place(mod, mesh, pf[2][0])
-        pj = shd.place({k: proj[k] for k in ("u", "eigvals")}, mesh,
-                       pf[2][1])
+        pj = None if proj is None else shd.place(
+            {k: proj[k] for k in ("u", "eigvals")}, mesh, pf[2][1])
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         ms = []
@@ -5282,11 +5460,12 @@ def mesh_serve(torch, model, mesh, n_new: int = 32) -> dict:
                 ms.append((time.perf_counter() - t0) * 1e3)
         counts[mode] = ops.launch_counts()
         got = torch.stack(toks, 1).cpu().numpy()
-        seg = next(v for v in cache.values() if hasattr(v, "n_groups"))
         steps = n_new - 1
-        row = dict(phase="mesh", run=f"b_serve_{mode}", arch=cfg.name,
-                   batch=4, prompt=plen, new_tokens=n_new,
-                   n_groups=seg.n_groups,
+        row = dict(phase=phase, run=f"{run}_{mode}", arch=cfg.name,
+                   n_layers=cfg.n_layers, batch=4, prompt=plen,
+                   new_tokens=n_new, n_groups=next(
+                       (v.n_groups for v in cache.values()
+                        if hasattr(v, "n_groups")), None),
                    tokens_equal_generate=bool(np.array_equal(got, want)),
                    first_differing_step=next(
                        (i for i in range(n_new)
@@ -5304,13 +5483,14 @@ def mesh_serve(torch, model, mesh, n_new: int = 32) -> dict:
         torch.cuda.empty_cache()
     for mode, row in out.items():
         if not row["tokens_equal_generate"]:
-            raise AssertionError(f"mesh (b) {mode}: tokens differ from "
-                                 f"generate's at step "
+            raise AssertionError(f"{phase} {run} {mode} {cfg.name}: tokens "
+                                 f"differ from generate's at step "
                                  f"{row['first_differing_step']}")
         if row["latent_topk_per_step"] != model["n_sals"] or \
                 row["recon_per_step"] != model["n_sals"] or \
-                row["flash_prefill"] != cfg.n_layers:
-            raise AssertionError(f"mesh (b) {mode}: launches {row}")
+                row["flash_prefill"] != (cfg.n_layers if cfg.has_attention
+                                         else 0):
+            raise AssertionError(f"{phase} {run} {mode}: launches {row}")
     return counts["local"]
 
 
@@ -5742,9 +5922,9 @@ def main() -> int:
     if "vlm" in phases:
         vlm = phase_vlm(torch, prof="profile" in phases)
         lap("vlm")
-    fam = {}
+    fam, fam_mesh = {}, {}
     if "families" in phases:
-        fam = phase_families(torch)
+        fam, fam_mesh = phase_families(torch)
         lap("families")
     train = {}
     if "train" in phases:
@@ -5829,13 +6009,17 @@ def main() -> int:
                      # the sharding layer's steps on the (1, 1) mesh
                      "mesh_launches": mesh.get(name),
                      # GPipe's pipelined steps (the pipe phase)
-                     "pipe_launches": pipe.get(name)})
+                     "pipe_launches": pipe.get(name),
+                     # the families' sharded serving and training on the
+                     # (1, 1) mesh (the families phase's (e)): rows 1-3b
+                     "families_mesh_launches": fam_mesh.get(name, 0)
+                     if fam_mesh and name in FAMILY_MESH_KERNELS else None})
     emit({"kernels": rows})
     idle = [r["name"] for r in rows if r["launches"] == 0
             or r["vlm_launches"] == 0 or r["grouped_launches"] == 0
             or r["families_launches"] == 0 or r["train_launches"] == 0
             or r["examples_launches"] == 0 or r["mesh_launches"] == 0
-            or r["pipe_launches"] == 0]
+            or r["pipe_launches"] == 0 or r["families_mesh_launches"] == 0]
     if idle:    # None: its path did not run; 0: it ran without the kernel
         raise AssertionError(f"kernels never launched on their path: {idle}")
     print(smi, flush=True)

@@ -133,6 +133,20 @@ def use_sharding(mesh, rules: dict):
         _state.ctx = prev
 
 
+def keep_ctx(fn):
+    """``fn`` bound to the sharding context current now: a checkpointed
+    function's recomputation runs in the backward, on autograd's device
+    thread on a GPU, which does not see this thread's context."""
+    ctx = current_ctx()
+    if ctx is None:
+        return fn
+
+    def run(*args, **kw):
+        with use_sharding(ctx.mesh, ctx.rules):
+            return fn(*args, **kw)
+    return run
+
+
 def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
@@ -486,6 +500,60 @@ def local_map(fn, out_placements, in_placements, mesh,
                in_placements=in_placements,
                in_grad_placements=in_grad_placements, device_mesh=mesh,
                redistribute_inputs=True)
+
+
+class _AllToAll(torch.autograd.Function):
+    """Dim 0 cut into as many equal chunks as the group has ranks, chunk k
+    sent to rank k, the received chunks concatenated along dim 0 in rank
+    order (``all_to_all_single``).  The exchange is its own adjoint, so
+    the backward runs it on the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed._functional_collectives as funcol
+        ctx.group = group
+        out = funcol.all_to_all_single(x.contiguous(), None, None, group)
+        return out.wait() if isinstance(out, funcol.AsyncCollectiveTensor) \
+            else out
+
+    @staticmethod
+    def backward(ctx, g):
+        return _AllToAll.apply(g, ctx.group), None
+
+
+def all_to_all(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """:class:`_AllToAll` over mesh dim ``dim`` of ``mesh`` on a local
+    tensor; the identity over a one-rank dim."""
+    if mesh.shape[dim] == 1:
+        return x
+    return _AllToAll.apply(x, mesh.get_group(dim))
+
+
+class _GroupSum(torch.autograd.Function):
+    """All-reduce (sum) of a local tensor over a group.  Each rank's
+    gradient is the sum of every rank's output gradient: each rank reads
+    the sum for its own share of the work."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return _GroupSum.apply(g, ctx.group), None
+
+
+def group_sum(x: torch.Tensor, mesh, dims) -> torch.Tensor:
+    """``x`` summed over the ranks of the mesh dims ``dims`` (one
+    all-reduce each; the identity for none)."""
+    for i in dims:
+        if mesh.shape[i] > 1:
+            x = _GroupSum.apply(x, mesh.get_group(i))
+    return x
 
 
 def dim_axes(dt, dim: int) -> Tuple[str, ...]:

@@ -93,7 +93,10 @@ def attention_specs(cfg: ModelConfig) -> dict:
 
 def qkv_proj(params: Attention, x: torch.Tensor, cfg: ModelConfig
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> q (B,S,H,dh), k/v (B,S,Hkv,dh).  No RoPE applied."""
+    """x: (B, S, d) -> q (B,S,H,dh), k/v (B,S,Hkv,dh).  No RoPE applied.
+    A DTensor ``x`` is gathered along the sequence first (as
+    :func:`~repro_torch.models.layers.mlp_apply`)."""
+    x = constrain(x, ("batch", "seq", "embed"))
     b, s, _ = x.shape
     q = x @ params.wq
     k = x @ params.wk
@@ -123,24 +126,31 @@ class _MergeHeads(torch.autograd.Function):
         return _heads(g, *ctx.heads)
 
 
-def _heads(t: torch.Tensor, n: int, dh: int) -> torch.Tensor:
-    """(B, S, n·dh) -> (B, S, n, dh).  A DTensor whose last dim is split
-    over more ranks than divide ``n`` (qwen2-1.5b's 12 heads over a
-    16-wide model axis) is made whole along it first: DTensor cannot split
-    a view's head dim unevenly, where the reference's GSPMD pads."""
+def _even(t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """DTensor ``t`` made whole along ``dim`` where that dim is split over
+    more ranks than divide ``n`` heads (qwen2-1.5b's 12, hymba's 25 over a
+    16-wide model axis): DTensor cannot split a view's head dim unevenly,
+    where the reference's GSPMD pads.  A plain tensor as it is."""
     if shd.is_dtensor(t):
-        last = Shard(t.ndim - 1)
-        axes = shd.dim_axes(t, t.ndim - 1)
+        dim %= t.ndim
+        axes = shd.dim_axes(t, dim)
         if axes and n % shd.axis_size(axes, t.device_mesh):
             t = t.redistribute(t.device_mesh, tuple(
-                Replicate() if p == last else p for p in t.placements))
-    return t.reshape(*t.shape[:-1], n, dh)
+                Replicate() if p == Shard(dim) else p for p in t.placements))
+    return t
+
+
+def _heads(t: torch.Tensor, n: int, dh: int) -> torch.Tensor:
+    """(B, S, n·dh) -> (B, S, n, dh), the last dim made :func:`_even`
+    first."""
+    return _even(t, -1, n).reshape(*t.shape[:-1], n, dh)
 
 
 def out_proj(params: Attention, attn_out: torch.Tensor,
              cfg: ModelConfig) -> torch.Tensor:
     """attn_out: (B, S, H, dh) -> (B, S, d)."""
-    return _MergeHeads.apply(attn_out) @ params.wo
+    return _MergeHeads.apply(_even(attn_out, -2, attn_out.shape[-2])) \
+        @ params.wo
 
 
 def repeat_kv(x: torch.Tensor, group: int) -> torch.Tensor:

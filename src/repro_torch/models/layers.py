@@ -115,6 +115,10 @@ def mlp_specs() -> dict:
 
 def mlp_apply(params: MLP, x: torch.Tensor, act: str = "swiglu"
               ) -> torch.Tensor:
+    """The gated MLP.  A DTensor ``x`` split along the sequence (the
+    sequence-parallel residual) is gathered along it first, as Megatron's
+    sequence parallelism does before a column-split product."""
+    x = constrain(x, ("batch", "seq", "embed"))
     gate = x @ params.w_gate
     up = x @ params.w_up
     if act == "geglu":

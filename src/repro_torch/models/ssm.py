@@ -14,9 +14,18 @@ Mamba ``w_dt``, ``dt_bias``, ``a_log``, ``d_skip`` and the RWKV ``mu``,
 ``w0``, ``w_lora_a`` / ``w_lora_b``, ``bonus_u``, ``mu_cm``; the rest are in
 the model dtype.  The decode functions return new state tensors; the
 transformer copies them into the cache's own.
+
+Under a sharding context a DTensor input runs on local blocks
+(:func:`_on_local_blocks`, one ``local_map`` a call): each rank holds its
+batch rows with the sequence whole, and its heads where the ``model``
+axis divides them (the Mamba heads, the RWKV heads, the channel mix's
+hidden units), so no recurrence runs its loop on DTensors.  The outputs
+leave a partial sum over the head split; the Mamba norm over the inner
+width is one small all-reduce.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -24,11 +33,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.config import ModelConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.sharding import P
 from repro_torch.models.layers import frozen_param, truncated_normal_
 
 SSD_CHUNK = 128
 RWKV_LORA = 64
+HEAD_AXIS = "model"      # the mesh axis the heads split over
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -143,10 +154,21 @@ def _ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     return torch.cat(ys, dim=1), h_c
 
 
-def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
-         ) -> torch.Tensor:
+def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5,
+         split=None) -> torch.Tensor:
+    """RMS norm over the last dim; ``split`` (mesh, dims): the dim is
+    split over those mesh dims and the mean of squares is summed across
+    them."""
     x32 = x.float()
-    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    if split is None:
+        var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    else:
+        mesh, dims = split
+        n = x.shape[-1]
+        for i in dims:
+            n *= mesh.shape[i]
+        var = shd.group_sum(torch.sum(x32 * x32, dim=-1, keepdim=True),
+                            mesh, dims) / n
     return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
 
 
@@ -165,8 +187,20 @@ def mamba_apply(params: Mamba, x: torch.Tensor, cfg: ModelConfig,
                 state: Optional[dict] = None, return_state: bool = False):
     """Full-sequence SSD.  x: (B, S, d) -> (B, S, d) [, state {"ssm":
     (B, H, P, N) f32, "conv": (B, K-1, inner) f32}]."""
+    if shd.is_dtensor(x):
+        out, st = _mamba_sharded(functools.partial(
+            _mamba_seq, return_state=True), params, x, cfg, state)
+        return (out, st) if return_state else out
+    return _mamba_seq(params, x, cfg, state, return_state)
+
+
+def _mamba_seq(params, x: torch.Tensor, cfg: ModelConfig,
+               state: Optional[dict] = None, return_state: bool = False,
+               split=None):
+    """:func:`mamba_apply` on plain tensors; the head count is the
+    parameters' (``a_log``'s), and ``split`` is :func:`_rms`'s."""
     b, s, d = x.shape
-    h, p, n = cfg.ssm_heads, cfg.head_dim, cfg.ssm_state
+    h, p, n = params.a_log.shape[0], cfg.head_dim, cfg.ssm_state
     inner = h * p
     xz = x @ params.w_in
     xs, z = xz[..., :inner], xz[..., inner:]
@@ -181,7 +215,7 @@ def mamba_apply(params: Mamba, x: torch.Tensor, cfg: ModelConfig,
     y, h_fin = _ssd_chunk_scan(xh, dt, params.a_log, bmat, cmat, h0)
     y = y + params.d_skip[None, None, :, None] * xh
     y = y.reshape(b, s, inner).to(x.dtype)
-    y = _rms(y, params.norm_scale) * F.silu(z)
+    y = _rms(y, params.norm_scale, split=split) * F.silu(z)
     out = y @ params.w_out
     if return_state:
         return out, {"ssm": h_fin.float(),
@@ -194,8 +228,16 @@ def mamba_decode(params: Mamba, x: torch.Tensor, cfg: ModelConfig,
                  state: dict) -> Tuple[torch.Tensor, dict]:
     """One-token SSD update.  x: (B, 1, d); state {"ssm": (B, H, P, N),
     "conv": (B, K-1, inner)}.  Returns (y (B, 1, d), new state)."""
+    if shd.is_dtensor(x):
+        return _mamba_sharded(_mamba_step, params, x, cfg, state)
+    return _mamba_step(params, x, cfg, state)
+
+
+def _mamba_step(params, x: torch.Tensor, cfg: ModelConfig, state: dict,
+                split=None):
+    """:func:`mamba_decode` on plain tensors (see :func:`_mamba_seq`)."""
     b = x.shape[0]
-    h, p, n = cfg.ssm_heads, cfg.head_dim, cfg.ssm_state
+    h, p, n = params.a_log.shape[0], cfg.head_dim, cfg.ssm_state
     inner = h * p
     xz = x @ params.w_in
     xs_raw, z = xz[..., :inner], xz[..., inner:]               # (B, 1, inner)
@@ -211,7 +253,7 @@ def mamba_decode(params: Mamba, x: torch.Tensor, cfg: ModelConfig,
     y = torch.einsum("bn,bhpn->bhp", cmat, h_new)
     y = y + params.d_skip[None, :, None] * xh
     y = y.reshape(b, 1, inner).to(x.dtype)
-    y = _rms(y, params.norm_scale) * F.silu(z)
+    y = _rms(y, params.norm_scale, split=split) * F.silu(z)
     out = y @ params.w_out
     return out, {"ssm": h_new, "conv": conv_in[:, 1:, :].float()}
 
@@ -309,9 +351,11 @@ def rwkv_time_mix(params: RWKV, x: torch.Tensor, cfg: ModelConfig,
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Finch time-mix over a sequence.  Returns (y, wkv_state (B, H, hs,
     hs) f32, last_x (B, d) f32)."""
-    b, s, d = x.shape
+    if shd.is_dtensor(x):
+        return _rwkv_sharded(params, x, cfg, state)
+    b, s, _ = x.shape
     hs = cfg.rwkv_head_size
-    h = d // hs
+    h = params.w_r.shape[1] // hs
     xp = _shift(x, None if state is None else state["tm_x"])
     mu = params.mu
     xr, xk, xv, xg, xw = (_lerp(x, xp, mu[i]) for i in range(5))
@@ -340,6 +384,8 @@ def rwkv_time_mix(params: RWKV, x: torch.Tensor, cfg: ModelConfig,
 
 def rwkv_channel_mix(params: RWKV, x: torch.Tensor, state: Optional[dict]
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    if shd.is_dtensor(x):
+        return _channel_mix_sharded(params, x, state)
     xp = _shift(x, None if state is None else state["cm_x"])
     xk = _lerp(x, xp, params.mu_cm[0])
     xr = _lerp(x, xp, params.mu_cm[1])
@@ -357,3 +403,158 @@ def rwkv_state_init(cfg: ModelConfig, batch: int, device) -> dict:
         "tm_x": torch.zeros((batch, d), dtype=f32, device=device),
         "cm_x": torch.zeros((batch, d), dtype=f32, device=device),
     }
+
+
+# ===========================================================================
+# Sharded runs: every recurrence on local blocks
+# ===========================================================================
+
+def _head_dim(x: torch.Tensor, n_heads: int) -> Optional[int]:
+    """The mesh dim ``n_heads`` split over for DTensor ``x``: the
+    ``HEAD_AXIS`` one where it divides them and does not split ``x``'s
+    rows, else None (every rank runs every head)."""
+    from torch.distributed.tensor import Shard
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    if HEAD_AXIS not in names:
+        return None
+    i = names.index(HEAD_AXIS)
+    if mesh.shape[i] == 1 or n_heads % mesh.shape[i] or \
+            x.placements[i] == Shard(0):
+        return None
+    return i
+
+
+def _on_local_blocks(fn, x: torch.Tensor, n_heads: int, weights: dict,
+                     state: Optional[dict], state_out: dict):
+    """``fn(x, params, state, (h0, h1), split)`` on each rank's local
+    blocks (``local_map``): ``x`` (B, S, d) with its rows where they are
+    split (Shard(0)) and every other dim whole; ``weights`` {name:
+    (tensor, head dim or None)}, each this rank's heads along its head
+    dim, whole when it has none; ``state`` {name: (tensor, head dim or
+    None)} (B, ...) the same way, or None.  ``fn`` returns (out, {name:
+    state}) with ``out`` (B, S, d) a partial sum over the head split and
+    the state laid out as ``state_out`` {name: head dim or None} says.
+    ``split`` is (mesh, [the head mesh dim]) or None.  A weight's
+    gradient leaves every rank partial where the rows or the heads split
+    the work."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = x.device_mesh
+    hdim = _head_dim(x, n_heads)
+    rows = [i for i, p in enumerate(x.placements) if p == Shard(0)]
+    rep = Replicate()
+
+    def pl(head, row=True, part=False):
+        """Placements: rows Shard(0) (``row``) or partial / whole; on the
+        head dim Shard(head), else partial (``part``) or whole."""
+        out = []
+        for i in range(mesh.ndim):
+            if i in rows:
+                out.append(Shard(0) if row else
+                           (Partial() if part else rep))
+            elif i == hdim:
+                out.append(Shard(head) if head is not None else
+                           (Partial() if part else rep))
+            else:
+                out.append(rep)
+        return tuple(out)
+
+    names = list(weights)
+    states = state or {}
+    in_pl = [pl(None)] + [pl(h, row=False) for _, h in weights.values()] \
+        + [pl(h) for _, h in states.values()]
+    grad_pl = [pl(None, part=True)] + \
+        [pl(h, row=False, part=True) for _, h in weights.values()] + \
+        [pl(h) for _, h in states.values()]
+    out_pl = [pl(None, part=True)] + [pl(h) for h in state_out.values()]
+    n_loc = n_heads if hdim is None else n_heads // mesh.shape[hdim]
+    split = None if hdim is None else (mesh, [hdim])
+
+    def body(xl, *args):
+        h0 = 0 if hdim is None else mesh.get_local_rank(hdim) * n_loc
+        ws = dict(zip(names, args[:len(names)]))
+        st = dict(zip(states, args[len(names):])) if state is not None \
+            else None
+        out, new = fn(xl, ws, st, (h0, h0 + n_loc), split)
+        return (out, *(new[k] for k in state_out))
+
+    res = shd.local_map(body, tuple(out_pl), tuple(in_pl), mesh,
+                        in_grad_placements=tuple(grad_pl))(
+        x, *(t for t, _ in weights.values()),
+        *(t for t, _ in states.values()))
+    return res[0], dict(zip(state_out, res[1:]))
+
+
+def _mamba_sharded(run, params: Mamba, x: torch.Tensor, cfg: ModelConfig,
+                   state: Optional[dict]):
+    """:func:`_mamba_seq` / :func:`_mamba_step` (``run``) of a DTensor
+    ``x``: rows local, the sequence whole, the heads split where the
+    ``model`` axis divides them.  ``w_in``'s columns are [x | z], so it
+    comes whole and each rank takes its heads' columns of both halves;
+    the norm over the inner width sums its squares across the split."""
+    from types import SimpleNamespace
+    hp = cfg.head_dim
+    inner = cfg.ssm_heads * hp
+    weights = {"w_in": (params.w_in, None), "conv": (params.conv, 1),
+               "w_dt": (params.w_dt, 1), "dt_bias": (params.dt_bias, 0),
+               "a_log": (params.a_log, 0), "d_skip": (params.d_skip, 0),
+               "w_bc": (params.w_bc, None), "w_out": (params.w_out, 0),
+               "norm_scale": (params.norm_scale, 0)}
+    st = None if state is None else {"ssm": (state["ssm"], 1),
+                                     "conv": (state["conv"], 2)}
+
+    def fn(xl, ws, stl, heads, split):
+        c0, c1 = heads[0] * hp, heads[1] * hp
+        w_in = ws["w_in"]
+        ws["w_in"] = torch.cat([w_in[:, c0:c1],
+                                w_in[:, inner + c0:inner + c1]], dim=1)
+        return run(SimpleNamespace(**ws), xl, cfg, stl, split=split)
+
+    return _on_local_blocks(fn, x, cfg.ssm_heads, weights, st,
+                            {"ssm": 1, "conv": 2})
+
+
+def _rwkv_sharded(params: RWKV, x: torch.Tensor, cfg: ModelConfig,
+                  state: Optional[dict]):
+    """:func:`rwkv_time_mix` of a DTensor ``x`` on local blocks: rows
+    local, the sequence whole, the heads split where the ``model`` axis
+    divides them (the r / k / v / g projections' columns, ``w_o``'s rows,
+    the decay and the bonus of each head); the token shift's lerp weights
+    and the decay's first LoRA factor come whole."""
+    from types import SimpleNamespace
+    weights = {"mu": (params.mu, None), "w_r": (params.w_r, 1),
+               "w_k": (params.w_k, 1), "w_v": (params.w_v, 1),
+               "w_g": (params.w_g, 1), "w_o": (params.w_o, 0),
+               "w0": (params.w0, 0), "w_lora_a": (params.w_lora_a, None),
+               "w_lora_b": (params.w_lora_b, 1),
+               "bonus_u": (params.bonus_u, 0),
+               "ln_scale": (params.ln_scale, 0)}
+    st = None if state is None else {"wkv": (state["wkv"], 1),
+                                     "tm_x": (state["tm_x"], None)}
+
+    def fn(xl, ws, stl, heads, split):
+        out, wkv, last = rwkv_time_mix(SimpleNamespace(**ws), xl, cfg, stl)
+        return out, {"wkv": wkv, "tm_x": last}
+
+    out, new = _on_local_blocks(fn, x, cfg.d_model // cfg.rwkv_head_size,
+                                weights, st, {"wkv": 1, "tm_x": None})
+    return out, new["wkv"], new["tm_x"]
+
+
+def _channel_mix_sharded(params: RWKV, x: torch.Tensor,
+                         state: Optional[dict]):
+    """:func:`rwkv_channel_mix` of a DTensor ``x`` on local blocks: the
+    hidden units (``cm_k``'s columns, ``cm_v``'s rows) split where the
+    ``model`` axis divides them; the receptance ``cm_r`` comes whole."""
+    from types import SimpleNamespace
+    weights = {"mu_cm": (params.mu_cm, None), "cm_k": (params.cm_k, 1),
+               "cm_v": (params.cm_v, 0), "cm_r": (params.cm_r, None)}
+    st = None if state is None else {"cm_x": (state["cm_x"], None)}
+
+    def fn(xl, ws, stl, heads, split):
+        out, last = rwkv_channel_mix(SimpleNamespace(**ws), xl, stl)
+        return out, {"cm_x": last}
+
+    out, new = _on_local_blocks(fn, x, params.cm_k.shape[1], weights, st,
+                                {"cm_x": None})
+    return out, new["cm_x"]

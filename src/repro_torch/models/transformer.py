@@ -76,18 +76,27 @@ def torch_dtype(name) -> torch.dtype:
 
 RECURRENT = ("ssm", "hybrid")
 # families whose layers run on DTensors under a sharding context
-SHARDED = ("dense", "vlm", "encoder")
+SHARDED = ("dense", "vlm", "encoder", "moe", "hybrid", "ssm")
 
 
-def _check_sharded(cfg: ModelConfig) -> None:
-    if cfg.family not in SHARDED:
-        raise ValueError(f"{cfg.family}: sharded runs support the "
-                         f"{', '.join(SHARDED)} families")
+def _check_sharded(what: str, x) -> None:
+    """Paths that stay unsharded (the paged pools, chunked prefill, the
+    verify window) refuse a DTensor input, naming the path."""
+    if shd.is_dtensor(x):
+        raise ValueError(f"{what} is not sharded: it takes plain tensors, "
+                         "not DTensors")
 
 
-def _check_unsharded(tokens, what: str) -> None:
-    if shd.is_dtensor(tokens):
-        raise ValueError(f"{what} runs unsharded: no DTensor inputs")
+def _write_state(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """Copy recurrent state ``src`` into ``dst`` in place; a DTensor
+    ``dst`` takes ``src`` in its own placements, each rank writing its
+    block."""
+    if shd.is_dtensor(dst):
+        if tuple(src.placements) != tuple(dst.placements):
+            src = src.redistribute(dst.device_mesh, dst.placements)
+        dst.to_local().copy_(src.to_local())
+    else:
+        dst.copy_(src)
 
 
 # ---------------------------------------------------------------------------
@@ -220,6 +229,18 @@ def param_specs(cfg: ModelConfig) -> Dict[str, P]:
 # Forward pieces
 # ---------------------------------------------------------------------------
 
+RESIDUAL = ("batch", "residual_seq", "embed")
+
+
+def _residual_add(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x + y in the residual stream's layout.  Each operand is
+    redistributed to it by :func:`constrain` before the add, not inside
+    it: the gradient of a branch output (a partial sum) then comes back
+    whole, never split along the sequence, which torch 2.11's DTensor
+    cannot flatten in the branch's matmul backward."""
+    return constrain(x, RESIDUAL) + constrain(y, RESIDUAL)
+
+
 def _block_fwd(bp: Block, x: torch.Tensor, cfg: ModelConfig,
                positions: torch.Tensor, prefix_len: int, collect_kv: bool):
     """One block over a full sequence.  Returns (x, aux_loss, extras):
@@ -234,10 +255,10 @@ def _block_fwd(bp: Block, x: torch.Tensor, cfg: ModelConfig,
     if cfg.family == "ssm":
         h = rmsnorm_apply(bp.norm1, x, cfg.norm_eps)
         tm, wkv, tm_x = ssm_mod.rwkv_time_mix(bp.rwkv, h, cfg, None)
-        x = x + tm
+        x = _residual_add(x, tm)
         h2 = rmsnorm_apply(bp.norm2, x, cfg.norm_eps)
         cm, cm_x = ssm_mod.rwkv_channel_mix(bp.rwkv, h2, None)
-        x = x + cm
+        x = _residual_add(x, cm)
         if collect_kv:
             extras = {"wkv": wkv, "tm_x": tm_x, "cm_x": cm_x}
         return x, aux, extras
@@ -255,13 +276,13 @@ def _block_fwd(bp: Block, x: torch.Tensor, cfg: ModelConfig,
         else:
             s_out = ssm_mod.mamba_apply(bp.mamba, h, cfg)
         a = (a + s_out) * 0.5
-    x = constrain(x + a, ("batch", "residual_seq", "embed"))
+    x = _residual_add(x, a)
     h2 = rmsnorm_apply(bp.mlp_norm, x, cfg.norm_eps)
     if cfg.family == "moe":
         m, aux = moe_mod.moe_apply(bp.moe, h2, cfg)
     else:
         m = mlp_apply(bp.mlp, h2, cfg.mlp_act)
-    return constrain(x + m, ("batch", "residual_seq", "embed")), aux, extras
+    return _residual_add(x, m), aux, extras
 
 
 def embed_inputs(params: Transformer, cfg: ModelConfig,
@@ -301,9 +322,11 @@ def _save_dots_policy(ctx, op, *args, **kwargs):
 def _checkpointed(fn, remat: str, *args):
     """``fn(*args)`` under the remat policy: "none" runs it as is; "block"
     keeps only its inputs and recomputes the rest in the backward; and
-    "save_dots" also keeps the outputs of its matmuls."""
+    "save_dots" also keeps the outputs of its matmuls.  The recomputation
+    runs under the forward's sharding context (``shd.keep_ctx``)."""
     if remat == "none":
         return fn(*args)
+    fn = shd.keep_ctx(fn)
     if remat == "block":
         return ckpt.checkpoint(fn, *args, use_reentrant=False)
     if remat == "save_dots":
@@ -321,8 +344,6 @@ def hidden(params: Transformer, cfg: ModelConfig,
     d), aux_loss): aux_loss () f32 is the MoE load-balance losses summed
     over layers."""
     x, prefix_len = embed_inputs(params, cfg, batch)
-    if shd.is_dtensor(x):
-        _check_sharded(cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     aux = shd.replicate_like(
         torch.zeros((), dtype=torch.float32, device=x.device), x)
@@ -403,7 +424,9 @@ def head_loss(embed, cfg: ModelConfig, x: torch.Tensor,
     sequence chunk of ``ce_chunk`` under a checkpoint, so the (B, S, V)
     f32 logits are never held whole: peak memory holds one (B, chunk, V)
     tile.  One chunk when S is not a multiple of ``ce_chunk``; a longer
-    ``x`` (vlm) is cut to its last S positions."""
+    ``x`` (vlm) is cut to its last S positions.  A DTensor ``x`` is
+    gathered along the sequence first."""
+    x = constrain(x, ("batch", "seq", "embed"))
     if x.shape[1] != labels.shape[1]:        # vlm: loss over the text suffix
         x = x[:, -labels.shape[1]:]
     b, s, _ = x.shape
@@ -416,6 +439,7 @@ def head_loss(embed, cfg: ModelConfig, x: torch.Tensor,
 
     total = shd.replicate_like(
         torch.zeros((), dtype=torch.float32, device=x.device), x)
+    chunk_nll = shd.keep_ctx(chunk_nll)
     for c0 in range(0, s, c):
         total = total + ckpt.checkpoint(chunk_nll, x[:, c0:c0 + c],
                                         labels[:, c0:c0 + c],
@@ -443,7 +467,7 @@ def _finish_block(bp: Block, x, h, a, cfg: ModelConfig,
         s_out, new = ssm_mod.mamba_decode(bp.mamba, h, cfg, ssm)
         a = (a + s_out) * 0.5
         for name, t in new.items():
-            ssm[name].copy_(t)
+            _write_state(ssm[name], t)
     x = x + a
     h2 = rmsnorm_apply(bp.mlp_norm, x, cfg.norm_eps)
     if cfg.family == "moe":
@@ -593,10 +617,8 @@ def prefill(params: Transformer, projectors: Optional[dict],
     along S, and the rank keeps the slab its placement gives it.
     Returns (last-position logits (B, V) f32, cache)."""
     sharded = shd.current_ctx() is not None
-    if sharded:
-        if lengths is not None:
-            raise ValueError("a sharded prefill takes uniform-length rows")
-        _check_sharded(cfg)
+    if sharded and lengths is not None:
+        raise ValueError("a sharded prefill takes uniform-length rows")
     dtype = torch_dtype(cfg.dtype)
     x, prefix_len = embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
@@ -615,7 +637,7 @@ def prefill(params: Transformer, projectors: Optional[dict],
                                   prefix_len, True)
             if cfg.family == "ssm":
                 for name, t in _layer_state(seg, li - i0).items():
-                    t.copy_(ex[name])
+                    _write_state(t, ex[name])
                 continue
             if mode == "sals":
                 u = projectors["u"][li]
@@ -638,7 +660,7 @@ def prefill(params: Transformer, projectors: Optional[dict],
                 if "ssm" in ex:
                     for name, t in _layer_state(seg["ssm"],
                                                 li - i0).items():
-                        t.copy_(ex["ssm"][name])
+                        _write_state(t, ex["ssm"][name])
     x = rmsnorm_apply(params.final_norm, x, cfg.norm_eps)
     x = constrain(x, ("batch", "seq", "embed"))
     if len_v is None:
@@ -691,7 +713,8 @@ def _put_seq_block(dst, src: torch.Tensor) -> None:
 def _put_layer(seg: LatentKVCache, l: int, layer: LatentKVCache) -> None:
     """Copy the single-layer cache ``layer`` (this rank's rows, whole
     along S) into layer ``l`` of ``seg``; a sequence-sharded ``seg``
-    keeps each per-token field's own slab."""
+    keeps each per-token field's own slab, and the hybrid's recurrent
+    state (``layer.ssm``, DTensors) its rows."""
     if not shd.is_dtensor(seg.sink_k):
         seg.set_layer(l, layer)
         return
@@ -704,6 +727,8 @@ def _put_layer(seg: LatentKVCache, l: int, layer: LatentKVCache) -> None:
             _put_seq_block(dst, getattr(layer, f))
         else:
             dst.to_local().copy_(getattr(layer, f))
+    for name, t in (lay.ssm or {}).items():
+        _write_state(t, layer.ssm[name])
 
 
 def prefill_chunk(params: Transformer, projectors: Optional[dict],
@@ -736,7 +761,7 @@ def prefill_chunk(params: Transformer, projectors: Optional[dict],
                          "prefill supports attention-only families")
     if not cfg.is_decoder:
         raise ValueError("encoder family has no decode cache to prefill")
-    _check_unsharded(batch["tokens"], "chunked prefill")
+    _check_sharded("chunked prefill", batch["tokens"])
     x = embed_apply(params.embed, batch["tokens"], cfg)
     b, c, _ = x.shape
     dev = x.device
@@ -778,7 +803,9 @@ def decode_step(params: Transformer, projectors: Optional[dict], cache: dict,
     if not cfg.is_decoder:
         raise ValueError("encoder family has no decode step")
     if shd.is_dtensor(tokens):
-        _check_sharded(cfg)
+        if any(isinstance(seg, LatentKVCache) and seg.paged
+               for seg in cache.values()):
+            _check_sharded("the paged pool", tokens)
         if shd.is_dtensor(pos):
             pos = pos.full_tensor()
     x = embed_apply(params.embed, tokens[:, None], cfg)       # (B,1,d)
@@ -796,9 +823,9 @@ def decode_step(params: Transformer, projectors: Optional[dict], cache: dict,
                 h2 = rmsnorm_apply(bp.norm2, x, cfg.norm_eps)
                 cm, cm_x = ssm_mod.rwkv_channel_mix(bp.rwkv, h2, st)
                 x = x + cm
-                st["wkv"].copy_(wkv)
-                st["tm_x"].copy_(tm_x)
-                st["cm_x"].copy_(cm_x)
+                for name, t in (("wkv", wkv), ("tm_x", tm_x),
+                                ("cm_x", cm_x)):
+                    _write_state(st[name], t)
                 continue
             h = rmsnorm_apply(bp.attn_norm, x, cfg.norm_eps)
             if mode == "sals":
@@ -843,7 +870,7 @@ def decode_window(params: Transformer, projectors: Optional[dict],
         raise ValueError(f"{cfg.family} decode carries recurrent state — a "
                          "rejected draft would need a state rollback; "
                          "speculative windows support attention families")
-    _check_unsharded(tokens, "the verify window")
+    _check_sharded("the verify window", tokens)
     x = embed_apply(params.embed, tokens, cfg)                # (B,Q,d)
     aux: Dict[str, Any] = {}
     for si, (i0, i1, mode) in enumerate(segment_plan(cfg, sals)):
