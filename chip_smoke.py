@@ -147,14 +147,15 @@ Phases, each printing one JSON line:
               decode and one chunk capture a run, each run's paged SALS
               launches once per SALS layer and step, and equal counts of
               synchronizing CUDA calls (``torch.cuda.set_sync_debug_mode``
-              "warn") with telemetry off and on; each run's wall time, and
-              the median span times; (b) the slo phase's run (d), park on
-              a two-tier pool below the peak of live pages, with the
-              accountant on: measured fetch, spill and park-spill bytes
-              equal to the ledger's, tokens equal (a)'s of the slo phase;
-              (c) ``ServeEngine.decode_throughput`` at batch 4, context
-              4096, 32 steps, beside the serve phase's replayed ms per
-              step;
+              "warn") with telemetry off and on; each run's wall time,
+              the median span times, and the step programs' own medians
+              (host ms in stage / key / launch, device ms a replay); (b)
+              the slo phase's run (d), park on a two-tier pool below the
+              peak of live pages, with the accountant on: measured fetch,
+              spill and park-spill bytes equal to the ledger's, tokens
+              equal (a)'s of the slo phase; (c) what the step programs'
+              always-on counters cost a call, from their own calls' µs,
+              and a small step program's calls all recorded;
 11. grouped — the grouped selection layout (``n_groups``) on the serve
               phase's model cut to its first 8 layers (5 SALS layers;
               ``depth_view``, no copy): (1) ``generate`` at G 1, 2, 4, 8 on the serve
@@ -3327,6 +3328,7 @@ def obs_sched_run(torch, model, prompts, on: bool, n_new: int = 32,
     from repro_torch.config import ServeConfig
     from repro_torch.kernels import ops
     from repro_torch.serve import Request, RequestScheduler, ServeEngine
+    from repro_torch.serve import step_graph
 
     cfg, sals, params, proj = (model[k] for k in ("cfg", "sals", "params",
                                                   "proj"))
@@ -3342,6 +3344,7 @@ def obs_sched_run(torch, model, prompts, on: bool, n_new: int = 32,
             sched.submit(r)
         torch.cuda.synchronize()
         ops.reset_launch_counts()
+        step_graph.reset_program_stats()
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             t0 = time.perf_counter()
@@ -3362,6 +3365,8 @@ def obs_sched_run(torch, model, prompts, on: bool, n_new: int = 32,
                    decode_captures=eng._decode.captures,
                    chunk_captures=eng._prefill_chunk.captures,
                    launches={k: v for k, v in counts.items() if v},
+                   programs={k: program_medians(k) for k in
+                             ("decode", "prefill_chunk")},
                    states=[r.state.value for r in reqs])
         if not all(r.done for r in reqs):
             raise AssertionError(f"obs {row['run']}: {row['states']}")
@@ -3382,6 +3387,22 @@ def obs_sched_run(torch, model, prompts, on: bool, n_new: int = 32,
     gc.collect()
     torch.cuda.empty_cache()
     return row, toks
+
+
+def program_medians(name: str) -> dict:
+    """The median ms a call of step program ``name`` spends in each host
+    phase and a replay on the device (``serve/step_graph.py``'s own
+    records), with its calls and untimed replays."""
+    from repro_torch.serve import step_graph
+    st = step_graph.program_stats(name)
+    if st is None:
+        return {}
+    out = {k[:-2] + "_ms": statistics.median(r[k] for r in st["host"])
+           * 1e3 for k in ("stage_s", "key_s", "launch_s")}
+    if st["device"]:
+        out["device_ms"] = statistics.median(
+            r["device_s"] for r in st["device"]) * 1e3
+    return dict(out, calls=st["calls"], untimed=st["untimed"])
 
 
 def obs_checks(sched, handles) -> dict:
@@ -3425,17 +3446,83 @@ def obs_checks(sched, handles) -> dict:
     return out
 
 
-def phase_obs(torch, model, sched_toks=None, slo_gold=None,
-              serve_row=None) -> dict:
+def step_counter_cost(torch, n_calls: int = 500) -> dict:
+    """What ``serve/step_graph.py``'s always-on counters cost a call on
+    the card, from the counters' own calls, µs each (median of 2,000):
+    four ``perf_counter`` reads, the current stream's handle, two event
+    records, the query of the pair due for reuse and its read (elapsed
+    time and the ring), and the host record; their sum is the cost of a
+    timed replay.  Also a small step program (two integer inputs, one
+    matrix-vector product of 1024 x 1024) called ``n_calls`` times: every
+    call after the capture recorded, timed or counted untimed, and its
+    replays' median device ms."""
+    from repro_torch.serve import step_graph
+
+    w = torch.randn(1024, 1024, device="cuda")
+
+    def fn(tok, pos):
+        return w @ (tok.float() + pos.float()).repeat(512)
+
+    g = step_graph.StepGraph("counter_cost", fn, "cuda", (0, 1))
+    tok, pos = np.array([1, 2], np.int32), np.array([3, 4], np.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_calls):
+        g(tok, pos)
+    torch.cuda.synchronize()
+    call_us = (time.perf_counter() - t0) / n_calls * 1e6
+
+    def each(call, n=2000) -> float:
+        times = []
+        for _ in range(n):
+            a = time.perf_counter()
+            call()
+            times.append(time.perf_counter() - a)
+        return statistics.median(times) * 1e6
+
+    scratch = step_graph._Program()
+    tm = step_graph._Timing()
+    stream = torch.cuda.current_stream()
+    tm.start.record(stream)
+    tm.end.record(stream)
+    torch.cuda.synchronize()
+
+    def read():
+        tm.t = 0.0
+        scratch.read(tm)
+
+    dev = torch.cuda.current_device()
+    parts = dict(perf_counter=each(time.perf_counter),
+                 raw_stream=each(
+                     lambda: torch._C._cuda_getCurrentRawStream(dev)),
+                 record=each(lambda: tm.start.record(stream)),
+                 query=each(tm.end.query), read=each(read),
+                 note=each(lambda: scratch.note(0.0, 0.0, 0.0, 0.0)))
+    tm.end.record(stream)
+    torch.cuda.synchronize()
+    counts = dict(perf_counter=4, raw_stream=1, record=2, query=1, read=1,
+                  note=1)
+    st = step_graph.program_stats("counter_cost")
+    row = dict(phase="obs", run="c_counter_cost", calls=n_calls,
+               call_us=call_us, parts_us=parts,
+               cost_us=sum(parts[k] * n for k, n in counts.items()),
+               device_ms_median=statistics.median(
+                   r["device_s"] for r in st["device"]) * 1e3,
+               timed=st["timed"], untimed=st["untimed"])
+    if not (st["timed"] > 0 and st["calls"] == n_calls - 1
+            and st["calls"] == st["timed"] + st["untimed"]):
+        raise AssertionError(f"obs c_counter_cost: {row}")
+    return row
+
+
+def phase_obs(torch, model, sched_toks=None, slo_gold=None) -> dict:
     """Telemetry on the serving path: (a) the sched traffic off / on / on /
     off (``obs_sched_run``); (b) the slo phase's run (d) with the byte
     accountant on: fetch, spill and park-spill bytes equal to the ledger;
-    (c) ``ServeEngine.decode_throughput`` at batch 4, context 4096, 32
-    steps on the installed tracer."""
+    (c) the step programs' counters' cost a call
+    (``step_counter_cost``)."""
     from repro_torch import obs
-    from repro_torch.config import ServeConfig
     from repro_torch.obs import ledger
-    from repro_torch.serve import ServeEngine
 
     cfg, sals, params, proj = (model[k] for k in ("cfg", "sals", "params",
                                                   "proj"))
@@ -3506,27 +3593,9 @@ def phase_obs(torch, model, sched_toks=None, slo_gold=None,
             and b["spans_balanced"] and b["tokens_equal_slo"] is not False):
         raise AssertionError(f"obs b_tiered_park: {b}")
 
-    # (c) decode_throughput on the installed tracer
-    eng = ServeEngine(params, proj, cfg, ServeConfig(
-        max_seq_len=4160, max_batch=4, sals=sals), device="cuda")
-    with obs.enabled() as h:
-        tok_s = eng.decode_throughput(4, 4096, n_steps=32)
-        gauge = h["registry"].gauge(
-            "engine_decode_tokens_per_s",
-            labelnames=("batch", "context")).value(batch=4, context=4096)
-        spans = [e for e in h["tracer"].events
-                 if e["name"] == "decode_throughput"]
-    c = dict(phase="obs", run="c_decode_throughput", batch=4, context=4096,
-             steps=32, tok_s=tok_s, ms_per_step=4e3 / tok_s,
-             serve_graph_ms_per_step=None if serve_row is None
-             else serve_row["graph_ms_per_step"],
-             decode_captures=eng._decode.captures)
+    # (c) what the step programs' always-on counters cost
+    c = step_counter_cost(torch)
     emit(c)
-    del eng
-    gc.collect()
-    torch.cuda.empty_cache()
-    if not (tok_s > 0 and gauge == tok_s and len(spans) == 1):
-        raise AssertionError(f"obs c_decode_throughput: {c}")
     return dict(a=summary, b=b, c=c)
 
 
@@ -5894,8 +5963,7 @@ def main() -> int:
             lap("slo")
         if "obs" in phases:
             phase_obs(torch, model, paged_toks if "sched" in phases
-                      else None, slo_gold,
-                      serve_sals[0] if serve_sals else None)
+                      else None, slo_gold)
             lap("obs")
         if "grouped" in phases:
             # at 8 of 32 layers (5 SALS layers), so that the families

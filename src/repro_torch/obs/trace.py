@@ -1,5 +1,5 @@
 """Per-request span tracer + the one shared latency-stamping code path (port
-of ``repro/obs/trace.py``; plain Python, no torch).
+of ``repro/obs/trace.py``).
 
 :class:`SpanTracer` records begin/end span pairs for every lifecycle
 phase the scheduler drives (queue wait, prefill chunks, decode steps,
@@ -25,6 +25,12 @@ when the host returns, which is before the kernels it issued finish,
 unless the span ends in a host read of device data: see the README's
 telemetry section for which spans include device time.
 
+While a ``torch.profiler`` records, each span on the ``scheduler`` track
+(whose spans nest) is also a ``record_function`` range of the same name,
+so the port's phases sit in the profiler's own trace, on the device
+trace's clock.  A span begun before the profiler started is not mirrored;
+the request tracks' lifecycle spans overlap and are never mirrored.
+
 Install contract matches ``serve/faults.py``: module-level nullable
 singleton, one ``is None`` check when disabled.
 """
@@ -37,8 +43,18 @@ from collections import deque
 from contextlib import contextmanager
 from typing import Dict, List, Optional
 
-__all__ = ["SpanTracer", "RequestTimeline", "active", "install",
-           "installed", "uninstall", "validate_chrome_trace"]
+import torch
+
+__all__ = ["SpanTracer", "RequestTimeline", "STEP_SPANS", "active",
+           "install", "installed", "uninstall", "validate_chrome_trace"]
+
+# the scheduler's spans of its own host work in one iteration of its
+# continuous loop (``serve/scheduler.py``), on the ``scheduler`` track,
+# each with the iteration's ``step`` and ordinal ``it``; the reference has
+# none of them
+STEP_SPANS = ("sweep", "admit", "page_upkeep", "decode_commit")
+# the track whose spans nest, mirrored into a recording torch.profiler
+MIRRORED_TRACK = "scheduler"
 
 
 class SpanTracer:
@@ -65,8 +81,12 @@ class SpanTracer:
 
     def begin(self, name: str, track: str = "main", **args) -> int:
         sid = next(self._ids)
-        self._open[sid] = {"name": name, "track": str(track),
-                           "t0": self.clock(), "args": args or None}
+        sp = {"name": name, "track": str(track), "t0": self.clock(),
+              "args": args or None}
+        if track == MIRRORED_TRACK and torch.autograd._profiler_enabled():
+            sp["range"] = torch.autograd.profiler.record_function(name)
+            sp["range"].__enter__()
+        self._open[sid] = sp
         self.begun += 1
         return sid
 
@@ -78,6 +98,9 @@ class SpanTracer:
         if sp is None:
             raise ValueError(f"span id {sid} is not open")
         t1 = self.clock()
+        rng = sp.pop("range", None)
+        if rng is not None:
+            rng.__exit__(None, None, None)
         if args:
             sp["args"] = {**(sp["args"] or {}), **args}
         sp["t1"] = t1

@@ -118,7 +118,11 @@ at construction, else a private registry.  With a tracer installed each
 request's track carries its lifecycle phases (``queue_wait``, ``prefill``,
 ``decode``, ``parked``, then ``teardown``), and the ``scheduler`` track
 its work (``prefill_chunk``, ``decode_step`` / ``verify_window``,
-``tier_fetch`` / ``tier_spill`` with their bytes).  With a traffic
+``tier_fetch`` / ``tier_spill`` with their bytes, and the phases of each
+iteration of the continuous loop, ``obs/trace.py``'s ``STEP_SPANS``, each
+with the iteration's ``step`` and its ordinal ``it``: ``sweep``,
+``admit``, ``page_upkeep``, and ``decode_commit`` inside
+``decode_step``).  With a traffic
 accountant installed every committed decode step and verify round is
 reconciled against the byte ledger at the rows' host-side positions, and
 every page transfer at its mirror's bytes.  Every hook is host code
@@ -139,6 +143,7 @@ also the mode of every scheduler over a recurrent family (ssm, hybrid:
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import itertools
 import time
@@ -163,6 +168,7 @@ from repro_torch.serve.lifecycle import (NanLogitsError, QueueFull,
                                          RequestTimeout, transition)
 
 _req_ids = itertools.count()
+_NO_SPAN = contextlib.nullcontext()     # a step span with tracing off
 
 
 @dataclasses.dataclass
@@ -1381,70 +1387,79 @@ class RequestScheduler:
                                     self._overdue_error(req, state), issued,
                                     partial=(out, len(req.prompt)))
 
-        def admit_active(active: _Admission) -> None:
+        def admit_active(active: _Admission, step: int, it: int) -> None:
             """Splice a finished prefill into its slot and emit its first
             token (or tear it down on a fault).  Runs before the next
             ``start_prefill``: the task's cache (cold mirrors included)
             and logits live in the engine's prefill workspace and chunk
-            program, which the next request rewrites."""
+            program, which the next request rewrites.  The first token's
+            read, which waits for the chunks queued on the device, lies
+            between its two ``admit`` spans."""
             nonlocal dirty
             i = active.slot
-            try:
-                if self.tiered:
-                    # residency first: the cold mirrors read the task's
-                    # dense cache
-                    hot_row = assign_residency(active)
-                    eng.admit_tiered(cache, active.task.cache, i,
-                                     active.ptab.pages, hot_row,
-                                     active.shared_pages,
-                                     active.task.prompt_len)
-                elif self.paged:
-                    eng.admit_paged(cache, active.task.cache, i,
-                                    active.ptab.pages, active.shared_pages,
-                                    active.task.prompt_len)
-                else:
-                    eng.admit(cache, active.task.cache, i)
-            except Exception as exc:      # fault before the splice
-                teardown_admission(active)
+            with self._step_span("admit", step, it):
+                try:
+                    if self.tiered:
+                        # residency first: the cold mirrors read the
+                        # task's dense cache
+                        hot_row = assign_residency(active)
+                        eng.admit_tiered(cache, active.task.cache, i,
+                                         active.ptab.pages, hot_row,
+                                         active.shared_pages,
+                                         active.task.prompt_len)
+                    elif self.paged:
+                        eng.admit_paged(cache, active.task.cache, i,
+                                        active.ptab.pages,
+                                        active.shared_pages,
+                                        active.task.prompt_len)
+                    else:
+                        eng.admit(cache, active.task.cache, i)
+                except Exception as exc:      # fault before the splice
+                    teardown_admission(active)
+                    self._active = None
+                    self._fail_or_retry(active.req, exc, issued)
+                    return
+                if self.paged:
+                    tables[i] = active.ptab
+                    host_table[i] = 0
+                    host_table[i, :active.ptab.n_pages] = active.ptab.pages
+                    dirty = True
+                    self._register_prefix(active)
+                # ownership of ptab moved to tables[i]: drop the admission
+                # now so an audit cannot count the same table twice
                 self._active = None
-                self._fail_or_retry(active.req, exc, issued)
-                return
-            if self.paged:
-                tables[i] = active.ptab
-                host_table[i] = 0
-                host_table[i, :active.ptab.n_pages] = active.ptab.pages
-                dirty = True
-                self._register_prefix(active)
-            # ownership of ptab moved to tables[i]: drop the admission now
-            # so an audit cannot count the same table twice
-            self._active = None
-            transition(active.req, RequestState.DECODING)
-            self._trace_phase(active.req, "decode")
+                transition(active.req, RequestState.DECODING)
+                self._trace_phase(active.req, "decode")
             tok_arr, ok = eng.sample_checked(active.task.logits)
-            if not ok[0]:
-                slots[i] = _Slot(active.req, out=[], seq=next(admit_seq))
-                fail_resident(i, NanLogitsError(
-                    f"req {active.req.req_id}: non-finite prefill logits"))
-                return
             tok0 = int(tok_arr[0])
-            slots[i] = _Slot(active.req, out=[tok0], seq=next(admit_seq),
-                             drafter=NgramDrafter(
-                                 list(active.req.prompt) + [tok0])
-                             if spec_q else None)
-            tokens[i] = tok0
-            positions[i] = len(active.req.prompt)
-            self.admissions.append((self.steps, i, active.req.req_id))
-            if emit_tokens(i, 1) and \
-                    len(slots[i].out) >= active.req.max_new_tokens:
-                finish(i)
+            with self._step_span("admit", step, it):
+                if not ok[0]:
+                    slots[i] = _Slot(active.req, out=[], seq=next(admit_seq))
+                    fail_resident(i, NanLogitsError(
+                        f"req {active.req.req_id}: non-finite prefill "
+                        "logits"))
+                    return
+                slots[i] = _Slot(active.req, out=[tok0], seq=next(admit_seq),
+                                 drafter=NgramDrafter(
+                                     list(active.req.prompt) + [tok0])
+                                 if spec_q else None)
+                tokens[i] = tok0
+                positions[i] = len(active.req.prompt)
+                self.admissions.append((self.steps, i, active.req.req_id))
+                if emit_tokens(i, 1) and \
+                        len(slots[i].out) >= active.req.max_new_tokens:
+                    finish(i)
 
-        def decode_step(prefetched: set, live_pos) -> bool:
+        def decode_step(prefetched: set, live_pos, step: int,
+                        it: int) -> bool:
             """One ragged decode step of the whole arena, one token per
             live row (empty slots idle at position 0; paged: the trash
             page).  Tiered: through fetch-and-rerun; False when its fetch
             faults tore every resident down (no step was taken).
             ``live_pos``: the live rows' positions before the step, for the
-            traffic accountant (None when it is off)."""
+            traffic accountant (None when it is off).  The rows'
+            bookkeeping and callbacks after the host read of the tokens
+            are its ``decode_commit`` span."""
             if self.tiered:
                 logits = tiered_decode(prefetched)
                 if logits is None:
@@ -1457,26 +1472,28 @@ class RequestScheduler:
                 logits[live[pick]] = float("nan")
             tok_arr, ok = eng.sample_checked(logits)
             new_toks = tok_arr.cpu().numpy()
-            self.steps += 1
-            if self.traffic is not None:
-                # per COMMITTED step: tiered reruns re-stream the same
-                # terms, and the transfers are accounted where they happen
-                self.traffic.observe_decode(eng, cache, live_pos)
-            for i in range(b):
-                if slots[i] is None:
-                    continue
-                if not ok[i]:
-                    fail_resident(i, NanLogitsError(
-                        f"req {slots[i].req.req_id}: non-finite logits or "
-                        f"out-of-vocab token at step {self.steps}"))
-                    continue
-                slots[i].out.append(int(new_toks[i]))
-                tokens[i] = new_toks[i]
-                positions[i] += 1
-                if not emit_tokens(i, 1):
-                    continue
-                if len(slots[i].out) >= slots[i].req.max_new_tokens:
-                    finish(i)
+            with self._step_span("decode_commit", step, it):
+                self.steps += 1
+                if self.traffic is not None:
+                    # per COMMITTED step: tiered reruns re-stream the same
+                    # terms, and the transfers are accounted where they
+                    # happen
+                    self.traffic.observe_decode(eng, cache, live_pos)
+                for i in range(b):
+                    if slots[i] is None:
+                        continue
+                    if not ok[i]:
+                        fail_resident(i, NanLogitsError(
+                            f"req {slots[i].req.req_id}: non-finite logits "
+                            f"or out-of-vocab token at step {self.steps}"))
+                        continue
+                    slots[i].out.append(int(new_toks[i]))
+                    tokens[i] = new_toks[i]
+                    positions[i] += 1
+                    if not emit_tokens(i, 1):
+                        continue
+                    if len(slots[i].out) >= slots[i].req.max_new_tokens:
+                        finish(i)
             return True
 
         def verify_round(live_pos) -> None:
@@ -1534,46 +1551,52 @@ class RequestScheduler:
                 if len(slots[i].out) >= slots[i].req.max_new_tokens:
                     finish(i)
 
+        iterations = itertools.count()    # the loop's, on its spans
         while self.pending or self._active or self.parked \
                 or any(s is not None for s in slots):
-            sweep_deadlines_and_cancels()
-            self._refill_rate_credits()
-            if prio_on:
-                preempt_for_priority()
-            resume_ready_parked()
-            spill_parked_cold()
+            # several iterations may share a step (prefill sweeps with an
+            # empty arena): ``it`` tells them apart
+            step, it = self.steps, next(iterations)
+            with self._step_span("sweep", step, it):
+                sweep_deadlines_and_cancels()
+                self._refill_rate_credits()
+                if prio_on:
+                    preempt_for_priority()
+                resume_ready_parked()
+                spill_parked_cold()
 
             # ---- prefill sweep: <= budget tokens of chunk work; priority
             # classes first, DRR across tenants within a class -------------
             spent = 0
             while spent < chunks_per_sweep:
                 if self._active is None:
-                    free = next((i for i in range(b) if slots[i] is None),
-                                None)
-                    if free is None:
-                        break
-                    req = pop_eligible()
-                    if req is None:
-                        break
-                    if self.paged:
-                        try:
-                            self._active = try_reserve(req)
-                        except Exception as exc:   # torn reservation
-                            self._fail_or_retry(req, exc, issued)
-                            continue
-                        if self._active is None:  # stalled on pages: back
-                            # to the head, after trying to reclaim a
-                            # lower-priority parked victim's pages
-                            self.pending.appendleft(req)
-                            if reclaim_parked_pages(req):
-                                continue   # pages freed: retry right away
+                    with self._step_span("admit", step, it):
+                        free = next((i for i in range(b) if slots[i] is None),
+                                    None)
+                        if free is None:
                             break
-                    else:
-                        self._active = _Admission(
-                            req, free, eng.start_prefill(req.prompt))
-                    req.attempts += 1
-                    transition(req, RequestState.PREFILLING)
-                    self._trace_phase(req, "prefill", attempt=req.attempts)
+                        req = pop_eligible()
+                        if req is None:
+                            break
+                        if self.paged:
+                            try:
+                                self._active = try_reserve(req)
+                            except Exception as exc:   # torn reservation
+                                self._fail_or_retry(req, exc, issued)
+                                continue
+                            if self._active is None:  # stalled on pages: back
+                                # to the head, after trying to reclaim a
+                                # lower-priority parked victim's pages
+                                self.pending.appendleft(req)
+                                if reclaim_parked_pages(req):
+                                    continue   # pages freed: retry right away
+                                break
+                        else:
+                            self._active = _Admission(
+                                req, free, eng.start_prefill(req.prompt))
+                        req.attempts += 1
+                        transition(req, RequestState.PREFILLING)
+                        self._trace_phase(req, "prefill", attempt=req.attempts)
                 active = self._active
                 self.prefill_chunks.append(
                     (self.steps, active.req.req_id, active.task.next_chunk,
@@ -1596,7 +1619,7 @@ class RequestScheduler:
                     self.tracer.end(csid)
                 spent += 1
                 if active.task.done:
-                    admit_active(active)
+                    admit_active(active, step, it)
 
             if not any(s is not None for s in slots):
                 if not (self.pending or self._active or self.parked):
@@ -1613,33 +1636,34 @@ class RequestScheduler:
             # the host table to the device ------------------------------------
             prefetched: set = set()
             if self.paged:
-                for i in range(b):
-                    if slots[i] is not None:
-                        span = 1 if not spec_q else min(
-                            spec_q, slots[i].req.max_new_tokens
-                            - len(slots[i].out))
-                        try:
-                            ensure_writable(i, span)
-                        except HotTierThrash as exc:
-                            shed_thrash(i, exc)    # load, not the request
-                        except Exception as exc:   # alloc/COW fault
-                            fail_resident(i, exc)
-                # ---- selection-driven prefetch: warm each row's previous
-                # selection (the next one mostly repeats it) ---------------
-                if self.tiered and scfg.tier_prefetch:
+                with self._step_span("page_upkeep", step, it):
                     for i in range(b):
-                        if slots[i] is None:
-                            continue
-                        try:
-                            for pid in sorted(prev_selected[i]):
-                                if pid in pool.cold:
-                                    fetch_page(pid, prev_selected[i])
-                                    prefetched.add(pid)
-                        except HotTierThrash:
-                            break   # hot tier saturated: best effort only
-                        except faults.InjectedFault as exc:
-                            fail_resident(i, exc)
-                push_tables()
+                        if slots[i] is not None:
+                            span = 1 if not spec_q else min(
+                                spec_q, slots[i].req.max_new_tokens
+                                - len(slots[i].out))
+                            try:
+                                ensure_writable(i, span)
+                            except HotTierThrash as exc:
+                                shed_thrash(i, exc)    # load, not the request
+                            except Exception as exc:   # alloc/COW fault
+                                fail_resident(i, exc)
+                    # ---- selection-driven prefetch: warm each row's
+                    # previous selection (the next one mostly repeats it)
+                    if self.tiered and scfg.tier_prefetch:
+                        for i in range(b):
+                            if slots[i] is None:
+                                continue
+                            try:
+                                for pid in sorted(prev_selected[i]):
+                                    if pid in pool.cold:
+                                        fetch_page(pid, prev_selected[i])
+                                        prefetched.add(pid)
+                            except HotTierThrash:
+                                break   # hot tier saturated: best effort only
+                            except faults.InjectedFault as exc:
+                                fail_resident(i, exc)
+                    push_tables()
                 if not any(s is not None for s in slots):
                     continue
 
@@ -1667,7 +1691,7 @@ class RequestScheduler:
                 int(positions[i]) for i in range(b) if slots[i] is not None]
             if spec_q:
                 verify_round(live_pos)
-            elif not decode_step(prefetched, live_pos):
+            elif not decode_step(prefetched, live_pos, step, it):
                 if dsid is not None:
                     tr.end(dsid, aborted=True)
                 continue
@@ -1709,6 +1733,14 @@ class RequestScheduler:
         return issued
 
     # ------------------------------------------------------------ telemetry
+
+    def _step_span(self, name: str, step: int, it: int):
+        """A span of one phase of the loop's iteration ``it`` (at step
+        ``step``) on the ``scheduler`` track (``obs/trace.py``'s
+        ``STEP_SPANS``); a shared no-op context when tracing is off."""
+        tr = self.tracer
+        return _NO_SPAN if tr is None else tr.span(name, "scheduler",
+                                                   step=step, it=it)
 
     @staticmethod
     def _mirror_nbytes(mirror: dict) -> int:

@@ -55,14 +55,35 @@ inputs into its buffers, runs the step on them and copies the results into
 the outputs of the key's first call, so the CPU tests exercise the buffers
 and the output aliasing.  A failed capture raises; nothing falls back to
 eager.
+
+Every program times its own calls, always (these are counters, not
+``obs`` hooks).  Each call after the capture (on the CPU: after the key's
+first call) records its host seconds in three phases: ``stage`` (the input
+copies, the wait on the previous call's staging event included), ``key``
+(:func:`_signature`) and
+``launch`` (``graph.replay()`` and the launch counts; on the CPU the eager
+step).  On the card a pair of timing events on the current stream, just
+before and just after ``graph.replay()`` and outside the graph, gives the
+replay's device time.  Each program object cycles through a pool of
+:data:`EVENT_PAIRS` pairs; a pair is read when it comes round again, if
+its end event has completed (never waited for), and a replay whose pair
+is still pending goes untimed (``untimed`` counts them).  A program
+object's pool leaves the table once the object is gone and its pairs are
+read.
+:func:`program_stats` (which first waits for and reads the pending pairs)
+reads the records of a program by name, from a module-level table that
+outlives the engines, as ``kernels/ops.py``'s launch counts do:
+cumulative sums and the last :data:`RING` calls.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import dataclasses
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence
+import weakref
+from typing import Any, Callable, Deque, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -70,6 +91,102 @@ import torch
 from repro_torch.kernels import ops
 
 _CAPTURE_STREAMS: Dict[torch.device, torch.cuda.Stream] = {}
+
+RING = 4096           # calls a program's records keep (more than a window)
+EVENT_PAIRS = 8       # timing event pairs a program object cycles through
+
+
+class _Timing:
+    """A pair of timing events around one replay; ``t`` (the call's
+    ``perf_counter`` at its start) while it is pending, else None."""
+    __slots__ = ("start", "end", "t")
+
+    def __init__(self):
+        self.start = torch.cuda.Event(enable_timing=True)
+        self.end = torch.cuda.Event(enable_timing=True)
+        self.t: Optional[float] = None
+
+
+class _Program:
+    """One step program's records: sums over every call after its capture
+    and the last :data:`RING` calls (host phases and device times), and
+    the timing pairs of its program objects (each pool beside a weak
+    reference to its object)."""
+
+    def __init__(self):
+        self.calls = self.timed = self.untimed = 0
+        self.stage_s = self.key_s = self.launch_s = self.device_s = 0.0
+        # (t, stage_s, key_s, launch_s); (t, device_s)
+        self.host: Deque[tuple] = collections.deque(maxlen=RING)
+        self.device: Deque[tuple] = collections.deque(maxlen=RING)
+        self.pools: List[tuple] = []    # (weakref to a StepGraph, pool)
+
+    def note(self, t: float, stage: float, key: float,
+             launch: float) -> None:
+        self.calls += 1
+        self.host.append((t, stage, key, launch))
+        self.stage_s += stage
+        self.key_s += key
+        self.launch_s += launch
+
+    def read(self, tm: _Timing) -> None:
+        """Read a completed pair and free it."""
+        d = tm.start.elapsed_time(tm.end) * 1e-3
+        self.device_s += d
+        self.timed += 1
+        self.device.append((tm.t, d))
+        tm.t = None
+
+    def drain(self) -> None:
+        """Wait for each pending pair and read it, oldest first."""
+        pending = sorted((tm for _, pool in self.pools for tm in pool
+                          if tm.t is not None), key=lambda tm: tm.t)
+        for tm in pending:
+            tm.end.synchronize()
+            self.read(tm)
+        self.prune()
+
+    def prune(self) -> None:
+        """Read the completed pairs of program objects that are gone, and
+        drop their pools once nothing of them is pending (never waits)."""
+        kept = []
+        for owner, pool in self.pools:
+            if owner() is None:
+                for tm in pool:
+                    if tm.t is not None and tm.end.query():
+                        self.read(tm)
+                if all(tm.t is None for tm in pool):
+                    continue
+            kept.append((owner, pool))
+        self.pools = kept
+
+
+_PROGRAMS: Dict[str, _Program] = {}
+
+
+def program_stats(name: str) -> Optional[dict]:
+    """The records of step program ``name`` (None before its first call
+    after a capture): ``calls``, ``timed`` and ``untimed`` replays, the
+    sums in seconds (``stage_s``, ``key_s``, ``launch_s``, ``device_s``),
+    and the last calls, ``host`` (dicts of ``t``, the call's
+    ``perf_counter`` at its start, and the three host phases) and ``device`` (dicts of ``t`` and ``device_s``; empty on the
+    CPU).  It first waits for the pending timing events: a reader after
+    the work, never the hot path."""
+    prog = _PROGRAMS.get(name)
+    if prog is None:
+        return None
+    prog.drain()
+    host_keys = ("t", "stage_s", "key_s", "launch_s")
+    return {"calls": prog.calls, "timed": prog.timed,
+            "untimed": prog.untimed,
+            **{k: getattr(prog, k) for k in host_keys[1:] + ("device_s",)},
+            "host": [dict(zip(host_keys, r)) for r in prog.host],
+            "device": [{"t": t, "device_s": d} for t, d in prog.device]}
+
+
+def reset_program_stats() -> None:
+    """Forget every program's records (pending pairs are dropped)."""
+    _PROGRAMS.clear()
 
 
 def _leaves(tree, out: Optional[List[Any]] = None) -> List[Any]:
@@ -136,19 +253,23 @@ def graph_nodes(graph: torch.cuda.CUDAGraph) -> int:
 
 class StepGraph:
     """``fn(*args)`` as one CUDA graph per key, replayed (see the module
-    docstring).  ``inputs``: the positions of the integer arguments copied
-    into the graph's buffers; ``state()``: what keys the graph besides the
-    other arguments.
+    docstring).  ``name``: the program's name in :func:`program_stats`;
+    ``inputs``: the positions of the integer arguments copied into the
+    graph's buffers; ``state()``: what keys the graph besides the other
+    arguments.
 
     Statistics: ``calls``, ``captures``, ``capture_s`` (host seconds spent
     capturing and instantiating, the eager step excluded), ``nodes`` (the
     current graph's), ``replays``."""
 
-    def __init__(self, fn: Callable, device: torch.device,
+    def __init__(self, name: str, fn: Callable, device: torch.device,
                  inputs: Sequence[int],
                  state: Callable[[], Any] = lambda: None):
+        self.name = name
         self.fn = fn
         self.device = torch.device(device)
+        if self.on_cuda and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.inputs = tuple(inputs)
         self.state = state
         self._bufs: Dict[int, torch.Tensor] = {}
@@ -163,6 +284,11 @@ class StepGraph:
         self.capture_s = 0.0
         self.nodes = 0
         self.replays = 0
+        self._pool: List[_Timing] = []  # timing pairs, cycled through
+        self._pool_of: Optional[_Program] = None
+        self._turn = 0                 # the timing pair due next
+        self._raw_stream = None        # the current stream, cached
+        self._stream: Optional[torch.cuda.Stream] = None
 
     @property
     def on_cuda(self) -> bool:
@@ -170,22 +296,67 @@ class StepGraph:
 
     @torch.inference_mode()
     def __call__(self, *args):
+        t0 = time.perf_counter()
         self.calls += 1
         args = list(args)
         for i in self.inputs:
             args[i] = self._stage(i, args[i])
         if self.on_cuda and self._staged is not None:
             self._staged.record()
+        t1 = time.perf_counter()
         key = _signature((args, self.state()))
+        t2 = time.perf_counter()
         if key != self._key:
             self._first(args, key)
-        elif self.on_cuda:
+            return self._out
+        prog = _PROGRAMS.get(self.name)
+        if prog is None:
+            prog = _PROGRAMS[self.name] = _Program()
+        if self.on_cuda:
+            tm = self._timing(prog)
+            if tm is not None:
+                stream = self._current_stream()
+                tm.start.record(stream)
             self._graph.replay()
+            if tm is not None:
+                tm.end.record(stream)
+                tm.t = t0
             ops.add_launch_counts(self._counts)
             self.replays += 1
         else:
             copy_tree(self._out, self.fn(*args))
+        prog.note(t0, t1 - t0, t2 - t1, time.perf_counter() - t2)
         return self._out
+
+    def _timing(self, prog: _Program) -> Optional[_Timing]:
+        """The pair of timing events due for this replay, the replay that
+        last used it read first; None (the replay goes untimed) when that
+        replay has not run yet.  A new pool for a new table, where the
+        pools of program objects that are gone are pruned first."""
+        if prog is not self._pool_of:
+            self._pool = [_Timing() for _ in range(EVENT_PAIRS)]
+            self._pool_of = prog
+            prog.prune()
+            prog.pools.append((weakref.ref(self), self._pool))
+        tm = self._pool[self._turn % EVENT_PAIRS]
+        if tm.t is not None:
+            if not tm.end.query():
+                prog.untimed += 1
+                return None
+            prog.read(tm)
+        self._turn += 1
+        return tm
+
+    def _current_stream(self) -> torch.cuda.Stream:
+        """The current stream of the program's device (the one a replay
+        runs on), its object cached while the stream stays the same
+        (``torch.cuda.current_stream`` took about 8 µs a call on an H100
+        host, the raw handle a fraction of that)."""
+        raw = torch._C._cuda_getCurrentRawStream(self.device.index)
+        if raw != self._raw_stream:
+            self._stream = torch.cuda.current_stream(self.device)
+            self._raw_stream = raw
+        return self._stream
 
     def _stage(self, i: int, value) -> torch.Tensor:
         """Copy integer input ``i`` (a host array, or a tensor on the

@@ -55,7 +55,7 @@ from repro_torch.launch import serve as launch_serve
 from repro_torch.obs import ledger
 from repro_torch.obs.metrics import (MetricsRegistry, validate_prometheus,
                                      validate_snapshot)
-from repro_torch.obs.trace import (RequestTimeline, SpanTracer,
+from repro_torch.obs.trace import (STEP_SPANS, RequestTimeline, SpanTracer,
                                    validate_chrome_trace)
 from repro_torch.obs.traffic import TrafficAccountant, TrafficDriftError
 from repro_torch.serve import Request, RequestScheduler, ServeEngine
@@ -811,24 +811,6 @@ def test_disabled_mode_is_invisible(model):
     assert obs.metrics.active() is None and pager._metrics_hook is None
 
 
-def test_engine_decode_throughput_on_tracer(model):
-    """decode_throughput is timed on the tracer and publishes a gauge
-    when telemetry is on."""
-    _, _, cfg, sals = model["t"]
-    eng = _engine(model, "torch", **BASE)
-    assert eng.decode_throughput(2, 16, n_steps=2) > 0     # disabled path
-    with obs.enabled(cfg=cfg, sals=sals) as h:
-        tput = eng.decode_throughput(2, 16, n_steps=2)
-        assert tput > 0
-        g = h["registry"].gauge("engine_decode_tokens_per_s",
-                                labelnames=("batch", "context"))
-        assert g.value(batch="2", context="16") == pytest.approx(tput)
-        spans = [e for e in h["tracer"].events
-                 if e["name"] == "decode_throughput"]
-        assert len(spans) == 1 and h["tracer"].balanced()
-        assert spans[0]["track"] == "engine"
-
-
 def test_launcher_style_export_roundtrip(model, tmp_path):
     """The --metrics-out / --trace-out shapes: both files written at drain
     validate, and the JSON snapshot round-trips."""
@@ -889,13 +871,37 @@ def _flat(reg, kinds) -> dict:
 
 def _span_names(tracer, reqs) -> dict:
     """{track: [span names in begin order]}; a request's track is named by
-    its index in ``reqs`` (the two packages number requests apart)."""
+    its index in ``reqs`` (the two packages number requests apart).  The
+    port's iteration phases (``STEP_SPANS``) are left out: the reference
+    has none."""
     idx = {f"req{r.req_id}": f"req#{k}" for k, r in enumerate(reqs)}
     out = {}
     for ev in sorted(tracer.events, key=lambda e: (e["t0"], e["t1"])):
+        if ev["name"] in STEP_SPANS:
+            continue
         out.setdefault(idx.get(ev["track"], ev["track"]), []).append(
             ev["name"])
     return out
+
+
+def _assert_step_spans_nest(tracer) -> None:
+    """The port's iteration phases: each one closed, carrying its
+    iteration's ``step`` and ordinal ``it``, and the ``scheduler``
+    track's spans properly nested (any two disjoint or one inside the
+    other)."""
+    evs = sorted((e for e in tracer.events if e["track"] == "scheduler"
+                  and e["t1"] > e["t0"]), key=lambda e: (e["t0"], -e["t1"]))
+    assert any(e["name"] in STEP_SPANS for e in evs)
+    stack = []
+    for e in evs:
+        if e["name"] in STEP_SPANS:
+            args = e["args"] or {}
+            assert isinstance(args.get("step"), int), e
+            assert isinstance(args.get("it"), int), e
+        while stack and stack[-1]["t1"] <= e["t0"]:
+            stack.pop()
+        assert not stack or e["t1"] <= stack[-1]["t1"], (stack[-1], e)
+        stack.append(e)
 
 
 def _plain(flt, Req, Sched, eng, prompts, mnt=4):
@@ -930,7 +936,8 @@ PARITY = {
 def test_telemetry_equals_reference(model, case):
     """The same requests through both schedulers with telemetry on give
     equal counters (by name and labels), gauges and histogram counts, and
-    the same span names on every track."""
+    the same span names on every track; the port's own iteration phases,
+    left out of that comparison, are closed and nest."""
     skw, scenario = PARITY[case]
     got = {}
     for pkg, (o, Req, Sched, flt) in PKGS.items():
@@ -947,6 +954,8 @@ def test_telemetry_equals_reference(model, case):
                 gauges=_flat(h["registry"], ("gauge",)),
                 hist=_flat(h["registry"], ("histogram",)),
                 spans=_span_names(tl, reqs))
+            if pkg == "torch":
+                _assert_step_spans_nest(tl)
     j, t = got["jax"], got["torch"]
     assert t["states"] == j["states"] and t["tokens"] == j["tokens"]
     assert t["counters"] == j["counters"]
